@@ -1,0 +1,503 @@
+#!/usr/bin/env python3
+"""Smoke test of the torch port (``qpsk_tpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which exits non-zero on failure:
+
+1. Build the CUDA kernels from ``qpsk_tpu_torch/csrc`` and print the card,
+   its power limit, the torch and nvcc versions and the build time.
+2. Each kernel against its plain PyTorch version on the card, at 1, 200 and
+   8192 channels, in two chained calls of 8 frames (1024 symbols) each, on a
+   loopback stimulus (packets -> TX at +50 Hz -> AWGN 10 dB) and on noise.
+3. The main path at full width, kernels only, with every kernel's launch
+   counter reset before and read after: 8192 channels x 32 frames of random
+   packets -> ``tx_stream`` at +50 Hz -> AWGN 10 dB -> ``rx_stream``.  Then
+   each kernel against its plain version on the main path's own inputs, and
+   ``find_sync`` / ``extract_packets`` on 64 channels of the kernel path and
+   of the plain path (plain front-end -> plain Costas on the same PCM): the
+   two must sync alike and pass the same packets.
+4. Rates at the receiver's operating point (8192 channels x 8 frames, state
+   chained, CUDA events): RX samples/s of the kernel path and the plain
+   path, TX samples/s, and each kernel's time beside its plain version's,
+   after each kernel is held against its plain version at that shape.
+
+Every kernel-vs-plain comparison gives both sides the same inputs and
+state.  Decisions (timing index, bits) must be equal on the loopback
+stimulus and agree on >= 99.9 % on noise, where near-ties may fall either
+way; picks within 3e-4, derotated symbols and loop frequency within 1e-4,
+PCM within 2 LSB, carried phases within 1e-5, the TX tail exact.
+
+The last two lines are the card's ``nvidia-smi`` name and power limit and
+``{"ok": true, "device": {...}}``; the line before them lists the kernels.
+With no CUDA device, or without the package beside it, it exits non-zero
+before printing any result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+
+# channel counts of the kernel comparisons, (channels, frames) of the main
+# path and of the rate measurement
+COMPARE_CHANNELS = (1, 200, 8192)
+MAIN_PATH = (8192, 32)
+RATE_POINT = (8192, 8)
+TX_OFFSET_HZ = 50.0
+# a decision may differ between the kernel and plain paths only on a
+# symbol component this close to zero: the picks' bound (3e-4) plus the
+# derotated symbols' (1e-4), with room for the loop's carried phase
+NEAR_TIE = 1e-3
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def need(cond, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def nvidia_smi_line(fields: str = "name,power.limit") -> str:
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+CLOCKS = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
+
+
+def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean milliseconds per call of ``fn`` over ``iters`` calls, by CUDA
+    events around the whole run, after ``warmup`` calls."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def loopback_pcm(cfg, pcfg, c, nframes, seed, dev):
+    """(payload bits, channel bits, clean int16 PCM, noisy int16 PCM) of
+    random packets sent at +50 Hz through AWGN at 10 dB, one packet per
+    modem frame."""
+    import torch
+    from qpsk_tpu_torch import tx_init, tx_stream
+    from qpsk_tpu_torch.channel import awgn_pcm
+    from qpsk_tpu_torch.packet import assemble_packet
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    payload = torch.randint(0, 2, (c, nframes, 8 * pcfg.payload_bytes),
+                            generator=gen, device=dev, dtype=torch.int32)
+    chan = assemble_packet(pcfg, payload)
+    _, pcm = tx_stream(cfg, tx_init(cfg, (c,), device=dev), chan,
+                       tx_offset_hz=TX_OFFSET_HZ)
+    power = float(((pcm.to(torch.float32) / cfg.pcm_scale) ** 2).mean())
+    return payload, chan, pcm, awgn_pcm(gen, pcm, 10.0, power, cfg.pcm_scale)
+
+
+def noise_pcm(cfg, c, nframes, seed, dev):
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((c, nframes, cfg.frame_size), generator=gen,
+                        device=dev) * 8000.0).to(torch.int16)
+
+
+def max_abs(a, b) -> float:
+    return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+def cmax_abs(a, b) -> float:
+    return max(max_abs(a.re, b.re), max_abs(a.im, b.im))
+
+
+def agree(label: str, what: str, same, exact: bool) -> float:
+    """The share of equal decisions: all of them if ``exact``, else at
+    least 99.9 %."""
+    rate = int(same.sum()) / same.numel()
+    need(rate == 1.0 if exact else rate >= 0.999,
+         f"{what} agreement {rate} ({label})")
+    return rate
+
+
+def check_tx(cfg, sym, st, label: str, errs: dict):
+    """The TX kernel against its plain version on the same symbols and
+    state.  Returns (kernel PCM, the plain version's new state)."""
+    import torch
+    from qpsk_tpu_torch.ops.cuda import tx_kernel as tk
+
+    pk, phk, tlk = tk.tx_modulate(cfg, sym, st.nco_phase, st.fir_tail,
+                                  TX_OFFSET_HZ)
+    pp, php, tlp = tk.tx_modulate_plain(cfg, sym, st.nco_phase, st.fir_tail,
+                                        TX_OFFSET_HZ)
+    worst = int((pk.to(torch.int32) - pp.to(torch.int32)).abs().max())
+    need(worst <= 2, f"TX PCM differs by {worst} LSB ({label})")
+    need(cmax_abs(phk, php) <= 1e-5, f"TX phase differs ({label})")
+    need(cmax_abs(tlk, tlp) == 0, f"TX tail differs ({label})")
+    errs["tx"] = max(errs["tx"], float(worst))
+    print(f"  tx       {label}: PCM max diff {worst} LSB")
+    return pk, st._replace(nco_phase=php, fir_tail=tlp)
+
+
+def check_frontend(cfg, pcm, st, exact: bool, label: str, errs: dict):
+    """The front-end kernel against its plain version on the same PCM and
+    state.  Returns (kernel result, plain result)."""
+    import torch
+    from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
+
+    args = (cfg, pcm, st.nco_phase, st.fir_tail, st.decim_delay)
+    k, p = fk.rx_frontend_tm(*args), fk.rx_frontend_tm_plain(*args)
+    same = k[2] == p[2]                                        # (C, F)
+    rate = agree(label, "timing index", same, exact)
+    # picks of frames whose index agrees: row block 0 is the carried delay,
+    # block f+1 frame f, and the last frame's picks are the new delay
+    rows = torch.cat([torch.ones_like(same[:, :1]), same[:, :-1]],
+                     dim=1).T.repeat_interleave(cfg.symbols_per_frame, dim=0)
+    last = same[:, -1]
+    err = max(max_abs(k[0][rows], p[0][rows]), max_abs(k[1][rows], p[1][rows]),
+              max_abs(k[5].re[last], p[5].re[last]),
+              max_abs(k[5].im[last], p[5].im[last]))
+    need(err <= 3e-4, f"front-end picks differ by {err} ({label})")
+    state_err = max(cmax_abs(k[3], p[3]), cmax_abs(k[4], p[4]))
+    need(state_err <= 1e-5, f"front-end state differs by {state_err} ({label})")
+    errs["frontend"] = max(errs["frontend"], err)
+    print(f"  frontend {label}: index agreement {rate:.6f}, picks max err "
+          f"{err:.3g}, state max err {state_err:.3g}")
+    return k, p
+
+
+def check_costas(cs, zr, zi, params, nsym, exact: bool, label: str,
+                 errs: dict):
+    """The Costas kernel against its plain version on the same symbols and
+    state.  Returns (kernel result, plain result)."""
+    from qpsk_tpu_torch.ops.cuda import costas_kernel as ck
+
+    k = ck.costas_run_tm(cs, zr, zi, params, trace_every=nsym)
+    p = ck.costas_run_tm_plain(cs, zr, zi, params, trace_every=nsym)
+    err = max(cmax_abs(k[1], p[1]), max_abs(k[2], p[2]),
+              max_abs(k[0].freq, p[0].freq))
+    need(err <= 1e-4, f"Costas derot/freq differ by {err} ({label})")
+    rate = agree(label, "Costas bit", k[3] == p[3], exact)
+    errs["costas"] = max(errs["costas"], err)
+    print(f"  costas   {label}: bit agreement {rate:.6f}, derot/freq max err "
+          f"{err:.3g}")
+    return k, p
+
+
+def compare_kernels(cfg, pcfg, dev, errs: dict) -> None:
+    """Phase 2: every kernel against its plain version, in two chained
+    calls of the rate point's length at each channel count."""
+    import torch
+    from qpsk_tpu_torch import rx_init
+    from qpsk_tpu_torch.ops.costas import costas_init, costas_params
+    from qpsk_tpu_torch.ops.cplx import CF32
+    from qpsk_tpu_torch.ops.modmap import bits_to_symbols
+    from qpsk_tpu_torch.state import tx_init
+
+    nframes, nsym = RATE_POINT[1], cfg.symbols_per_frame
+    t = nframes * nsym                                  # symbols per call
+    params = costas_params(cfg.loop_bw, cfg.damping, cfg.min_freq, cfg.max_freq)
+    for c in COMPARE_CHANNELS:
+        gen = torch.Generator(device=dev).manual_seed(c)
+        bits = torch.randint(0, 2, (c, 4 * t), generator=gen, device=dev,
+                             dtype=torch.int32)
+        sym = bits_to_symbols(bits)
+        st = tx_init(cfg, (c,), device=dev)
+        for i in range(2):
+            s = CF32(sym.re[:, i * t:(i + 1) * t].contiguous(),
+                     sym.im[:, i * t:(i + 1) * t].contiguous())
+            _, st = check_tx(cfg, s, st, f"C={c:5d} call {i}", errs)
+
+        lb = loopback_pcm(cfg, pcfg, c, 2 * nframes, seed=c, dev=dev)[3]
+        for kind, pcm in (("loopback", lb),
+                          ("noise", noise_pcm(cfg, c, 2 * nframes, c + 1, dev))):
+            exact = kind == "loopback"
+            st = rx_init(cfg, (c,), device=dev)
+            zs = []
+            for i in range(2):
+                x = pcm[:, i * nframes:(i + 1) * nframes].contiguous()
+                _, p = check_frontend(cfg, x, st, exact,
+                                      f"C={c:5d} {kind} call {i}", errs)
+                zs.append(p[:2])
+                st = st._replace(nco_phase=p[3], fir_tail=p[4],
+                                 decim_delay=p[5])
+
+            # Costas on the plain front-end's picks (loopback) or Gaussian
+            # symbols (noise): a cold call, then a chained warm one
+            if exact:
+                zr = torch.cat([z[0] for z in zs])
+                zi = torch.cat([z[1] for z in zs])
+            else:
+                g2 = torch.Generator(device=dev).manual_seed(c + 2)
+                zr = torch.randn((2 * t, c), generator=g2, device=dev)
+                zi = torch.randn((2 * t, c), generator=g2, device=dev)
+            cs = costas_init((c,), device=dev)
+            for i in range(2):
+                _, p = check_costas(cs, zr[i * t:(i + 1) * t].contiguous(),
+                                    zi[i * t:(i + 1) * t].contiguous(), params,
+                                    nsym, exact, f"C={c:5d} {kind} call {i}",
+                                    errs)
+                cs = p[0]
+
+
+def decode(pcfg, bits):
+    """(sync, packets) of a 1-D bit stream: 4 probe packets, lags < 600."""
+    from qpsk_tpu_torch.sync import extract_packets, find_sync
+
+    sync = find_sync(pcfg, bits, max_lag=600, probe_frames=4)
+    navail = (bits.numel() - int(sync.bit_lag)) // pcfg.frame_bits
+    return sync, extract_packets(pcfg, bits, sync, navail)
+
+
+def main_path(cfg, pcfg, dev, errs: dict) -> dict:
+    """Phase 3: the full-width loopback through the kernels, then each
+    kernel and the plain path on the same inputs."""
+    import torch
+    from qpsk_tpu_torch import rx_init, rx_stream, tx_init
+    from qpsk_tpu_torch.ops.costas import costas_init, costas_params
+    from qpsk_tpu_torch.ops.cuda import costas_kernel as ck
+    from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
+    from qpsk_tpu_torch.ops.cuda import tx_kernel as tk
+    from qpsk_tpu_torch.ops.modmap import bits_to_symbols
+
+    (c, nframes), skip = MAIN_PATH, 8
+    nsym, fb = cfg.symbols_per_frame, pcfg.frame_bits
+    for mod in (fk, ck, tk):
+        mod.launches = 0
+    t0 = time.perf_counter()
+    payload, chan, clean, pcm = loopback_pcm(cfg, pcfg, c, nframes, seed=2024,
+                                             dev=dev)
+    _, out = rx_stream(cfg, rx_init(cfg, (c,), device=dev), pcm)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {"frontend": fk.launches, "costas": ck.launches, "tx": tk.launches}
+    print(f"  {c} channels x {nframes} frames: TX -> AWGN -> RX in {seconds:.3f} s "
+          f"(host clock, first call); launches {counts}")
+    for name, n in counts.items():
+        need(n > 0, f"the main path never launched the {name} kernel")
+    need(bool(torch.isfinite(out.symbols.re).all() and torch.isfinite(out.symbols.im).all()),
+         "non-finite symbols")
+    need(tuple(out.bits.shape) == (c, nframes, 2 * nsym),
+         f"bits of shape {tuple(out.bits.shape)}")
+
+    # each kernel against its plain version on the main path's own inputs;
+    # the kernels' re-runs must reproduce the main path's outputs
+    label = f"C={c} main path"
+    pk, _ = check_tx(cfg, bits_to_symbols(chan.reshape(c, -1)),
+                     tx_init(cfg, (c,), device=dev), label, errs)
+    need(torch.equal(pk, clean.reshape(c, -1)), "the TX kernel's re-run differs")
+    kf, pf = check_frontend(cfg, pcm, rx_init(cfg, (c,), device=dev), True,
+                            label, errs)
+    need(torch.equal(kf[2], out.timing_index), "the front-end's re-run differs")
+    params = costas_params(cfg.loop_bw, cfg.damping, cfg.min_freq, cfg.max_freq)
+    kc, _ = check_costas(costas_init((c,), device=dev), kf[0], kf[1], params,
+                         nsym, True, label, errs)
+    need(torch.equal(kc[3].reshape(out.bits.shape), out.bits),
+         "the Costas kernel's re-run differs")
+
+    # the plain path on the same PCM: its bits may differ from the kernel
+    # path's only on near-tie symbols
+    pc = ck.costas_run_tm_plain(costas_init((c,), device=dev), pf[0], pf[1],
+                                params, trace_every=nsym)
+    plain_bits = pc[3].reshape(out.bits.shape)
+    d = out.symbols
+    tie = torch.stack([d.im.abs() < NEAR_TIE, d.re.abs() < NEAR_TIE],
+                      dim=-1).reshape(out.bits.shape)
+    flips = plain_bits != out.bits
+    need(bool(tie[flips].all()), "the kernel and plain paths' bits differ "
+         f"away from a decision boundary (|x| >= {NEAR_TIE})")
+    print(f"  plain path on the same PCM: {int(flips.sum())} of {flips.numel()} "
+          f"bits differ, all within {NEAR_TIE} of a decision boundary; derot "
+          f"max diff {cmax_abs(pc[1], kc[1]):.3g}")
+
+    channels = sorted({round(i * (c - 1) / 63) for i in range(64)})
+    npk = nok = nexact = full = 0
+    offsets = []
+    for ch in channels:
+        ks, krx = decode(pcfg, out.bits[ch].reshape(-1)[skip * fb:])
+        ps, prx = decode(pcfg, plain_bits[ch].reshape(-1)[skip * fb:])
+        # both paths sync alike; a packet holding a flipped bit may decode
+        # differently, every other packet passes or fails CRC in both
+        need((int(ks.rotation), int(ks.bit_lag)) == (int(ps.rotation), int(ps.bit_lag)),
+             f"channel {ch}: the kernel and plain paths sync differently")
+        navail = krx.crc_ok.shape[0]
+        touched = torch.zeros(navail, dtype=torch.bool, device=dev)
+        at = (torch.nonzero(flips[ch].reshape(-1)[skip * fb:]).flatten()
+              - int(ks.bit_lag)) // fb
+        touched[at[(at >= 0) & (at < navail)]] = True
+        need(abs(int(ks.score) - int(ps.score)) <= int(touched[:4].sum()),
+             f"channel {ch}: sync score {int(ks.score)} vs plain {int(ps.score)}")
+        need(torch.equal(krx.crc_ok[~touched], prx.crc_ok[~touched]),
+             f"channel {ch}: the kernel and plain paths pass different packets")
+
+        # every CRC-passing packet is the payload that was sent
+        ok = krx.crc_ok.cpu()
+        got = krx.payload_bits.cpu()
+        want = payload[ch].cpu()
+        i0 = int(torch.argmax(ok.to(torch.int32)))
+        k0 = next((k for k in range(want.shape[0]) if torch.equal(got[i0], want[k])), None)
+        need(k0 is not None, f"channel {ch}: no payload matched")
+        k0 -= i0
+        for i in range(navail):
+            if ok[i]:
+                need(0 <= i + k0 < want.shape[0] and torch.equal(got[i], want[i + k0]),
+                     f"channel {ch}: packet {i} passed CRC with a wrong payload")
+                nexact += 1
+        full += int(ks.score) == 4
+        npk += navail
+        nok += int(ok.sum())
+        offsets.append(float(out.freq_hz[ch, nframes // 2:].mean()))
+    mean_offset = sum(offsets) / len(offsets)
+    print(f"  {len(channels)} channels: kernel and plain paths sync alike and pass "
+          f"the same packets; {full} synced at 4/4, {nok}/{npk} packets pass CRC, "
+          f"all {nexact} of them bit-exact; detected offset {mean_offset:.4f} Hz "
+          f"(per channel {min(offsets):.3f}..{max(offsets):.3f})")
+    need(abs(mean_offset - TX_OFFSET_HZ) <= 2.0, f"detected offset {mean_offset} Hz")
+    need(max(abs(o - TX_OFFSET_HZ) for o in offsets) <= 5.0,
+         "a channel's detected offset is off by more than 5 Hz")
+    return counts
+
+
+def rates(cfg, dev, errs: dict) -> dict:
+    """Phase 4: each kernel against its plain version at 8192 channels x 8
+    frames, then samples/s and {kernel: (kernel ms, plain ms)} there."""
+    import torch
+    from qpsk_tpu_torch import rx_init, tx_init, tx_stream
+    from qpsk_tpu_torch.modem import _rx_stream_tm
+    from qpsk_tpu_torch.ops.costas import costas_init, costas_params
+    from qpsk_tpu_torch.ops.cplx import CF32
+    from qpsk_tpu_torch.ops.cuda import costas_kernel as ck
+    from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
+    from qpsk_tpu_torch.ops.cuda import tx_kernel as tk
+    from qpsk_tpu_torch.ops.modmap import bits_to_symbols
+
+    (c, nframes), iters = RATE_POINT, 20
+    nsym = cfg.symbols_per_frame
+    nsamples = c * nframes * cfg.frame_size
+    pcm = noise_pcm(cfg, c, nframes, 7, dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    bits = torch.randint(0, 2, (c, nframes, 2 * nsym), generator=gen,
+                         device=dev, dtype=torch.int32)
+
+    # the wrappers' inputs at this shape: the first call of a chained
+    # rx_stream / tx_stream, on noise PCM and random symbols
+    label = f"C={c} F={nframes} noise"
+    st = rx_init(cfg, (c,), device=dev)
+    fe_args = (cfg, pcm, st.nco_phase, st.fir_tail, st.decim_delay)
+    kf, _ = check_frontend(cfg, pcm, st, False, label, errs)
+    params = costas_params(cfg.loop_bw, cfg.damping, cfg.min_freq, cfg.max_freq)
+    costas_args = (costas_init((c,), device=dev), kf[0], kf[1], params, nsym)
+    check_costas(*costas_args, False, label, errs)
+    sym = bits_to_symbols(bits.reshape(c, -1))
+    sym = CF32(sym.re.contiguous(), sym.im.contiguous())
+    ts = tx_init(cfg, (c,), device=dev)
+    check_tx(cfg, sym, ts, f"C={c} S={nframes * nsym}", errs)
+
+    for name, frontend, costas in (("kernel", fk.rx_frontend_tm, ck.costas_run_tm),
+                                   ("plain", fk.rx_frontend_tm_plain,
+                                    ck.costas_run_tm_plain)):
+        state = [rx_init(cfg, (c,), device=dev)]
+
+        def step():
+            state[0], _ = _rx_stream_tm(cfg, state[0], pcm, frontend, costas)
+        ms = cuda_time_ms(step, iters)
+        print(f"  rx_stream {name:6s} path: {ms:.4f} ms/call, "
+              f"{nsamples / ms * 1e3:.6g} samples/s")
+
+    tstate = [tx_init(cfg, (c,), device=dev)]
+
+    def tx_step():
+        tstate[0], _ = tx_stream(cfg, tstate[0], bits, TX_OFFSET_HZ)
+    ms = cuda_time_ms(tx_step, iters)
+    print(f"  tx_stream kernel path: {ms:.4f} ms/call, {nsamples / ms * 1e3:.6g} samples/s")
+
+    # each kernel's wrapper beside its plain version, same inputs
+    times = {}
+    for name, kern, plain, args, n in (
+            ("frontend", fk.rx_frontend_tm, fk.rx_frontend_tm_plain, fe_args, iters),
+            ("costas", ck.costas_run_tm, ck.costas_run_tm_plain, costas_args, 5),
+            ("tx", tk.tx_modulate, tk.tx_modulate_plain,
+             (cfg, sym, ts.nco_phase, ts.fir_tail, TX_OFFSET_HZ), iters)):
+        # plain, kernel, kernel, plain: each side's best of its two runs
+        p1 = cuda_time_ms(lambda: plain(*args), n)
+        k1 = cuda_time_ms(lambda: kern(*args), iters)
+        k2 = cuda_time_ms(lambda: kern(*args), iters)
+        p2 = cuda_time_ms(lambda: plain(*args), n)
+        times[name] = (min(k1, k2), min(p1, p2))
+        print(f"  {name:8s} kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms")
+    return times
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from qpsk_tpu_torch import ModemConfig
+    from qpsk_tpu_torch.ops.cuda import _lib
+    from qpsk_tpu_torch.packet import PacketConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    smi = nvidia_smi_line()
+    print(f"card: {smi}; torch {torch.__version__} (CUDA {torch.version.cuda})")
+    nvcc = subprocess.run([_lib._nvcc(), "--version"], capture_output=True,
+                          text=True).stdout.strip().splitlines()
+    print(f"nvcc: {nvcc[-1] if nvcc else 'unknown'}")
+
+    print("phase 1: build")
+    t0 = time.perf_counter()
+    path, log = _lib.build()
+    _lib.library()
+    print(f"  built {path.name} in {time.perf_counter() - t0:.1f} s")
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print("  " + line.strip())
+
+    cfg, pcfg = ModemConfig(), PacketConfig(payload_bytes=30)
+    errs = {"frontend": 0.0, "costas": 0.0, "tx": 0.0}
+    print("phase 2: kernels against their plain versions")
+    compare_kernels(cfg, pcfg, dev, errs)
+    print("phase 3: main path at full width")
+    counts = main_path(cfg, pcfg, dev, errs)
+    print("phase 4: rates at 8192 channels x 8 frames")
+    print(f"  before: {CLOCKS} = {nvidia_smi_line(CLOCKS)}")
+    times = rates(cfg, dev, errs)
+    print(f"  after:  {CLOCKS} = {nvidia_smi_line(CLOCKS)}")
+
+    sources = {"frontend": ("qpsk_tpu_torch/csrc/frontend.cu",
+                            "qpsk_tpu/ops/pallas/frontend_kernel.py:545"),
+               "costas": ("qpsk_tpu_torch/csrc/costas.cu",
+                          "qpsk_tpu/ops/pallas/costas_kernel.py:373"),
+               "tx": ("qpsk_tpu_torch/csrc/tx.cu",
+                      "qpsk_tpu/ops/pallas/tx_kernel.py:145")}
+    kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
+                "launches": counts[name], "max_abs_err": errs[name],
+                "ms": times[name][0], "plain_ms": times[name][1]}
+               for name, (src, rep) in sources.items()]
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

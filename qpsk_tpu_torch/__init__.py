@@ -1,0 +1,14 @@
+"""qpsk_tpu_torch — the QPSK packet modem in PyTorch, with hand-written CUDA
+kernels for NVIDIA Hopper (sm_90a).
+
+A port of ``qpsk_tpu`` (JAX on a TPU), which stays the reference.  This
+package covers the uncoded QPSK link at the default ``ModemConfig``:
+packets -> ``tx_stream`` -> int16 PCM -> ``rx_stream`` -> sync -> packets.
+It imports torch and numpy, never jax.
+"""
+
+from qpsk_tpu_torch.config import ModemConfig, config_2400
+from qpsk_tpu_torch.modem import rx_stream, tx_stream
+from qpsk_tpu_torch.state import RxState, TxState, rx_init, tx_init
+
+__version__ = "0.1.0"

@@ -1,0 +1,40 @@
+"""Gray-coded QPSK mapping and slicing (port of ``qpsk_tpu.ops.modmap``).
+
+Constellation {1, +j, -j, -1} indexed by ``(bits[2i] << 1) | bits[2i+1]``;
+the diagonal slicer ``b1 = Im < 0, b0 = Re < 0`` inverts it under the
+Costas loop's diagonal lock (the 4-fold ambiguity is resolved by
+``qpsk_tpu_torch.sync``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from qpsk_tpu_torch.ops.cplx import CF32
+
+
+def bits_to_symbols(bits: torch.Tensor) -> CF32:
+    """(..., 2n) bits -> n QPSK symbols: for dibit (u, v), sign
+    ``s = 1 - 2u`` and axis select ``d = u XOR v`` give
+    ``re = (1-d)*s, im = d*s``."""
+    b = bits.reshape(bits.shape[:-1] + (-1, 2)).to(torch.float32)
+    u, v = b[..., 0], b[..., 1]
+    s = 1.0 - 2.0 * u
+    d = u + v - 2.0 * u * v
+    return CF32((1.0 - d) * s, d * s)
+
+
+def demod_bits(symbols: CF32) -> torch.Tensor:
+    """Slice symbols (..., n) to bits (..., 2n) int32, [b1, b0] per symbol."""
+    bits = torch.stack([symbols.im < 0.0, symbols.re < 0.0], dim=-1)
+    return bits.to(torch.int32).reshape(symbols.shape[:-1] + (-1,))
+
+
+def upsample_zero_stuff(symbols: CF32, cycles: int) -> CF32:
+    """Zero-stuff by ``cycles``: each symbol lands on phase 0 of its group."""
+    def one(plane):
+        out = torch.zeros(plane.shape + (cycles,), dtype=plane.dtype,
+                          device=plane.device)
+        out[..., 0] = plane
+        return out.reshape(plane.shape[:-1] + (plane.shape[-1] * cycles,))
+    return CF32(one(symbols.re), one(symbols.im))

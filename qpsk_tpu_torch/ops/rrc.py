@@ -1,0 +1,131 @@
+"""Root-raised-cosine pulse shaping (port of ``qpsk_tpu.ops.rrc``).
+
+``rrc_design`` is the same float64 closed form as the JAX package (the
+reference's rrc_fir.c:32-76, quirks included: GAIN baked into the taps on
+top of a second per-output GAIN multiply).  ``fir_block`` and
+``fir_block_modulated`` are the plain PyTorch block FIRs: one banded
+Toeplitz matmul per tile, split at the tail/block seam so the block operand
+is a free reshape of the input.  They run in full float32 (no TF32, no
+bf16), the precision of the JAX package's CPU lowering.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from qpsk_tpu_torch.ops.cplx import CF32
+
+
+def rrc_design(fs: float, rs: float, alpha: float, ntaps: int = 127,
+               gain: float = 1.85) -> np.ndarray:
+    """RRC taps (float32) with ``sum(taps) == gain``."""
+    spb = fs / rs
+    half = ntaps // 2
+    coeffs = np.zeros(ntaps, dtype=np.float64)
+    for i in range(ntaps):
+        xindx = float(i - half)
+        x1 = np.pi * xindx / spb
+        x2 = 4.0 * alpha * xindx / spb
+        x3 = x2 * x2 - 1.0
+        if abs(x3) >= 1e-6:
+            if i != half:
+                num = (np.cos((1.0 + alpha) * x1)
+                       + np.sin((1.0 - alpha) * x1) / (4.0 * alpha * xindx / spb))
+            else:
+                num = np.cos((1.0 + alpha) * x1) + (1.0 - alpha) * np.pi / (4.0 * alpha)
+            den = x3 * np.pi
+        else:
+            if alpha == 1.0:
+                coeffs[i] = -1.0
+                continue
+            x3s = (1.0 - alpha) * x1
+            x2s = (1.0 + alpha) * x1
+            num = (np.sin(x2s) * (1.0 + alpha) * np.pi
+                   - np.cos(x3s) * ((1.0 - alpha) * np.pi * spb) / (4.0 * alpha * xindx)
+                   + np.sin(x3s) * spb * spb / (4.0 * alpha * xindx * xindx))
+            den = -32.0 * np.pi * alpha * alpha * xindx / spb
+        coeffs[i] = 4.0 * alpha * num / den
+    scale = coeffs.sum()
+    coeffs = coeffs * gain / scale
+    return coeffs.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def taps_for(cfg) -> np.ndarray:
+    """The RRC taps of a ``ModemConfig``."""
+    return rrc_design(cfg.fs, cfg.rs, cfg.alpha, cfg.ntaps, cfg.gain)
+
+
+def pick_block(n: int) -> int:
+    """The largest of 512, 256, 128 that divides ``n`` (else ``n``): the
+    tile of the block FIRs."""
+    for b in (512, 256, 128):
+        if n % b == 0:
+            return b
+    return n
+
+
+@functools.lru_cache(maxsize=None)
+def _toeplitz_np(taps_key: tuple, block: int) -> np.ndarray:
+    taps = np.asarray(taps_key, dtype=np.float32)
+    tmat = np.zeros((block + taps.shape[0] - 1, block), dtype=np.float32)
+    for j in range(block):
+        tmat[j:j + taps.shape[0], j] = taps
+    return tmat
+
+
+def toeplitz_taps(taps: np.ndarray, block: int) -> np.ndarray:
+    """Banded Toeplitz matrix T with T[j + k, j] = taps[k]:
+    ``y_tile = x_window @ T`` over ``block + ntaps - 1`` input samples."""
+    return _toeplitz_np(tuple(np.asarray(taps, np.float32).tolist()), block)
+
+
+def fir_init_tail(ntaps: int, batch_shape=(), device=None) -> CF32:
+    """Zero delay-line tail of ``ntaps - 1`` samples."""
+    shape = tuple(batch_shape) + (ntaps - 1,)
+    return CF32(torch.zeros(shape, dtype=torch.float32, device=device),
+                torch.zeros(shape, dtype=torch.float32, device=device))
+
+
+def _split_matmul(x: torch.Tensor, tail: torch.Tensor, tmat: torch.Tensor,
+                  block: int) -> torch.Tensor:
+    """y = window @ tmat per tile, as tail_part @ T[:ntaps-1] +
+    block_part @ T[ntaps-1:] (the JAX DEFAULT-precision branch)."""
+    n = x.shape[-1]
+    ntaps_m1 = tail.shape[-1]
+    if n % block or block < ntaps_m1:
+        raise ValueError(f"block FIR needs n % block == 0 and block >= "
+                         f"{ntaps_m1}, got n={n}, block={block}")
+    nb = n // block
+    blocks = x.reshape(x.shape[:-1] + (nb, block))
+    prev = torch.cat([tail.unsqueeze(-2),
+                      blocks[..., :-1, block - ntaps_m1:]], dim=-2)
+    y = prev @ tmat[:ntaps_m1] + blocks @ tmat[ntaps_m1:]
+    return y.reshape(x.shape[:-1] + (n,))
+
+
+def fir_block(x: CF32, tail: CF32, tmat: torch.Tensor, gain: float,
+              block: int):
+    """Streaming RRC FIR over ``(..., n)`` CF32 samples with the carried
+    ``(..., ntaps-1)`` tail; ``gain`` is the per-output GAIN multiply.
+    Returns (y, new_tail)."""
+    n = x.shape[-1]
+    ntaps_m1 = tail.shape[-1]
+    y = CF32(_split_matmul(x.re, tail.re, tmat, block) * gain,
+             _split_matmul(x.im, tail.im, tmat, block) * gain)
+    return y, CF32(x.re[..., n - ntaps_m1:].contiguous(),
+                   x.im[..., n - ntaps_m1:].contiguous())
+
+
+def fir_block_modulated(x: torch.Tensor, tail: torch.Tensor,
+                        tmat_re: torch.Tensor, tmat_im: torch.Tensor,
+                        gain: float, block: int):
+    """Mix-free matched filter: REAL ``(..., n)`` input, complex modulated
+    taps (``ops/frontend.py``).  Returns (u CF32, new_raw_tail)."""
+    n = x.shape[-1]
+    u = CF32(_split_matmul(x, tail, tmat_re, block) * gain,
+             _split_matmul(x, tail, tmat_im, block) * gain)
+    return u, x[..., n - tail.shape[-1]:]

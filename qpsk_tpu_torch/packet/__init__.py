@@ -1,0 +1,10 @@
+"""Uncoded packet layer: CRC16, DVB scrambler, golden-prime interleaver."""
+
+from qpsk_tpu_torch.packet.bits import bits_to_bytes, bytes_to_bits
+from qpsk_tpu_torch.packet.crc16 import crc16, crc16_np
+from qpsk_tpu_torch.packet.frame import (PacketConfig, RxPacket,
+                                         assemble_packet, disassemble_packet)
+from qpsk_tpu_torch.packet.interleave import (deinterleave_bits,
+                                              interleave_bits,
+                                              interleave_permutation)
+from qpsk_tpu_torch.packet.scramble import keystream, scramble_bits

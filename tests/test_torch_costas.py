@@ -1,0 +1,97 @@
+"""The torch port's Costas loop (``ops/cuda/costas_kernel.py``, its plain
+version on CPU) against the JAX package: ``costas_run_traced`` and the
+Pallas tm kernel with ``emit_bits`` and ``trace_every`` in interpret mode.
+
+Bits must be equal; derotated symbols and the loop frequency agree to 1e-4
+(the frameworks' cos/sin may differ in the last ulp, so only decisions are
+held equal across lowerings)."""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from qpsk_tpu import ModemConfig as JCfg, rx_init as j_rx_init
+from qpsk_tpu.modem import frontend_xla as j_frontend_xla
+from qpsk_tpu.ops import costas as jcostas
+from qpsk_tpu.ops.cplx import CF32 as JCF32
+from qpsk_tpu.ops.modmap import demod_bits as j_demod_bits
+from qpsk_tpu.ops.pallas.costas_kernel import (costas_run_pallas_tm,
+                                               unpack_bits_tm as j_unpack)
+from qpsk_tpu_torch.ops import costas as tcostas
+from qpsk_tpu_torch.ops.cuda.costas_kernel import costas_run_tm, unpack_bits_tm
+
+torch.set_num_threads(2)
+
+C, T, NSF = 128, 512, 128
+BW = 2.0 * math.pi / 100.0
+
+
+def _symbols(stimulus):
+    """(T, C) float32 planes: Gaussian noise, or the matched-filter picks of
+    a +50 Hz QPSK signal (the loop then pulls in and locks)."""
+    rng = np.random.default_rng(7)
+    if stimulus == "noise":
+        return (rng.normal(size=(T, C)).astype(np.float32),
+                rng.normal(size=(T, C)).astype(np.float32))
+    cfg = JCfg()
+    n = (T // NSF) * cfg.frame_size
+    t = np.arange(n + 1024)
+    sym = rng.integers(0, 4, (C, (n + 1024) // 4))
+    phase = np.repeat(np.exp(1j * np.pi / 2 * sym), 4, axis=1)
+    carrier = np.exp(1j * 2 * np.pi * (1500.0 + 50.0) / 9600.0 * t)
+    pcm = (np.real(phase * carrier) * 8000.0
+           + rng.normal(size=(C, t.size)) * 2000.0).astype(np.int16)
+    pcm = pcm[:, 1024:1024 + n].reshape(C, T // NSF, cfg.frame_size)
+    st = j_rx_init(cfg, batch_shape=(C,))
+    picks, _, _, _ = j_frontend_xla(cfg, pcm, st.nco_phase, st.fir_tail)
+    return (np.asarray(picks.re).reshape(C, T).T.copy(),
+            np.asarray(picks.im).reshape(C, T).T.copy())
+
+
+@pytest.mark.parametrize("stimulus", ["noise", "signal"])
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+def test_costas_matches_jax(stimulus, warm):
+    zr, zi = _symbols(stimulus)
+    rng = np.random.default_rng(8)
+    phase0 = (rng.uniform(-3, 3, C) if warm else np.zeros(C)).astype(np.float32)
+    freq0 = (rng.uniform(-0.05, 0.05, C) if warm else np.zeros(C)).astype(np.float32)
+
+    tp = tcostas.costas_params(BW)
+    tst = tcostas.CostasState(torch.from_numpy(phase0), torch.from_numpy(freq0))
+    st, derot, ftrace, bits = costas_run_tm(tst, torch.from_numpy(zr),
+                                            torch.from_numpy(zi), tp,
+                                            trace_every=NSF)
+    assert derot.re.shape == (T, C) and ftrace.shape == (C, T // NSF)
+    assert bits.shape == (C, 2 * T) and bits.dtype == torch.int32
+
+    jp = jcostas.costas_params(BW)
+    assert (tp.alpha, tp.beta) == (float(jp.alpha), float(jp.beta))
+    jst = jcostas.CostasState(jnp.asarray(phase0), jnp.asarray(freq0))
+    js, jd, jtr = jcostas.costas_run_traced(jst, JCF32(zr.T, zi.T), jp)
+    ks, kd, kft, kbits = costas_run_pallas_tm(
+        jst, jnp.asarray(zr), jnp.asarray(zi), jp, trace_every=NSF,
+        emit_bits=True, interpret=True)
+
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(kbits))
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(j_demod_bits(jd)))
+    for ref_d, ref_f, ref_s in (
+            ((np.asarray(jd.re).T, np.asarray(jd.im).T),
+             np.asarray(jtr)[:, NSF - 1::NSF], js),
+            ((np.asarray(kd.re), np.asarray(kd.im)), np.asarray(kft), ks)):
+        np.testing.assert_allclose(derot.re.numpy(), ref_d[0], atol=1e-4)
+        np.testing.assert_allclose(derot.im.numpy(), ref_d[1], atol=1e-4)
+        np.testing.assert_allclose(ftrace.numpy(), ref_f, atol=1e-4)
+        np.testing.assert_allclose(st.freq.numpy(), np.asarray(ref_s.freq), atol=1e-4)
+        np.testing.assert_allclose(st.phase.numpy(), np.asarray(ref_s.phase), atol=1e-4)
+
+
+def test_unpack_bits_tm_layout():
+    """The kernel's packed words unpack in the JAX package's layout."""
+    rng = np.random.default_rng(9)
+    words = rng.integers(-2**31, 2**31, (T // 16, 5), dtype=np.int64).astype(np.int32)
+    np.testing.assert_array_equal(
+        unpack_bits_tm(torch.from_numpy(words)).numpy(),
+        np.asarray(j_unpack(jnp.asarray(words), T, 5)))

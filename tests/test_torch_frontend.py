@@ -1,0 +1,141 @@
+"""The torch port's RX front-end (``ops/cuda/frontend_kernel.py``, its plain
+version on CPU) against the JAX package: the Pallas tm kernel in interpret
+mode and the staged ``frontend_xla`` chain plus the host delay concat.
+
+Timing decisions must be equal; picks agree to 3e-4 (the JAX package's own
+bound for re-associated carried phasors, tests/test_pallas_tm_path.py) and
+the carried phase and tail to 1e-5.  The two frameworks sum the FIR in
+different orders, so the floats are held close, not equal."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+from qpsk_tpu import ModemConfig as JCfg, rx_init as j_rx_init, tx_stream as j_tx_stream
+from qpsk_tpu.modem import frontend_xla as j_frontend_xla, rx_stream as j_rx_stream
+from qpsk_tpu.ops.cplx import CF32 as JCF32
+from qpsk_tpu.ops.pallas.frontend_kernel import rx_frontend_fused_tm
+from qpsk_tpu_torch import ModemConfig
+from qpsk_tpu_torch.ops.cplx import CF32
+from qpsk_tpu_torch.ops.cuda.frontend_kernel import rx_frontend_tm
+from qpsk_tpu_torch.state import from_numpy
+
+torch.set_num_threads(2)
+
+CFG, JC = ModemConfig(), JCfg()
+NSYM = CFG.symbols_per_frame
+
+
+def _random_pcm(c, nframes, seed):
+    rng = np.random.default_rng(seed)
+    return rng.integers(-12000, 12000, (c, nframes, CFG.frame_size),
+                        dtype=np.int16)
+
+
+def _loopback_pcm(c, nframes, seed):
+    """JAX TX at +50 Hz plus numpy AWGN at 10 dB."""
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2, (c, nframes, 2 * NSYM), dtype=np.int32)
+    _, pcm = j_tx_stream(JC, jax.tree.map(np.asarray, _tx_init(c)), bits,
+                         tx_offset_hz=50.0)
+    pcm = np.asarray(pcm).astype(np.float64)
+    sigma = np.sqrt((pcm ** 2).mean() / 10.0)
+    noisy = np.round(pcm + rng.normal(size=pcm.shape) * sigma)
+    return np.clip(noisy, -32768, 32767).astype(np.int16)
+
+
+def _tx_init(c):
+    from qpsk_tpu import tx_init
+    return tx_init(JC, batch_shape=(c,))
+
+
+def _warm_state(pcm_head):
+    """JAX and port RxState after one chained JAX call on ``pcm_head``."""
+    c = pcm_head.shape[0]
+    jst, _ = j_rx_stream(JC, j_rx_init(JC, batch_shape=(c,)), pcm_head)
+    return jst, from_numpy(jax.tree.map(np.asarray, jst))
+
+
+def _port(pcm, st):
+    return rx_frontend_tm(CFG, torch.from_numpy(pcm), st.nco_phase,
+                          st.fir_tail, st.decim_delay)
+
+
+def _jax_xla_delayed(pcm, jst):
+    """frontend_xla + the host delay concat, in the tm layout."""
+    picks, idx, ph, tl = j_frontend_xla(JC, pcm, jst.nco_phase, jst.fir_tail)
+    c = pcm.shape[0]
+
+    def delayed(dd, p):
+        z = np.concatenate([np.asarray(dd)[:, None], np.asarray(p)[:, :-1]], 1)
+        return z.reshape(c, -1).T
+    return (delayed(jst.decim_delay.re, picks.re),
+            delayed(jst.decim_delay.im, picks.im), np.asarray(idx), ph, tl,
+            JCF32(np.asarray(picks.re)[:, -1], np.asarray(picks.im)[:, -1]))
+
+
+def _assert_close(port, ref):
+    zr, zi, idx, ph, tl, dd = port
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ref[2]))
+    np.testing.assert_allclose(zr.numpy(), np.asarray(ref[0]), atol=3e-4)
+    np.testing.assert_allclose(zi.numpy(), np.asarray(ref[1]), atol=3e-4)
+    np.testing.assert_allclose(dd.re.numpy(), np.asarray(ref[5].re), atol=3e-4)
+    np.testing.assert_allclose(dd.im.numpy(), np.asarray(ref[5].im), atol=3e-4)
+    for a, b in ((ph, ref[3]), (tl, ref[4])):
+        np.testing.assert_allclose(a.re.numpy(), np.asarray(b.re), atol=1e-5)
+        np.testing.assert_allclose(a.im.numpy(), np.asarray(b.im), atol=1e-5)
+
+
+@pytest.mark.parametrize("stimulus", ["random", "loopback"])
+def test_frontend_matches_pallas_tm_and_xla(stimulus):
+    c, nframes = 128, 4
+    make = _random_pcm if stimulus == "random" else _loopback_pcm
+    pcm = make(c, nframes + 1, seed=1)
+    jst, st = _warm_state(pcm[:, :1])
+    body = np.ascontiguousarray(pcm[:, 1:])
+    port = _port(body, st)
+    assert port[0].shape == (nframes * NSYM, c) and port[2].dtype == torch.int32
+    zr, zi, idx, ph, tl, dd, _ = rx_frontend_fused_tm(
+        JC, body, jst.nco_phase, jst.fir_tail, jst.decim_delay,
+        interpret=True)
+    _assert_close(port, (zr, zi, idx, ph, tl, dd))
+    _assert_close(port, _jax_xla_delayed(body, jst))
+
+
+def test_frontend_odd_channel_count():
+    """C = 3 (no multiple of anything): against the staged JAX chain."""
+    pcm = _loopback_pcm(3, 4, seed=2)
+    jst, st = _warm_state(pcm[:, :1])
+    body = np.ascontiguousarray(pcm[:, 1:])
+    _assert_close(_port(body, st), _jax_xla_delayed(body, jst))
+
+
+def test_frontend_chains_across_calls():
+    """Two chained calls == one call over the concatenation."""
+    pcm = _random_pcm(8, 6, seed=3)
+    _, st = _warm_state(pcm[:, :1])
+    body = pcm[:, 1:]
+    one = _port(np.ascontiguousarray(body), st)
+    a = _port(np.ascontiguousarray(body[:, :2]), st)
+    st2 = st._replace(nco_phase=a[3], fir_tail=a[4], decim_delay=a[5])
+    b = _port(np.ascontiguousarray(body[:, 2:]), st2)
+    np.testing.assert_array_equal(torch.cat([a[2], b[2]], 1).numpy(),
+                                  one[2].numpy())
+    for k in (0, 1):
+        np.testing.assert_allclose(torch.cat([a[k], b[k]]).numpy(),
+                                   one[k].numpy(), atol=3e-4)
+    np.testing.assert_allclose(b[5].re.numpy(), one[5].re.numpy(), atol=3e-4)
+    np.testing.assert_allclose(b[3].re.numpy(), one[3].re.numpy(), atol=1e-5)
+    np.testing.assert_allclose(b[4].im.numpy(), one[4].im.numpy(), atol=1e-5)
+
+
+def test_frontend_cpu_tensor_runs_plain_version():
+    """A CPU tensor never reaches the kernel launch (no nvcc here)."""
+    from qpsk_tpu_torch.ops.cuda import frontend_kernel
+    before = frontend_kernel.launches
+    pcm = _random_pcm(2, 1, seed=4)
+    _, st = _warm_state(pcm)
+    out = _port(pcm, st)
+    assert frontend_kernel.launches == before
+    assert isinstance(out[5], CF32) and out[0].shape == (NSYM, 2)

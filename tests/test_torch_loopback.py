@@ -1,0 +1,147 @@
+"""The torch port's uncoded QPSK slice as a whole:
+
+(a) the same PCM (JAX TX + numpy AWGN) through JAX ``rx_stream`` and the
+    port's ``rx_stream``: equal timing decisions and bits, frequency
+    readback within 0.05 Hz;
+(b) a torch-only loopback: packets -> ``tx_stream`` at +50 Hz -> ``awgn_pcm``
+    at 10 dB -> ``rx_stream`` -> ``find_sync`` -> ``extract_packets``;
+(c) the package imports no jax and nothing of the JAX package;
+(d) every configuration off the slice raises ``NotImplementedError``.
+"""
+
+import dataclasses
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from qpsk_tpu import ModemConfig as JCfg, rx_init as j_rx_init, tx_init as j_tx_init
+from qpsk_tpu.modem import rx_stream as j_rx_stream, tx_stream as j_tx_stream
+from qpsk_tpu.packet import PacketConfig as JPacketConfig, assemble_packet as j_assemble
+from qpsk_tpu.sync import default_max_lag as j_default_max_lag, find_sync as j_find_sync
+from qpsk_tpu_torch import ModemConfig, rx_init, rx_stream, tx_init, tx_stream
+from qpsk_tpu_torch.channel import awgn_pcm
+from qpsk_tpu_torch.packet import PacketConfig, assemble_packet
+from qpsk_tpu_torch.sync import default_max_lag, extract_packets, find_sync
+
+torch.set_num_threads(2)
+
+CFG, JC = ModemConfig(), JCfg()
+PCFG = PacketConfig(payload_bytes=30)     # 256 channel bits = one RX frame
+C, NFRAMES, SKIP = 2, 40, 8
+
+
+def test_rx_stream_matches_jax():
+    rng = np.random.default_rng(11)
+    payload = rng.integers(0, 2, (C, NFRAMES, 240), dtype=np.int32)
+    chan = np.asarray(j_assemble(JPacketConfig(payload_bytes=30), payload))
+    _, pcm = j_tx_stream(JC, j_tx_init(JC, batch_shape=(C,)), chan,
+                         tx_offset_hz=50.0)
+    x = np.asarray(pcm).astype(np.float64)
+    sigma = np.sqrt((x ** 2).mean() / 10.0)
+    pcm = np.clip(np.round(x + rng.normal(size=x.shape) * sigma),
+                  -32768, 32767).astype(np.int16)
+
+    jst, jout = j_rx_stream(JC, j_rx_init(JC, batch_shape=(C,)), pcm)
+    st, out = rx_stream(CFG, rx_init(CFG, (C,)), torch.from_numpy(pcm))
+    assert out.bits.shape == (C, NFRAMES, 256) and out.bits.dtype == torch.int32
+    np.testing.assert_array_equal(out.timing_index.numpy(),
+                                  np.asarray(jout.timing_index))
+    np.testing.assert_array_equal(out.bits.numpy(), np.asarray(jout.bits))
+    np.testing.assert_allclose(out.freq_hz.numpy(), np.asarray(jout.freq_hz),
+                               atol=0.05)
+    np.testing.assert_allclose(out.symbols.re.numpy(),
+                               np.asarray(jout.symbols.re), atol=1e-3)
+    np.testing.assert_allclose(st.costas.freq.numpy(),
+                               np.asarray(jst.costas.freq), atol=1e-4)
+    # one stream without a channel axis gives the same decisions
+    _, one = rx_stream(CFG, rx_init(CFG), torch.from_numpy(pcm[1]))
+    assert torch.equal(one.bits, out.bits[1])
+
+
+def _recover(bits, payload):
+    """Sync, extract, and check every packet against the TX payloads."""
+    stream = bits.reshape(-1)[SKIP * PCFG.frame_bits:]
+    sync = find_sync(PCFG, stream, max_lag=600, probe_frames=4)
+    navail = (stream.numel() - int(sync.bit_lag)) // PCFG.frame_bits
+    rx = extract_packets(PCFG, stream, sync, navail)
+    got = rx.payload_bits
+    k0 = next(k for k in range(NFRAMES) if torch.equal(got[0], payload[k]))
+    return stream, sync, rx, k0
+
+
+def test_torch_only_loopback():
+    gen = torch.Generator().manual_seed(0)
+    payload = torch.randint(0, 2, (C, NFRAMES, 240), generator=gen,
+                            dtype=torch.int32)
+    _, pcm = tx_stream(CFG, tx_init(CFG, (C,)), assemble_packet(PCFG, payload),
+                       tx_offset_hz=50.0)
+    power = float(((pcm.to(torch.float32) / 16384.0) ** 2).mean())
+    _, out = rx_stream(CFG, rx_init(CFG, (C,)), awgn_pcm(gen, pcm, 10.0, power))
+    for ch in range(C):
+        offset = float(out.freq_hz[ch, NFRAMES // 2:].mean())
+        assert abs(offset - 50.0) < 2.0, offset
+        stream, sync, rx, k0 = _recover(out.bits[ch], payload[ch])
+        assert int(sync.score) == 4
+        assert bool(rx.crc_ok.all())
+        n = rx.crc_ok.numel()
+        assert n >= NFRAMES - SKIP - 2
+        assert torch.equal(rx.payload_bits, payload[ch, k0:k0 + n])
+        jsync = j_find_sync(JPacketConfig(payload_bytes=30),
+                            jnp.asarray(stream.numpy()), max_lag=600,
+                            probe_frames=4)
+        assert (int(jsync.rotation), int(jsync.bit_lag), int(jsync.score)) \
+            == (int(sync.rotation), int(sync.bit_lag), int(sync.score))
+    for nbytes in (30, 400):
+        assert default_max_lag(PacketConfig(payload_bytes=nbytes)) == \
+            j_default_max_lag(JPacketConfig(payload_bytes=nbytes))
+
+
+def test_package_imports_no_jax():
+    code = ("import sys\n"
+            "before = set(sys.modules)\n"
+            "import qpsk_tpu_torch, qpsk_tpu_torch.sync, qpsk_tpu_torch.channel\n"
+            "import qpsk_tpu_torch.packet, qpsk_tpu_torch.ops.cuda._lib\n"
+            "new = set(sys.modules) - before\n"
+            "bad = sorted(m for m in new if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'qpsk_tpu'))\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+_OFF_SLICE = [{"modulation": "bpsk"}, {"differential": True}, {"agc": True},
+              {"eq_taps": 5}, {"loop_bw_track": 0.03},
+              {"timing_mode": "histogram"}, {"timing_mode": "fractional"},
+              {"timing_mode": "tracking"}, {"nco_mode": "exact"},
+              {"fir_precision": "exact"}, {"slicer": "reference"},
+              {"costas_impl": "scan"}, {"costas_impl": "pallas"},
+              {"frontend_impl": "xla"}, {"frontend_impl": "pallas"},
+              {"tx_impl": "xla"}, {"tx_impl": "pallas"}, {"rs": 1200.0},
+              {"ntaps": 63}, {"frame_size": 256}]
+
+
+@pytest.mark.parametrize("kwargs", _OFF_SLICE,
+                         ids=[",".join(f"{k}={v}" for k, v in d.items())
+                              for d in _OFF_SLICE])
+def test_off_slice_config_raises(kwargs):
+    cfg = dataclasses.replace(CFG, **kwargs)
+    field = next(iter(kwargs))
+    with pytest.raises(NotImplementedError, match="fs/rs" if field == "rs" else field):
+        tx_stream(cfg, tx_init(CFG, (1,)), torch.zeros((1, 1, 256), dtype=torch.int32))
+    with pytest.raises(NotImplementedError):
+        rx_stream(cfg, rx_init(CFG, (1,)), torch.zeros((1, 1, 512), dtype=torch.int16))
+
+
+def test_off_slice_inputs_raise():
+    with pytest.raises(NotImplementedError, match="doppler"):
+        tx_stream(CFG, tx_init(CFG), torch.zeros((1, 256), dtype=torch.int32),
+                  doppler_hz_per_s=5.0)
+    for shape in ((512,), (2, 1, 1, 512), (1, 2, 500)):
+        with pytest.raises(NotImplementedError):
+            rx_stream(CFG, rx_init(CFG), torch.zeros(shape, dtype=torch.int16))
+    with pytest.raises(NotImplementedError):
+        PacketConfig(fec="ldpc")

@@ -21,12 +21,40 @@ Phases, each of which exits non-zero on failure:
    chained, CUDA events): RX samples/s of the kernel path and the plain
    path, TX samples/s, and each kernel's time beside its plain version's,
    after each kernel is held against its plain version at that shape.
+5. The coded link.  (a) The Viterbi and LDPC kernels against their plain
+   versions at 1, 200 and 4096 packets, on noisy codewords (sigma 0.7)
+   and on hard +-1 LLRs with 3 % flips, and on codewords both must decode
+   clean (sigma 0.55 Viterbi, 0.6 LDPC).  (b) The coded loopback at full
+   width, kernels only, once for ``fec="conv"`` and once for
+   ``fec="ldpc"``, with all five launch counters reset before each: 1024
+   channels x 48 packets of 30 bytes, re-framed into modem frames with
+   filler, TX at +50 Hz, AWGN 6 dB, ``rx_stream``; on 64 sampled
+   channels soft LLRs, ``find_sync_streams(soft=True, probe_frames=8)``
+   and ``extract_packets_soft_tracked``, then the same LLRs through the
+   plain decoders.  Then, as in phase 3, each modem kernel against its
+   plain version on this path's own inputs (12 672-step Costas chains,
+   sample positions past 50 000), and the plain path's LLRs (plain
+   front-end -> plain Costas on the same PCM) through the decoder
+   kernel.  (c) Rates: the composed coded receive (1024 channels x 8
+   frames, every demodulated bit decoded) of the kernel and the plain
+   path, and each FEC kernel alone at 4096 packets.
+
+``python3 chip_smoke.py --profile`` builds the kernels and only traces
+kernel-path receive calls with ``torch.profiler`` (the uncoded call at
+the rate point, the composed coded call per code): device operations and
+busy time per call beside the wall time, and the largest operations.
 
 Every kernel-vs-plain comparison gives both sides the same inputs and
 state.  Decisions (timing index, bits) must be equal on the loopback
 stimulus and agree on >= 99.9 % on noise, where near-ties may fall either
 way; picks within 3e-4, derotated symbols and loop frequency within 1e-4,
-PCM within 2 LSB, carried phases within 1e-5, the TX tail exact.
+PCM within 2 LSB, carried phases within 1e-5, the TX tail exact.  Viterbi
+bits must be equal on every input (the kernel's op order is the plain
+version's); LDPC bits must agree on >= 99.9 % with the same number of
+packets decoding clean (the JAX package's bound between its lowerings),
+and the coded loopback's CRC verdicts may differ between the LDPC kernel
+and plain decoders, and between the kernel and plain modem paths' LLRs,
+on <= 0.1 % of packets each, every difference printed.
 
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``; the line before them lists the kernels.
@@ -36,6 +64,7 @@ before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -53,6 +82,15 @@ TX_OFFSET_HZ = 50.0
 # symbol component this close to zero: the picks' bound (3e-4) plus the
 # derotated symbols' (1e-4), with room for the loop's carried phase
 NEAR_TIE = 1e-3
+# phase 5: FEC batch sizes of the kernel comparisons, (channels, packets
+# per channel) of the coded loopback (the coded receive point of
+# benchmarks.coded_rx_throughput), its SNR, and (channels, frames) of the
+# composed coded rate
+FEC_COMPARE = (1, 200, 4096)
+CODED_PATH = (1024, 48)
+CODED_SNR_DB = 6.0
+CODED_RATE_POINT = (1024, 8)
+FEC_RATE_PACKETS = 4096
 
 
 class SmokeFailure(RuntimeError):
@@ -254,6 +292,51 @@ def compare_kernels(cfg, pcfg, dev, errs: dict) -> None:
                 cs = p[0]
 
 
+def check_path(cfg, bits, clean, pcm, out, dev, label: str, errs: dict):
+    """Each modem kernel against its plain version on a path's own inputs
+    (the channel bits sent, the clean and the noisy PCM) and its re-run
+    against the path's outputs ``out``; then the plain path (plain
+    front-end -> plain Costas) on the same PCM, whose bits may differ from
+    the kernel path's only within NEAR_TIE of a decision boundary.
+    Returns the plain path's derotated symbols (C, F, nsym), its bits
+    (C, F, 2 nsym) and the mask of bits that differ."""
+    import torch
+    from qpsk_tpu_torch import rx_init, tx_init
+    from qpsk_tpu_torch.ops.costas import costas_init, costas_params
+    from qpsk_tpu_torch.ops.cplx import CF32
+    from qpsk_tpu_torch.ops.cuda import costas_kernel as ck
+    from qpsk_tpu_torch.ops.modmap import bits_to_symbols
+
+    c, nsym = pcm.shape[0], cfg.symbols_per_frame
+    pk, _ = check_tx(cfg, bits_to_symbols(bits.reshape(c, -1)),
+                     tx_init(cfg, (c,), device=dev), label, errs)
+    need(torch.equal(pk, clean.reshape(c, -1)),
+         f"the TX kernel's re-run differs ({label})")
+    kf, pf = check_frontend(cfg, pcm, rx_init(cfg, (c,), device=dev), True,
+                            label, errs)
+    need(torch.equal(kf[2], out.timing_index),
+         f"the front-end's re-run differs ({label})")
+    params = costas_params(cfg.loop_bw, cfg.damping, cfg.min_freq, cfg.max_freq)
+    kc, _ = check_costas(costas_init((c,), device=dev), kf[0], kf[1], params,
+                         nsym, True, label, errs)
+    need(torch.equal(kc[3].reshape(out.bits.shape), out.bits),
+         f"the Costas kernel's re-run differs ({label})")
+
+    pc = ck.costas_run_tm_plain(costas_init((c,), device=dev), pf[0], pf[1],
+                                params, trace_every=nsym)
+    plain_bits = pc[3].reshape(out.bits.shape)
+    d = out.symbols
+    tie = torch.stack([d.im.abs() < NEAR_TIE, d.re.abs() < NEAR_TIE],
+                      dim=-1).reshape(out.bits.shape)
+    flips = plain_bits != out.bits
+    need(bool(tie[flips].all()), "the kernel and plain paths' bits differ "
+         f"away from a decision boundary (|x| >= {NEAR_TIE}) ({label})")
+    print(f"  plain path on the same PCM ({label}): {int(flips.sum())} of "
+          f"{flips.numel()} bits differ, all within {NEAR_TIE} of a decision "
+          f"boundary; derot max diff {cmax_abs(pc[1], kc[1]):.3g}")
+    return CF32(*(p.T.reshape(d.re.shape) for p in pc[1])), plain_bits, flips
+
+
 def decode(pcfg, bits):
     """(sync, packets) of a 1-D bit stream: 4 probe packets, lags < 600."""
     from qpsk_tpu_torch.sync import extract_packets, find_sync
@@ -267,12 +350,10 @@ def main_path(cfg, pcfg, dev, errs: dict) -> dict:
     """Phase 3: the full-width loopback through the kernels, then each
     kernel and the plain path on the same inputs."""
     import torch
-    from qpsk_tpu_torch import rx_init, rx_stream, tx_init
-    from qpsk_tpu_torch.ops.costas import costas_init, costas_params
+    from qpsk_tpu_torch import rx_init, rx_stream
     from qpsk_tpu_torch.ops.cuda import costas_kernel as ck
     from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
     from qpsk_tpu_torch.ops.cuda import tx_kernel as tk
-    from qpsk_tpu_torch.ops.modmap import bits_to_symbols
 
     (c, nframes), skip = MAIN_PATH, 8
     nsym, fb = cfg.symbols_per_frame, pcfg.frame_bits
@@ -294,35 +375,8 @@ def main_path(cfg, pcfg, dev, errs: dict) -> dict:
     need(tuple(out.bits.shape) == (c, nframes, 2 * nsym),
          f"bits of shape {tuple(out.bits.shape)}")
 
-    # each kernel against its plain version on the main path's own inputs;
-    # the kernels' re-runs must reproduce the main path's outputs
-    label = f"C={c} main path"
-    pk, _ = check_tx(cfg, bits_to_symbols(chan.reshape(c, -1)),
-                     tx_init(cfg, (c,), device=dev), label, errs)
-    need(torch.equal(pk, clean.reshape(c, -1)), "the TX kernel's re-run differs")
-    kf, pf = check_frontend(cfg, pcm, rx_init(cfg, (c,), device=dev), True,
-                            label, errs)
-    need(torch.equal(kf[2], out.timing_index), "the front-end's re-run differs")
-    params = costas_params(cfg.loop_bw, cfg.damping, cfg.min_freq, cfg.max_freq)
-    kc, _ = check_costas(costas_init((c,), device=dev), kf[0], kf[1], params,
-                         nsym, True, label, errs)
-    need(torch.equal(kc[3].reshape(out.bits.shape), out.bits),
-         "the Costas kernel's re-run differs")
-
-    # the plain path on the same PCM: its bits may differ from the kernel
-    # path's only on near-tie symbols
-    pc = ck.costas_run_tm_plain(costas_init((c,), device=dev), pf[0], pf[1],
-                                params, trace_every=nsym)
-    plain_bits = pc[3].reshape(out.bits.shape)
-    d = out.symbols
-    tie = torch.stack([d.im.abs() < NEAR_TIE, d.re.abs() < NEAR_TIE],
-                      dim=-1).reshape(out.bits.shape)
-    flips = plain_bits != out.bits
-    need(bool(tie[flips].all()), "the kernel and plain paths' bits differ "
-         f"away from a decision boundary (|x| >= {NEAR_TIE})")
-    print(f"  plain path on the same PCM: {int(flips.sum())} of {flips.numel()} "
-          f"bits differ, all within {NEAR_TIE} of a decision boundary; derot "
-          f"max diff {cmax_abs(pc[1], kc[1]):.3g}")
+    _, plain_bits, flips = check_path(cfg, chan, clean, pcm, out, dev,
+                                      f"C={c} main path", errs)
 
     channels = sorted({round(i * (c - 1) / 63) for i in range(64)})
     npk = nok = nexact = full = 0
@@ -377,7 +431,6 @@ def rates(cfg, dev, errs: dict) -> dict:
     frames, then samples/s and {kernel: (kernel ms, plain ms)} there."""
     import torch
     from qpsk_tpu_torch import rx_init, tx_init, tx_stream
-    from qpsk_tpu_torch.modem import _rx_stream_tm
     from qpsk_tpu_torch.ops.costas import costas_init, costas_params
     from qpsk_tpu_torch.ops.cplx import CF32
     from qpsk_tpu_torch.ops.cuda import costas_kernel as ck
@@ -407,14 +460,8 @@ def rates(cfg, dev, errs: dict) -> dict:
     ts = tx_init(cfg, (c,), device=dev)
     check_tx(cfg, sym, ts, f"C={c} S={nframes * nsym}", errs)
 
-    for name, frontend, costas in (("kernel", fk.rx_frontend_tm, ck.costas_run_tm),
-                                   ("plain", fk.rx_frontend_tm_plain,
-                                    ck.costas_run_tm_plain)):
-        state = [rx_init(cfg, (c,), device=dev)]
-
-        def step():
-            state[0], _ = _rx_stream_tm(cfg, state[0], pcm, frontend, costas)
-        ms = cuda_time_ms(step, iters)
+    for name in ("kernel", "plain"):
+        ms = cuda_time_ms(rx_step(cfg, dev, pcm, name)[0], iters)
         print(f"  rx_stream {name:6s} path: {ms:.4f} ms/call, "
               f"{nsamples / ms * 1e3:.6g} samples/s")
 
@@ -440,6 +487,368 @@ def rates(cfg, dev, errs: dict) -> dict:
         times[name] = (min(k1, k2), min(p1, p2))
         print(f"  {name:8s} kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms")
     return times
+
+
+@contextlib.contextmanager
+def plain_decoders():
+    """Inside, ``fec.viterbi_decode`` and ``ldpc.ldpc_decode`` run the
+    plain versions on CUDA tensors: the reference run of phase 5."""
+    from qpsk_tpu_torch.ops.cuda import ldpc_kernel as lk
+    from qpsk_tpu_torch.ops.cuda import viterbi_kernel as vk
+    saved = vk.viterbi_decode, lk.ldpc_decode
+    vk.viterbi_decode, lk.ldpc_decode = vk.viterbi_decode_plain, lk.ldpc_decode_plain
+    try:
+        yield
+    finally:
+        vk.viterbi_decode, lk.ldpc_decode = saved
+
+
+def fec_decoders(kind: str):
+    """(name, kernel wrapper, plain version) of the slice's code, each
+    taking (..., n) LLRs to (..., 256) bits."""
+    from qpsk_tpu_torch.ops.cuda import ldpc_kernel as lk
+    from qpsk_tpu_torch.ops.cuda import viterbi_kernel as vk
+    from qpsk_tpu_torch.packet import ConvCode, LdpcCode
+    if kind == "conv":
+        code = ConvCode()
+        return ("viterbi", lambda x: vk.viterbi_decode(code, x, 256),
+                lambda x: vk.viterbi_decode_plain(code, x, 256))
+    code = LdpcCode(k=256)
+    return ("ldpc", lambda x: lk.ldpc_decode(code, x),
+            lambda x: lk.ldpc_decode_plain(code, x))
+
+
+def fec_encode(kind: str, u):
+    from qpsk_tpu_torch.packet import (ConvCode, LdpcCode, conv_encode,
+                                       ldpc_encode)
+    return conv_encode(ConvCode(), u) if kind == "conv" else \
+        ldpc_encode(LdpcCode(k=256), u)
+
+
+def check_fec(kind: str, llrs, u, label: str, errs: dict):
+    """A FEC kernel against its plain version on the same LLRs: Viterbi
+    bits equal, LDPC bits >= 99.9 % equal; with the payload ``u`` sent,
+    both must decode the same number of packets clean."""
+    name, kern, plain = fec_decoders(kind)
+    k, p = kern(llrs), plain(llrs)
+    rate = agree(label, f"{name} bit", k == p, exact=kind == "conv")
+    errs[name] = max(errs[name], 1.0 - rate)
+    msg = f"  {name:8s} {label}: bit agreement {rate:.6f}"
+    if u is not None:
+        ck, cp = int((k == u).all(-1).sum()), int((p == u).all(-1).sum())
+        need(ck == cp, f"{name} decodes {ck} packets clean, plain {cp} ({label})")
+        msg += f", {ck}/{u.shape[0]} packets clean (plain {cp})"
+    print(msg)
+
+
+def compare_fec(dev, errs: dict) -> None:
+    """Phase 5a: each FEC kernel against its plain version, then the
+    codewords both must decode clean."""
+    import numpy as np
+    import torch
+    from qpsk_tpu_torch.packet import hard_llrs
+
+    for kind in ("conv", "ldpc"):
+        for b in FEC_COMPARE:
+            gen = torch.Generator(device=dev).manual_seed(b)
+            u = torch.randint(0, 2, (b, 256), generator=gen, device=dev,
+                              dtype=torch.int32)
+            c = fec_encode(kind, u)
+            noisy = (1.0 - 2.0 * c) + 0.7 * torch.randn(c.shape, generator=gen,
+                                                        device=dev)
+            flips = (torch.rand(c.shape, generator=gen, device=dev) < 0.03)
+            hard = hard_llrs(c ^ flips.to(torch.int32))
+            for stim, llrs in (("sigma 0.7", noisy), ("hard 3 %", hard)):
+                check_fec(kind, llrs, u, f"B={b:4d} {stim}", errs)
+
+        # the CPU tests' inputs (tests/test_torch_fec.py, numpy seed 2):
+        # 64 codewords at sigma 0.55 (Viterbi) or 0.6 (LDPC)
+        sigma = {"conv": 0.55, "ldpc": 0.6}[kind]
+        rng = np.random.default_rng(2)
+        u = rng.integers(0, 2, (64, 256), dtype=np.int32)
+        c = fec_encode(kind, torch.from_numpy(u)).numpy()
+        llrs = ((1.0 - 2.0 * c) + rng.normal(0, sigma, c.shape)).astype(np.float32)
+        ut, lt = torch.from_numpy(u).to(dev), torch.from_numpy(llrs).to(dev)
+        name, kern, plain = fec_decoders(kind)
+        for which, fn in (("kernel", kern), ("plain", plain)):
+            need(torch.equal(fn(lt), ut),
+                 f"the {which} {name} decoder misses sigma {sigma} codewords")
+        print(f"  {name:8s} 64 codewords at sigma {sigma}: kernel and plain "
+              "decode all clean")
+
+
+def check_payloads(rx, sent, ch: int) -> int:
+    """Every CRC-passing packet of a channel is the payload sent at its
+    place; returns their count."""
+    import torch
+    ok, got, want = rx.crc_ok.cpu(), rx.payload_bits.cpu(), sent.cpu()
+    if not bool(ok.any()):
+        return 0
+    i0 = int(torch.argmax(ok.to(torch.int32)))
+    k0 = next((k for k in range(want.shape[0]) if torch.equal(got[i0], want[k])), None)
+    need(k0 is not None, f"channel {ch}: no payload matched")
+    k0 -= i0
+    for i in torch.nonzero(ok).flatten().tolist():
+        need(0 <= i + k0 < want.shape[0] and torch.equal(got[i], want[i + k0]),
+             f"channel {ch}: packet {i} passed CRC with a wrong payload")
+    return int(ok.sum())
+
+
+def coded_loopback(cfg, kind: str, dev, errs: dict) -> int:
+    """Phase 5b: the coded loopback at full width through the kernels.
+    Then the same LLRs through the plain decoders (same sync; conv: the
+    same verdicts and payloads, LDPC: verdicts differ on <= 0.1 % of
+    packets); each modem kernel against its plain version on this path's
+    own inputs; and the plain path's LLRs (plain front-end -> plain
+    Costas on the same PCM) through the decoder kernel: the same rotation
+    and lag, CRC verdicts differing on <= 0.1 % of packets, where a
+    derotated symbol's last bits may tip a near-tie path metric.  Returns
+    the decoder kernel's launch count in the kernel run."""
+    import torch
+    from qpsk_tpu_torch import rx_init, rx_stream, tx_init, tx_stream
+    from qpsk_tpu_torch.channel import awgn_pcm
+    from qpsk_tpu_torch.metrics import evm, per, snr_estimate_db
+    from qpsk_tpu_torch.ops.cplx import CF32
+    from qpsk_tpu_torch.ops.cuda import costas_kernel as ck
+    from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
+    from qpsk_tpu_torch.ops.cuda import ldpc_kernel as lk
+    from qpsk_tpu_torch.ops.cuda import tx_kernel as tk
+    from qpsk_tpu_torch.ops.cuda import viterbi_kernel as vk
+    from qpsk_tpu_torch.ops.modmap import demod_soft
+    from qpsk_tpu_torch.packet import PacketConfig, assemble_packet
+    from qpsk_tpu_torch.sync import (default_max_lag,
+                                     extract_packets_soft_tracked,
+                                     find_sync_streams, rotate_soft)
+
+    pcfg = PacketConfig(payload_bytes=30, fec=kind)
+    (c, npkt), fb, mfb = CODED_PATH, pcfg.frame_bits, cfg.bits_per_frame
+    skip = 8 * fb      # the CLI's skip of the Costas transient (cli.py:167-174)
+    channels = sorted({round(i * (c - 1) / 63) for i in range(64)})
+    mods = {"frontend": fk, "costas": ck, "tx": tk, "viterbi": vk, "ldpc": lk}
+    decoder = "viterbi" if kind == "conv" else "ldpc"
+
+    def decode(llrs):
+        rows = torch.stack([rotate_soft(llrs, r) for r in range(4)])
+        sync = find_sync_streams(pcfg, rows, max_lag=default_max_lag(pcfg),
+                                 probe_frames=8, soft=True)
+        navail = (llrs.numel() - int(sync.bit_lag)) // fb
+        return sync, extract_packets_soft_tracked(pcfg, llrs, sync, navail)
+
+    for mod in mods.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(2025)
+    payload = torch.randint(0, 2, (c, npkt, 8 * pcfg.payload_bytes),
+                            generator=gen, device=dev, dtype=torch.int32)
+    chan = assemble_packet(pcfg, payload).reshape(c, -1)
+    # re-framed into whole modem frames, the tail padded with filler bits
+    nframes = -(-chan.shape[1] // mfb)
+    filler = torch.randint(0, 2, (c, nframes * mfb - chan.shape[1]),
+                           generator=gen, device=dev, dtype=torch.int32)
+    frames = torch.cat([chan, filler], dim=1).reshape(c, nframes, mfb)
+    _, clean = tx_stream(cfg, tx_init(cfg, (c,), device=dev), frames,
+                         tx_offset_hz=TX_OFFSET_HZ)
+    power = float(((clean.to(torch.float32) / cfg.pcm_scale) ** 2).mean())
+    pcm = awgn_pcm(gen, clean, CODED_SNR_DB, power, cfg.pcm_scale)
+    _, out = rx_stream(cfg, rx_init(cfg, (c,), device=dev), pcm)
+    llrs = demod_soft(out.symbols).reshape(c, -1)
+    results = [decode(llrs[ch, skip:]) for ch in channels]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {name: mod.launches for name, mod in mods.items()}
+    print(f"  fec={kind}: {c} channels x {npkt} packets = {nframes} frames, "
+          f"TX -> AWGN {CODED_SNR_DB} dB -> RX -> soft sync and tracked "
+          f"extraction on {len(channels)} channels in {seconds:.3f} s (host "
+          f"clock, first call); launches {counts}")
+    for name in ("frontend", "costas", "tx", decoder):
+        need(counts[name] > 0, f"the coded {kind} path never launched the {name} kernel")
+    need(bool(torch.isfinite(llrs).all()), "non-finite LLRs")
+    need(tuple(out.bits.shape) == (c, nframes, mfb), f"bits of shape {tuple(out.bits.shape)}")
+
+    with plain_decoders():
+        plain = [decode(llrs[ch, skip:]) for ch in channels]
+    # the plain modem path on the same PCM, its LLRs through the kernels
+    plain_sym, _, _ = check_path(cfg, frames, clean, pcm, out, dev,
+                                 f"C={c} fec={kind}", errs)
+    plain_llrs = demod_soft(plain_sym).reshape(c, -1)
+    print(f"  fec={kind}: plain path LLRs max diff "
+          f"{max_abs(plain_llrs, llrs):.3g} from the kernel path's")
+    plain_path = [decode(plain_llrs[ch, skip:]) for ch in channels]
+
+    def differ(ch, a, b, what):
+        found = torch.nonzero(a.crc_ok != b.crc_ok).flatten().tolist()
+        for i in found:
+            print(f"    channel {ch} packet {i}: CRC {bool(a.crc_ok[i])}, "
+                  f"{what} {bool(b.crc_ok[i])}")
+        return [(ch, i) for i in found]
+
+    synced = full = nok = 0
+    diffs, path_diffs, offsets, verdicts = [], [], [], []
+    for ch, (ks, krx), (ps, prx), (qs, qrx) in zip(channels, results, plain,
+                                                   plain_path):
+        key = (int(ks.rotation), int(ks.bit_lag), int(ks.score))
+        need(key == (int(ps.rotation), int(ps.bit_lag), int(ps.score)),
+             f"channel {ch}: the kernel and plain decoders sync differently")
+        need(key[:2] == (int(qs.rotation), int(qs.bit_lag)),
+             f"channel {ch}: the kernel and plain modem paths sync differently")
+        if kind == "conv":
+            need(all(torch.equal(a, b) for a, b in zip(krx, prx)),
+                 f"channel {ch}: the kernel and plain Viterbi pass different "
+                 "packets or payloads")
+        else:
+            diffs += differ(ch, krx, prx, "plain decoder")
+        path_diffs += differ(ch, krx, qrx, "plain modem path")
+        nok += check_payloads(krx, payload[ch], ch)
+        check_payloads(prx, payload[ch], ch)
+        check_payloads(qrx, payload[ch], ch)
+        synced += key[2] > 0
+        full += key[2] == 8
+        verdicts.append(krx.crc_ok)
+        offsets.append(float(out.freq_hz[ch, nframes // 2:].mean()))
+    npk = sum(v.numel() for v in verdicts)
+    need(len(diffs) <= 0.001 * npk,
+         f"the kernel and plain LDPC decoders differ on {len(diffs)} of {npk} packets")
+    need(len(path_diffs) <= 0.001 * npk, f"the kernel and plain modem paths "
+         f"differ on {len(path_diffs)} of {npk} packets")
+    mean_offset = sum(offsets) / len(offsets)
+    # link quality of the sampled channels past the Costas transient
+    post = CF32(*(p[channels, 8:].reshape(len(channels), -1)
+                  for p in out.symbols))
+    print(f"  fec={kind}: {synced}/{len(channels)} channels synced ({full} at "
+          f"8/8), {nok}/{npk} packets pass CRC, PER "
+          f"{float(per(torch.cat(verdicts))):.5f}, all {nok} bit-exact; kernel "
+          f"and plain decoders sync alike, {len(diffs)} CRC verdicts differ; "
+          f"kernel and plain modem paths sync alike, {len(path_diffs)} CRC "
+          f"verdicts differ; "
+          f"detected offset {mean_offset:.4f} Hz (per channel "
+          f"{min(offsets):.3f}..{max(offsets):.3f}); EVM "
+          f"{float(evm(post).evm_rms.mean()):.4f}, estimated SNR "
+          f"{float(snr_estimate_db(post).mean()):.3f} dB")
+    need(abs(mean_offset - TX_OFFSET_HZ) <= 2.0, f"detected offset {mean_offset} Hz")
+    # a loose floor against gross failure: the JAX package measured a PER
+    # of about 0.1 at 6 dB for both codes (docs/per_vs_snr_coded.jsonl,
+    # docs/per_vs_snr_ldpc.jsonl)
+    need(nok >= npk // 2, f"only {nok} of {npk} coded packets pass CRC")
+    return counts[decoder]
+
+
+def rx_step(cfg, dev, pcm, path: str, kind: str | None = None):
+    """One receive call on ``pcm`` (C, F, 512), state chained from call to
+    call, through the kernels (``path="kernel"``) or the plain versions:
+    ``rx_stream``'s chain, and with a code ``kind`` also soft LLRs with
+    every demodulated bit deframed and decoded (the shape of
+    ``benchmarks.coded_rx_throughput``).  Returns (step, packets per
+    call); inside ``plain_decoders()`` the plain path decodes plain."""
+    import torch
+    from qpsk_tpu_torch import rx_init
+    from qpsk_tpu_torch.modem import _rx_stream_tm
+    from qpsk_tpu_torch.ops.cplx import CF32
+    from qpsk_tpu_torch.ops.cuda import costas_kernel as ck
+    from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
+    from qpsk_tpu_torch.ops.modmap import demod_soft
+    from qpsk_tpu_torch.packet import PacketConfig, disassemble_packet_soft
+
+    c, nframes = pcm.shape[:2]
+    frontend, costas = ((fk.rx_frontend_tm, ck.costas_run_tm) if path == "kernel"
+                        else (fk.rx_frontend_tm_plain, ck.costas_run_tm_plain))
+    state = [rx_init(cfg, (c,), device=dev)]
+    nbits = c * nframes * cfg.bits_per_frame
+    pcfg = PacketConfig(payload_bytes=30, fec=kind or False)
+    fb = pcfg.frame_bits
+    npkt = -(-nbits // fb) if kind else 0     # every demodulated bit decoded
+    pad = npkt * fb - nbits
+
+    def step():
+        state[0], out = _rx_stream_tm(cfg, state[0], pcm, frontend, costas)
+        if kind:
+            llr = demod_soft(CF32(out.symbols.re.reshape(-1),
+                                  out.symbols.im.reshape(-1)))
+            llr = torch.cat([llr, llr.new_zeros(pad)])
+            disassemble_packet_soft(pcfg, llr.reshape(npkt, fb))
+    return step, npkt
+
+
+def coded_rates(cfg, dev, errs: dict) -> dict:
+    """Phase 5c: the composed coded receive rate of the kernel and plain
+    paths per code, then each FEC kernel alone at 4096 packets beside its
+    plain version.  Returns {kernel: (kernel ms, plain ms)}."""
+    import torch
+
+    (c, nframes), iters = CODED_RATE_POINT, 10
+    nsamples = c * nframes * cfg.frame_size
+    pcm = noise_pcm(cfg, c, nframes, 13, dev)
+    for kind in ("conv", "ldpc"):
+        def run(path, n):
+            step, _ = rx_step(cfg, dev, pcm, path, kind)
+            if path == "kernel":
+                return cuda_time_ms(step, n)
+            with plain_decoders():
+                return cuda_time_ms(step, n, warmup=1)
+        npkt = rx_step(cfg, dev, pcm, "kernel", kind)[1]
+        p1, k1, k2, p2 = run("plain", 2), run("kernel", iters), \
+            run("kernel", iters), run("plain", 2)
+        print(f"  coded RX fec={kind} ({npkt} packets per call): kernel path "
+              f"{k1:.4f} / {k2:.4f} ms/call, {nsamples / min(k1, k2) * 1e3:.6g} "
+              f"samples/s; plain path {p1:.4f} / {p2:.4f} ms/call, "
+              f"{nsamples / min(p1, p2) * 1e3:.6g} samples/s")
+
+    times = {}
+    gen = torch.Generator(device=dev).manual_seed(17)
+    for kind, n in (("conv", 524), ("ldpc", 512)):
+        llrs = torch.randn((FEC_RATE_PACKETS, n), generator=gen, device=dev)
+        check_fec(kind, llrs, None, f"B={FEC_RATE_PACKETS} random LLRs", errs)
+        name, kern, plain = fec_decoders(kind)
+        p1 = cuda_time_ms(lambda: plain(llrs), 3)
+        k1 = cuda_time_ms(lambda: kern(llrs), 20)
+        k2 = cuda_time_ms(lambda: kern(llrs), 20)
+        p2 = cuda_time_ms(lambda: plain(llrs), 3)
+        times[name] = (min(k1, k2), min(p1, p2))
+        info = FEC_RATE_PACKETS * 256
+        print(f"  {name:8s} kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
+              f"{p2:.4f} ms at {FEC_RATE_PACKETS} packets: "
+              f"{info / times[name][0] * 1e3:.6g} vs {info / times[name][1] * 1e3:.6g} "
+              "info bits/s")
+    return times
+
+
+def profile(cfg, dev, steps: int = 5) -> None:
+    """``--profile``: a ``torch.profiler`` trace of ``steps`` kernel-path
+    receive calls after 3 warm-up calls, uncoded at the rate point and
+    coded at the composed coded point: per call, the device operations
+    launched, the device's busy time (the union of their intervals)
+    beside the host's wall time under the profiler, and the operations
+    that take the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as trace
+
+    for kind, (c, nframes) in ((None, RATE_POINT), ("conv", CODED_RATE_POINT),
+                               ("ldpc", CODED_RATE_POINT)):
+        step, _ = rx_step(cfg, dev, noise_pcm(cfg, c, nframes, 13, dev),
+                          "kernel", kind)
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        ops = sorted((e.time_range.start, e.time_range.end, e.name)
+                     for e in prof.events() if e.device_type == DeviceType.CUDA)
+        need(ops, "the profiler saw no device operation")
+        busy, reach, by_name = 0.0, ops[0][0], {}
+        for start, end, name in ops:
+            busy += max(0.0, end - max(start, reach))
+            reach = max(reach, end)
+            by_name[name] = by_name.get(name, 0.0) + end - start
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        print(f"  {kind or 'uncoded'} RX at {c} x {nframes}: {len(ops) / steps:.1f} "
+              f"device ops per call, device busy {busy / steps / 1e3:.4f} ms of "
+              f"{wall_us / steps / 1e3:.4f} ms wall per call (idle share "
+              f"{1 - busy / wall_us:.3f}); most device time: "
+              + "; ".join(f"{n[:48]} {t / steps / 1e3:.4f} ms" for n, t in top))
 
 
 def main() -> int:
@@ -471,7 +880,13 @@ def main() -> int:
             print("  " + line.strip())
 
     cfg, pcfg = ModemConfig(), PacketConfig(payload_bytes=30)
-    errs = {"frontend": 0.0, "costas": 0.0, "tx": 0.0}
+    if "--profile" in sys.argv[1:]:
+        print("profile: kernel-path receive calls under torch.profiler")
+        profile(cfg, dev)
+        print(smi)
+        return 0
+    errs = {"frontend": 0.0, "costas": 0.0, "tx": 0.0, "viterbi": 0.0,
+            "ldpc": 0.0}
     print("phase 2: kernels against their plain versions")
     compare_kernels(cfg, pcfg, dev, errs)
     print("phase 3: main path at full width")
@@ -480,13 +895,24 @@ def main() -> int:
     print(f"  before: {CLOCKS} = {nvidia_smi_line(CLOCKS)}")
     times = rates(cfg, dev, errs)
     print(f"  after:  {CLOCKS} = {nvidia_smi_line(CLOCKS)}")
+    print("phase 5: the coded link")
+    compare_fec(dev, errs)
+    for kind, name in (("conv", "viterbi"), ("ldpc", "ldpc")):
+        counts[name] = coded_loopback(cfg, kind, dev, errs)
+    print(f"  before: {CLOCKS} = {nvidia_smi_line(CLOCKS)}")
+    times.update(coded_rates(cfg, dev, errs))
+    print(f"  after:  {CLOCKS} = {nvidia_smi_line(CLOCKS)}")
 
     sources = {"frontend": ("qpsk_tpu_torch/csrc/frontend.cu",
                             "qpsk_tpu/ops/pallas/frontend_kernel.py:545"),
                "costas": ("qpsk_tpu_torch/csrc/costas.cu",
                           "qpsk_tpu/ops/pallas/costas_kernel.py:373"),
                "tx": ("qpsk_tpu_torch/csrc/tx.cu",
-                      "qpsk_tpu/ops/pallas/tx_kernel.py:145")}
+                      "qpsk_tpu/ops/pallas/tx_kernel.py:145"),
+               "viterbi": ("qpsk_tpu_torch/csrc/viterbi.cu",
+                           "qpsk_tpu/ops/pallas/viterbi_kernel.py:151+166"),
+               "ldpc": ("qpsk_tpu_torch/csrc/ldpc.cu",
+                        "qpsk_tpu/ops/pallas/ldpc_kernel.py:116")}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": counts[name], "max_abs_err": errs[name],
                 "ms": times[name][0], "plain_ms": times[name][1]}

@@ -2,9 +2,10 @@
 kernels for NVIDIA Hopper (sm_90a).
 
 A port of ``qpsk_tpu`` (JAX on a TPU), which stays the reference.  This
-package covers the uncoded QPSK link at the default ``ModemConfig``:
-packets -> ``tx_stream`` -> int16 PCM -> ``rx_stream`` -> sync -> packets.
-It imports torch and numpy, never jax.
+package covers the QPSK link at the default ``ModemConfig``: packets ->
+``tx_stream`` -> int16 PCM -> ``rx_stream`` -> sync -> packets, uncoded or
+coded (``PacketConfig(fec="conv" | "ldpc")``, soft sync and the tracked
+soft extractor).  It imports torch and numpy, never jax.
 """
 
 from qpsk_tpu_torch.config import ModemConfig, config_2400

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 The sources in ``qpsk_tpu_torch/csrc/*.cu`` are compiled by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, loaded with
+``sm_90a``, one compiler process per source running in parallel, and
+linked into one shared library with a plain C interface, loaded with
 ``ctypes``.  The library is built at first use into the git-ignored
 ``qpsk_tpu_torch/_build/`` directory, under a name keyed on a hash of the
 sources and flags, so an edited source is rebuilt and a fresh checkout
@@ -23,14 +24,18 @@ import torch
 _PKG = pathlib.Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = _ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                      "-Xptxas", "-v")
+LINK_FLAGS = _ARCH + ("-shared",)
 
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
     "qpsk_frontend_tm": [_P] * 11 + [_I, _I, _P, _P, _D, _F, _F, _P],
     "qpsk_costas_tm": [_P] * 10 + [_I, _I, _I, _F, _F, _F, _F, _P],
     "qpsk_tx": [_P] * 7 + [_I, _I, _P, _D, _F, _F, _P],
+    "qpsk_viterbi": [_P] * 4 + [_I, _I, _I, _P],
+    "qpsk_ldpc": [_P] * 4 + [_I] * 7 + [_F, _P],
 }
 
 
@@ -47,10 +52,11 @@ def _nvcc() -> str:
 
 
 def build() -> tuple[pathlib.Path, str]:
-    """Compile the kernels if this set of sources has not been built yet.
+    """Compile the kernels if this set of sources has not been built yet:
+    one ``nvcc -c`` per source, all started together, then one link.
     Returns (library path, compiler output; empty if it was built before)."""
     sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sources:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -58,13 +64,30 @@ def build() -> tuple[pathlib.Path, str]:
     if lib.exists():
         return lib, ""
     BUILD_DIR.mkdir(exist_ok=True)
+    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}-{tag}.o" for src in sources]
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           *map(str, sources)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    nvcc = _nvcc()
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for src, obj in zip(sources, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    try:
+        failed = [f"{src.name} ({p.returncode}):\n{log}"
+                  for src, p, log in zip(sources, procs, logs) if p.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        link = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp),
+                               *map(str, objs)], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
+    return lib, "".join(logs)
 
 
 @functools.lru_cache(maxsize=None)

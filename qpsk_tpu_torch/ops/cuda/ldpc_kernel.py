@@ -1,0 +1,135 @@
+"""LDPC min-sum kernel wrapper (port of
+``qpsk_tpu/ops/pallas/ldpc_kernel.py``, ``ldpc_decode_pallas``).
+
+``ldpc_decode`` decodes (..., n) LLRs to (..., k) bits with normalized
+min-sum over the code's compact index tables (``packet/ldpc.py``,
+``_index_tables``).  On a CUDA tensor it launches ``csrc/ldpc.cu`` (one
+block per packet, one thread per check); on a CPU tensor it runs
+``ldpc_decode_plain``, the JAX XLA lowering's semantics in PyTorch:
+``code.iters`` flooding iterations, first-wins argmin, normalization
+``code.alpha``, posterior ``total[:k] < 0``, float32 throughout.  Both sum
+a variable's incoming messages in the same fixed order (ascending slot
+index, then the channel LLR), where the JAX package's matmuls leave the
+order to the BLAS; the contract against the JAX package is its own:
+>= 99.9 % bit agreement and equal frame errors.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import torch
+
+from qpsk_tpu_torch.ops.cuda import _lib
+from qpsk_tpu_torch.packet.ldpc import LdpcCode, _index_tables
+
+# Kernel launches since the last reset (set to 0 to start a count).
+launches = 0
+
+_BIG = 1e30
+# the kernel's register arrays hold this many slots of a check
+_KERNEL_DMAX = 8
+
+
+def _iters(code: LdpcCode, llrs: torch.Tensor, iters) -> int:
+    if llrs.shape[-1] != code.n:
+        raise ValueError(f"{llrs.shape[-1]} LLRs per packet, expected {code.n}")
+    its = code.iters if iters is None else iters
+    if its < 1:
+        raise ValueError(f"min-sum needs at least one iteration, got {its}")
+    return its
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(code: LdpcCode, device: torch.device):
+    """(check_var (dmax, m), var_edges (n, vmax)) int32 on ``device``."""
+    check_var, var_edges = _index_tables(code.k, code.dv, code.seed)
+    return (torch.from_numpy(check_var).to(device),
+            torch.from_numpy(var_edges).to(device))
+
+
+def ldpc_decode(code: LdpcCode, llrs: torch.Tensor,
+                iters: int | None = None) -> torch.Tensor:
+    """(..., n) LLRs (positive = bit 0) -> (..., k) int32 bits."""
+    if llrs.is_cuda:
+        return _launch(code, llrs, iters)
+    return ldpc_decode_plain(code, llrs, iters)
+
+
+def ldpc_decode_plain(code: LdpcCode, llrs: torch.Tensor,
+                      iters: int | None = None) -> torch.Tensor:
+    """The plain PyTorch version of ``ldpc_decode``: messages in a
+    (..., dmax, m) block, index gathers in place of the JAX package's
+    one-hot matmuls."""
+    its = _iters(code, llrs, iters)
+    check_var, var_edges = _tables(code, llrs.device)
+    dmax, m = check_var.shape
+    llrs = llrs.to(torch.float32)
+    batch = tuple(llrs.shape[:-1])
+    valid = check_var >= 0
+    validf = valid.to(torch.float32)
+    gidx = check_var.clamp(min=0).reshape(-1).to(torch.int64)
+    # padded edges read a zero appended after the dmax*m messages
+    eidx = torch.where(var_edges >= 0, var_edges, dmax * m).to(torch.int64)
+    slot = torch.arange(dmax, device=llrs.device)[:, None]
+    zero = torch.zeros(batch + (1,), dtype=torch.float32, device=llrs.device)
+
+    def gather(total):
+        """(..., n) variable totals -> (..., dmax, m) per-edge values."""
+        g = total[..., gidx].reshape(batch + (dmax, m))
+        return torch.where(valid, g, 0.0)
+
+    def totals(e):
+        """The channel LLR plus each variable's incoming messages, summed
+        in edge-list order."""
+        flat = torch.cat([e.reshape(batch + (dmax * m,)), zero], dim=-1)
+        g = flat[..., eidx]                              # (..., n, vmax)
+        s = g[..., 0]
+        for j in range(1, g.shape[-1]):
+            s = s + g[..., j]
+        return llrs + s
+
+    def check_update(mm):
+        """Check-node min-sum: var->check to check->var messages."""
+        amag = torch.where(valid, mm.abs(), _BIG)
+        am = torch.argmin(amag, dim=-2, keepdim=True)   # first wins
+        m1 = amag.amin(dim=-2, keepdim=True)
+        m2 = torch.where(slot == am, _BIG, amag).amin(dim=-2, keepdim=True)
+        neg = ((mm < 0) & valid).sum(dim=-2, keepdim=True) % 2
+        srow = 1.0 - 2.0 * neg.to(torch.float32)
+        sj = torch.where(mm < 0, -1.0, 1.0)
+        mag = torch.where(slot == am, m2, m1)
+        return code.alpha * srow * sj * mag * validf
+
+    mm = gather(llrs)
+    for _ in range(its - 1):
+        e = check_update(mm)
+        mm = gather(totals(e)) - e
+    total = totals(check_update(mm))
+    return (total[..., :code.k] < 0).to(torch.int32)
+
+
+def _launch(code: LdpcCode, llrs: torch.Tensor, iters) -> torch.Tensor:
+    global launches
+    its = _iters(code, llrs, iters)
+    dev = llrs.device
+    check_var, var_edges = _tables(code, dev)
+    dmax, m = check_var.shape
+    if dmax > _KERNEL_DMAX or m > 1024:
+        raise NotImplementedError(
+            f"the LDPC kernel takes check degrees <= {_KERNEL_DMAX} and "
+            f"m <= 1024 checks, got dmax={dmax}, m={m}")
+    batch = tuple(llrs.shape[:-1])
+    b = math.prod(batch)
+    flat = llrs.to(torch.float32).reshape(b, code.n).contiguous()
+    out = torch.empty((b, code.k), dtype=torch.int32, device=dev)
+    if b == 0:
+        return out.reshape(batch + (code.k,))
+    rc = _lib.library().qpsk_ldpc(
+        flat.data_ptr(), check_var.data_ptr(), var_edges.data_ptr(),
+        out.data_ptr(), b, m, code.n, code.k, dmax, var_edges.shape[1], its,
+        code.alpha, _lib.stream_ptr(dev))
+    _lib.check(rc, "qpsk_ldpc")
+    launches += 1
+    return out.reshape(batch + (code.k,))

@@ -1,0 +1,118 @@
+"""Soft-decision Viterbi kernel wrapper (port of
+``qpsk_tpu/ops/pallas/viterbi_kernel.py``, ``viterbi_decode_pallas``).
+
+``viterbi_decode`` decodes (..., rd*(nbits+K-1)) LLRs to (..., nbits)
+bits.  On a CUDA tensor it launches ``csrc/viterbi.cu`` (the K=7 rate-1/2
+code, one warp per packet); on a CPU tensor it runs
+``viterbi_decode_plain``, the JAX package's scan twin
+(``packet/fec.py``) in PyTorch with the same op order: path metrics start
+at -1e9 with 0 in state 0, ``bm = 0.5*(sgn0*l0 + sgn1*l1)``, gather-free
+predecessors ``p*32 + (s'>>1)``, decisions ``c1 > c0``, the metrics
+renormalized by their maximum after every step, traceback from state 0.
+Every operation rounds once in both, so the kernel and the plain version
+decode bit-identically, hard-LLR ties included.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+from qpsk_tpu_torch.ops.cuda import _lib
+from qpsk_tpu_torch.packet.fec import ConvCode, _trellis
+
+# Kernel launches since the last reset (set to 0 to start a count).
+launches = 0
+
+
+def _nsteps(code: ConvCode, llrs: torch.Tensor, nbits: int) -> int:
+    nsteps = nbits + code.constraint - 1
+    if nbits < 1 or llrs.shape[-1] != code.rate_den * nsteps:
+        raise ValueError(
+            f"{llrs.shape[-1]} LLRs per packet for {nbits} bits, expected "
+            f"{code.rate_den * nsteps}")
+    return nsteps
+
+
+def viterbi_decode(code: ConvCode, llrs: torch.Tensor,
+                   nbits: int) -> torch.Tensor:
+    """(..., rd*(nbits+K-1)) LLRs (positive = bit 0) -> (..., nbits) int32
+    bits."""
+    if llrs.is_cuda:
+        return _launch(code, llrs, nbits)
+    return viterbi_decode_plain(code, llrs, nbits)
+
+
+def viterbi_decode_plain(code: ConvCode, llrs: torch.Tensor,
+                         nbits: int) -> torch.Tensor:
+    """The plain PyTorch version of ``viterbi_decode``: one ACS step per
+    trellis step over the (..., 2, S) candidate grid, decisions kept as a
+    (T, ..., S) bool tensor, then the traceback."""
+    k, s_count, rd = code.constraint, code.nstates, code.rate_den
+    nsteps = _nsteps(code, llrs, nbits)
+    dev = llrs.device
+    _, sgns_np = _trellis(code)
+    # (rd, 2, S): branch-metric signs with the predecessor choice p leading
+    sgns = torch.from_numpy(np.ascontiguousarray(
+        np.moveaxis(sgns_np, -1, 1))).to(dev)
+    batch = tuple(llrs.shape[:-1])
+    ll = llrs.to(torch.float32).reshape(batch + (nsteps, rd)).movedim(-2, 0)
+
+    pm = torch.full(batch + (s_count,), -1e9, dtype=torch.float32, device=dev)
+    pm[..., 0] = 0.0
+    decisions = torch.empty((nsteps,) + batch + (s_count,), dtype=torch.bool,
+                            device=dev)
+    for t in range(nsteps):
+        l = ll[t]
+        bm = 0.5 * sum(sgns[j] * l[..., j:j + 1, None] for j in range(rd))
+        # pred(s', p) = p*(S/2) + (s' >> 1): each half of pm, every element
+        # repeated twice
+        pred = pm.reshape(batch + (2, s_count // 2)).repeat_interleave(2, -1)
+        cand = pred + bm
+        decisions[t] = cand[..., 1, :] > cand[..., 0, :]
+        pm = torch.maximum(cand[..., 0, :], cand[..., 1, :])
+        pm = pm - pm.amax(dim=-1, keepdim=True)
+
+    # traceback from state 0 (tail-terminated), newest decision first
+    s = torch.zeros(batch + (1,), dtype=torch.int64, device=dev)
+    us = torch.empty((nsteps,) + batch, dtype=torch.int32, device=dev)
+    for t in range(nsteps - 1, -1, -1):
+        us[t] = (s & 1)[..., 0]
+        won = torch.gather(decisions[t], -1, s).to(torch.int64)
+        s = (s >> 1) | (won << (k - 2))
+    return us.movedim(0, -1)[..., :nbits].contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _sign_table(code: ConvCode, device: torch.device) -> torch.Tensor:
+    """(rd, S, 2) branch-metric signs on ``device``, the kernel's table."""
+    _, sgns_np = _trellis(code)
+    return torch.from_numpy(np.ascontiguousarray(sgns_np)).to(device)
+
+
+def _launch(code: ConvCode, llrs: torch.Tensor, nbits: int) -> torch.Tensor:
+    global launches
+    if (code.constraint, code.rate_den) != (7, 2):
+        raise NotImplementedError(
+            f"the Viterbi kernel is built for K=7 rate-1/2 codes, got "
+            f"constraint={code.constraint}, {code.rate_den} polys")
+    nsteps = _nsteps(code, llrs, nbits)
+    dev = llrs.device
+    batch = tuple(llrs.shape[:-1])
+    b = math.prod(batch)
+    flat = llrs.to(torch.float32).reshape(b, 2 * nsteps).contiguous()
+    out = torch.empty((b, nbits), dtype=torch.int32, device=dev)
+    if b == 0:
+        return out.reshape(batch + (nbits,))
+    sgn = _sign_table(code, dev)
+    # one 64-bit word of decisions per trellis step and packet
+    dec = torch.empty((b, nsteps, 2), dtype=torch.int32, device=dev)
+    rc = _lib.library().qpsk_viterbi(
+        flat.data_ptr(), sgn.data_ptr(), dec.data_ptr(), out.data_ptr(), b,
+        nsteps, nbits, _lib.stream_ptr(dev))
+    _lib.check(rc, "qpsk_viterbi")
+    launches += 1
+    return out.reshape(batch + (nbits,))

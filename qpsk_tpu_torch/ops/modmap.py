@@ -30,6 +30,14 @@ def demod_bits(symbols: CF32) -> torch.Tensor:
     return bits.to(torch.int32).reshape(symbols.shape[:-1] + (-1,))
 
 
+def demod_soft(symbols: CF32, scale: float = 1.0) -> torch.Tensor:
+    """Soft twin of ``demod_bits``: LLRs (..., 2n), positive = bit 0,
+    aligned with the hard bits: ``llr(b1) = scale*im``, ``llr(b0) =
+    scale*re``.  Max-sum decoding is invariant to positive scaling."""
+    llr = torch.stack([symbols.im, symbols.re], dim=-1) * scale
+    return llr.reshape(symbols.shape[:-1] + (-1,))
+
+
 def upsample_zero_stuff(symbols: CF32, cycles: int) -> CF32:
     """Zero-stuff by ``cycles``: each symbol lands on phase 0 of its group."""
     def one(plane):

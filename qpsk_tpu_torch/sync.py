@@ -1,12 +1,16 @@
-"""Frame sync for the uncoded QPSK link (port of ``qpsk_tpu.sync``: hard
-decisions, no FEC).
+"""Frame sync for the QPSK link, hard and soft (port of ``qpsk_tpu.sync``
+for QPSK).
 
 The Costas loop locks with a 4-fold (90 degree) ambiguity, and the RX bit
 stream is offset from packet boundaries by the FIR group delays, the
 decimator's one-frame delay and the timing index.  ``find_sync`` scores
-every (rotation x even bit lag) hypothesis by CRC passes over a probe window
-in one batched evaluation; ``extract_packets`` slices the aligned stream
-into packets.
+every (rotation x even bit lag) hypothesis over a probe window in one
+batched evaluation: by CRC passes (uncoded, or conv-coded after a Viterbi
+decode of every hypothesis), or for LDPC by the decode-free syndrome
+weight.  ``extract_packets`` slices the aligned stream into packets; the
+tracked extractors decode every rotation (and lag-shift) hypothesis of
+every packet and walk a track on the host, so a carrier cycle slip costs
+at most the packet it lands in.
 """
 
 from __future__ import annotations
@@ -17,7 +21,9 @@ import numpy as np
 import torch
 
 from qpsk_tpu_torch.packet.frame import (PacketConfig, RxPacket,
-                                         disassemble_packet)
+                                         disassemble_packet,
+                                         disassemble_packet_soft, unwrap_bits)
+from qpsk_tpu_torch.packet.ldpc import ldpc_syndrome_weight
 
 # One 90 degree CCW rotation permutes sliced dibit indices 0->1->3->2->0;
 # _ROT_POW[r] is the permutation for r steps.
@@ -29,7 +35,7 @@ _ROT_POW = np.stack([np.arange(4, dtype=np.int64), _ROT_STEP,
 class SyncResult(NamedTuple):
     rotation: torch.Tensor   # int64 scalar, 90 degree steps
     bit_lag: torch.Tensor    # int64 scalar, bits into the stream
-    score: torch.Tensor      # int64: CRC passes among probe frames
+    score: torch.Tensor      # int64: probe frames that pass
 
 
 def default_max_lag(pcfg: PacketConfig) -> int:
@@ -46,9 +52,22 @@ def rotate_dibits(bits: torch.Tensor, r) -> torch.Tensor:
     return torch.stack([(m2 >> 1) & 1, m2 & 1], dim=-1).reshape(bits.shape)
 
 
+def rotate_soft(llrs: torch.Tensor, r) -> torch.Tensor:
+    """Soft twin of ``rotate_dibits``: one 90 degree CCW step maps the
+    per-symbol LLR pair (l1, l0) = (im, re) to (l0, -l1).  ``r`` is an int
+    or an integer scalar tensor."""
+    pairs = llrs.to(torch.float32).reshape(llrs.shape[:-1] + (-1, 2))
+    a, b = pairs[..., 0], pairs[..., 1]
+    cands = []
+    for _ in range(4):
+        cands.append(torch.stack([a, b], dim=-1))
+        a, b = b, -a
+    return torch.stack(cands)[r].reshape(llrs.shape)
+
+
 def find_sync(pcfg: PacketConfig, bits: torch.Tensor, max_lag: int = 512,
               probe_frames: int = 4) -> SyncResult:
-    """The (rotation, even bit lag) with the most CRC passes over
+    """The (rotation, even bit lag) with the most passing packets over
     ``probe_frames`` consecutive packets of the 1-D ``bits`` stream.  A
     score of 0 means no sync."""
     if bits.dim() != 1:
@@ -59,9 +78,13 @@ def find_sync(pcfg: PacketConfig, bits: torch.Tensor, max_lag: int = 512,
 
 
 def find_sync_streams(pcfg: PacketConfig, streams: torch.Tensor,
-                      max_lag: int = 512, probe_frames: int = 4) -> SyncResult:
+                      max_lag: int = 512, probe_frames: int = 4,
+                      soft: bool = False) -> SyncResult:
     """``find_sync`` over pre-rotated streams (R, n), one row per rotation
-    hypothesis; lags are even, since QPSK packet grids are dibit-aligned."""
+    hypothesis: hard bits, or with ``soft`` the LLR streams of
+    ``rotate_soft``.  Soft conv-coded probes are decoded soft; LDPC probes
+    are scored by syndrome weight on the LLR signs (a frame passes below
+    0.35*m violated checks)."""
     fb = pcfg.frame_bits
     nrot = streams.shape[0]
     avail = int(streams.shape[-1]) - probe_frames * fb
@@ -75,7 +98,17 @@ def find_sync_streams(pcfg: PacketConfig, streams: torch.Tensor,
     window = torch.arange(probe_frames * fb, device=dev)
     cand = streams[:, lags[:, None] + window[None, :]]          # (R, L, W)
     frames = cand.reshape(nrot, lags.shape[0], probe_frames, fb)
-    score = disassemble_packet(pcfg, frames).crc_ok.sum(-1)     # (R, L)
+    if pcfg.fec_kind == "ldpc":
+        if soft:
+            frames = (frames < 0).to(torch.int32)    # LLR signs -> bits
+        code = pcfg.ldpc_code()
+        syn = ldpc_syndrome_weight(code, unwrap_bits(pcfg, frames))
+        ok = syn < int(0.35 * code.m)                           # (R, L, P)
+    elif soft:
+        ok = disassemble_packet_soft(pcfg, frames).crc_ok
+    else:
+        ok = disassemble_packet(pcfg, frames).crc_ok
+    score = ok.sum(-1)                                          # (R, L)
     flat = torch.argmax(score.reshape(-1))
     return SyncResult(rotation=flat // lags.shape[0],
                       bit_lag=lags[flat % lags.shape[0]],
@@ -90,3 +123,110 @@ def extract_packets(pcfg: PacketConfig, bits: torch.Tensor,
     idx = sync.bit_lag + torch.arange(nframes * fb, device=bits.device)
     aligned = rotate_dibits(bits[idx], sync.rotation)
     return disassemble_packet(pcfg, aligned.reshape(nframes, fb))
+
+
+def extract_packets_soft(pcfg: PacketConfig, llrs: torch.Tensor,
+                         sync: SyncResult, nframes: int) -> RxPacket:
+    """Soft twin of ``extract_packets`` over a 1-D LLR stream
+    (``modmap.demod_soft`` of the derotated symbols, aligned with the hard
+    bit stream)."""
+    fb = pcfg.frame_bits
+    idx = sync.bit_lag + torch.arange(nframes * fb, device=llrs.device)
+    aligned = rotate_soft(llrs[idx], sync.rotation)
+    return disassemble_packet_soft(pcfg, aligned.reshape(nframes, fb))
+
+
+class TrackedPackets(NamedTuple):
+    payload_bits: torch.Tensor  # (nframes, 8*payload_bytes)
+    crc_ok: torch.Tensor        # (nframes,) bool
+    rotation: torch.Tensor      # (nframes,) int32, rotation used per packet
+    shift: torch.Tensor         # (nframes,) int32, bit-lag shift used
+
+
+def walk_step(ok_j: np.ndarray, shifts: np.ndarray, cur_r: int,
+              cur_s: int, max_step: int = 2) -> tuple[bool, int, int]:
+    """One packet's hypothesis walk: keep the tracked (rotation,
+    shift-index) if it passes CRC, else try shifts ordered by distance
+    from the track (at most ``max_step`` bits away), any rotation.
+    ``ok_j`` is the (n_rot, S) verdict grid of this packet.  Returns
+    (good, rotation, shift_index); on failure the track is unchanged."""
+    if ok_j[cur_r, cur_s]:
+        return True, cur_r, cur_s
+    for si in sorted(range(len(shifts)),
+                     key=lambda k: (abs(shifts[k] - shifts[cur_s]), k)):
+        if abs(shifts[si] - shifts[cur_s]) > max_step:
+            continue
+        passing = np.flatnonzero(ok_j[:, si])
+        if passing.size:
+            return True, int(passing[0]), si
+    return False, cur_r, cur_s
+
+
+def _track_hypotheses(rx: RxPacket, start_rot: int, shifts: np.ndarray,
+                      max_step: int = 2) -> TrackedPackets:
+    """Walk the (rotation x lag-shift) track over all-hypothesis verdicts
+    (n_rot, S, nframes) on the host: a passing hypothesis wins and moves
+    the track, a failed packet decodes at the track."""
+    ok = rx.crc_ok.cpu().numpy()                    # (R, S, nframes)
+    payloads = rx.payload_bits.cpu().numpy()        # (R, S, nframes, bits)
+    nframes = ok.shape[2]
+    cur_r, cur_s = start_rot, int(np.flatnonzero(shifts == 0)[0])
+    rot_used = np.zeros(nframes, np.int32)
+    shift_used = np.zeros(nframes, np.int32)
+    out_ok = np.zeros(nframes, bool)
+    out_payload = np.zeros((nframes, payloads.shape[-1]), payloads.dtype)
+    for j in range(nframes):
+        good, r, s = walk_step(ok[:, :, j], shifts, cur_r, cur_s, max_step)
+        out_ok[j] = good
+        if good:
+            cur_r, cur_s = r, s
+        rot_used[j] = r
+        shift_used[j] = shifts[s]
+        out_payload[j] = payloads[r, s, j]
+    dev = rx.crc_ok.device
+    return TrackedPackets(*(torch.from_numpy(x).to(dev) for x in
+                            (out_payload, out_ok, rot_used, shift_used)))
+
+
+def _shift_set(max_slip: int, bps: int = 2) -> np.ndarray:
+    """Symbol-granular bit-lag shifts covering +-max_slip symbol slips."""
+    return np.arange(-bps * max_slip, bps * max_slip + 1, bps, dtype=np.int32)
+
+
+def _tracked_from_streams(pcfg: PacketConfig, streams: torch.Tensor,
+                          sync: SyncResult, nframes: int, shifts: np.ndarray,
+                          soft: bool) -> TrackedPackets:
+    """Gather every (rotation x lag-shift) hypothesis span of the
+    per-rotation streams (R, n), disassemble all of them in one batched
+    pass, then walk the CRC track."""
+    fb = pcfg.frame_bits
+    dev = streams.device
+    base = sync.bit_lag + torch.arange(nframes * fb, device=dev)
+    idx = torch.clamp(base[None, :] + torch.from_numpy(shifts).to(dev)[:, None],
+                      0, streams.shape[-1] - 1)             # (S, nframes*fb)
+    cand = streams[:, idx].reshape(streams.shape[0], len(shifts), nframes, fb)
+    rx = (disassemble_packet_soft(pcfg, cand) if soft
+          else disassemble_packet(pcfg, cand))
+    return _track_hypotheses(rx, int(sync.rotation), shifts, max_step=2)
+
+
+def extract_packets_tracked(pcfg: PacketConfig, bits: torch.Tensor,
+                            sync: SyncResult, nframes: int,
+                            max_slip: int = 0) -> TrackedPackets:
+    """``extract_packets`` that recovers from carrier cycle slips (every
+    packet is decoded under all four rotations) and, with ``max_slip`` >
+    0, from symbol slips of up to ``max_slip`` symbols (lag shifts of
+    +-2 bits per symbol; leave that many bits of headroom at the end)."""
+    streams = torch.stack([rotate_dibits(bits, r) for r in range(4)])
+    return _tracked_from_streams(pcfg, streams, sync, nframes,
+                                 _shift_set(max_slip), soft=False)
+
+
+def extract_packets_soft_tracked(pcfg: PacketConfig, llrs: torch.Tensor,
+                                 sync: SyncResult, nframes: int,
+                                 max_slip: int = 0) -> TrackedPackets:
+    """Soft twin of ``extract_packets_tracked`` over a 1-D LLR stream: the
+    robust low-SNR path, where FEC operates and cycle slips are routine."""
+    streams = torch.stack([rotate_soft(llrs, r) for r in range(4)])
+    return _tracked_from_streams(pcfg, streams, sync, nframes,
+                                 _shift_set(max_slip), soft=True)

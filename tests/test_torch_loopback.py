@@ -106,6 +106,8 @@ def test_package_imports_no_jax():
             "before = set(sys.modules)\n"
             "import qpsk_tpu_torch, qpsk_tpu_torch.sync, qpsk_tpu_torch.channel\n"
             "import qpsk_tpu_torch.packet, qpsk_tpu_torch.ops.cuda._lib\n"
+            "import qpsk_tpu_torch.metrics, qpsk_tpu_torch.ops.cuda.viterbi_kernel\n"
+            "import qpsk_tpu_torch.ops.cuda.ldpc_kernel\n"
             "new = set(sys.modules) - before\n"
             "bad = sorted(m for m in new if m.split('.')[0] in "
             "('jax', 'jaxlib', 'qpsk_tpu'))\n"
@@ -143,5 +145,6 @@ def test_off_slice_inputs_raise():
     for shape in ((512,), (2, 1, 1, 512), (1, 2, 500)):
         with pytest.raises(NotImplementedError):
             rx_stream(CFG, rx_init(CFG), torch.zeros(shape, dtype=torch.int16))
-    with pytest.raises(NotImplementedError):
-        PacketConfig(fec="ldpc")
+    assert PacketConfig(fec="ldpc").fec_kind == "ldpc"
+    with pytest.raises(ValueError):
+        PacketConfig(fec="ldpc2")

@@ -121,8 +121,12 @@ def test_packets_match_jax():
     np.testing.assert_array_equal(rx_t.payload_bits.numpy(),
                                   np.asarray(rx_j.payload_bits))
     assert rx_t.crc_ok.sum() == 5
-    with pytest.raises(NotImplementedError):
-        t_frame.PacketConfig(fec=True)
+    # the coded configurations build; an unknown fec raises
+    for fec in (True, "conv", "ldpc"):
+        assert t_frame.PacketConfig(fec=fec).frame_bits == \
+            j_frame.PacketConfig(fec=fec).frame_bits
+    with pytest.raises(ValueError):
+        t_frame.PacketConfig(fec="turbo")
 
 
 def test_state_round_trip_from_jax():

@@ -39,10 +39,32 @@ Phases, each of which exits non-zero on failure:
    frames, every demodulated bit decoded) of the kernel and the plain
    path, and each FEC kernel alone at 4096 packets.
 
+6. The loop and channel options.  (a) Each new kernel or mode against its
+   plain version at 1, 200 and 8192 channels, in two chained calls of 8
+   frames, on a loopback stimulus and on noise: the channel-major
+   front-end at 4 and 8 samples per symbol, the time-major front-end's
+   AGC power output (bit-equal to ``agc._frame_power`` of its picks), the
+   Costas kernel in gear, gains and gear + gains modes (bit-identical,
+   lock level and gear included) and TX at 8 samples per symbol.  (b)
+   Three loopbacks at full width, kernels only, every launch counter
+   reset before each: 8192 channels of packets from TX at +50 Hz, for
+   ``ModemConfig(agc=True, loop_bw_track=TAU/200)`` through AWGN 10 dB
+   and then a -26 dB level (32 frames), ``ModemConfig(eq_taps=9)``
+   through the two-ray channel 0:1.0,4:0.5 and AWGN 14 dB (32 frames) and
+   ``config_1200()`` through AWGN 8 dB (64 frames).  On 64 sampled
+   channels the kernel path and the plain path (plain front-end -> plain
+   AGC / equalizer -> plain Costas on the same PCM) must sync alike and
+   pass the same packets, every passing payload bit-exact, at least 90 %
+   of them; then each kernel against its plain version on the path's own
+   inputs, as in phase 3.  (c) Rates at 8192 channels x 8 frames: RX
+   samples/s of each configuration's kernel and plain path, and each new
+   kernel's time beside its plain version's.
+
 ``python3 chip_smoke.py --profile`` builds the kernels and only traces
 kernel-path receive calls with ``torch.profiler`` (the uncoded call at
-the rate point, the composed coded call per code): device operations and
-busy time per call beside the wall time, and the largest operations.
+the rate point, the composed coded call per code, one call of each
+configuration of phase 6): device operations and busy time per call
+beside the wall time, and the largest operations.
 
 Every kernel-vs-plain comparison gives both sides the same inputs and
 state.  Decisions (timing index, bits) must be equal on the loopback
@@ -57,7 +79,14 @@ and plain decoders, and between the kernel and plain modem paths' LLRs,
 on <= 0.1 % of packets each, every difference printed.
 
 The last two lines are the card's ``nvidia-smi`` name and power limit and
-``{"ok": true, "device": {...}}``; the line before them lists the kernels.
+``{"ok": true, "device": {...}}``; the line before them lists every kernel
+and mode with its launches on its path, its largest difference from its
+plain version, its time and its plain version's at the rate point, and
+its bound: the least time the card could take for the same work, the
+larger of the bytes it must move over 3.35 TB/s and its float32
+operations over 67 TFLOP/s (the H100 SXM's published peaks).
+``library_ms`` is null: no single PyTorch call computes any of these
+functions (PERF.md says why for each).
 With no CUDA device, or without the package beside it, it exits non-zero
 before printing any result.
 """
@@ -65,7 +94,9 @@ before printing any result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -91,6 +122,17 @@ CODED_PATH = (1024, 48)
 CODED_SNR_DB = 6.0
 CODED_RATE_POINT = (1024, 8)
 FEC_RATE_PACKETS = 4096
+# phase 6: name -> (config fields, SNR dB, multipath paths, input level dB,
+# frames) of the option loopbacks; the 1200-baud one runs 64 frames, as a
+# packet fills two frames there and 8 packets are skipped before the sync
+OPTION_PATHS = {
+    "level": (dict(agc=True, loop_bw_track=2.0 * math.pi / 200.0), 10.0,
+              None, -26.0, 32),
+    "multipath": (dict(eq_taps=9), 14.0, ((0, 1.0), (4, 0.5)), 0.0, 32),
+    "1200": (dict(rs=1200.0), 8.0, None, 0.0, 64),
+}
+# the H100 SXM's published peaks: HBM bytes/s and float32 (non-tensor) FLOP/s
+PEAK_BYTES_S, PEAK_FLOP_S = 3.35e12, 67e12
 
 
 class SmokeFailure(RuntimeError):
@@ -129,23 +171,34 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def loopback_pcm(cfg, pcfg, c, nframes, seed, dev):
-    """(payload bits, channel bits, clean int16 PCM, noisy int16 PCM) of
-    random packets sent at +50 Hz through AWGN at 10 dB, one packet per
-    modem frame."""
+def loopback_pcm(cfg, pcfg, c, nframes, seed, dev, snr_db=10.0, paths=None,
+                 level_db=0.0):
+    """(payload bits (C, packets, 240), channel bits (C, nframes,
+    bits_per_frame), clean int16 PCM, received int16 PCM) of random packets
+    sent at +50 Hz, through static multipath ``paths`` if given, AWGN at
+    ``snr_db`` and an input level of ``level_db`` (``cli.py`` order)."""
     import torch
     from qpsk_tpu_torch import tx_init, tx_stream
-    from qpsk_tpu_torch.channel import awgn_pcm
+    from qpsk_tpu_torch.channel import awgn_pcm, multipath_pcm
     from qpsk_tpu_torch.packet import assemble_packet
 
     gen = torch.Generator(device=dev).manual_seed(seed)
-    payload = torch.randint(0, 2, (c, nframes, 8 * pcfg.payload_bytes),
+    npk = nframes * cfg.bits_per_frame // pcfg.frame_bits
+    payload = torch.randint(0, 2, (c, npk, 8 * pcfg.payload_bytes),
                             generator=gen, device=dev, dtype=torch.int32)
-    chan = assemble_packet(pcfg, payload)
-    _, pcm = tx_stream(cfg, tx_init(cfg, (c,), device=dev), chan,
-                       tx_offset_hz=TX_OFFSET_HZ)
+    chan = assemble_packet(pcfg, payload).reshape(c, nframes, -1)
+    _, clean = tx_stream(cfg, tx_init(cfg, (c,), device=dev), chan,
+                         tx_offset_hz=TX_OFFSET_HZ)
+    pcm = clean
+    if paths:
+        pcm = multipath_pcm(pcm.reshape(c, -1), paths).reshape(pcm.shape)
     power = float(((pcm.to(torch.float32) / cfg.pcm_scale) ** 2).mean())
-    return payload, chan, pcm, awgn_pcm(gen, pcm, 10.0, power, cfg.pcm_scale)
+    pcm = awgn_pcm(gen, pcm, snr_db, power, cfg.pcm_scale)
+    if level_db:
+        g = 10.0 ** (level_db / 20.0)
+        pcm = torch.clamp(torch.round(pcm.to(torch.float32) * g), -32768,
+                          32767).to(torch.int16)
+    return payload, chan, clean, pcm
 
 
 def noise_pcm(cfg, c, nframes, seed, dev):
@@ -172,9 +225,11 @@ def agree(label: str, what: str, same, exact: bool) -> float:
     return rate
 
 
-def check_tx(cfg, sym, st, label: str, errs: dict):
+def check_tx(cfg, sym, st, label: str, errs: dict, key: str = "tx",
+             lsb: int = 2):
     """The TX kernel against its plain version on the same symbols and
-    state.  Returns (kernel PCM, the plain version's new state)."""
+    state: PCM within ``lsb``, phase 1e-5, tail exact.  Returns (kernel
+    PCM, the plain version's new state)."""
     import torch
     from qpsk_tpu_torch.ops.cuda import tx_kernel as tk
 
@@ -183,28 +238,33 @@ def check_tx(cfg, sym, st, label: str, errs: dict):
     pp, php, tlp = tk.tx_modulate_plain(cfg, sym, st.nco_phase, st.fir_tail,
                                         TX_OFFSET_HZ)
     worst = int((pk.to(torch.int32) - pp.to(torch.int32)).abs().max())
-    need(worst <= 2, f"TX PCM differs by {worst} LSB ({label})")
+    need(worst <= lsb, f"TX PCM differs by {worst} LSB ({label})")
     need(cmax_abs(phk, php) <= 1e-5, f"TX phase differs ({label})")
     need(cmax_abs(tlk, tlp) == 0, f"TX tail differs ({label})")
-    errs["tx"] = max(errs["tx"], float(worst))
-    print(f"  tx       {label}: PCM max diff {worst} LSB")
+    errs[key] = max(errs[key], float(worst))
+    print(f"  {key:8s} {label}: PCM max diff {worst} LSB")
     return pk, st._replace(nco_phase=php, fir_tail=tlp)
 
 
 def check_frontend(cfg, pcm, st, exact: bool, label: str, errs: dict):
-    """The front-end kernel against its plain version on the same PCM and
-    state.  Returns (kernel result, plain result)."""
+    """The time-major front-end kernel against its plain version on the
+    same PCM and state; with ``cfg.agc`` its power output too, which
+    must equal ``agc._frame_power`` of its own picks bit for bit and the
+    plain version's within 1e-4 relative.  Returns (kernel result, plain
+    result)."""
     import torch
+    from qpsk_tpu_torch.ops import agc
     from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
 
     args = (cfg, pcm, st.nco_phase, st.fir_tail, st.decim_delay)
-    k, p = fk.rx_frontend_tm(*args), fk.rx_frontend_tm_plain(*args)
+    k = fk.rx_frontend_tm(*args)
+    p = fk.rx_frontend_tm_plain(*args)
     same = k[2] == p[2]                                        # (C, F)
     rate = agree(label, "timing index", same, exact)
     # picks of frames whose index agrees: row block 0 is the carried delay,
     # block f+1 frame f, and the last frame's picks are the new delay
-    rows = torch.cat([torch.ones_like(same[:, :1]), same[:, :-1]],
-                     dim=1).T.repeat_interleave(cfg.symbols_per_frame, dim=0)
+    emitted = torch.cat([torch.ones_like(same[:, :1]), same[:, :-1]], dim=1)
+    rows = emitted.T.repeat_interleave(cfg.symbols_per_frame, dim=0)
     last = same[:, -1]
     err = max(max_abs(k[0][rows], p[0][rows]), max_abs(k[1][rows], p[1][rows]),
               max_abs(k[5].re[last], p[5].re[last]),
@@ -213,26 +273,72 @@ def check_frontend(cfg, pcm, st, exact: bool, label: str, errs: dict):
     state_err = max(cmax_abs(k[3], p[3]), cmax_abs(k[4], p[4]))
     need(state_err <= 1e-5, f"front-end state differs by {state_err} ({label})")
     errs["frontend"] = max(errs["frontend"], err)
-    print(f"  frontend {label}: index agreement {rate:.6f}, picks max err "
+    msg = (f"  frontend {label}: index agreement {rate:.6f}, picks max err "
+           f"{err:.3g}, state max err {state_err:.3g}")
+    if cfg.agc:
+        need(torch.equal(k[6], agc.frame_powers_tm(k[0], k[1], pcm.shape[1])),
+             f"the power output differs from _frame_power of its picks ({label})")
+        rel = float(((k[6] - p[6]).abs() / p[6].clamp(min=1e-30))[emitted].max())
+        need(rel <= 1e-4, f"the power output differs from the plain "
+             f"version's by {rel} relative ({label})")
+        errs["frontend_tm_power"] = max(errs["frontend_tm_power"], rel)
+        msg += f"; powers bit-equal to _frame_power, {rel:.3g} relative from plain"
+    print(msg)
+    return k, p
+
+
+def check_frontend_cm(cfg, pcm, st, exact: bool, label: str, errs: dict,
+                      key: str):
+    """The channel-major front-end kernel against its plain version
+    (``frontend_xla``) on the same PCM and state.  Returns (kernel result,
+    plain result)."""
+    from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
+
+    args = (cfg, pcm, st.nco_phase, st.fir_tail)
+    k, p = fk.rx_frontend(*args), fk.frontend_xla(*args)
+    same = k[1] == p[1]                                        # (C, F)
+    rate = agree(label, "timing index", same, exact)
+    err = max(max_abs(k[0].re[same], p[0].re[same]),
+              max_abs(k[0].im[same], p[0].im[same]))
+    need(err <= 3e-4, f"front-end picks differ by {err} ({label})")
+    state_err = max(cmax_abs(k[2], p[2]), cmax_abs(k[3], p[3]))
+    need(state_err <= 1e-5, f"front-end state differs by {state_err} ({label})")
+    errs[key] = max(errs[key], err)
+    print(f"  {key} {label}: index agreement {rate:.6f}, picks max err "
           f"{err:.3g}, state max err {state_err:.3g}")
     return k, p
 
 
 def check_costas(cs, zr, zi, params, nsym, exact: bool, label: str,
-                 errs: dict):
+                 errs: dict, gear=None, gains=None):
     """The Costas kernel against its plain version on the same symbols and
-    state.  Returns (kernel result, plain result)."""
+    state.  In gear or gains mode the two must be bit-identical, lock level
+    and gear included.  Returns (kernel result, plain result)."""
+    import torch
     from qpsk_tpu_torch.ops.cuda import costas_kernel as ck
 
-    k = ck.costas_run_tm(cs, zr, zi, params, trace_every=nsym)
-    p = ck.costas_run_tm_plain(cs, zr, zi, params, trace_every=nsym)
+    kw = dict(trace_every=nsym, gear=gear, gains=gains)
+    k = ck.costas_run_tm(cs, zr, zi, params, **kw)
+    p = ck.costas_run_tm_plain(cs, zr, zi, params, **kw)
     err = max(cmax_abs(k[1], p[1]), max_abs(k[2], p[2]),
-              max_abs(k[0].freq, p[0].freq))
+              max_abs(k[0].freq, p[0].freq), max_abs(k[0].phase, p[0].phase))
     need(err <= 1e-4, f"Costas derot/freq differ by {err} ({label})")
+    keys = [m for m, on in (("costas_gear", gear), ("costas_gains", gains))
+            if on is not None] or ["costas"]
+    if keys != ["costas"]:
+        need(err == 0 and torch.equal(k[3], p[3]),
+             f"Costas {keys} is not bit-identical to its plain version ({label})")
+        if gear is not None:
+            need(torch.equal(k[0].lev, p[0].lev)
+                 and torch.equal(k[0].locked, p[0].locked),
+                 f"the Costas lock level or gear differs ({label})")
     rate = agree(label, "Costas bit", k[3] == p[3], exact)
-    errs["costas"] = max(errs["costas"], err)
-    print(f"  costas   {label}: bit agreement {rate:.6f}, derot/freq max err "
-          f"{err:.3g}")
+    for key in keys:
+        errs[key] = max(errs[key], err)
+    locked = (f", {float(k[0].locked.mean()):.4f} of channels locked"
+              if gear is not None else "")
+    print(f"  {'+'.join(keys):8s} {label}: bit agreement {rate:.6f}, "
+          f"derot/freq max err {err:.3g}{locked}")
     return k, p
 
 
@@ -292,49 +398,125 @@ def compare_kernels(cfg, pcfg, dev, errs: dict) -> None:
                 cs = p[0]
 
 
-def check_path(cfg, bits, clean, pcm, out, dev, label: str, errs: dict):
+def rx_path(cfg, kind: str):
+    """(chain, front-end, Costas) that ``rx_stream`` runs for ``cfg``, with
+    the kernel wrappers (``kind="kernel"``) or their plain versions."""
+    from qpsk_tpu_torch import modem
+    from qpsk_tpu_torch.ops.cuda import costas_kernel as ck
+    from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
+
+    chain, frontend, costas = modem._rx_path(cfg)
+    if kind == "plain":
+        frontend = {fk.rx_frontend_tm: fk.rx_frontend_tm_plain,
+                    fk.rx_frontend: fk.frontend_xla}[frontend]
+        costas = {ck.costas_run_tm: ck.costas_run_tm_plain,
+                  ck.costas_run_cm: functools.partial(
+                      ck.costas_run_cm, run=ck.costas_run_tm_plain)}[costas]
+    return chain, frontend, costas
+
+
+def check_path(cfg, bits, clean, pcm, out, dev, label: str, errs: dict,
+               tx_key: str = "tx", fe_key: str = "frontend"):
     """Each modem kernel against its plain version on a path's own inputs
-    (the channel bits sent, the clean and the noisy PCM) and its re-run
-    against the path's outputs ``out``; then the plain path (plain
-    front-end -> plain Costas) on the same PCM, whose bits may differ from
-    the kernel path's only within NEAR_TIE of a decision boundary.
-    Returns the plain path's derotated symbols (C, F, nsym), its bits
-    (C, F, 2 nsym) and the mask of bits that differ."""
+    (the channel bits sent, the clean and the received PCM; the Costas
+    kernel on the symbols the path handed it) and its re-run against the
+    path's outputs ``out``; then the plain path (plain front-end -> plain
+    AGC / equalizer -> plain Costas) on the same PCM, whose bits may
+    differ from the kernel path's only within NEAR_TIE of a decision
+    boundary.  Returns the plain path's derotated symbols (C, F, nsym),
+    its bits (C, F, 2 nsym) and the mask of bits that differ."""
     import torch
     from qpsk_tpu_torch import rx_init, tx_init
-    from qpsk_tpu_torch.ops.costas import costas_init, costas_params
-    from qpsk_tpu_torch.ops.cplx import CF32
-    from qpsk_tpu_torch.ops.cuda import costas_kernel as ck
+    from qpsk_tpu_torch import modem
     from qpsk_tpu_torch.ops.modmap import bits_to_symbols
 
     c, nsym = pcm.shape[0], cfg.symbols_per_frame
     pk, _ = check_tx(cfg, bits_to_symbols(bits.reshape(c, -1)),
-                     tx_init(cfg, (c,), device=dev), label, errs)
+                     tx_init(cfg, (c,), device=dev), label, errs, key=tx_key,
+                     lsb=2 if cfg.cycles == 4 else 1)
     need(torch.equal(pk, clean.reshape(c, -1)),
          f"the TX kernel's re-run differs ({label})")
-    kf, pf = check_frontend(cfg, pcm, rx_init(cfg, (c,), device=dev), True,
-                            label, errs)
-    need(torch.equal(kf[2], out.timing_index),
+    st = rx_init(cfg, (c,), device=dev)
+    chain, frontend, costas = rx_path(cfg, "kernel")
+    if chain is modem._rx_stream_tm:
+        kf, _ = check_frontend(cfg, pcm, st, True, label, errs)
+        index = kf[2]
+    else:
+        kf, _ = check_frontend_cm(cfg, pcm, st, True, label, errs, fe_key)
+        index = kf[1]
+    need(torch.equal(index, out.timing_index),
          f"the front-end's re-run differs ({label})")
-    params = costas_params(cfg.loop_bw, cfg.damping, cfg.min_freq, cfg.max_freq)
-    kc, _ = check_costas(costas_init((c,), device=dev), kf[0], kf[1], params,
-                         nsym, True, label, errs)
-    need(torch.equal(kc[3].reshape(out.bits.shape), out.bits),
-         f"the Costas kernel's re-run differs ({label})")
 
-    pc = ck.costas_run_tm_plain(costas_init((c,), device=dev), pf[0], pf[1],
-                                params, trace_every=nsym)
-    plain_bits = pc[3].reshape(out.bits.shape)
+    # the kernel path again, recording what its Costas call was handed
+    seen = []
+
+    def costas_seen(*args, **kw):
+        seen.append((args, kw))
+        return costas(*args, **kw)
+    _, rerun = chain(cfg, st, pcm, frontend, costas_seen)
+    need(torch.equal(rerun.bits, out.bits), f"the kernel path's re-run "
+         f"differs ({label})")
+    (cs, *planes, params, _), kw = seen[0]
+    if len(planes) == 1:                     # the channel-major entry
+        planes = [p.T.contiguous() for p in planes[0]]
+    check_costas(cs, planes[0], planes[1], params, nsym, True, label, errs,
+                 gear=kw.get("gear"), gains=kw.get("gains"))
+
+    _, plain = chain(cfg, st, pcm, *rx_path(cfg, "plain")[1:])
     d = out.symbols
     tie = torch.stack([d.im.abs() < NEAR_TIE, d.re.abs() < NEAR_TIE],
                       dim=-1).reshape(out.bits.shape)
-    flips = plain_bits != out.bits
+    flips = plain.bits != out.bits
     need(bool(tie[flips].all()), "the kernel and plain paths' bits differ "
          f"away from a decision boundary (|x| >= {NEAR_TIE}) ({label})")
     print(f"  plain path on the same PCM ({label}): {int(flips.sum())} of "
           f"{flips.numel()} bits differ, all within {NEAR_TIE} of a decision "
-          f"boundary; derot max diff {cmax_abs(pc[1], kc[1]):.3g}")
-    return CF32(*(p.T.reshape(d.re.shape) for p in pc[1])), plain_bits, flips
+          f"boundary; derot max diff {cmax_abs(plain.symbols, d):.3g}")
+    return plain.symbols, plain.bits, flips
+
+
+def compare_decodes(pcfg, out, plain_bits, flips, payload, label: str):
+    """``find_sync`` / ``extract_packets`` on 64 sampled channels of the
+    kernel path's and the plain path's bits, 8 packets skipped: both must
+    sync alike and pass the same packets (a packet holding a flipped bit
+    may decode differently), every passing payload the one sent.  Prints
+    the loss; returns (packets, packets passing CRC, mean offset Hz)."""
+    import torch
+
+    c, nframes = out.bits.shape[:2]
+    fb, skip = pcfg.frame_bits, 8 * pcfg.frame_bits
+    channels = sorted({round(i * (c - 1) / 63) for i in range(64)})
+    npk = nok = full = 0
+    offsets = []
+    for ch in channels:
+        ks, krx = decode(pcfg, out.bits[ch].reshape(-1)[skip:])
+        ps, prx = decode(pcfg, plain_bits[ch].reshape(-1)[skip:])
+        need((int(ks.rotation), int(ks.bit_lag)) == (int(ps.rotation), int(ps.bit_lag)),
+             f"channel {ch}: the kernel and plain paths sync differently ({label})")
+        navail = krx.crc_ok.shape[0]
+        touched = torch.zeros(navail, dtype=torch.bool, device=out.bits.device)
+        at = (torch.nonzero(flips[ch].reshape(-1)[skip:]).flatten()
+              - int(ks.bit_lag)) // fb
+        touched[at[(at >= 0) & (at < navail)]] = True
+        need(abs(int(ks.score) - int(ps.score)) <= int(touched[:4].sum()),
+             f"channel {ch}: sync score {int(ks.score)} vs plain {int(ps.score)}")
+        need(torch.equal(krx.crc_ok[~touched], prx.crc_ok[~touched]),
+             f"channel {ch}: the kernel and plain paths pass different packets "
+             f"({label})")
+        nok += check_payloads(krx, payload[ch], ch)
+        full += int(ks.score) == 4
+        npk += navail
+        offsets.append(float(out.freq_hz[ch, nframes // 2:].mean()))
+    mean_offset = sum(offsets) / len(offsets)
+    print(f"  {label}: on {len(channels)} channels the kernel and plain paths "
+          f"sync alike and pass the same packets; {full} synced at 4/4, "
+          f"{nok}/{npk} packets pass CRC (PER {1 - nok / max(npk, 1):.5f}), "
+          f"all bit-exact; detected offset {mean_offset:.4f} Hz (per channel "
+          f"{min(offsets):.3f}..{max(offsets):.3f})")
+    need(abs(mean_offset - TX_OFFSET_HZ) <= 2.0, f"detected offset {mean_offset} Hz")
+    need(max(abs(o - TX_OFFSET_HZ) for o in offsets) <= 5.0,
+         "a channel's detected offset is off by more than 5 Hz")
+    return npk, nok, mean_offset
 
 
 def decode(pcfg, bits):
@@ -346,26 +528,41 @@ def decode(pcfg, bits):
     return sync, extract_packets(pcfg, bits, sync, navail)
 
 
+def kernel_modules() -> dict:
+    """The kernel wrapper modules, each with its ``launches`` counter."""
+    from qpsk_tpu_torch.ops.cuda import costas_kernel as ck
+    from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
+    from qpsk_tpu_torch.ops.cuda import ldpc_kernel as lk
+    from qpsk_tpu_torch.ops.cuda import tx_kernel as tk
+    from qpsk_tpu_torch.ops.cuda import viterbi_kernel as vk
+    return {"frontend": fk, "costas": ck, "tx": tk, "viterbi": vk, "ldpc": lk}
+
+
+def reset_launches() -> None:
+    """Every launch counter to 0, the per-mode ones included."""
+    for mod in kernel_modules().values():
+        mod.launches = 0
+        if hasattr(mod, "by_mode"):
+            mod.by_mode.clear()
+
+
 def main_path(cfg, pcfg, dev, errs: dict) -> dict:
     """Phase 3: the full-width loopback through the kernels, then each
     kernel and the plain path on the same inputs."""
     import torch
     from qpsk_tpu_torch import rx_init, rx_stream
-    from qpsk_tpu_torch.ops.cuda import costas_kernel as ck
-    from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
-    from qpsk_tpu_torch.ops.cuda import tx_kernel as tk
 
-    (c, nframes), skip = MAIN_PATH, 8
-    nsym, fb = cfg.symbols_per_frame, pcfg.frame_bits
-    for mod in (fk, ck, tk):
-        mod.launches = 0
+    c, nframes = MAIN_PATH
+    nsym = cfg.symbols_per_frame
+    mods = kernel_modules()
+    reset_launches()
     t0 = time.perf_counter()
     payload, chan, clean, pcm = loopback_pcm(cfg, pcfg, c, nframes, seed=2024,
                                              dev=dev)
     _, out = rx_stream(cfg, rx_init(cfg, (c,), device=dev), pcm)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = {"frontend": fk.launches, "costas": ck.launches, "tx": tk.launches}
+    counts = {name: mods[name].launches for name in ("frontend", "costas", "tx")}
     print(f"  {c} channels x {nframes} frames: TX -> AWGN -> RX in {seconds:.3f} s "
           f"(host clock, first call); launches {counts}")
     for name, n in counts.items():
@@ -377,52 +574,7 @@ def main_path(cfg, pcfg, dev, errs: dict) -> dict:
 
     _, plain_bits, flips = check_path(cfg, chan, clean, pcm, out, dev,
                                       f"C={c} main path", errs)
-
-    channels = sorted({round(i * (c - 1) / 63) for i in range(64)})
-    npk = nok = nexact = full = 0
-    offsets = []
-    for ch in channels:
-        ks, krx = decode(pcfg, out.bits[ch].reshape(-1)[skip * fb:])
-        ps, prx = decode(pcfg, plain_bits[ch].reshape(-1)[skip * fb:])
-        # both paths sync alike; a packet holding a flipped bit may decode
-        # differently, every other packet passes or fails CRC in both
-        need((int(ks.rotation), int(ks.bit_lag)) == (int(ps.rotation), int(ps.bit_lag)),
-             f"channel {ch}: the kernel and plain paths sync differently")
-        navail = krx.crc_ok.shape[0]
-        touched = torch.zeros(navail, dtype=torch.bool, device=dev)
-        at = (torch.nonzero(flips[ch].reshape(-1)[skip * fb:]).flatten()
-              - int(ks.bit_lag)) // fb
-        touched[at[(at >= 0) & (at < navail)]] = True
-        need(abs(int(ks.score) - int(ps.score)) <= int(touched[:4].sum()),
-             f"channel {ch}: sync score {int(ks.score)} vs plain {int(ps.score)}")
-        need(torch.equal(krx.crc_ok[~touched], prx.crc_ok[~touched]),
-             f"channel {ch}: the kernel and plain paths pass different packets")
-
-        # every CRC-passing packet is the payload that was sent
-        ok = krx.crc_ok.cpu()
-        got = krx.payload_bits.cpu()
-        want = payload[ch].cpu()
-        i0 = int(torch.argmax(ok.to(torch.int32)))
-        k0 = next((k for k in range(want.shape[0]) if torch.equal(got[i0], want[k])), None)
-        need(k0 is not None, f"channel {ch}: no payload matched")
-        k0 -= i0
-        for i in range(navail):
-            if ok[i]:
-                need(0 <= i + k0 < want.shape[0] and torch.equal(got[i], want[i + k0]),
-                     f"channel {ch}: packet {i} passed CRC with a wrong payload")
-                nexact += 1
-        full += int(ks.score) == 4
-        npk += navail
-        nok += int(ok.sum())
-        offsets.append(float(out.freq_hz[ch, nframes // 2:].mean()))
-    mean_offset = sum(offsets) / len(offsets)
-    print(f"  {len(channels)} channels: kernel and plain paths sync alike and pass "
-          f"the same packets; {full} synced at 4/4, {nok}/{npk} packets pass CRC, "
-          f"all {nexact} of them bit-exact; detected offset {mean_offset:.4f} Hz "
-          f"(per channel {min(offsets):.3f}..{max(offsets):.3f})")
-    need(abs(mean_offset - TX_OFFSET_HZ) <= 2.0, f"detected offset {mean_offset} Hz")
-    need(max(abs(o - TX_OFFSET_HZ) for o in offsets) <= 5.0,
-         "a channel's detected offset is off by more than 5 Hz")
+    compare_decodes(pcfg, out, plain_bits, flips, payload, "main path")
     return counts
 
 
@@ -473,20 +625,77 @@ def rates(cfg, dev, errs: dict) -> dict:
     print(f"  tx_stream kernel path: {ms:.4f} ms/call, {nsamples / ms * 1e3:.6g} samples/s")
 
     # each kernel's wrapper beside its plain version, same inputs
-    times = {}
-    for name, kern, plain, args, n in (
-            ("frontend", fk.rx_frontend_tm, fk.rx_frontend_tm_plain, fe_args, iters),
-            ("costas", ck.costas_run_tm, ck.costas_run_tm_plain, costas_args, 5),
-            ("tx", tk.tx_modulate, tk.tx_modulate_plain,
-             (cfg, sym, ts.nco_phase, ts.fir_tail, TX_OFFSET_HZ), iters)):
-        # plain, kernel, kernel, plain: each side's best of its two runs
-        p1 = cuda_time_ms(lambda: plain(*args), n)
-        k1 = cuda_time_ms(lambda: kern(*args), iters)
-        k2 = cuda_time_ms(lambda: kern(*args), iters)
-        p2 = cuda_time_ms(lambda: plain(*args), n)
-        times[name] = (min(k1, k2), min(p1, p2))
-        print(f"  {name:8s} kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms")
-    return times
+    return {name: time_pair(name, kern, plain, args, {}, n, iters) + work
+            for name, kern, plain, args, n, work in (
+                ("frontend", fk.rx_frontend_tm, fk.rx_frontend_tm_plain,
+                 fe_args, iters, frontend_work(c, nframes, 4, True, False)),
+                ("costas", ck.costas_run_tm, ck.costas_run_tm_plain,
+                 costas_args, 5, costas_work(c, nframes * nsym, nsym)),
+                ("tx", tk.tx_modulate, tk.tx_modulate_plain,
+                 (cfg, sym, ts.nco_phase, ts.fir_tail, TX_OFFSET_HZ), iters,
+                 tx_work(c, nframes * nsym, 4)))}
+
+
+def time_pair(name: str, kern, plain, args, kw: dict, n_plain: int,
+              iters: int) -> tuple:
+    """(kernel ms, plain ms) of one wrapper and its plain version on the
+    same inputs, timed plain, kernel, kernel, plain: each side's best of
+    its two runs."""
+    p1 = cuda_time_ms(lambda: plain(*args, **kw), n_plain, warmup=1)
+    k1 = cuda_time_ms(lambda: kern(*args, **kw), iters)
+    k2 = cuda_time_ms(lambda: kern(*args, **kw), iters)
+    p2 = cuda_time_ms(lambda: plain(*args, **kw), n_plain, warmup=1)
+    print(f"  {name:8s} kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms")
+    return min(k1, k2), min(p1, p2)
+
+
+def bound(nbytes: float, flops: float) -> tuple:
+    """(least ms, what bounds it): the larger of ``nbytes`` moved at the
+    card's memory rate and ``flops`` float32 operations at its peak."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FLOP_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def frontend_work(c, nframes, cycles, tm: bool, power: bool) -> tuple:
+    """The front-end's bound: int16 PCM, the raw tail and the phasor in,
+    the picks and the index out (and the carried delay in and out, the
+    powers out); a 127-tap complex FIR on a real input (508 FLOP), the
+    gain and the phase energy at every sample, a phasor per pick."""
+    n, nsym = nframes * 512, 512 // cycles
+    t = nframes * nsym
+    nbytes = c * (n * 2 + 126 * 4 + 8) + c * (2 * t * 4 + nframes * 4)
+    flops = c * n * (508 + 2 + 3) + c * t * 6
+    if tm:
+        nbytes += 2 * 2 * c * nsym * 4
+    if power:
+        nbytes += c * nframes * 4
+        flops += c * t * 3
+    return bound(nbytes, flops)
+
+
+def costas_work(c, t, trace_every, gear: bool = False,
+                gains: bool = False) -> tuple:
+    """The Costas loop's bound: (T, C) planes in, derotated planes, packed
+    dibits, the frame-rate trace and the state out; about 22 float
+    operations a symbol (derotation, detector, loop update, wrap and
+    clamp, cos and sin counted once each), 8 more for the gear, 2 for a
+    gain."""
+    nstate = 4 if gear else 2
+    nbytes = c * t * (8 + 8) + c * (t // 16 + t // trace_every) * 4 \
+        + 2 * c * nstate * 4
+    flops = c * t * (22 + (8 if gear else 0) + (2 if gains else 0))
+    if gains:
+        nbytes += c * (t // trace_every) * 4
+    return bound(nbytes, flops)
+
+
+def tx_work(c, s, cycles) -> tuple:
+    """TX's bound: symbols, tail and phasor in, int16 PCM out; per sample
+    two planes of 127 / cycles polyphase FMAs and the carrier mix."""
+    n = s * cycles
+    nbytes = c * (s * 8 + n * 2 + (126 // cycles) * 8 + 8)
+    flops = c * n * (2 * 2 * -(-127 // cycles) + 8)
+    return bound(nbytes, flops)
 
 
 @contextlib.contextmanager
@@ -609,11 +818,6 @@ def coded_loopback(cfg, kind: str, dev, errs: dict) -> int:
     from qpsk_tpu_torch.channel import awgn_pcm
     from qpsk_tpu_torch.metrics import evm, per, snr_estimate_db
     from qpsk_tpu_torch.ops.cplx import CF32
-    from qpsk_tpu_torch.ops.cuda import costas_kernel as ck
-    from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
-    from qpsk_tpu_torch.ops.cuda import ldpc_kernel as lk
-    from qpsk_tpu_torch.ops.cuda import tx_kernel as tk
-    from qpsk_tpu_torch.ops.cuda import viterbi_kernel as vk
     from qpsk_tpu_torch.ops.modmap import demod_soft
     from qpsk_tpu_torch.packet import PacketConfig, assemble_packet
     from qpsk_tpu_torch.sync import (default_max_lag,
@@ -624,7 +828,7 @@ def coded_loopback(cfg, kind: str, dev, errs: dict) -> int:
     (c, npkt), fb, mfb = CODED_PATH, pcfg.frame_bits, cfg.bits_per_frame
     skip = 8 * fb      # the CLI's skip of the Costas transient (cli.py:167-174)
     channels = sorted({round(i * (c - 1) / 63) for i in range(64)})
-    mods = {"frontend": fk, "costas": ck, "tx": tk, "viterbi": vk, "ldpc": lk}
+    mods = kernel_modules()
     decoder = "viterbi" if kind == "conv" else "ldpc"
 
     def decode(llrs):
@@ -634,8 +838,7 @@ def coded_loopback(cfg, kind: str, dev, errs: dict) -> int:
         navail = (llrs.numel() - int(sync.bit_lag)) // fb
         return sync, extract_packets_soft_tracked(pcfg, llrs, sync, navail)
 
-    for mod in mods.values():
-        mod.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(2025)
     payload = torch.randint(0, 2, (c, npkt, 8 * pcfg.payload_bytes),
@@ -735,22 +938,18 @@ def coded_loopback(cfg, kind: str, dev, errs: dict) -> int:
 def rx_step(cfg, dev, pcm, path: str, kind: str | None = None):
     """One receive call on ``pcm`` (C, F, 512), state chained from call to
     call, through the kernels (``path="kernel"``) or the plain versions:
-    ``rx_stream``'s chain, and with a code ``kind`` also soft LLRs with
-    every demodulated bit deframed and decoded (the shape of
+    ``rx_stream``'s chain for ``cfg``, and with a code ``kind`` also soft
+    LLRs with every demodulated bit deframed and decoded (the shape of
     ``benchmarks.coded_rx_throughput``).  Returns (step, packets per
     call); inside ``plain_decoders()`` the plain path decodes plain."""
     import torch
     from qpsk_tpu_torch import rx_init
-    from qpsk_tpu_torch.modem import _rx_stream_tm
     from qpsk_tpu_torch.ops.cplx import CF32
-    from qpsk_tpu_torch.ops.cuda import costas_kernel as ck
-    from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
     from qpsk_tpu_torch.ops.modmap import demod_soft
     from qpsk_tpu_torch.packet import PacketConfig, disassemble_packet_soft
 
     c, nframes = pcm.shape[:2]
-    frontend, costas = ((fk.rx_frontend_tm, ck.costas_run_tm) if path == "kernel"
-                        else (fk.rx_frontend_tm_plain, ck.costas_run_tm_plain))
+    chain, frontend, costas = rx_path(cfg, path)
     state = [rx_init(cfg, (c,), device=dev)]
     nbits = c * nframes * cfg.bits_per_frame
     pcfg = PacketConfig(payload_bytes=30, fec=kind or False)
@@ -759,7 +958,7 @@ def rx_step(cfg, dev, pcm, path: str, kind: str | None = None):
     pad = npkt * fb - nbits
 
     def step():
-        state[0], out = _rx_stream_tm(cfg, state[0], pcm, frontend, costas)
+        state[0], out = chain(cfg, state[0], pcm, frontend, costas)
         if kind:
             llr = demod_soft(CF32(out.symbols.re.reshape(-1),
                                   out.symbols.im.reshape(-1)))
@@ -792,39 +991,282 @@ def coded_rates(cfg, dev, errs: dict) -> dict:
               f"samples/s; plain path {p1:.4f} / {p2:.4f} ms/call, "
               f"{nsamples / min(p1, p2) * 1e3:.6g} samples/s")
 
+    from qpsk_tpu_torch.ops.cuda import ldpc_kernel as lk
+    from qpsk_tpu_torch.packet import LdpcCode
+
     times = {}
     gen = torch.Generator(device=dev).manual_seed(17)
+    code = LdpcCode(k=256)
+    edges = int((lk._tables(code, torch.device("cpu"))[0] >= 0).sum())
+    b = FEC_RATE_PACKETS
+    works = {
+        # LLRs in, bits out; 64 states x (2 adds, compare, select) a step
+        "viterbi": bound(b * (524 + 256) * 4, b * 262 * (64 * 4 + 4)),
+        # LLRs in, bits out; about 8 operations per edge and iteration
+        "ldpc": bound(b * (512 + 256) * 4, b * code.iters * edges * 8)}
     for kind, n in (("conv", 524), ("ldpc", 512)):
-        llrs = torch.randn((FEC_RATE_PACKETS, n), generator=gen, device=dev)
-        check_fec(kind, llrs, None, f"B={FEC_RATE_PACKETS} random LLRs", errs)
+        llrs = torch.randn((b, n), generator=gen, device=dev)
+        check_fec(kind, llrs, None, f"B={b} random LLRs", errs)
         name, kern, plain = fec_decoders(kind)
-        p1 = cuda_time_ms(lambda: plain(llrs), 3)
-        k1 = cuda_time_ms(lambda: kern(llrs), 20)
-        k2 = cuda_time_ms(lambda: kern(llrs), 20)
-        p2 = cuda_time_ms(lambda: plain(llrs), 3)
-        times[name] = (min(k1, k2), min(p1, p2))
-        info = FEC_RATE_PACKETS * 256
-        print(f"  {name:8s} kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
-              f"{p2:.4f} ms at {FEC_RATE_PACKETS} packets: "
-              f"{info / times[name][0] * 1e3:.6g} vs {info / times[name][1] * 1e3:.6g} "
-              "info bits/s")
+        times[name] = time_pair(name, kern, plain, (llrs,), {}, 3, 20) \
+            + works[name]
+        info = b * 256
+        print(f"  {name:8s} at {b} packets: {info / times[name][0] * 1e3:.6g} "
+              f"vs {info / times[name][1] * 1e3:.6g} info bits/s")
     return times
+
+
+# every kernel and mode: (source, the TPU kernel's pallas_call it replaces)
+_FE, _CO, _TX = ("qpsk_tpu_torch/csrc/frontend.cu", "qpsk_tpu_torch/csrc/costas.cu",
+                 "qpsk_tpu_torch/csrc/tx.cu")
+KERNELS = {
+    "frontend": (_FE, "qpsk_tpu/ops/pallas/frontend_kernel.py:545"),
+    "frontend_tm_power": (_FE, "qpsk_tpu/ops/pallas/frontend_kernel.py:545"),
+    "frontend_cm": (_FE, "qpsk_tpu/ops/pallas/frontend_kernel.py:451"),
+    "frontend_cm_1200": (_FE, "qpsk_tpu/ops/pallas/frontend_kernel.py:451"),
+    "costas": (_CO, "qpsk_tpu/ops/pallas/costas_kernel.py:373"),
+    "costas_gear": (_CO, "qpsk_tpu/ops/pallas/costas_kernel.py:373"),
+    "costas_gains": (_CO, "qpsk_tpu/ops/pallas/costas_kernel.py:373"),
+    "tx": (_TX, "qpsk_tpu/ops/pallas/tx_kernel.py:145"),
+    "tx_1200": (_TX, "qpsk_tpu/ops/pallas/tx_kernel.py:145"),
+    "viterbi": ("qpsk_tpu_torch/csrc/viterbi.cu",
+                "qpsk_tpu/ops/pallas/viterbi_kernel.py:151+166"),
+    "ldpc": ("qpsk_tpu_torch/csrc/ldpc.cu",
+             "qpsk_tpu/ops/pallas/ldpc_kernel.py:116"),
+}
+
+
+def option_cfg(name: str):
+    """The ModemConfig of a phase-6 path."""
+    from qpsk_tpu_torch import ModemConfig
+    return ModemConfig(**OPTION_PATHS[name][0])
+
+
+def compare_options(pcfg, dev, errs: dict) -> None:
+    """Phase 6a: each new kernel or mode against its plain version, in two
+    chained calls of the rate point's length at each channel count."""
+    import torch
+    from qpsk_tpu_torch import ModemConfig, rx_init, tx_init
+    from qpsk_tpu_torch.ops.agc import agc_gains
+    from qpsk_tpu_torch.ops.costas import costas_init, costas_params, gear_for
+    from qpsk_tpu_torch.ops.cplx import CF32
+    from qpsk_tpu_torch.ops.modmap import bits_to_symbols
+
+    nframes = RATE_POINT[1]
+    level, c1200 = option_cfg("level"), option_cfg("1200")
+    nsym = level.symbols_per_frame
+    t = nframes * nsym
+    gear = gear_for(level.loop_bw_track, level.damping)
+    params = costas_params(level.loop_bw, level.damping, level.min_freq,
+                           level.max_freq)
+    for c in COMPARE_CHANNELS:
+        t8 = nframes * c1200.symbols_per_frame
+        gen = torch.Generator(device=dev).manual_seed(c + 10)
+        sym = bits_to_symbols(torch.randint(0, 2, (c, 4 * t8), generator=gen,
+                                            device=dev, dtype=torch.int32))
+        st = tx_init(c1200, (c,), device=dev)
+        for i in range(2):
+            s = CF32(sym.re[:, i * t8:(i + 1) * t8].contiguous(),
+                     sym.im[:, i * t8:(i + 1) * t8].contiguous())
+            _, st = check_tx(c1200, s, st, f"C={c:5d} call {i}", errs,
+                             key="tx_1200", lsb=1)
+
+        for cfg, key in ((ModemConfig(), "frontend_cm"),
+                         (c1200, "frontend_cm_1200")):
+            lb = loopback_pcm(cfg, pcfg, c, 2 * nframes, seed=c, dev=dev)[3]
+            for kind, pcm in (("loopback", lb),
+                              ("noise", noise_pcm(cfg, c, 2 * nframes, c + 1, dev))):
+                st = rx_init(cfg, (c,), device=dev)
+                for i in range(2):
+                    x = pcm[:, i * nframes:(i + 1) * nframes].contiguous()
+                    _, p = check_frontend_cm(cfg, x, st, kind == "loopback",
+                                             f"C={c:5d} {kind} call {i}", errs,
+                                             key)
+                    st = st._replace(nco_phase=p[2], fir_tail=p[3])
+
+        # the power output and the Costas modes on the level path's
+        # stimulus (AWGN 10 dB, then -26 dB) and on noise
+        lb = loopback_pcm(level, pcfg, c, 2 * nframes, seed=c, dev=dev,
+                          level_db=-26.0)[3]
+        for kind, pcm in (("loopback", lb),
+                          ("noise", noise_pcm(level, c, 2 * nframes, c + 1, dev))):
+            exact = kind == "loopback"
+            st = rx_init(level, (c,), device=dev)
+            fe = []
+            for i in range(2):
+                x = pcm[:, i * nframes:(i + 1) * nframes].contiguous()
+                _, p = check_frontend(level, x, st, exact,
+                                      f"C={c:5d} {kind} call {i}", errs)
+                fe.append(p)
+                st = st._replace(nco_phase=p[3], fir_tail=p[4], decim_delay=p[5])
+            if exact:     # the plain front-end's picks and their AGC gains
+                zr, zi = (torch.cat([p[k] for p in fe]) for k in (0, 1))
+                _, g = agc_gains(rx_init(level, (c,), device=dev).agc,
+                                 torch.cat([p[6] for p in fe], dim=1),
+                                 level.agc_target, level.agc_mu)
+                gains = g.T.contiguous()
+            else:         # Gaussian symbols and gains in [0.5, 2)
+                g2 = torch.Generator(device=dev).manual_seed(c + 2)
+                zr, zi = (torch.randn((2 * t, c), generator=g2, device=dev)
+                          for _ in range(2))
+                gains = torch.rand((2 * nframes, c), generator=g2,
+                                   device=dev) * 1.5 + 0.5
+            for mode_gear, mode_gains in ((gear, None), (None, gains),
+                                          (gear, gains)):
+                cs = costas_init((c,), gear=mode_gear is not None, device=dev)
+                for i in range(2):
+                    gi = None if mode_gains is None else \
+                        mode_gains[i * nframes:(i + 1) * nframes].contiguous()
+                    _, p = check_costas(cs, zr[i * t:(i + 1) * t].contiguous(),
+                                        zi[i * t:(i + 1) * t].contiguous(),
+                                        params, nsym, exact,
+                                        f"C={c:5d} {kind} call {i}", errs,
+                                        gear=mode_gear, gains=gi)
+                    cs = p[0]
+
+
+def option_loopback(name: str, pcfg, dev, errs: dict) -> dict:
+    """Phase 6b: one option path at full width through the kernels, with
+    every launch counter reset before; then each kernel and the plain path
+    on the same inputs, and the decodes of 64 sampled channels.  Returns
+    {kernel or mode: launches} of the kernels new on this path."""
+    import torch
+    from qpsk_tpu_torch import rx_init, rx_stream
+
+    _, snr_db, paths, level_db, nframes = OPTION_PATHS[name]
+    cfg, c = option_cfg(name), MAIN_PATH[0]
+    mods = kernel_modules()
+    fk, ck, tk = mods["frontend"], mods["costas"], mods["tx"]
+    reset_launches()
+    t0 = time.perf_counter()
+    payload, chan, clean, pcm = loopback_pcm(
+        cfg, pcfg, c, nframes, seed=2026, dev=dev, snr_db=snr_db, paths=paths,
+        level_db=level_db)
+    _, out = rx_stream(cfg, rx_init(cfg, (c,), device=dev), pcm)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    on_path = {
+        "level": {"tx": tk.by_mode["cycles4"],
+                  "frontend_tm_power": fk.by_mode["tm_power"],
+                  "costas_gear": ck.by_mode["gear"],
+                  "costas_gains": ck.by_mode["gains"]},
+        "multipath": {"tx": tk.by_mode["cycles4"],
+                      "frontend_cm": fk.by_mode["cm4"],
+                      "costas": ck.by_mode["qpsk"]},
+        "1200": {"tx_1200": tk.by_mode["cycles8"],
+                 "frontend_cm_1200": fk.by_mode["cm8"],
+                 "costas": ck.by_mode["qpsk"]}}[name]
+    print(f"  {name}: {c} channels x {nframes} frames, TX -> "
+          f"{'multipath -> ' if paths else ''}AWGN {snr_db} dB"
+          f"{f' -> {level_db} dB level' if level_db else ''} -> RX in "
+          f"{seconds:.3f} s (host clock, first call); launches {on_path}")
+    for kernel, n in on_path.items():
+        need(n > 0, f"the {name} path never launched {kernel}")
+    need(bool(torch.isfinite(out.symbols.re).all()
+              and torch.isfinite(out.symbols.im).all()), "non-finite symbols")
+    need(tuple(out.bits.shape) == (c, nframes, 2 * cfg.symbols_per_frame),
+         f"bits of shape {tuple(out.bits.shape)}")
+
+    _, plain_bits, flips = check_path(
+        cfg, chan, clean, pcm, out, dev, f"C={c} {name}", errs,
+        tx_key="tx_1200" if cfg.cycles == 8 else "tx",
+        fe_key="frontend_cm_1200" if cfg.cycles == 8 else "frontend_cm")
+    npk, nok, _ = compare_decodes(pcfg, out, plain_bits, flips, payload, name)
+    # a loose floor: the JAX package records PER 0 at these points for
+    # the equalizer (14 dB) and 1200 baud (8 dB)
+    need(nok >= 0.9 * npk, f"only {nok} of {npk} packets pass CRC ({name})")
+    return {k: v for k, v in on_path.items() if k not in ("tx", "costas")}
+
+
+def option_rates(dev, errs: dict) -> dict:
+    """Phase 6c: RX samples/s of each option path at 8192 channels x 8
+    frames, kernel and plain; then each new kernel or mode against its
+    plain version there and {name: (kernel ms, plain ms, bound ms,
+    bound by)}."""
+    import torch
+    from qpsk_tpu_torch import ModemConfig, rx_init, tx_init
+    from qpsk_tpu_torch.ops.costas import costas_init, costas_params, gear_for
+    from qpsk_tpu_torch.ops.cplx import CF32
+    from qpsk_tpu_torch.ops.modmap import bits_to_symbols
+
+    mods = kernel_modules()
+    fk, ck, tk = mods["frontend"], mods["costas"], mods["tx"]
+    (c, nframes), iters = RATE_POINT, 20
+    nsamples = c * nframes * 512
+    for name in OPTION_PATHS:
+        cfg = option_cfg(name)
+        pcm = noise_pcm(cfg, c, nframes, 7, dev)
+        k = cuda_time_ms(rx_step(cfg, dev, pcm, "kernel")[0], iters)
+        p = cuda_time_ms(rx_step(cfg, dev, pcm, "plain")[0], 2, warmup=1)
+        print(f"  rx_stream {name:9s}: kernel path {k:.4f} ms/call, "
+              f"{nsamples / k * 1e3:.6g} samples/s; plain path {p:.4f} "
+              f"ms/call, {nsamples / p * 1e3:.6g} samples/s")
+
+    level, c1200, base = option_cfg("level"), option_cfg("1200"), ModemConfig()
+    nsym = level.symbols_per_frame
+    label = f"C={c} F={nframes} noise"
+    pcm4, pcm8 = noise_pcm(level, c, nframes, 7, dev), noise_pcm(c1200, c, nframes, 7, dev)
+    st = rx_init(level, (c,), device=dev)
+    kf, _ = check_frontend(level, pcm4, st, False, label, errs)
+    check_frontend_cm(base, pcm4, st, False, label, errs, "frontend_cm")
+    check_frontend_cm(c1200, pcm8, st, False, label, errs, "frontend_cm_1200")
+    params = costas_params(level.loop_bw, level.damping, level.min_freq,
+                           level.max_freq)
+    gear = gear_for(level.loop_bw_track, level.damping)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    gains = torch.rand((nframes, c), generator=gen, device=dev) * 1.5 + 0.5
+    cs_gear, cs = costas_init((c,), gear=True, device=dev), costas_init((c,), device=dev)
+    check_costas(cs_gear, kf[0], kf[1], params, nsym, False, label, errs, gear=gear)
+    check_costas(cs, kf[0], kf[1], params, nsym, False, label, errs, gains=gains)
+    s8 = nframes * c1200.symbols_per_frame
+    sym8 = bits_to_symbols(torch.randint(0, 2, (c, 2 * s8), generator=gen,
+                                         device=dev, dtype=torch.int32))
+    sym8 = CF32(sym8.re.contiguous(), sym8.im.contiguous())
+    ts8 = tx_init(c1200, (c,), device=dev)
+    check_tx(c1200, sym8, ts8, f"C={c} S={s8}", errs, key="tx_1200", lsb=1)
+
+    t = nframes * nsym
+    return {name: time_pair(name, kern, plain, args, kw, n, iters) + work
+            for name, kern, plain, args, kw, n, work in (
+                ("frontend_tm_power", fk.rx_frontend_tm, fk.rx_frontend_tm_plain,
+                 (level, pcm4, st.nco_phase, st.fir_tail, st.decim_delay),
+                 {}, iters,
+                 frontend_work(c, nframes, 4, True, True)),
+                ("frontend_cm", fk.rx_frontend, fk.frontend_xla,
+                 (base, pcm4, st.nco_phase, st.fir_tail), {}, iters,
+                 frontend_work(c, nframes, 4, False, False)),
+                ("frontend_cm_1200", fk.rx_frontend, fk.frontend_xla,
+                 (c1200, pcm8, st.nco_phase, st.fir_tail), {}, iters,
+                 frontend_work(c, nframes, 8, False, False)),
+                ("costas_gear", ck.costas_run_tm, ck.costas_run_tm_plain,
+                 (cs_gear, kf[0], kf[1], params, nsym), dict(gear=gear), 3,
+                 costas_work(c, t, nsym, gear=True)),
+                ("costas_gains", ck.costas_run_tm, ck.costas_run_tm_plain,
+                 (cs, kf[0], kf[1], params, nsym), dict(gains=gains), 3,
+                 costas_work(c, t, nsym, gains=True)),
+                ("tx_1200", tk.tx_modulate, tk.tx_modulate_plain,
+                 (c1200, sym8, ts8.nco_phase, ts8.fir_tail, TX_OFFSET_HZ), {},
+                 iters, tx_work(c, s8, 8)))}
 
 
 def profile(cfg, dev, steps: int = 5) -> None:
     """``--profile``: a ``torch.profiler`` trace of ``steps`` kernel-path
-    receive calls after 3 warm-up calls, uncoded at the rate point and
-    coded at the composed coded point: per call, the device operations
-    launched, the device's busy time (the union of their intervals)
-    beside the host's wall time under the profiler, and the operations
-    that take the most device time."""
+    receive calls after 3 warm-up calls, uncoded at the rate point, coded
+    at the composed coded point and each phase-6 configuration at the rate
+    point: per call, the device operations launched, the device's busy
+    time (the union of their intervals) beside the host's wall time under
+    the profiler, and the operations that take the most device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as trace
 
-    for kind, (c, nframes) in ((None, RATE_POINT), ("conv", CODED_RATE_POINT),
-                               ("ldpc", CODED_RATE_POINT)):
-        step, _ = rx_step(cfg, dev, noise_pcm(cfg, c, nframes, 13, dev),
+    for label, rcfg, kind, (c, nframes) in (
+            ("uncoded", cfg, None, RATE_POINT),
+            ("conv", cfg, "conv", CODED_RATE_POINT),
+            ("ldpc", cfg, "ldpc", CODED_RATE_POINT),
+            *((name, option_cfg(name), None, RATE_POINT)
+              for name in OPTION_PATHS)):
+        step, _ = rx_step(rcfg, dev, noise_pcm(rcfg, c, nframes, 13, dev),
                           "kernel", kind)
         for _ in range(3):
             step()
@@ -844,7 +1286,7 @@ def profile(cfg, dev, steps: int = 5) -> None:
             reach = max(reach, end)
             by_name[name] = by_name.get(name, 0.0) + end - start
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        print(f"  {kind or 'uncoded'} RX at {c} x {nframes}: {len(ops) / steps:.1f} "
+        print(f"  {label} RX at {c} x {nframes}: {len(ops) / steps:.1f} "
               f"device ops per call, device busy {busy / steps / 1e3:.4f} ms of "
               f"{wall_us / steps / 1e3:.4f} ms wall per call (idle share "
               f"{1 - busy / wall_us:.3f}); most device time: "
@@ -885,8 +1327,7 @@ def main() -> int:
         profile(cfg, dev)
         print(smi)
         return 0
-    errs = {"frontend": 0.0, "costas": 0.0, "tx": 0.0, "viterbi": 0.0,
-            "ldpc": 0.0}
+    errs = dict.fromkeys(KERNELS, 0.0)
     print("phase 2: kernels against their plain versions")
     compare_kernels(cfg, pcfg, dev, errs)
     print("phase 3: main path at full width")
@@ -902,21 +1343,20 @@ def main() -> int:
     print(f"  before: {CLOCKS} = {nvidia_smi_line(CLOCKS)}")
     times.update(coded_rates(cfg, dev, errs))
     print(f"  after:  {CLOCKS} = {nvidia_smi_line(CLOCKS)}")
+    print("phase 6: the loop and channel options")
+    compare_options(pcfg, dev, errs)
+    for name in OPTION_PATHS:
+        counts.update(option_loopback(name, pcfg, dev, errs))
+    print(f"  before: {CLOCKS} = {nvidia_smi_line(CLOCKS)}")
+    times.update(option_rates(dev, errs))
+    print(f"  after:  {CLOCKS} = {nvidia_smi_line(CLOCKS)}")
 
-    sources = {"frontend": ("qpsk_tpu_torch/csrc/frontend.cu",
-                            "qpsk_tpu/ops/pallas/frontend_kernel.py:545"),
-               "costas": ("qpsk_tpu_torch/csrc/costas.cu",
-                          "qpsk_tpu/ops/pallas/costas_kernel.py:373"),
-               "tx": ("qpsk_tpu_torch/csrc/tx.cu",
-                      "qpsk_tpu/ops/pallas/tx_kernel.py:145"),
-               "viterbi": ("qpsk_tpu_torch/csrc/viterbi.cu",
-                           "qpsk_tpu/ops/pallas/viterbi_kernel.py:151+166"),
-               "ldpc": ("qpsk_tpu_torch/csrc/ldpc.cu",
-                        "qpsk_tpu/ops/pallas/ldpc_kernel.py:116")}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": counts[name], "max_abs_err": errs[name],
-                "ms": times[name][0], "plain_ms": times[name][1]}
-               for name, (src, rep) in sources.items()]
+                "ms": times[name][0], "plain_ms": times[name][1],
+                "bound_ms": times[name][2], "bound_by": times[name][3],
+                "library_ms": None}
+               for name, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -6,9 +6,10 @@ to equal fields, defaults and validation; ``from_dict`` builds this config
 from ``dataclasses.asdict`` of the JAX one.
 
 Every field is accepted here so that configs convert both ways.  The port
-implements only the uncoded QPSK slice; ``modem.check_slice`` names the
-first field a config sets off that slice, and the modem's entry points raise
-``NotImplementedError`` for it.
+implements coherent QPSK at 2400 and 1200 baud with the AGC, the CMA
+equalizer and the gear-shift loop; ``modem.check_slice`` names the first
+field a config sets off the ported modes, and the modem's entry points
+raise ``NotImplementedError`` for it.
 """
 
 from __future__ import annotations
@@ -159,8 +160,8 @@ def config_2400() -> ModemConfig:
 
 
 def config_1200() -> ModemConfig:
-    """1200 baud 10 m band mode (off the port's slice: 64-symbol frames
-    need the grouped front-end launch, still to be ported)."""
+    """1200 baud 10 m band mode: 8 samples per symbol, 64-symbol frames,
+    received on the composed path (channel-major front-end)."""
     return ModemConfig(rs=1200.0)
 
 

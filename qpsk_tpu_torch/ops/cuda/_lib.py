@@ -31,9 +31,10 @@ LINK_FLAGS = _ARCH + ("-shared",)
 
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
-    "qpsk_frontend_tm": [_P] * 11 + [_I, _I, _P, _P, _D, _F, _F, _P],
-    "qpsk_costas_tm": [_P] * 10 + [_I, _I, _I, _F, _F, _F, _F, _P],
-    "qpsk_tx": [_P] * 7 + [_I, _I, _P, _D, _F, _F, _P],
+    "qpsk_frontend_tm": [_P] * 12 + [_I, _I, _P, _P, _D, _F, _F, _P],
+    "qpsk_frontend_cm": [_P] * 7 + [_I, _I, _I, _P, _P, _D, _F, _F, _P],
+    "qpsk_costas_tm": [_P] * 15 + [_I] * 4 + [_P, _P],
+    "qpsk_tx": [_P] * 7 + [_I, _I, _I, _P, _D, _F, _F, _P],
     "qpsk_viterbi": [_P] * 4 + [_I, _I, _I, _P],
     "qpsk_ldpc": [_P] * 4 + [_I] * 7 + [_F, _P],
 }
@@ -102,16 +103,18 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def check_geometry(cfg) -> None:
+def check_geometry(cfg, cycles=(4, 8)) -> None:
     """Raise ``NotImplementedError`` naming the first field of ``cfg`` off
-    the geometry the kernels are built for: 127 taps, 4 samples per symbol,
+    the geometry the kernels are built for: 127 taps, ``cycles`` samples
+    per symbol (4 or 8: 2400 or 1200 baud; a kernel may take fewer),
     512-sample frames."""
-    for field, name, want in (("ntaps", "ntaps", 127), ("cycles", "fs/rs", 4),
-                              ("frame_size", "frame_size", 512)):
-        if getattr(cfg, field) != want:
+    for field, name, want in (("ntaps", "ntaps", (127,)),
+                              ("cycles", "fs/rs", tuple(cycles)),
+                              ("frame_size", "frame_size", (512,))):
+        if getattr(cfg, field) not in want:
             raise NotImplementedError(
                 f"{name}={getattr(cfg, field)!r} is not ported (the kernels "
-                f"are built for {name}={want!r})")
+                f"are built for {name} in {want!r})")
 
 
 def check(rc: int, name: str) -> None:

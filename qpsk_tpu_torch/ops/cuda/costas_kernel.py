@@ -1,49 +1,83 @@
 """Costas-loop kernel wrapper (port of the time-major entry of
 ``qpsk_tpu/ops/pallas/costas_kernel.py``, ``costas_run_pallas_tm`` with the
-QPSK detector, ``emit_bits`` and ``trace_every``).
+QPSK detector, ``emit_bits`` and ``trace_every``, in its plain, gear and
+gains modes, and of its channel-major entry ``costas_run_pallas_traced``).
 
 ``costas_run_tm`` consumes the (T, C) planes the front-end emits.  On a
 CUDA tensor it launches ``csrc/costas.cu``, which also slices the derotated
 symbols and packs 16 dibits per int32 word; on a CPU tensor it runs
-``costas_run_tm_plain``: the ``costas_run_traced`` loop, ``demod_bits`` and
+``costas_run_tm_plain``: the gain-scaled symbols through
+``costas_run_traced`` (or ``costas_run_gear_traced``), ``demod_bits`` and
 the frame-boundary frequency readback.
 """
 
 from __future__ import annotations
 
+import collections
+
+import numpy as np
 import torch
 
-from qpsk_tpu_torch.ops.costas import (CostasParams, CostasState,
+from qpsk_tpu_torch.ops.costas import (CostasGear, CostasParams, CostasState,
+                                       costas_run_gear_traced,
                                        costas_run_traced)
 from qpsk_tpu_torch.ops.cplx import CF32
 from qpsk_tpu_torch.ops.cuda import _lib
 from qpsk_tpu_torch.ops.modmap import demod_bits
 
-# Kernel launches since the last reset (set to 0 to start a count).
+# Kernel launches since the last reset (set to 0 to start a count), and
+# the same launches by mode (clear() it): "qpsk" for the single-bandwidth
+# loop without gains, "gear" and "gains" for every launch in that mode
+# (a gear + gains launch counts in both).
 launches = 0
+by_mode = collections.Counter()
 
 
 def costas_run_tm(state: CostasState, zr_tm: torch.Tensor,
                   zi_tm: torch.Tensor, params: CostasParams,
-                  trace_every: int):
+                  trace_every: int, gear: CostasGear | None = None,
+                  gains: torch.Tensor | None = None):
     """Run the loop over (T, C) symbol planes.
 
-    Returns ``(new_state, derot CF32 (T, C), freq_frames (C, T //
-    trace_every), bits (C, 2T) int32)``: ``freq_frames[:, k]`` is the loop
-    frequency after symbol ``(k+1)*trace_every - 1`` and ``bits`` is
+    ``gear`` (with a state from ``costas_init(..., gear=True)``) runs the
+    gear-shift loop; ``gains``, a (F, C) float32 plane with ``T % F == 0``,
+    scales each symbol by its frame's gain before the loop.  Returns
+    ``(new_state, derot CF32 (T, C), freq_frames (C, T // trace_every),
+    bits (C, 2T) int32)``: ``freq_frames[:, k]`` is the loop frequency
+    after symbol ``(k+1)*trace_every - 1`` and ``bits`` is
     ``modmap.demod_bits`` of the derotated (C, T) symbols.
     """
     if zr_tm.is_cuda:
-        return _launch(state, zr_tm, zi_tm, params, trace_every)
-    return costas_run_tm_plain(state, zr_tm, zi_tm, params, trace_every)
+        return _launch(state, zr_tm, zi_tm, params, trace_every, gear, gains)
+    return costas_run_tm_plain(state, zr_tm, zi_tm, params, trace_every,
+                               gear, gains)
 
 
-def costas_run_tm_plain(state, zr_tm, zi_tm, params, trace_every):
+def costas_run_tm_plain(state, zr_tm, zi_tm, params, trace_every, gear=None,
+                        gains=None):
     """The plain PyTorch version of ``costas_run_tm``."""
-    new_state, derot, trace = costas_run_traced(
-        state, CF32(zr_tm.T, zi_tm.T), params)
+    if gains is not None:
+        g = gains.repeat_interleave(zr_tm.shape[0] // gains.shape[0], dim=0)
+        zr_tm, zi_tm = zr_tm * g, zi_tm * g
+    symbols = CF32(zr_tm.T, zi_tm.T)
+    if gear is None:
+        new_state, derot, trace = costas_run_traced(state, symbols, params)
+    else:
+        new_state, derot, trace = costas_run_gear_traced(state, symbols,
+                                                         params, gear)
     return (new_state, CF32(derot.re.T.contiguous(), derot.im.T.contiguous()),
             trace[:, trace_every - 1::trace_every], demod_bits(derot))
+
+
+def costas_run_cm(state: CostasState, symbols: CF32, params: CostasParams,
+                  trace_every: int, gear: CostasGear | None = None, run=None):
+    """The channel-major entry: (C, T) symbols, transposed to (T, C) for
+    ``run`` (``costas_run_tm``, or its plain version).  Returns
+    ``(new_state, derot CF32 (C, T), freq_frames, bits (C, 2T))``."""
+    new_state, derot, trace, bits = (run or costas_run_tm)(
+        state, symbols.re.T.contiguous(), symbols.im.T.contiguous(), params,
+        trace_every, gear=gear)
+    return new_state, CF32(derot.re.T, derot.im.T), trace, bits
 
 
 def unpack_bits_tm(packed: torch.Tensor) -> torch.Tensor:
@@ -57,7 +91,7 @@ def unpack_bits_tm(packed: torch.Tensor) -> torch.Tensor:
     return bits.reshape(-1, packed.shape[1]).T              # (C, 2T)
 
 
-def _launch(state, zr_tm, zi_tm, params, trace_every):
+def _launch(state, zr_tm, zi_tm, params, trace_every, gear, gains):
     global launches
     t, c = zr_tm.shape
     if t < 1 or c < 1 or t % 16 or trace_every < 1 or t % trace_every:
@@ -67,22 +101,47 @@ def _launch(state, zr_tm, zi_tm, params, trace_every):
     dev = zr_tm.device
     _lib.require(zr_tm, "zr_tm", torch.float32, (t, c), dev)
     _lib.require(zi_tm, "zi_tm", torch.float32, (t, c), dev)
-    _lib.require(state.phase, "state.phase", torch.float32, (c,), dev)
-    _lib.require(state.freq, "state.freq", torch.float32, (c,), dev)
+    fields = ("phase", "freq") + (("lev", "locked") if gear else ())
+    for name in fields:
+        _lib.require(getattr(state, name), f"state.{name}", torch.float32,
+                     (c,), dev)
+    nsf = 0
+    if gains is not None:
+        nf = gains.shape[0]
+        if nf < 1 or t % nf:
+            raise ValueError(f"gains of shape {tuple(gains.shape)} do not "
+                             f"divide T={t} into frames")
+        _lib.require(gains, "gains", torch.float32, (nf, c), dev)
+        nsf = t // nf
 
     def empty(shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=dev)
     outr, outi = empty((t, c)), empty((t, c))
     ftrace = empty((t // trace_every, c))
-    phase, freq = empty((c,)), empty((c,))
+    out = {name: empty((c,)) for name in fields}
     packed = empty((t // 16, c), torch.int32)
+    vals = [params.alpha, params.beta, params.min_freq, params.max_freq]
+    vals += [gear.alpha_trk, gear.beta_trk, gear.gamma, gear.enter,
+             gear.exit] if gear else [0.0] * 5
+    consts = np.asarray(vals, np.float32)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
     rc = _lib.library().qpsk_costas_tm(
         zr_tm.data_ptr(), zi_tm.data_ptr(), state.phase.data_ptr(),
-        state.freq.data_ptr(), outr.data_ptr(), outi.data_ptr(),
-        ftrace.data_ptr(), phase.data_ptr(), freq.data_ptr(),
-        packed.data_ptr(), t, c, trace_every, params.alpha, params.beta,
-        params.min_freq, params.max_freq, _lib.stream_ptr(dev))
+        state.freq.data_ptr(), ptr(state.lev if gear else None),
+        ptr(state.locked if gear else None), ptr(gains), outr.data_ptr(),
+        outi.data_ptr(), ftrace.data_ptr(), out["phase"].data_ptr(),
+        out["freq"].data_ptr(), ptr(out.get("lev")), ptr(out.get("locked")),
+        packed.data_ptr(), t, c, trace_every, nsf, consts.ctypes.data,
+        _lib.stream_ptr(dev))
     _lib.check(rc, "qpsk_costas_tm")
     launches += 1
-    return (CostasState(phase=phase, freq=freq), CF32(outr, outi), ftrace.T,
+    if gear:
+        by_mode["gear"] += 1
+    if gains is not None:
+        by_mode["gains"] += 1
+    if not gear and gains is None:
+        by_mode["qpsk"] += 1
+    return (CostasState(**out), CF32(outr, outi), ftrace.T,
             unpack_bits_tm(packed))

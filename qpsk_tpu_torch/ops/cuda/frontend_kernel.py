@@ -1,18 +1,25 @@
-"""RX front-end kernel wrapper (port of the time-major launch of
-``qpsk_tpu/ops/pallas/frontend_kernel.py``, ``rx_frontend_fused_tm``).
+"""RX front-end kernel wrappers (port of
+``qpsk_tpu/ops/pallas/frontend_kernel.py``: the time-major launch
+``rx_frontend_fused_tm`` and the channel-major launch ``rx_frontend_fused``).
 
 ``rx_frontend_tm`` takes the ``RxState`` fields (mixed-domain ``fir_tail``,
 unit ``nco_phase``, ``decim_delay``) and returns the one-frame-delayed,
 carrier-rotated symbol picks as time-major ``(T, C)`` planes, the timing
-index and the new state.  On a CUDA tensor it launches
-``csrc/frontend.cu``; on a CPU tensor it runs ``rx_frontend_tm_plain``, the
-staged ``frontend_xla`` chain (``modem.frontend_xla`` in the JAX package)
-plus the delay concat, in the same layout.  The tail conversions and the phase advance are host-side torch
-helpers (``ops/frontend.py``), as in the JAX package.
+index, the new state and, for the frame-rate AGC, the per-frame power of
+the emitted picks.  ``rx_frontend`` returns the undelayed picks channel-major
+``(C, nframes, nsym)``, at 4 or 8 samples per symbol: the composed receive
+path's front-end (1200 baud, the CMA equalizer).  On a CUDA tensor each
+launches ``csrc/frontend.cu``; on a CPU tensor each runs its plain version:
+``frontend_xla``, the staged chain (``modem.frontend_xla`` in the JAX
+package), plus for the time-major one the delay concat and
+``agc._frame_power``, in the same layouts.  The tail conversions and the
+phase advance are host-side torch helpers (``ops/frontend.py``), as in the
+JAX package.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
 
 import numpy as np
@@ -21,34 +28,53 @@ import torch
 from qpsk_tpu_torch.ops import frontend as fe
 from qpsk_tpu_torch.ops import rrc as rrc_ops
 from qpsk_tpu_torch.ops import timing as timing_ops
+from qpsk_tpu_torch.ops.agc import frame_powers_tm
 from qpsk_tpu_torch.ops.cplx import CF32, cmap
 from qpsk_tpu_torch.ops.cuda import _lib
 
-# Kernel launches since the last reset (set to 0 to start a count).
+# Kernel launches since the last reset (set to 0 to start a count), and
+# the same launches by mode: "tm", "tm_power", "cm4", "cm8" (clear() it).
 launches = 0
+by_mode = collections.Counter()
 
 
 def rx_frontend_tm(cfg, pcm: torch.Tensor, nco_phase: CF32, fir_tail: CF32,
                    decim_delay: CF32):
-    """Front-end over ``(C, nframes, frame_size)`` int16 PCM.
+    """Time-major front-end over ``(C, nframes, frame_size)`` int16 PCM.
 
     Returns ``(zr, zi, index, new_nco_phase, new_fir_tail,
-    new_decim_delay)``: ``zr, zi`` are the delayed picks as (T, C) float32
-    planes with ``T = nframes * nsym`` (rows of frame 0 are the carried
-    ``decim_delay``), ``index`` is the (C, nframes) int32 decimation phase.
+    new_decim_delay, powers)``: ``zr, zi`` are the delayed picks as (T, C)
+    float32 planes with ``T = nframes * nsym`` (rows of frame 0 are the
+    carried ``decim_delay``), ``index`` is the (C, nframes) int32
+    decimation phase, ``powers`` the (C, nframes) mean |pick|^2 of each
+    emitted frame, ``agc._frame_power`` bit for bit, or None unless
+    ``cfg.agc``.
     """
     if pcm.is_cuda:
-        return _launch(cfg, pcm, nco_phase, fir_tail, decim_delay)
+        return _launch_tm(cfg, pcm, nco_phase, fir_tail, decim_delay)
     return rx_frontend_tm_plain(cfg, pcm, nco_phase, fir_tail, decim_delay)
+
+
+def rx_frontend(cfg, pcm: torch.Tensor, nco_phase: CF32, fir_tail: CF32):
+    """Channel-major front-end over ``(C, nframes, frame_size)`` int16 PCM,
+    without the delay.  Returns (picks CF32 (C, nframes, nsym), index
+    (C, nframes) int32, new_nco_phase, new_fir_tail); its plain version is
+    ``frontend_xla``."""
+    if pcm.is_cuda:
+        return _launch_cm(cfg, pcm, nco_phase, fir_tail)
+    return frontend_xla(cfg, pcm, nco_phase, fir_tail)
 
 
 @functools.lru_cache(maxsize=None)
 def _tmat_mod_for(cfg, block: int, device) -> tuple:
     """(re, im) Toeplitz planes of the RX modulated taps on ``device``."""
-    key = tuple(np.asarray(rrc_ops.taps_for(cfg)).tolist())
-    hm = fe.modulated_taps_np(key, float(-cfg.omega_center))
+    hm = fe.modulated_taps_np(_taps_key(cfg), float(-cfg.omega_center))
     return tuple(torch.from_numpy(rrc_ops.toeplitz_taps(h, block)).to(device)
                  for h in hm)
+
+
+def _taps_key(cfg) -> tuple:
+    return tuple(np.asarray(rrc_ops.taps_for(cfg)).tolist())
 
 
 def frontend_xla(cfg, pcm: torch.Tensor, nco_phase: CF32, fir_tail: CF32):
@@ -84,51 +110,96 @@ def rx_frontend_tm_plain(cfg, pcm, nco_phase, fir_tail, decim_delay):
     def delayed(dd, p):
         z = torch.cat([dd[:, None], p[:, :-1]], dim=1)
         return z.reshape(c, -1).T.contiguous()
-    return (delayed(decim_delay.re, picks.re), delayed(decim_delay.im, picks.im),
-            index, new_phase, new_tail,
-            CF32(picks.re[:, -1].contiguous(), picks.im[:, -1].contiguous()))
+    zr, zi = delayed(decim_delay.re, picks.re), delayed(decim_delay.im, picks.im)
+    powers = frame_powers_tm(zr, zi, nframes).contiguous() if cfg.agc else None
+    return (zr, zi, index, new_phase, new_tail,
+            CF32(picks.re[:, -1].contiguous(), picks.im[:, -1].contiguous()),
+            powers)
 
 
-def _launch(cfg, pcm, nco_phase, fir_tail, decim_delay):
-    global launches
-    _lib.check_geometry(cfg)
-    c, nframes, fsz = pcm.shape
+def _check_inputs(cfg, pcm, nco_phase, fir_tail):
+    """Validate what the kernel reads by pointer; return (C, nframes)."""
+    c, nframes, _ = pcm.shape
     if not 1 <= nframes <= 65535 or c < 1:
         raise ValueError(f"the front-end kernel takes 1..65535 frames and "
                          f"at least one channel, got {tuple(pcm.shape)}")
     dev = pcm.device
-    nsym = fsz // cfg.cycles
-    ntaps_m1 = cfg.ntaps - 1
     _lib.require(pcm, "pcm", torch.int16, (c, nframes, cfg.frame_size), dev)
     for name, t, shape in (("nco_phase", nco_phase, (c,)),
-                           ("fir_tail", fir_tail, (c, ntaps_m1)),
-                           ("decim_delay", decim_delay, (c, nsym))):
+                           ("fir_tail", fir_tail, (c, cfg.ntaps - 1))):
         for part, plane in zip(("re", "im"), t):
             _lib.require(plane, f"{name}.{part}", torch.float32, shape, dev)
+    return c, nframes
 
+
+def _carried(cfg, pcm, nco_phase):
+    """The new (nco_phase, fir_tail) after this call, from the raw PCM."""
+    c, nframes, fsz = pcm.shape
+    n, ntaps_m1 = nframes * fsz, cfg.ntaps - 1
     omega = float(-cfg.omega_center)
-    n = nframes * fsz
+    last_raw = pcm.reshape(c, n)[:, n - ntaps_m1:].to(torch.float32) \
+        / cfg.pcm_scale
+    return (fe.advance_phase(nco_phase, omega, n),
+            fe.remix_tail(last_raw, nco_phase, omega, n))
+
+
+def _operands(cfg, nco_phase, fir_tail):
+    """(raw tail, modulated taps (2, ntaps), omega) of a launch."""
+    omega = float(-cfg.omega_center)
     raw_tail = fe.unmix_tail(fir_tail, nco_phase, omega).contiguous()
-    taps_key = tuple(np.asarray(rrc_ops.taps_for(cfg)).tolist())
-    hm = np.ascontiguousarray(fe.modulated_taps_np(taps_key, omega))
-    t = nframes * nsym
-    zr = torch.empty((t, c), dtype=torch.float32, device=dev)
-    zi = torch.empty((t, c), dtype=torch.float32, device=dev)
+    hm = np.ascontiguousarray(fe.modulated_taps_np(_taps_key(cfg), omega))
+    return raw_tail, hm, omega
+
+
+def _launch_tm(cfg, pcm, nco_phase, fir_tail, decim_delay):
+    global launches
+    want_power = bool(cfg.agc)
+    _lib.check_geometry(cfg, cycles=(4,))
+    c, nframes = _check_inputs(cfg, pcm, nco_phase, fir_tail)
+    dev = pcm.device
+    nsym = cfg.symbols_per_frame
+    for part, plane in zip(("re", "im"), decim_delay):
+        _lib.require(plane, f"decim_delay.{part}", torch.float32, (c, nsym),
+                     dev)
+    raw_tail, hm, omega = _operands(cfg, nco_phase, fir_tail)
+
+    def empty(shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    zr, zi = empty((nframes * nsym, c)), empty((nframes * nsym, c))
     index = torch.empty((c, nframes), dtype=torch.int32, device=dev)
-    ndd = CF32(torch.empty((c, nsym), dtype=torch.float32, device=dev),
-               torch.empty((c, nsym), dtype=torch.float32, device=dev))
+    ndd = CF32(empty((c, nsym)), empty((c, nsym)))
+    powers = empty((c, nframes)) if want_power else None
     rc = _lib.library().qpsk_frontend_tm(
         pcm.data_ptr(), raw_tail.data_ptr(), nco_phase.re.data_ptr(),
         nco_phase.im.data_ptr(), decim_delay.re.data_ptr(),
         decim_delay.im.data_ptr(), zr.data_ptr(), zi.data_ptr(),
-        index.data_ptr(), ndd.re.data_ptr(), ndd.im.data_ptr(), c, nframes,
+        index.data_ptr(), ndd.re.data_ptr(), ndd.im.data_ptr(),
+        powers.data_ptr() if want_power else None, c, nframes,
         hm[0].ctypes.data, hm[1].ctypes.data, omega, float(cfg.gain),
         1.0 / float(cfg.pcm_scale), _lib.stream_ptr(dev))
     _lib.check(rc, "qpsk_frontend_tm")
     launches += 1
+    by_mode["tm_power" if want_power else "tm"] += 1
+    return (zr, zi, index, *_carried(cfg, pcm, nco_phase), ndd, powers)
 
-    last_raw = pcm.reshape(c, n)[:, n - ntaps_m1:].to(torch.float32) \
-        / cfg.pcm_scale
-    new_phase = fe.advance_phase(nco_phase, omega, n)
-    new_tail = fe.remix_tail(last_raw, nco_phase, omega, n)
-    return zr, zi, index, new_phase, new_tail, ndd
+
+def _launch_cm(cfg, pcm, nco_phase, fir_tail):
+    global launches
+    _lib.check_geometry(cfg)
+    c, nframes = _check_inputs(cfg, pcm, nco_phase, fir_tail)
+    dev = pcm.device
+    nsym = cfg.symbols_per_frame
+    raw_tail, hm, omega = _operands(cfg, nco_phase, fir_tail)
+    picks = CF32(*(torch.empty((c, nframes, nsym), dtype=torch.float32,
+                               device=dev) for _ in range(2)))
+    index = torch.empty((c, nframes), dtype=torch.int32, device=dev)
+    rc = _lib.library().qpsk_frontend_cm(
+        pcm.data_ptr(), raw_tail.data_ptr(), nco_phase.re.data_ptr(),
+        nco_phase.im.data_ptr(), picks.re.data_ptr(), picks.im.data_ptr(),
+        index.data_ptr(), c, nframes, cfg.cycles, hm[0].ctypes.data,
+        hm[1].ctypes.data, omega, float(cfg.gain), 1.0 / float(cfg.pcm_scale),
+        _lib.stream_ptr(dev))
+    _lib.check(rc, "qpsk_frontend_cm")
+    launches += 1
+    by_mode[f"cm{cfg.cycles}"] += 1
+    return (picks, index, *_carried(cfg, pcm, nco_phase))

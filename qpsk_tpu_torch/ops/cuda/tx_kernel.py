@@ -1,7 +1,8 @@
 """TX modulator kernel wrapper (port of ``qpsk_tpu/ops/pallas/tx_kernel.py``,
 ``tx_modulate_fused``).
 
-``tx_modulate`` maps (C, S) QPSK symbols to (C, S*cycles) int16 PCM with
+``tx_modulate`` maps (C, S) QPSK symbols to (C, S*cycles) int16 PCM, at 4 or
+8 samples per symbol (2400 or 1200 baud), with
 the ``TxState`` contract of the staged path (zero-stuffed ``fir_tail``,
 unit-phasor ``nco_phase``), so kernel and plain calls chain with each
 other.  On a CUDA tensor it launches ``csrc/tx.cu``; on a CPU tensor it runs
@@ -9,6 +10,8 @@ other.  On a CUDA tensor it launches ``csrc/tx.cu``; on a CPU tensor it runs
 """
 
 from __future__ import annotations
+
+import collections
 
 import numpy as np
 import torch
@@ -21,8 +24,10 @@ from qpsk_tpu_torch.ops.cplx import CF32, cmap
 from qpsk_tpu_torch.ops.cuda import _lib
 from qpsk_tpu_torch.ops.modmap import upsample_zero_stuff
 
-# Kernel launches since the last reset (set to 0 to start a count).
+# Kernel launches since the last reset (set to 0 to start a count), and
+# the same launches by mode: "cycles4", "cycles8" (clear() it).
 launches = 0
+by_mode = collections.Counter()
 
 
 def tx_modulate(cfg, symbols: CF32, nco_phase: CF32, fir_tail: CF32,
@@ -74,10 +79,11 @@ def _launch(cfg, symbols, nco_phase, fir_tail, tx_offset_hz):
     rc = _lib.library().qpsk_tx(
         symbols.re.data_ptr(), symbols.im.data_ptr(), hist.re.data_ptr(),
         hist.im.data_ptr(), nco_phase.re.data_ptr(), nco_phase.im.data_ptr(),
-        pcm.data_ptr(), c, s, taps.ctypes.data, omega, float(cfg.gain),
+        pcm.data_ptr(), c, s, cycles, taps.ctypes.data, omega, float(cfg.gain),
         float(cfg.pcm_scale), _lib.stream_ptr(dev))
     _lib.check(rc, "qpsk_tx")
     launches += 1
+    by_mode[f"cycles{cycles}"] += 1
 
     # new state: the phase after s*cycles samples, and the last ntaps-1
     # samples of [old tail | zero-stuffed symbols]

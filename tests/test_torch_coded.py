@@ -242,7 +242,7 @@ def test_coded_slice_matches_jax(kind):
     pcm = np.clip(np.round(x + rng.normal(size=x.shape) * sigma),
                   -32768, 32767).astype(np.int16)
 
-    _, out = rx_stream(cfg, rx_init(cfg, (C,)), torch.from_numpy(pcm))
+    _, out = rx_stream(cfg, rx_init(cfg, (C,), device="cpu"), torch.from_numpy(pcm))
     _, jout = j_rx_stream(jcfg, j_rx_init(jcfg, batch_shape=(C,)), pcm)
     for ch in range(C):
         llrs = demod_soft(CF32(out.symbols.re[ch].reshape(-1),

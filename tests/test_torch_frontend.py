@@ -54,7 +54,7 @@ def _warm_state(pcm_head):
     """JAX and port RxState after one chained JAX call on ``pcm_head``."""
     c = pcm_head.shape[0]
     jst, _ = j_rx_stream(JC, j_rx_init(JC, batch_shape=(c,)), pcm_head)
-    return jst, from_numpy(jax.tree.map(np.asarray, jst))
+    return jst, from_numpy(jax.tree.map(np.asarray, jst), device="cpu")
 
 
 def _port(pcm, st):
@@ -76,7 +76,8 @@ def _jax_xla_delayed(pcm, jst):
 
 
 def _assert_close(port, ref):
-    zr, zi, idx, ph, tl, dd = port
+    zr, zi, idx, ph, tl, dd, powers = port
+    assert powers is None
     np.testing.assert_array_equal(idx.numpy(), np.asarray(ref[2]))
     np.testing.assert_allclose(zr.numpy(), np.asarray(ref[0]), atol=3e-4)
     np.testing.assert_allclose(zi.numpy(), np.asarray(ref[1]), atol=3e-4)

@@ -6,7 +6,8 @@
 (b) a torch-only loopback: packets -> ``tx_stream`` at +50 Hz -> ``awgn_pcm``
     at 10 dB -> ``rx_stream`` -> ``find_sync`` -> ``extract_packets``;
 (c) the package imports no jax and nothing of the JAX package;
-(d) every configuration off the slice raises ``NotImplementedError``.
+(d) every configuration off the port raises ``NotImplementedError``, and
+    the loop and channel options that were once off it run and match JAX.
 """
 
 import dataclasses
@@ -47,7 +48,7 @@ def test_rx_stream_matches_jax():
                   -32768, 32767).astype(np.int16)
 
     jst, jout = j_rx_stream(JC, j_rx_init(JC, batch_shape=(C,)), pcm)
-    st, out = rx_stream(CFG, rx_init(CFG, (C,)), torch.from_numpy(pcm))
+    st, out = rx_stream(CFG, rx_init(CFG, (C,), device="cpu"), torch.from_numpy(pcm))
     assert out.bits.shape == (C, NFRAMES, 256) and out.bits.dtype == torch.int32
     np.testing.assert_array_equal(out.timing_index.numpy(),
                                   np.asarray(jout.timing_index))
@@ -59,7 +60,7 @@ def test_rx_stream_matches_jax():
     np.testing.assert_allclose(st.costas.freq.numpy(),
                                np.asarray(jst.costas.freq), atol=1e-4)
     # one stream without a channel axis gives the same decisions
-    _, one = rx_stream(CFG, rx_init(CFG), torch.from_numpy(pcm[1]))
+    _, one = rx_stream(CFG, rx_init(CFG, device="cpu"), torch.from_numpy(pcm[1]))
     assert torch.equal(one.bits, out.bits[1])
 
 
@@ -78,10 +79,10 @@ def test_torch_only_loopback():
     gen = torch.Generator().manual_seed(0)
     payload = torch.randint(0, 2, (C, NFRAMES, 240), generator=gen,
                             dtype=torch.int32)
-    _, pcm = tx_stream(CFG, tx_init(CFG, (C,)), assemble_packet(PCFG, payload),
+    _, pcm = tx_stream(CFG, tx_init(CFG, (C,), device="cpu"), assemble_packet(PCFG, payload),
                        tx_offset_hz=50.0)
     power = float(((pcm.to(torch.float32) / 16384.0) ** 2).mean())
-    _, out = rx_stream(CFG, rx_init(CFG, (C,)), awgn_pcm(gen, pcm, 10.0, power))
+    _, out = rx_stream(CFG, rx_init(CFG, (C,), device="cpu"), awgn_pcm(gen, pcm, 10.0, power))
     for ch in range(C):
         offset = float(out.freq_hz[ch, NFRAMES // 2:].mean())
         assert abs(offset - 50.0) < 2.0, offset
@@ -115,14 +116,13 @@ def test_package_imports_no_jax():
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
 
-_OFF_SLICE = [{"modulation": "bpsk"}, {"differential": True}, {"agc": True},
-              {"eq_taps": 5}, {"loop_bw_track": 0.03},
+_OFF_SLICE = [{"modulation": "bpsk"}, {"differential": True},
               {"timing_mode": "histogram"}, {"timing_mode": "fractional"},
               {"timing_mode": "tracking"}, {"nco_mode": "exact"},
               {"fir_precision": "exact"}, {"slicer": "reference"},
               {"costas_impl": "scan"}, {"costas_impl": "pallas"},
               {"frontend_impl": "xla"}, {"frontend_impl": "pallas"},
-              {"tx_impl": "xla"}, {"tx_impl": "pallas"}, {"rs": 1200.0},
+              {"tx_impl": "xla"}, {"tx_impl": "pallas"}, {"rs": 4800.0},
               {"ntaps": 63}, {"frame_size": 256}]
 
 
@@ -133,18 +133,60 @@ def test_off_slice_config_raises(kwargs):
     cfg = dataclasses.replace(CFG, **kwargs)
     field = next(iter(kwargs))
     with pytest.raises(NotImplementedError, match="fs/rs" if field == "rs" else field):
-        tx_stream(cfg, tx_init(CFG, (1,)), torch.zeros((1, 1, 256), dtype=torch.int32))
+        tx_stream(cfg, tx_init(CFG, (1,), device="cpu"), torch.zeros((1, 1, 256), dtype=torch.int32))
     with pytest.raises(NotImplementedError):
-        rx_stream(cfg, rx_init(CFG, (1,)), torch.zeros((1, 1, 512), dtype=torch.int16))
+        rx_stream(cfg, rx_init(CFG, (1,), device="cpu"), torch.zeros((1, 1, 512), dtype=torch.int16))
 
 
 def test_off_slice_inputs_raise():
     with pytest.raises(NotImplementedError, match="doppler"):
-        tx_stream(CFG, tx_init(CFG), torch.zeros((1, 256), dtype=torch.int32),
+        tx_stream(CFG, tx_init(CFG, device="cpu"), torch.zeros((1, 256), dtype=torch.int32),
                   doppler_hz_per_s=5.0)
     for shape in ((512,), (2, 1, 1, 512), (1, 2, 500)):
         with pytest.raises(NotImplementedError):
-            rx_stream(CFG, rx_init(CFG), torch.zeros(shape, dtype=torch.int16))
+            rx_stream(CFG, rx_init(CFG, device="cpu"), torch.zeros(shape, dtype=torch.int16))
     assert PacketConfig(fec="ldpc").fec_kind == "ldpc"
     with pytest.raises(ValueError):
         PacketConfig(fec="ldpc2")
+
+
+_OPTIONS = [{"agc": True}, {"eq_taps": 5}, {"loop_bw_track": 0.03}]
+
+
+@pytest.mark.parametrize("kwargs", _OPTIONS,
+                         ids=[",".join(f"{k}={v}" for k, v in d.items())
+                              for d in _OPTIONS])
+def test_option_config_runs_and_matches_jax(kwargs):
+    """The AGC, the CMA equalizer and the gear-shift loop run on the same
+    PCM as JAX ``rx_stream``: equal timing decisions, bits equal except
+    within 1e-3 of a decision boundary, the option's state close."""
+    cfg, jc = dataclasses.replace(CFG, **kwargs), JCfg(**kwargs)
+    rng = np.random.default_rng(13)
+    bits = rng.integers(0, 2, (C, 8, 256), dtype=np.int32)
+    _, pcm = j_tx_stream(jc, j_tx_init(jc, batch_shape=(C,)), bits,
+                         tx_offset_hz=50.0)
+    x = np.asarray(pcm).astype(np.float64)
+    pcm = np.clip(np.round(x + rng.normal(size=x.shape)
+                           * np.sqrt((x ** 2).mean() / 10.0)),
+                  -32768, 32767).astype(np.int16)
+    jst, jout = j_rx_stream(jc, j_rx_init(jc, batch_shape=(C,)), pcm)
+    st, out = rx_stream(cfg, rx_init(cfg, (C,), device="cpu"),
+                        torch.from_numpy(pcm))
+    np.testing.assert_array_equal(out.timing_index.numpy(),
+                                  np.asarray(jout.timing_index))
+    flips = out.bits.numpy() != np.asarray(jout.bits)
+    tie = np.stack([np.abs(out.symbols.im.numpy()) < 1e-3,
+                    np.abs(out.symbols.re.numpy()) < 1e-3],
+                   -1).reshape(flips.shape)
+    assert tie[flips].all(), int(flips.sum())
+    np.testing.assert_allclose(out.symbols.re.numpy(),
+                               np.asarray(jout.symbols.re), atol=1e-3)
+    if cfg.agc:
+        np.testing.assert_allclose(st.agc.numpy(), np.asarray(jst.agc),
+                                   rtol=1e-5)
+    if cfg.eq_taps:
+        np.testing.assert_allclose(st.eq[0].im.numpy(),
+                                   np.asarray(jst.eq[0].im), atol=1e-4)
+    if cfg.loop_bw_track:
+        np.testing.assert_allclose(st.costas.lev.numpy(),
+                                   np.asarray(jst.costas.lev), atol=1e-4)

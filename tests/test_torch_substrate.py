@@ -129,24 +129,46 @@ def test_packets_match_jax():
         t_frame.PacketConfig(fec="turbo")
 
 
+def _round_trip(jst):
+    """JAX state -> port (CPU) -> numpy -> port: every leaf survives."""
+    tree = jax.tree.map(np.asarray, jst)
+    st = tstate.from_numpy(tree, device="cpu")
+    back = tstate.to_numpy(st)
+    for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(tuple(back)),
+                    strict=True):
+        np.testing.assert_array_equal(a, b)
+    again = tstate.from_numpy(back, device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(
+        jax.tree.leaves(tuple(again), is_leaf=torch.is_tensor),
+        jax.tree.leaves(tuple(st), is_leaf=torch.is_tensor), strict=True))
+    return st
+
+
 def test_state_round_trip_from_jax():
     cfg = jconfig.ModemConfig()
     c = 4
     pcm = np.random.default_rng(2).integers(-9000, 9000, (c, 2, 512),
                                             dtype=np.int16)
     jst, _ = j_rx_stream(cfg, qpsk_tpu.rx_init(cfg, batch_shape=(c,)), pcm)
-    tree = jax.tree.map(np.asarray, jst)
-    st = tstate.from_numpy(tree)
-    assert isinstance(st, tstate.RxState)
-    back = tstate.to_numpy(st)
-    for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(tuple(back))):
-        np.testing.assert_array_equal(a, b)
-    again = tstate.from_numpy(back)
-    assert all(torch.equal(a, b) for a, b in zip(
-        jax.tree.leaves(tuple(again), is_leaf=torch.is_tensor),
-        jax.tree.leaves(tuple(st), is_leaf=torch.is_tensor)))
-    tx = tstate.from_numpy(jax.tree.map(np.asarray, qpsk_tpu.tx_init(cfg, (c,))))
+    assert isinstance(_round_trip(jst), tstate.RxState)
+    tx = tstate.from_numpy(jax.tree.map(np.asarray, qpsk_tpu.tx_init(cfg, (c,))),
+                           device="cpu")
     assert isinstance(tx, tstate.TxState) and tx.fir_tail.re.shape == (c, 126)
-    gear = jconfig.ModemConfig(loop_bw_track=0.03)
+    # the gear-shift, equalizer and AGC states after a call, and as built
+    opts = jconfig.ModemConfig(loop_bw_track=0.03, eq_taps=5, agc=True)
+    jst, _ = j_rx_stream(opts, qpsk_tpu.rx_init(opts, batch_shape=(c,)), pcm)
+    st = _round_trip(jst)
+    assert st.costas.lev.shape == (c,) and st.agc.shape == (c,)
+    w, hist = st.eq
+    assert w.re.shape == (c, 5) and hist.im.shape == (c, 4)
+    built = tstate.rx_init(tconfig.from_dict(dataclasses.asdict(opts)), (c,),
+                           device="cpu")
+    for a, b in zip(jax.tree.leaves(tuple(tstate.to_numpy(built))),
+                    jax.tree.leaves(jax.tree.map(
+                        np.asarray, qpsk_tpu.rx_init(opts, batch_shape=(c,)))),
+                    strict=True):
+        np.testing.assert_array_equal(a, b)
+    diff = jconfig.ModemConfig(differential=True)
     with pytest.raises(NotImplementedError):
-        tstate.from_numpy(jax.tree.map(np.asarray, qpsk_tpu.rx_init(gear)))
+        tstate.from_numpy(jax.tree.map(np.asarray, qpsk_tpu.rx_init(diff)),
+                          device="cpu")

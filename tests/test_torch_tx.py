@@ -42,7 +42,7 @@ def test_tx_modulate_matches_jax():
     assert torch.equal(sym.re, torch.from_numpy(np.asarray(
         jmodmap.bits_to_symbols(bits).re)))
     jst = j_tx_init(JC, batch_shape=(C,))
-    st = from_numpy(jax.tree.map(np.asarray, jst))
+    st = from_numpy(jax.tree.map(np.asarray, jst), device="cpu")
     pcm, ph, tl = tx_modulate(CFG, sym, st.nco_phase, st.fir_tail, 50.0)
     assert pcm.shape == (C, NSYM * 4) and pcm.dtype == torch.int16
 
@@ -65,7 +65,7 @@ def test_tx_chained_matches_one_shot(split):
     """Chained port calls == one JAX pass over the concatenation."""
     bits = _bits(3).reshape(C, -1)
     sym = bits_to_symbols(torch.from_numpy(bits))
-    st = tx_init(CFG, (C,))
+    st = tx_init(CFG, (C,), device="cpu")
     parts = []
     for sl in (slice(0, split), slice(split, None)):
         s = CF32(sym.re[:, sl].contiguous(), sym.im[:, sl].contiguous())
@@ -82,7 +82,7 @@ def test_tx_stream_matches_jax_from_warm_state():
     single stream and channel batch."""
     jst, _ = j_tx_stream(JC, j_tx_init(JC, batch_shape=(C,)), _bits(5, 2),
                          tx_offset_hz=-30.0)
-    st = from_numpy(jax.tree.map(np.asarray, jst))
+    st = from_numpy(jax.tree.map(np.asarray, jst), device="cpu")
     bits = _bits(6)
     _, xp = j_tx_stream(JC, jst, bits, tx_offset_hz=-30.0)
     new, pcm = tx_stream(CFG, st, torch.from_numpy(bits), tx_offset_hz=-30.0)
@@ -90,6 +90,6 @@ def test_tx_stream_matches_jax_from_warm_state():
     assert _lsb(pcm, xp) <= 2
     one = jax.tree.map(lambda v: v[0], jst)
     _, xp1 = j_tx_stream(JC, one, bits[0], tx_offset_hz=-30.0)
-    _, pcm1 = tx_stream(CFG, from_numpy(jax.tree.map(np.asarray, one)),
+    _, pcm1 = tx_stream(CFG, from_numpy(jax.tree.map(np.asarray, one), device="cpu"),
                         torch.from_numpy(bits[0]), tx_offset_hz=-30.0)
     assert pcm1.shape == (4, 512) and _lsb(pcm1, xp1) <= 2

@@ -59,17 +59,35 @@ Phases, each of which exits non-zero on failure:
    inputs, as in phase 3.  (c) Rates at 8192 channels x 8 frames: RX
    samples/s of each configuration's kernel and plain path, and each new
    kernel's time beside its plain version's.
+7. The generic modulation family.  (a) The Costas kernel's dd mode against
+   its plain version for BPSK, 8PSK and 16QAM at 1, 200 and 8192
+   channels, in two chained calls of 8 frames, on a loopback stimulus and
+   on noise, without and with gains: bit-identical, labels included.  (b)
+   Three loopbacks at full width, kernels only, every launch counter reset
+   before each: 8192 channels x 32 frames from TX at +50 Hz, BPSK through
+   AWGN 8 dB, 8PSK 18 dB, ``ModemConfig(modulation="16qam", agc=True)``
+   20 dB, each received from ``rx_acquire_hz`` on the card; the largest
+   |PCM| is printed; on 64 sampled channels the kernel and plain paths
+   must sync alike and pass the same packets, every passing payload
+   bit-exact, at least 90 % of them; each kernel against its plain
+   version on the path's own inputs.  (c) Coded 8PSK at 13 dB, 1024
+   channels x 48 packets, once with ``fec="conv"`` and once with
+   ``fec="ldpc"``: score matrix, every rotation's LLR stream, the soft
+   hunt over every lag and ``extract_packets_soft_tracked_mod`` on 64
+   sampled channels, against the plain modem path's scores through the
+   same decoder kernel (>= 90 % passing).  (d) RX samples/s of the three
+   configurations at 8192 x 8, and each dd kind's kernel and plain time.
 
 ``python3 chip_smoke.py --profile`` builds the kernels and only traces
 kernel-path receive calls with ``torch.profiler`` (the uncoded call at
 the rate point, the composed coded call per code, one call of each
-configuration of phase 6): device operations and busy time per call
+configuration of phases 6 and 7): device operations and busy time per call
 beside the wall time, and the largest operations.
 
 Every kernel-vs-plain comparison gives both sides the same inputs and
 state.  Decisions (timing index, bits) must be equal on the loopback
 stimulus and agree on >= 99.9 % on noise, where near-ties may fall either
-way; picks within 3e-4, derotated symbols and loop frequency within 1e-4,
+way (the Costas gear, gains and dd modes are bit-identical on both); picks within 3e-4, derotated symbols and loop frequency within 1e-4,
 PCM within 2 LSB, carried phases within 1e-5, the TX tail exact.  Viterbi
 bits must be equal on every input (the kernel's op order is the plain
 version's); LDPC bits must agree on >= 99.9 % with the same number of
@@ -131,6 +149,14 @@ OPTION_PATHS = {
     "multipath": (dict(eq_taps=9), 14.0, ((0, 1.0), (4, 0.5)), 0.0, 32),
     "1200": (dict(rs=1200.0), 8.0, None, 0.0, 64),
 }
+# phase 7: name -> (config fields, SNR dB) of the generic-family loopbacks,
+# the points where the JAX package measured PER 0
+# (docs/per_vs_snr_{bpsk,8psk,16qam}.jsonl), and the SNR of the coded 8PSK
+# loopbacks (CODED_PATH's shape)
+FAMILY_PATHS = {"bpsk": (dict(modulation="bpsk"), 8.0),
+                "8psk": (dict(modulation="8psk"), 18.0),
+                "16qam": (dict(modulation="16qam", agc=True), 20.0)}
+FAMILY_CODED_SNR_DB = 13.0
 # the H100 SXM's published peaks: HBM bytes/s and float32 (non-tensor) FLOP/s
 PEAK_BYTES_S, PEAK_FLOP_S = 3.35e12, 67e12
 
@@ -310,21 +336,26 @@ def check_frontend_cm(cfg, pcm, st, exact: bool, label: str, errs: dict,
 
 
 def check_costas(cs, zr, zi, params, nsym, exact: bool, label: str,
-                 errs: dict, gear=None, gains=None):
+                 errs: dict, gear=None, gains=None, dd=None):
     """The Costas kernel against its plain version on the same symbols and
-    state.  In gear or gains mode the two must be bit-identical, lock level
-    and gear included.  Returns (kernel result, plain result)."""
+    state.  In gear, gains or dd mode the two must be bit-identical, lock
+    level and gear, or labels, included.  Returns (kernel result, plain
+    result)."""
     import torch
     from qpsk_tpu_torch.ops.cuda import costas_kernel as ck
 
-    kw = dict(trace_every=nsym, gear=gear, gains=gains)
+    kw = dict(trace_every=nsym, gear=gear, gains=gains, dd=dd)
     k = ck.costas_run_tm(cs, zr, zi, params, **kw)
     p = ck.costas_run_tm_plain(cs, zr, zi, params, **kw)
     err = max(cmax_abs(k[1], p[1]), max_abs(k[2], p[2]),
               max_abs(k[0].freq, p[0].freq), max_abs(k[0].phase, p[0].phase))
     need(err <= 1e-4, f"Costas derot/freq differ by {err} ({label})")
-    keys = [m for m, on in (("costas_gear", gear), ("costas_gains", gains))
-            if on is not None] or ["costas"]
+    if dd is not None:
+        keys = [f"costas_dd_{dd[0]}"]
+    else:
+        keys = [m for m, on in (("costas_gear", gear),
+                                ("costas_gains", gains))
+                if on is not None] or ["costas"]
     if keys != ["costas"]:
         need(err == 0 and torch.equal(k[3], p[3]),
              f"Costas {keys} is not bit-identical to its plain version ({label})")
@@ -415,28 +446,57 @@ def rx_path(cfg, kind: str):
     return chain, frontend, costas
 
 
+def tx_symbols(cfg, bits):
+    """The (C, S) symbols ``tx_stream`` sends for (C, bps*S) channel bits."""
+    from qpsk_tpu_torch.ops import modfam
+    from qpsk_tpu_torch.ops.cplx import CF32
+    from qpsk_tpu_torch.ops.modmap import bits_to_symbols
+    sym = (bits_to_symbols(bits) if cfg.modulation == "qpsk" else
+           modfam.bits_to_symbols_mod(bits, modfam.get(cfg.modulation)))
+    return CF32(sym.re.contiguous(), sym.im.contiguous())
+
+
+def boundary_distance(cfg, sym):
+    """How far each derotated symbol lies from its nearest decision
+    boundary: a sign, and for 8PSK |re| = |im|, for 16QAM the axis
+    threshold."""
+    import torch
+    from qpsk_tpu_torch.ops import modfam
+    if cfg.modulation == "bpsk":
+        return sym.re.abs()
+    d = torch.minimum(sym.re.abs(), sym.im.abs())
+    if cfg.modulation == "8psk":
+        d = torch.minimum(d, (sym.im.abs() - sym.re.abs()).abs())
+    elif cfg.modulation == "16qam":
+        thr = float(modfam.dd_constants(modfam.get("16qam"), cfg.agc_target)[-1])
+        d = torch.minimum(d, torch.minimum((sym.re.abs() - thr).abs(),
+                                           (sym.im.abs() - thr).abs()))
+    return d
+
+
 def check_path(cfg, bits, clean, pcm, out, dev, label: str, errs: dict,
-               tx_key: str = "tx", fe_key: str = "frontend"):
+               tx_key: str = "tx", fe_key: str = "frontend", st0=None):
     """Each modem kernel against its plain version on a path's own inputs
     (the channel bits sent, the clean and the received PCM; the Costas
-    kernel on the symbols the path handed it) and its re-run against the
-    path's outputs ``out``; then the plain path (plain front-end -> plain
-    AGC / equalizer -> plain Costas) on the same PCM, whose bits may
-    differ from the kernel path's only within NEAR_TIE of a decision
-    boundary.  Returns the plain path's derotated symbols (C, F, nsym),
-    its bits (C, F, 2 nsym) and the mask of bits that differ."""
+    kernel on the symbols the path handed it) and its re-run from the
+    path's initial state ``st0`` (default ``rx_init``) against the path's
+    outputs ``out``; then the plain path (plain front-end -> plain AGC /
+    equalizer -> plain Costas) on the same PCM, whose bits may differ from
+    the kernel path's only within NEAR_TIE of a decision boundary (for
+    QPSK, of the bit's own axis).  Returns the plain path's derotated
+    symbols (C, F, nsym), its bits (C, F, bps nsym) and the mask of bits
+    that differ."""
     import torch
     from qpsk_tpu_torch import rx_init, tx_init
     from qpsk_tpu_torch import modem
-    from qpsk_tpu_torch.ops.modmap import bits_to_symbols
 
     c, nsym = pcm.shape[0], cfg.symbols_per_frame
-    pk, _ = check_tx(cfg, bits_to_symbols(bits.reshape(c, -1)),
+    pk, _ = check_tx(cfg, tx_symbols(cfg, bits.reshape(c, -1)),
                      tx_init(cfg, (c,), device=dev), label, errs, key=tx_key,
                      lsb=2 if cfg.cycles == 4 else 1)
     need(torch.equal(pk, clean.reshape(c, -1)),
          f"the TX kernel's re-run differs ({label})")
-    st = rx_init(cfg, (c,), device=dev)
+    st = rx_init(cfg, (c,), device=dev) if st0 is None else st0
     chain, frontend, costas = rx_path(cfg, "kernel")
     if chain is modem._rx_stream_tm:
         kf, _ = check_frontend(cfg, pcm, st, True, label, errs)
@@ -460,12 +520,16 @@ def check_path(cfg, bits, clean, pcm, out, dev, label: str, errs: dict,
     if len(planes) == 1:                     # the channel-major entry
         planes = [p.T.contiguous() for p in planes[0]]
     check_costas(cs, planes[0], planes[1], params, nsym, True, label, errs,
-                 gear=kw.get("gear"), gains=kw.get("gains"))
+                 gear=kw.get("gear"), gains=kw.get("gains"), dd=kw.get("dd"))
 
     _, plain = chain(cfg, st, pcm, *rx_path(cfg, "plain")[1:])
     d = out.symbols
-    tie = torch.stack([d.im.abs() < NEAR_TIE, d.re.abs() < NEAR_TIE],
-                      dim=-1).reshape(out.bits.shape)
+    if cfg.modulation == "qpsk":
+        tie = torch.stack([d.im.abs() < NEAR_TIE, d.re.abs() < NEAR_TIE],
+                          dim=-1).reshape(out.bits.shape)
+    else:
+        tie = (boundary_distance(cfg, d) < NEAR_TIE).repeat_interleave(
+            cfg.bits_per_symbol, dim=-1)
     flips = plain.bits != out.bits
     need(bool(tie[flips].all()), "the kernel and plain paths' bits differ "
          f"away from a decision boundary (|x| >= {NEAR_TIE}) ({label})")
@@ -475,7 +539,8 @@ def check_path(cfg, bits, clean, pcm, out, dev, label: str, errs: dict,
     return plain.symbols, plain.bits, flips
 
 
-def compare_decodes(pcfg, out, plain_bits, flips, payload, label: str):
+def compare_decodes(pcfg, out, plain_bits, flips, payload, label: str,
+                    modulation: str = "qpsk"):
     """``find_sync`` / ``extract_packets`` on 64 sampled channels of the
     kernel path's and the plain path's bits, 8 packets skipped: both must
     sync alike and pass the same packets (a packet holding a flipped bit
@@ -485,12 +550,13 @@ def compare_decodes(pcfg, out, plain_bits, flips, payload, label: str):
 
     c, nframes = out.bits.shape[:2]
     fb, skip = pcfg.frame_bits, 8 * pcfg.frame_bits
+    skip -= skip % (out.bits.shape[2] // out.symbols.re.shape[2])  # cli.py
     channels = sorted({round(i * (c - 1) / 63) for i in range(64)})
     npk = nok = full = 0
     offsets = []
     for ch in channels:
-        ks, krx = decode(pcfg, out.bits[ch].reshape(-1)[skip:])
-        ps, prx = decode(pcfg, plain_bits[ch].reshape(-1)[skip:])
+        ks, krx = decode(pcfg, out.bits[ch].reshape(-1)[skip:], modulation)
+        ps, prx = decode(pcfg, plain_bits[ch].reshape(-1)[skip:], modulation)
         need((int(ks.rotation), int(ks.bit_lag)) == (int(ps.rotation), int(ps.bit_lag)),
              f"channel {ch}: the kernel and plain paths sync differently ({label})")
         navail = krx.crc_ok.shape[0]
@@ -519,13 +585,15 @@ def compare_decodes(pcfg, out, plain_bits, flips, payload, label: str):
     return npk, nok, mean_offset
 
 
-def decode(pcfg, bits):
-    """(sync, packets) of a 1-D bit stream: 4 probe packets, lags < 600."""
+def decode(pcfg, bits, modulation: str = "qpsk"):
+    """(sync, packets) of a 1-D symbol-aligned bit stream: 4 probe
+    packets, lags < 600."""
     from qpsk_tpu_torch.sync import extract_packets, find_sync
 
-    sync = find_sync(pcfg, bits, max_lag=600, probe_frames=4)
+    sync = find_sync(pcfg, bits, max_lag=600, probe_frames=4,
+                     modulation=modulation)
     navail = (bits.numel() - int(sync.bit_lag)) // pcfg.frame_bits
-    return sync, extract_packets(pcfg, bits, sync, navail)
+    return sync, extract_packets(pcfg, bits, sync, navail, modulation)
 
 
 def kernel_modules() -> dict:
@@ -673,17 +741,24 @@ def frontend_work(c, nframes, cycles, tm: bool, power: bool) -> tuple:
     return bound(nbytes, flops)
 
 
+# the dd detectors' comparisons, selects and products beyond QPSK's
+_DD_OPS = {None: 0, "bpsk": 2, "8psk": 8, "16qam": 12}
+
+
 def costas_work(c, t, trace_every, gear: bool = False,
-                gains: bool = False) -> tuple:
+                gains: bool = False, dd: str | None = None) -> tuple:
     """The Costas loop's bound: (T, C) planes in, derotated planes, packed
-    dibits, the frame-rate trace and the state out; about 22 float
-    operations a symbol (derotation, detector, loop update, wrap and
-    clamp, cos and sin counted once each), 8 more for the gear, 2 for a
-    gain."""
+    dibits (dd: 4-bit labels, 0.5 byte a symbol), the frame-rate trace and
+    the state out; about 22 float operations a symbol (derotation,
+    detector, loop update, wrap and clamp, cos and sin counted once each),
+    8 more for the gear, 2 for a gain, 2 / 8 / 12 more for the BPSK /
+    8PSK / 16QAM detector."""
     nstate = 4 if gear else 2
-    nbytes = c * t * (8 + 8) + c * (t // 16 + t // trace_every) * 4 \
+    per_word = 16 if dd is None else 8
+    nbytes = c * t * (8 + 8) + c * (t // per_word + t // trace_every) * 4 \
         + 2 * c * nstate * 4
-    flops = c * t * (22 + (8 if gear else 0) + (2 if gains else 0))
+    flops = c * t * (22 + (8 if gear else 0) + (2 if gains else 0)
+                     + _DD_OPS[dd])
     if gains:
         nbytes += c * (t // trace_every) * 4
     return bound(nbytes, flops)
@@ -1027,6 +1102,9 @@ KERNELS = {
     "costas": (_CO, "qpsk_tpu/ops/pallas/costas_kernel.py:373"),
     "costas_gear": (_CO, "qpsk_tpu/ops/pallas/costas_kernel.py:373"),
     "costas_gains": (_CO, "qpsk_tpu/ops/pallas/costas_kernel.py:373"),
+    "costas_dd_bpsk": (_CO, "qpsk_tpu/ops/pallas/costas_kernel.py:373"),
+    "costas_dd_8psk": (_CO, "qpsk_tpu/ops/pallas/costas_kernel.py:373"),
+    "costas_dd_16qam": (_CO, "qpsk_tpu/ops/pallas/costas_kernel.py:373"),
     "tx": (_TX, "qpsk_tpu/ops/pallas/tx_kernel.py:145"),
     "tx_1200": (_TX, "qpsk_tpu/ops/pallas/tx_kernel.py:145"),
     "viterbi": ("qpsk_tpu_torch/csrc/viterbi.cu",
@@ -1249,11 +1327,284 @@ def option_rates(dev, errs: dict) -> dict:
                  iters, tx_work(c, s8, 8)))}
 
 
+def family_cfg(name: str):
+    """The ModemConfig of a phase-7 path."""
+    from qpsk_tpu_torch import ModemConfig
+    return ModemConfig(**FAMILY_PATHS[name][0])
+
+
+def acquired_state(cfg, pcm, dev):
+    """``rx_init`` warm-started at ``rx_acquire_hz`` of ``pcm``, and the
+    estimates (Hz): the generic family's receive recipe."""
+    from qpsk_tpu_torch import rx_init
+    from qpsk_tpu_torch.modem import rx_acquire_hz
+    from qpsk_tpu_torch.ops.acquire import hz_to_costas_freq
+
+    hz = rx_acquire_hz(cfg, pcm)
+    return rx_init(cfg, (pcm.shape[0],), acq_freq=hz_to_costas_freq(hz, cfg.rs),
+                   device=dev), hz
+
+
+def compare_family(pcfg, dev, errs: dict) -> None:
+    """Phase 7a: the Costas kernel's dd mode against its plain version for
+    each kind, at each channel count, in two chained calls of the rate
+    point's length, on a loopback stimulus (the plain front-end's picks of
+    the kind's link at its SNR, the loop warm-started by acquisition; with
+    gains, the AGC gains of the front-end's powers) and on noise (Gaussian
+    symbols at the chain's level; gains in [0.5, 2)), without and with
+    gains: bit-identical, labels included."""
+    import torch
+    from qpsk_tpu_torch.ops.agc import agc_gains, agc_init
+    from qpsk_tpu_torch.ops.costas import costas_init, costas_params
+    from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
+
+    nframes = RATE_POINT[1]
+    for name in FAMILY_PATHS:
+        cfg = family_cfg(name)
+        cfg_pow = family_cfg("16qam")          # the front-end's power output
+        nsym = cfg.symbols_per_frame
+        t = nframes * nsym
+        params = costas_params(cfg.loop_bw, cfg.damping, cfg.min_freq,
+                               cfg.max_freq)
+        dd = (name, cfg.agc_target)
+        for c in COMPARE_CHANNELS:
+            pcm = loopback_pcm(cfg, pcfg, c, 2 * nframes, seed=c + 30, dev=dev,
+                               snr_db=FAMILY_PATHS[name][1])[3]
+            st, _ = acquired_state(cfg, pcm, dev)
+            cs_lb, zs = st.costas, []
+            for i in range(2):
+                x = pcm[:, i * nframes:(i + 1) * nframes].contiguous()
+                p = fk.rx_frontend_tm_plain(cfg_pow, x, st.nco_phase,
+                                            st.fir_tail, st.decim_delay)
+                zs.append(p)
+                st = st._replace(nco_phase=p[3], fir_tail=p[4], decim_delay=p[5])
+            lb = ((torch.cat([p[0] for p in zs]), torch.cat([p[1] for p in zs])),
+                  agc_gains(agc_init((c,), dev),
+                            torch.cat([p[6] for p in zs], dim=1),
+                            cfg.agc_target, cfg.agc_mu)[1].T.contiguous(),
+                  cs_lb)
+            g2 = torch.Generator(device=dev).manual_seed(c + 3)
+            noise = (tuple(torch.randn((2 * t, c), generator=g2, device=dev)
+                           * cfg.agc_target for _ in range(2)),
+                     torch.rand((2 * nframes, c), generator=g2, device=dev)
+                     * 1.5 + 0.5, costas_init((c,), device=dev))
+            for kind, ((zr, zi), gains, cs0) in (("loopback", lb),
+                                                 ("noise", noise)):
+                for use_gains in (False, True):
+                    cs = cs0
+                    for i in range(2):
+                        gi = gains[i * nframes:(i + 1) * nframes].contiguous() \
+                            if use_gains else None
+                        _, p = check_costas(
+                            cs, zr[i * t:(i + 1) * t].contiguous(),
+                            zi[i * t:(i + 1) * t].contiguous(), params, nsym,
+                            True, f"C={c:5d} {kind}{' gains' if use_gains else ''}"
+                            f" call {i}", errs, gains=gi, dd=dd)
+                        cs = p[0]
+
+
+def family_loopback(name: str, pcfg, dev, errs: dict) -> dict:
+    """Phase 7b: one generic-family loopback at full width through the
+    kernels, acquisition on the card, with every launch counter reset
+    before; then each kernel and the plain path on the same inputs, and
+    the decodes of 64 sampled channels.  Returns {kernel or mode:
+    launches} of the dd mode."""
+    import torch
+    from qpsk_tpu_torch import rx_stream
+    from qpsk_tpu_torch.ops import modfam
+
+    cfg, snr_db = family_cfg(name), FAMILY_PATHS[name][1]
+    c, nframes = MAIN_PATH
+    mods = kernel_modules()
+    fk, ck, tk = mods["frontend"], mods["costas"], mods["tx"]
+    reset_launches()
+    t0 = time.perf_counter()
+    payload, chan, clean, pcm = loopback_pcm(cfg, pcfg, c, nframes, seed=2027,
+                                             dev=dev, snr_db=snr_db)
+    st0, hz = acquired_state(cfg, pcm, dev)
+    _, out = rx_stream(cfg, st0, pcm)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    key = f"costas_dd_{name}"
+    on_path = {"tx": tk.by_mode["cycles4"],
+               "frontend_tm_power" if cfg.agc else "frontend":
+                   fk.by_mode["tm_power" if cfg.agc else "tm"],
+               key: ck.by_mode[f"dd_{name}"]}
+    peak = int(clean.to(torch.int32).abs().max())
+    print(f"  {name}: {c} channels x {nframes} frames, TX (largest |PCM| "
+          f"{peak}) -> AWGN {snr_db} dB -> acquisition (mean {float(hz.mean()):.4f} "
+          f"Hz, {float(hz.min()):.3f}..{float(hz.max()):.3f}) -> RX in "
+          f"{seconds:.3f} s (host clock, first call); launches {on_path}")
+    for kernel, n in on_path.items():
+        need(n > 0, f"the {name} path never launched {kernel}")
+    need(peak <= 32767, f"TX PCM reaches {peak}")
+    need(bool(torch.isfinite(out.symbols.re).all()
+              and torch.isfinite(out.symbols.im).all()), "non-finite symbols")
+    need(tuple(out.bits.shape) == (c, nframes, cfg.bits_per_frame),
+         f"bits of shape {tuple(out.bits.shape)}")
+    mod = modfam.get(name)
+    evm = modfam.evm_mod(type(out.symbols)(*(p[:, nframes // 2:].reshape(c, -1)
+                                             for p in out.symbols)), mod)
+    _, plain_bits, flips = check_path(cfg, chan, clean, pcm, out, dev,
+                                      f"C={c} {name}", errs, st0=st0)
+    npk, nok, _ = compare_decodes(pcfg, out, plain_bits, flips, payload, name,
+                                  modulation=name)
+    print(f"  {name}: EVM past the first half {float(evm.mean()):.4f}")
+    # the JAX package measured PER 0 at these points
+    need(nok >= 0.9 * npk, f"only {nok} of {npk} packets pass CRC ({name})")
+    return {key: on_path[key]}
+
+
+def family_coded(kind: str, dev, errs: dict) -> int:
+    """Phase 7c: the coded 8PSK loopback (1024 channels x 48 packets,
+    re-framed into modem frames with filler, AWGN at 13 dB, acquisition)
+    through the kernels; on 64 sampled channels the score matrix, every
+    rotation's LLR stream, the soft hunt over every lag (8 probes) and the
+    tracked soft extractor (``cli.py``).  Then each modem kernel and the
+    plain modem path on the same PCM, whose scores, decoded by the same
+    kernel decoder, must sync alike and pass the same packets (verdicts
+    may differ on <= 0.1 % of packets, each printed).  Returns the
+    decoder kernel's launches."""
+    import torch
+    from qpsk_tpu_torch import ModemConfig, rx_stream, tx_init, tx_stream
+    from qpsk_tpu_torch.channel import awgn_pcm
+    from qpsk_tpu_torch.ops import modfam
+    from qpsk_tpu_torch.ops.cplx import CF32
+    from qpsk_tpu_torch.packet import PacketConfig, assemble_packet
+    from qpsk_tpu_torch.sync import (default_max_lag,
+                                     extract_packets_soft_tracked_mod,
+                                     find_sync_streams, rotated_streams)
+
+    cfg = ModemConfig(modulation="8psk")
+    mod = modfam.get("8psk")
+    pcfg = PacketConfig(payload_bytes=30, fec=kind)
+    (c, npkt), fb, mfb = CODED_PATH, pcfg.frame_bits, cfg.bits_per_frame
+    skip = 8 * fb - (8 * fb) % mod.bps           # cli.py:167-174
+    channels = sorted({round(i * (c - 1) / 63) for i in range(64)})
+    mods = kernel_modules()
+    decoder = "viterbi" if kind == "conv" else "ldpc"
+
+    def scores_of(sym):
+        return modfam.symbol_scores(CF32(sym.re.reshape(c, -1),
+                                         sym.im.reshape(c, -1)), mod,
+                                    cfg.agc_target)[:, skip // mod.bps:]
+
+    def decode(scores):
+        rows = rotated_streams(None, "8psk", soft=scores)
+        sync = find_sync_streams(pcfg, rows, max_lag=default_max_lag(pcfg),
+                                 probe_frames=8, soft=True, lag_step=1)
+        navail = (rows.shape[1] - int(sync.bit_lag)) // fb
+        return sync, extract_packets_soft_tracked_mod(pcfg, scores, sync,
+                                                      navail, "8psk")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(2028)
+    payload = torch.randint(0, 2, (c, npkt, 8 * pcfg.payload_bytes),
+                            generator=gen, device=dev, dtype=torch.int32)
+    chan = assemble_packet(pcfg, payload).reshape(c, -1)
+    nframes = -(-chan.shape[1] // mfb)
+    filler = torch.randint(0, 2, (c, nframes * mfb - chan.shape[1]),
+                           generator=gen, device=dev, dtype=torch.int32)
+    frames = torch.cat([chan, filler], dim=1).reshape(c, nframes, mfb)
+    _, clean = tx_stream(cfg, tx_init(cfg, (c,), device=dev), frames,
+                         tx_offset_hz=TX_OFFSET_HZ)
+    power = float(((clean.to(torch.float32) / cfg.pcm_scale) ** 2).mean())
+    pcm = awgn_pcm(gen, clean, FAMILY_CODED_SNR_DB, power, cfg.pcm_scale)
+    st0, hz = acquired_state(cfg, pcm, dev)
+    _, out = rx_stream(cfg, st0, pcm)
+    scores = scores_of(out.symbols)
+    results = [decode(scores[ch]) for ch in channels]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {"tx": mods["tx"].by_mode["cycles4"],
+              "frontend": mods["frontend"].by_mode["tm"],
+              "costas_dd_8psk": mods["costas"].by_mode["dd_8psk"],
+              decoder: mods[decoder].launches}
+    print(f"  8psk fec={kind}: {c} channels x {npkt} packets = {nframes} "
+          f"frames, TX -> AWGN {FAMILY_CODED_SNR_DB} dB -> acquisition -> RX "
+          f"-> scores -> soft hunt and tracked extraction on {len(channels)} "
+          f"channels in {seconds:.3f} s (host clock, first call); launches "
+          f"{counts}")
+    for name, n in counts.items():
+        need(n > 0, f"the coded 8psk {kind} path never launched {name}")
+    need(bool(torch.isfinite(scores).all()), "non-finite scores")
+
+    plain_sym, _, _ = check_path(cfg, frames, clean, pcm, out, dev,
+                                 f"C={c} 8psk fec={kind}", errs, st0=st0)
+    plain_scores = scores_of(plain_sym)
+    print(f"  8psk fec={kind}: plain path scores max diff "
+          f"{max_abs(plain_scores, scores):.3g} from the kernel path's")
+    plain = [decode(plain_scores[ch]) for ch in channels]
+    synced = nok = npk = 0
+    diffs = []
+    for ch, (ks, krx), (ps, prx) in zip(channels, results, plain):
+        need((int(ks.rotation), int(ks.bit_lag)) == (int(ps.rotation), int(ps.bit_lag)),
+             f"channel {ch}: the kernel and plain paths sync differently")
+        for i in torch.nonzero(krx.crc_ok != prx.crc_ok).flatten().tolist():
+            print(f"    channel {ch} packet {i}: CRC {bool(krx.crc_ok[i])}, "
+                  f"plain path {bool(prx.crc_ok[i])}")
+            diffs.append((ch, i))
+        nok += check_payloads(krx, payload[ch], ch)
+        check_payloads(prx, payload[ch], ch)
+        synced += int(ks.score) > 0
+        npk += krx.crc_ok.numel()
+    need(len(diffs) <= 0.001 * npk, f"the kernel and plain paths differ on "
+         f"{len(diffs)} of {npk} packets")
+    print(f"  8psk fec={kind}: {synced}/{len(channels)} channels synced, "
+          f"{nok}/{npk} packets pass CRC (PER {1 - nok / max(npk, 1):.5f}), "
+          f"all bit-exact; the plain path syncs alike, {len(diffs)} CRC "
+          f"verdicts differ; acquisition mean {float(hz.mean()):.4f} Hz")
+    need(nok >= 0.9 * npk, f"only {nok} of {npk} coded 8psk packets pass CRC")
+    return counts[decoder]
+
+
+def family_rates(dev, errs: dict) -> dict:
+    """Phase 7d: RX samples/s of each family configuration at 8192
+    channels x 8 frames, kernel and plain path; then each dd kind's kernel
+    against its plain version there (16QAM with gains, as on its path)
+    and {name: (kernel ms, plain ms, bound ms, bound by)}."""
+    import torch
+    from qpsk_tpu_torch import rx_init
+    from qpsk_tpu_torch.ops.costas import costas_init, costas_params
+    from qpsk_tpu_torch.ops.cuda import costas_kernel as ck
+    from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
+
+    (c, nframes), iters = RATE_POINT, 20
+    nsamples = c * nframes * 512
+    times = {}
+    gen = torch.Generator(device=dev).manual_seed(23)
+    for name in FAMILY_PATHS:
+        cfg = family_cfg(name)
+        pcm = noise_pcm(cfg, c, nframes, 7, dev)
+        k = cuda_time_ms(rx_step(cfg, dev, pcm, "kernel")[0], iters)
+        p = cuda_time_ms(rx_step(cfg, dev, pcm, "plain")[0], 2, warmup=1)
+        print(f"  rx_stream {name:6s}: kernel path {k:.4f} ms/call, "
+              f"{nsamples / k * 1e3:.6g} samples/s; plain path {p:.4f} "
+              f"ms/call, {nsamples / p * 1e3:.6g} samples/s")
+        st = rx_init(cfg, (c,), device=dev)
+        kf = fk.rx_frontend_tm(cfg, pcm, st.nco_phase, st.fir_tail,
+                               st.decim_delay)
+        nsym = cfg.symbols_per_frame
+        params = costas_params(cfg.loop_bw, cfg.damping, cfg.min_freq,
+                               cfg.max_freq)
+        gains = (torch.rand((nframes, c), generator=gen, device=dev) * 1.5
+                 + 0.5) if cfg.agc else None
+        kw = dict(gains=gains, dd=(name, cfg.agc_target))
+        args = (costas_init((c,), device=dev), kf[0], kf[1], params, nsym)
+        check_costas(*args, True, f"C={c} F={nframes} noise", errs, **kw)
+        key = f"costas_dd_{name}"
+        times[key] = time_pair(key, ck.costas_run_tm, ck.costas_run_tm_plain,
+                               args, kw, 3, iters) \
+            + costas_work(c, nframes * nsym, nsym, gains=cfg.agc, dd=name)
+    return times
+
+
 def profile(cfg, dev, steps: int = 5) -> None:
     """``--profile``: a ``torch.profiler`` trace of ``steps`` kernel-path
     receive calls after 3 warm-up calls, uncoded at the rate point, coded
-    at the composed coded point and each phase-6 configuration at the rate
-    point: per call, the device operations launched, the device's busy
+    at the composed coded point and each phase-6 and phase-7 configuration
+    at the rate point: per call, the device operations launched, the device's busy
     time (the union of their intervals) beside the host's wall time under
     the profiler, and the operations that take the most device time."""
     import torch
@@ -1265,7 +1616,9 @@ def profile(cfg, dev, steps: int = 5) -> None:
             ("conv", cfg, "conv", CODED_RATE_POINT),
             ("ldpc", cfg, "ldpc", CODED_RATE_POINT),
             *((name, option_cfg(name), None, RATE_POINT)
-              for name in OPTION_PATHS)):
+              for name in OPTION_PATHS),
+            *((name, family_cfg(name), None, RATE_POINT)
+              for name in FAMILY_PATHS)):
         step, _ = rx_step(rcfg, dev, noise_pcm(rcfg, c, nframes, 13, dev),
                           "kernel", kind)
         for _ in range(3):
@@ -1349,6 +1702,15 @@ def main() -> int:
         counts.update(option_loopback(name, pcfg, dev, errs))
     print(f"  before: {CLOCKS} = {nvidia_smi_line(CLOCKS)}")
     times.update(option_rates(dev, errs))
+    print(f"  after:  {CLOCKS} = {nvidia_smi_line(CLOCKS)}")
+    print("phase 7: the generic modulation family")
+    compare_family(pcfg, dev, errs)
+    for name in FAMILY_PATHS:
+        counts.update(family_loopback(name, pcfg, dev, errs))
+    for kind in ("conv", "ldpc"):
+        family_coded(kind, dev, errs)
+    print(f"  before: {CLOCKS} = {nvidia_smi_line(CLOCKS)}")
+    times.update(family_rates(dev, errs))
     print(f"  after:  {CLOCKS} = {nvidia_smi_line(CLOCKS)}")
 
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -2,10 +2,15 @@
 kernels for NVIDIA Hopper (sm_90a).
 
 A port of ``qpsk_tpu`` (JAX on a TPU), which stays the reference.  This
-package covers the QPSK link at the default ``ModemConfig``: packets ->
-``tx_stream`` -> int16 PCM -> ``rx_stream`` -> sync -> packets, uncoded or
-coded (``PacketConfig(fec="conv" | "ldpc")``, soft sync and the tracked
-soft extractor).  It imports torch and numpy, never jax.
+package covers the coherent link: packets -> ``tx_stream`` -> int16 PCM ->
+``rx_stream`` -> sync -> packets, uncoded or coded (``PacketConfig(fec=
+"conv" | "ldpc")``, soft sync and the tracked soft extractors), for QPSK
+with the AGC, the gear-shift loop, the CMA equalizer and 1200 baud, and
+for the generic family (``ModemConfig(modulation="bpsk" | "8psk" |
+"16qam")``), whose receive starts with FFT carrier acquisition:
+``modem.rx_acquire_hz`` -> ``rx_init(acq_freq=...)`` -> ``rx_stream`` ->
+``sync.find_sync(..., modulation=...)``.  It imports torch and numpy,
+never jax.
 """
 
 from qpsk_tpu_torch.config import ModemConfig, config_2400

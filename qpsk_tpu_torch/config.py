@@ -7,9 +7,11 @@ from ``dataclasses.asdict`` of the JAX one.
 
 Every field is accepted here so that configs convert both ways.  The port
 implements coherent QPSK at 2400 and 1200 baud with the AGC, the CMA
-equalizer and the gear-shift loop; ``modem.check_slice`` names the first
-field a config sets off the ported modes, and the modem's entry points
-raise ``NotImplementedError`` for it.
+equalizer and the gear-shift loop, and the generic modulation family
+(``modulation="bpsk" | "8psk" | "16qam"``, 16QAM with ``agc=True``) with
+FFT carrier acquisition; ``modem.check_slice`` names the first field a
+config sets off the ported modes, and the modem's entry points raise
+``NotImplementedError`` for it.
 """
 
 from __future__ import annotations
@@ -17,15 +19,17 @@ from __future__ import annotations
 import dataclasses
 import math
 
+from qpsk_tpu_torch.ops import modfam
+
 TAU = 2.0 * math.pi
 
-# bits per symbol of the generic modulation family (qpsk_tpu/ops/modfam.py)
-_BPS = {"qpsk": 2, "bpsk": 1, "8psk": 3, "16qam": 4}
+# bits per symbol: QPSK's 2 and the generic family's (ops/modfam.py)
+_BPS = {"qpsk": 2, **{name: m.bps for name, m in modfam.MODULATIONS.items()}}
 
 
 @dataclasses.dataclass(frozen=True)
 class ModemConfig:
-    """Static parameters of one QPSK modem instance.
+    """Static parameters of one modem instance.
 
     Defaults are the reference design point: 2400 baud QPSK at 9600
     samples/s on a 1500 Hz carrier, 127-tap RRC with alpha=0.35 and

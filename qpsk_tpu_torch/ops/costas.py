@@ -1,10 +1,11 @@
 """Costas-loop carrier recovery (port of ``qpsk_tpu.ops.costas``: the QPSK
-loop and its gear-shift extension).
+loop, its gear-shift extension and the swappable phase detector).
 
 Semantics of the reference's GNU Radio loop (costas_loop.c):
 
 * derotate with the phase *before* the update: ``out = z * e^{-j phase}``;
-* QPSK sign detector ``err = sign+(Re)*Im - sign+(Im)*Re``;
+* QPSK sign detector ``err = sign+(Re)*Im - sign+(Im)*Re``, or the
+  generic family's decision-directed error (``modfam.dd_detector``);
 * ``freq += beta*err; phase = (phase + freq) + alpha*err``, each op rounded
   to float32 in this order;
 * wrap the phase to +-TAU by two conditional subtractions each way;
@@ -97,9 +98,14 @@ def gear_for(loop_bw_track: float, damping: float = math.sqrt(2.0) / 2.0):
 
 def costas_init(batch_shape=(), phase=0.0, freq=0.0, gear: bool = False,
                 device="cuda") -> CostasState:
-    """Cold start (phase 0, freq 0), or a warm start at ``freq``; with
-    ``gear`` the lock detector starts unlocked (lev 1, locked 0)."""
+    """Cold start (phase 0, freq 0), or a warm start at ``freq`` (a float,
+    or a tensor that broadcasts to ``batch_shape``, such as one
+    acquisition estimate per channel); with ``gear`` the lock detector
+    starts unlocked (lev 1, locked 0)."""
     def full(v):
+        if torch.is_tensor(v):
+            return v.to(device=device, dtype=torch.float32).expand(
+                tuple(batch_shape)).contiguous()
         return torch.full(tuple(batch_shape), float(v), dtype=torch.float32,
                           device=device)
     return CostasState(phase=full(phase), freq=full(freq),
@@ -122,10 +128,12 @@ def _wrap_phase(phase: torch.Tensor) -> torch.Tensor:
     return phase
 
 
-def costas_step(state: CostasState, z: CF32, params: CostasParams):
-    """One symbol tick: derotate, detect, advance."""
+def costas_step(state: CostasState, z: CF32, params: CostasParams,
+                detector=phase_detector):
+    """One symbol tick: derotate, detect (``detector``, the QPSK sign
+    detector by default), advance."""
     out = cmul(z, cexp_conj(state.phase))
-    err = phase_detector(out)
+    err = detector(out)
     freq = state.freq + params.beta * err
     phase = (state.phase + freq) + params.alpha * err
     phase = _wrap_phase(phase)
@@ -155,10 +163,11 @@ def costas_step_gear(state: CostasState, z: CF32, params: CostasParams,
 
 
 def costas_run_traced(state: CostasState, symbols: CF32,
-                      params: CostasParams):
-    """Track ``(..., T)`` symbols.  Returns (new_state, derotated
-    ``(..., T)``, post-update frequency trace ``(..., T)``)."""
-    return _run(lambda st, z: costas_step(st, z, params), state, symbols)
+                      params: CostasParams, detector=phase_detector):
+    """Track ``(..., T)`` symbols with ``detector``.  Returns (new_state,
+    derotated ``(..., T)``, post-update frequency trace ``(..., T)``)."""
+    return _run(lambda st, z: costas_step(st, z, params, detector), state,
+                symbols)
 
 
 def costas_run_gear_traced(state: CostasState, symbols: CF32,

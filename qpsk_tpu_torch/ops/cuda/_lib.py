@@ -33,7 +33,7 @@ _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
     "qpsk_frontend_tm": [_P] * 12 + [_I, _I, _P, _P, _D, _F, _F, _P],
     "qpsk_frontend_cm": [_P] * 7 + [_I, _I, _I, _P, _P, _D, _F, _F, _P],
-    "qpsk_costas_tm": [_P] * 15 + [_I] * 4 + [_P, _P],
+    "qpsk_costas_tm": [_P] * 15 + [_I] * 5 + [_P, _P, _P],
     "qpsk_tx": [_P] * 7 + [_I, _I, _I, _P, _D, _F, _F, _P],
     "qpsk_viterbi": [_P] * 4 + [_I, _I, _I, _P],
     "qpsk_ldpc": [_P] * 4 + [_I] * 7 + [_F, _P],

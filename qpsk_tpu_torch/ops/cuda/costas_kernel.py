@@ -1,14 +1,16 @@
 """Costas-loop kernel wrapper (port of the time-major entry of
-``qpsk_tpu/ops/pallas/costas_kernel.py``, ``costas_run_pallas_tm`` with the
-QPSK detector, ``emit_bits`` and ``trace_every``, in its plain, gear and
-gains modes, and of its channel-major entry ``costas_run_pallas_traced``).
+``qpsk_tpu/ops/pallas/costas_kernel.py``, ``costas_run_pallas_tm`` with
+``emit_bits`` / ``emit_label`` and ``trace_every``, in its QPSK, gear,
+gains and decision-directed (``dd``) modes, and of its channel-major entry
+``costas_run_pallas_traced``).
 
 ``costas_run_tm`` consumes the (T, C) planes the front-end emits.  On a
 CUDA tensor it launches ``csrc/costas.cu``, which also slices the derotated
-symbols and packs 16 dibits per int32 word; on a CPU tensor it runs
-``costas_run_tm_plain``: the gain-scaled symbols through
-``costas_run_traced`` (or ``costas_run_gear_traced``), ``demod_bits`` and
-the frame-boundary frequency readback.
+symbols: QPSK packs 16 dibits per int32 word, the dd mode 8 Gray labels of
+4 bits.  On a CPU tensor it runs ``costas_run_tm_plain``: the gain-scaled
+symbols through ``costas_run_traced`` (with ``modfam.dd_detector`` in dd
+mode) or ``costas_run_gear_traced``, then ``demod_bits`` (dd mode:
+``modfam.demod_bits_cmp``) and the frame-boundary frequency readback.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import collections
 import numpy as np
 import torch
 
+from qpsk_tpu_torch.ops import modfam
 from qpsk_tpu_torch.ops.costas import (CostasGear, CostasParams, CostasState,
                                        costas_run_gear_traced,
                                        costas_run_traced)
@@ -27,56 +30,74 @@ from qpsk_tpu_torch.ops.modmap import demod_bits
 
 # Kernel launches since the last reset (set to 0 to start a count), and
 # the same launches by mode (clear() it): "qpsk" for the single-bandwidth
-# loop without gains, "gear" and "gains" for every launch in that mode
-# (a gear + gains launch counts in both).
+# QPSK loop without gains, "dd_bpsk", "dd_8psk" and "dd_16qam" for the
+# decision-directed loop, "gear" and "gains" for every launch in that mode
+# (a gear + gains launch counts in both, a dd + gains launch in its dd
+# mode and in "gains").
 launches = 0
 by_mode = collections.Counter()
+
+# the kernel's detector kinds (csrc/costas.cu, enum Detector)
+_DETECTOR = {"bpsk": 1, "8psk": 2, "16qam": 3}
 
 
 def costas_run_tm(state: CostasState, zr_tm: torch.Tensor,
                   zi_tm: torch.Tensor, params: CostasParams,
                   trace_every: int, gear: CostasGear | None = None,
-                  gains: torch.Tensor | None = None):
+                  gains: torch.Tensor | None = None, dd=None):
     """Run the loop over (T, C) symbol planes.
 
     ``gear`` (with a state from ``costas_init(..., gear=True)``) runs the
     gear-shift loop; ``gains``, a (F, C) float32 plane with ``T % F == 0``,
-    scales each symbol by its frame's gain before the loop.  Returns
-    ``(new_state, derot CF32 (T, C), freq_frames (C, T // trace_every),
-    bits (C, 2T) int32)``: ``freq_frames[:, k]`` is the loop frequency
-    after symbol ``(k+1)*trace_every - 1`` and ``bits`` is
-    ``modmap.demod_bits`` of the derotated (C, T) symbols.
+    scales each symbol by its frame's gain before the loop; ``dd``, a
+    (modulation name, constellation scale) pair of the generic family,
+    runs the decision-directed detector of ``modfam.dd_err_ops`` (not with
+    ``gear``).  Returns ``(new_state, derot CF32 (T, C), freq_frames (C, T
+    // trace_every), bits (C, bps*T) int32)``: ``freq_frames[:, k]`` is the
+    loop frequency after symbol ``(k+1)*trace_every - 1`` and ``bits`` is
+    ``modmap.demod_bits`` (dd: ``modfam.demod_bits_cmp``) of the derotated
+    (C, T) symbols.
     """
+    if gear is not None and dd is not None:
+        raise ValueError("the gear shift is QPSK-only: pass gear or dd")
     if zr_tm.is_cuda:
-        return _launch(state, zr_tm, zi_tm, params, trace_every, gear, gains)
+        return _launch(state, zr_tm, zi_tm, params, trace_every, gear, gains,
+                       dd)
     return costas_run_tm_plain(state, zr_tm, zi_tm, params, trace_every,
-                               gear, gains)
+                               gear, gains, dd)
 
 
 def costas_run_tm_plain(state, zr_tm, zi_tm, params, trace_every, gear=None,
-                        gains=None):
+                        gains=None, dd=None):
     """The plain PyTorch version of ``costas_run_tm``."""
     if gains is not None:
         g = gains.repeat_interleave(zr_tm.shape[0] // gains.shape[0], dim=0)
         zr_tm, zi_tm = zr_tm * g, zi_tm * g
     symbols = CF32(zr_tm.T, zi_tm.T)
-    if gear is None:
-        new_state, derot, trace = costas_run_traced(state, symbols, params)
-    else:
+    if gear is not None:
         new_state, derot, trace = costas_run_gear_traced(state, symbols,
                                                          params, gear)
+    elif dd is not None:
+        mod = modfam.get(dd[0])
+        new_state, derot, trace = costas_run_traced(
+            state, symbols, params, detector=modfam.dd_detector(mod, dd[1]))
+    else:
+        new_state, derot, trace = costas_run_traced(state, symbols, params)
+    bits = (demod_bits(derot) if dd is None
+            else modfam.demod_bits_cmp(derot, modfam.get(dd[0]), dd[1]))
     return (new_state, CF32(derot.re.T.contiguous(), derot.im.T.contiguous()),
-            trace[:, trace_every - 1::trace_every], demod_bits(derot))
+            trace[:, trace_every - 1::trace_every], bits)
 
 
 def costas_run_cm(state: CostasState, symbols: CF32, params: CostasParams,
-                  trace_every: int, gear: CostasGear | None = None, run=None):
+                  trace_every: int, gear: CostasGear | None = None, dd=None,
+                  run=None):
     """The channel-major entry: (C, T) symbols, transposed to (T, C) for
     ``run`` (``costas_run_tm``, or its plain version).  Returns
-    ``(new_state, derot CF32 (C, T), freq_frames, bits (C, 2T))``."""
+    ``(new_state, derot CF32 (C, T), freq_frames, bits (C, bps*T))``."""
     new_state, derot, trace, bits = (run or costas_run_tm)(
         state, symbols.re.T.contiguous(), symbols.im.T.contiguous(), params,
-        trace_every, gear=gear)
+        trace_every, gear=gear, dd=dd)
     return new_state, CF32(derot.re.T, derot.im.T), trace, bits
 
 
@@ -91,12 +112,24 @@ def unpack_bits_tm(packed: torch.Tensor) -> torch.Tensor:
     return bits.reshape(-1, packed.shape[1]).T              # (C, 2T)
 
 
-def _launch(state, zr_tm, zi_tm, params, trace_every, gear, gains):
+def unpack_labels_tm(packed: torch.Tensor) -> torch.Tensor:
+    """(T/8, C) int32 words -> (C, T) int32 labels, the layout of
+    ``modfam.slice_labels_cmp`` on the (C, T) derotated symbols: symbol
+    ``t`` sits at bits ``4*(t%8)`` of word ``t // 8``.  A label of 8 or
+    more in the top slot sets the sign bit, and the shifts are arithmetic,
+    so every shift is masked."""
+    w = packed[:, None, :]                                  # (T/8, 1, C)
+    j = torch.arange(8, dtype=torch.int32, device=packed.device)[None, :, None]
+    return ((w >> (4 * j)) & 15).reshape(-1, packed.shape[1]).T
+
+
+def _launch(state, zr_tm, zi_tm, params, trace_every, gear, gains, dd):
     global launches
     t, c = zr_tm.shape
-    if t < 1 or c < 1 or t % 16 or trace_every < 1 or t % trace_every:
+    per_word = 16 if dd is None else 8
+    if t < 1 or c < 1 or t % per_word or trace_every < 1 or t % trace_every:
         raise ValueError(
-            f"the Costas kernel takes T > 0 with T % 16 == 0 and T % "
+            f"the Costas kernel takes T > 0 with T % {per_word} == 0 and T % "
             f"trace_every == 0, got T={t}, trace_every={trace_every}")
     dev = zr_tm.device
     _lib.require(zr_tm, "zr_tm", torch.float32, (t, c), dev)
@@ -119,11 +152,19 @@ def _launch(state, zr_tm, zi_tm, params, trace_every, gear, gains):
     outr, outi = empty((t, c)), empty((t, c))
     ftrace = empty((t // trace_every, c))
     out = {name: empty((c,)) for name in fields}
-    packed = empty((t // 16, c), torch.int32)
+    packed = empty((t // per_word, c), torch.int32)
     vals = [params.alpha, params.beta, params.min_freq, params.max_freq]
     vals += [gear.alpha_trk, gear.beta_trk, gear.gamma, gear.enter,
              gear.exit] if gear else [0.0] * 5
     consts = np.asarray(vals, np.float32)
+    # the detector's constants, read by the kernel as modfam.dd_err_ops
+    # reads them (49 floats: 16QAM's 3*16 + 1)
+    det, dd_consts = 0, np.zeros(49, np.float32)
+    if dd is not None:
+        mod = modfam.get(dd[0])
+        det = _DETECTOR[mod.name]
+        k = modfam.dd_constants(mod, dd[1])
+        dd_consts[:k.size] = k
 
     def ptr(x):
         return None if x is None else x.data_ptr()
@@ -133,15 +174,21 @@ def _launch(state, zr_tm, zi_tm, params, trace_every, gear, gains):
         ptr(state.locked if gear else None), ptr(gains), outr.data_ptr(),
         outi.data_ptr(), ftrace.data_ptr(), out["phase"].data_ptr(),
         out["freq"].data_ptr(), ptr(out.get("lev")), ptr(out.get("locked")),
-        packed.data_ptr(), t, c, trace_every, nsf, consts.ctypes.data,
-        _lib.stream_ptr(dev))
+        packed.data_ptr(), t, c, trace_every, nsf, det, consts.ctypes.data,
+        dd_consts.ctypes.data, _lib.stream_ptr(dev))
     _lib.check(rc, "qpsk_costas_tm")
     launches += 1
     if gear:
         by_mode["gear"] += 1
     if gains is not None:
         by_mode["gains"] += 1
-    if not gear and gains is None:
+    if dd is not None:
+        by_mode[f"dd_{dd[0]}"] += 1
+    elif not gear and gains is None:
         by_mode["qpsk"] += 1
-    return (CostasState(**out), CF32(outr, outi), ftrace.T,
-            unpack_bits_tm(packed))
+    if dd is None:
+        bits = unpack_bits_tm(packed)
+    else:
+        bits = modfam.labels_to_bits(unpack_labels_tm(packed),
+                                     modfam.get(dd[0]))
+    return CostasState(**out), CF32(outr, outi), ftrace.T, bits

@@ -1,16 +1,18 @@
-"""Frame sync for the QPSK link, hard and soft (port of ``qpsk_tpu.sync``
-for QPSK).
+"""Frame sync, hard and soft (port of ``qpsk_tpu.sync``).
 
-The Costas loop locks with a 4-fold (90 degree) ambiguity, and the RX bit
-stream is offset from packet boundaries by the FIR group delays, the
-decimator's one-frame delay and the timing index.  ``find_sync`` scores
-every (rotation x even bit lag) hypothesis over a probe window in one
-batched evaluation: by CRC passes (uncoded, or conv-coded after a Viterbi
-decode of every hypothesis), or for LDPC by the decode-free syndrome
-weight.  ``extract_packets`` slices the aligned stream into packets; the
-tracked extractors decode every rotation (and lag-shift) hypothesis of
-every packet and walk a track on the host, so a carrier cycle slip costs
-at most the packet it lands in.
+The Costas loop locks with an ``n_rot``-fold ambiguity (QPSK and 16QAM 4,
+BPSK 2, 8PSK 8), and the RX bit stream is offset from packet boundaries by
+the FIR group delays, the decimator's one-frame delay and the timing
+index.  ``find_sync`` scores every (rotation x bit lag) hypothesis over a
+probe window in one batched evaluation: by CRC passes (uncoded, or
+conv-coded after a Viterbi decode of every hypothesis), or for LDPC by
+the decode-free syndrome weight.  QPSK hunts even lags; the generic
+family every lag, since a packet grid need not fall on a symbol (8PSK's
+frame_bits is not a multiple of 3), so its streams are rotated whole
+(``rotated_streams``) and sliced at any bit.  ``extract_packets`` slices
+the aligned stream into packets; the tracked extractors decode every
+rotation (and lag-shift) hypothesis of every packet and walk a track on
+the host, so a carrier cycle slip costs at most the packet it lands in.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from qpsk_tpu_torch.ops import modfam
 from qpsk_tpu_torch.packet.frame import (PacketConfig, RxPacket,
                                          disassemble_packet,
                                          disassemble_packet_soft, unwrap_bits)
@@ -33,7 +36,7 @@ _ROT_POW = np.stack([np.arange(4, dtype=np.int64), _ROT_STEP,
 
 
 class SyncResult(NamedTuple):
-    rotation: torch.Tensor   # int64 scalar, 90 degree steps
+    rotation: torch.Tensor   # int64 scalar, ambiguity steps
     bit_lag: torch.Tensor    # int64 scalar, bits into the stream
     score: torch.Tensor      # int64: probe frames that pass
 
@@ -65,24 +68,55 @@ def rotate_soft(llrs: torch.Tensor, r) -> torch.Tensor:
     return torch.stack(cands)[r].reshape(llrs.shape)
 
 
+def rotated_streams(bits: torch.Tensor | None, modulation: str = "qpsk",
+                    soft: torch.Tensor | None = None) -> torch.Tensor:
+    """Every rotation hypothesis of a symbol-aligned 1-D demodulated
+    stream, (n_rot, n): the hard ``bits`` re-sliced per hypothesis, or,
+    given ``soft`` instead (an (nsym, M) ``modfam.symbol_scores``
+    matrix of a generic-family stream), the max-log LLR stream of each."""
+    if modulation == "qpsk":
+        if soft is not None:
+            raise ValueError("QPSK soft streams come from rotate_soft")
+        return torch.stack([rotate_dibits(bits, r) for r in range(4)])
+    mod = modfam.get(modulation)
+    if soft is not None:
+        return torch.stack([modfam.soft_from_scores(soft, mod, r)
+                            for r in range(mod.n_rot)])
+    return torch.stack([modfam.rotate_bits_mod(bits, r, mod)
+                        for r in range(mod.n_rot)])
+
+
+def _mod_geometry(modulation: str) -> tuple[int, int, int]:
+    """(n_rot, bps, lag_step) of a modulation's hypothesis grid: QPSK
+    hunts even lags (its packet grids are dibit-aligned), the generic
+    family every lag."""
+    if modulation == "qpsk":
+        return 4, 2, 2
+    mod = modfam.get(modulation)
+    return mod.n_rot, mod.bps, 1
+
+
 def find_sync(pcfg: PacketConfig, bits: torch.Tensor, max_lag: int = 512,
-              probe_frames: int = 4) -> SyncResult:
-    """The (rotation, even bit lag) with the most passing packets over
-    ``probe_frames`` consecutive packets of the 1-D ``bits`` stream.  A
+              probe_frames: int = 4, modulation: str = "qpsk") -> SyncResult:
+    """The (rotation, bit lag) with the most passing packets over
+    ``probe_frames`` consecutive packets of the 1-D symbol-aligned
+    ``bits`` stream: even lags and 4 rotations for QPSK, every lag and
+    the constellation's ``n_rot`` rotations for the generic family.  A
     score of 0 means no sync."""
     if bits.dim() != 1:
         raise ValueError(f"find_sync takes a 1-D bit stream, got {tuple(bits.shape)}")
-    streams = torch.stack([rotate_dibits(bits, r) for r in range(4)])
-    return find_sync_streams(pcfg, streams, max_lag=max_lag,
-                             probe_frames=probe_frames)
+    return find_sync_streams(pcfg, rotated_streams(bits, modulation),
+                             max_lag=max_lag, probe_frames=probe_frames,
+                             lag_step=_mod_geometry(modulation)[2])
 
 
 def find_sync_streams(pcfg: PacketConfig, streams: torch.Tensor,
                       max_lag: int = 512, probe_frames: int = 4,
-                      soft: bool = False) -> SyncResult:
+                      lag_step: int = 2, soft: bool = False) -> SyncResult:
     """``find_sync`` over pre-rotated streams (R, n), one row per rotation
-    hypothesis: hard bits, or with ``soft`` the LLR streams of
-    ``rotate_soft``.  Soft conv-coded probes are decoded soft; LDPC probes
+    hypothesis (``rotated_streams``, or ``rotate_soft``'s LLR rows with
+    ``soft``), at lags ``0, lag_step, ...``: 2 for QPSK, 1 for the
+    generic family.  Soft conv-coded probes are decoded soft; LDPC probes
     are scored by syndrome weight on the LLR signs (a frame passes below
     0.35*m violated checks)."""
     fb = pcfg.frame_bits
@@ -94,7 +128,7 @@ def find_sync_streams(pcfg: PacketConfig, streams: torch.Tensor,
             f"({probe_frames} probe frames of {fb} bits + a lag window), "
             f"got {streams.shape[-1]}")
     dev = streams.device
-    lags = torch.arange(0, min(max_lag, avail), 2, device=dev)
+    lags = torch.arange(0, min(max_lag, avail), lag_step, device=dev)
     window = torch.arange(probe_frames * fb, device=dev)
     cand = streams[:, lags[:, None] + window[None, :]]          # (R, L, W)
     frames = cand.reshape(nrot, lags.shape[0], probe_frames, fb)
@@ -116,12 +150,19 @@ def find_sync_streams(pcfg: PacketConfig, streams: torch.Tensor,
 
 
 def extract_packets(pcfg: PacketConfig, bits: torch.Tensor,
-                    sync: SyncResult, nframes: int) -> RxPacket:
-    """Slice ``nframes`` aligned packets out of a 1-D bit stream and
-    disassemble them."""
+                    sync: SyncResult, nframes: int,
+                    modulation: str = "qpsk") -> RxPacket:
+    """Slice ``nframes`` aligned packets out of a 1-D symbol-aligned bit
+    stream and disassemble them.  A generic-family stream is rotated
+    whole before the slice, since its packets need not start on a
+    symbol."""
     fb = pcfg.frame_bits
     idx = sync.bit_lag + torch.arange(nframes * fb, device=bits.device)
-    aligned = rotate_dibits(bits[idx], sync.rotation)
+    if modulation == "qpsk":
+        aligned = rotate_dibits(bits[idx], sync.rotation)
+    else:
+        aligned = modfam.rotate_bits_mod(bits, sync.rotation,
+                                         modfam.get(modulation))[idx]
     return disassemble_packet(pcfg, aligned.reshape(nframes, fb))
 
 
@@ -133,6 +174,19 @@ def extract_packets_soft(pcfg: PacketConfig, llrs: torch.Tensor,
     fb = pcfg.frame_bits
     idx = sync.bit_lag + torch.arange(nframes * fb, device=llrs.device)
     aligned = rotate_soft(llrs[idx], sync.rotation)
+    return disassemble_packet_soft(pcfg, aligned.reshape(nframes, fb))
+
+
+def extract_packets_soft_mod(pcfg: PacketConfig, scores: torch.Tensor,
+                             sync: SyncResult, nframes: int,
+                             modulation: str) -> RxPacket:
+    """Generic-family twin of ``extract_packets_soft``: the packets of the
+    (nsym, M) score matrix (``modfam.symbol_scores`` of the demodulated
+    symbols) under the sync's rotation."""
+    fb = pcfg.frame_bits
+    streams = rotated_streams(None, modulation, soft=scores)
+    idx = sync.bit_lag + torch.arange(nframes * fb, device=scores.device)
+    aligned = streams[sync.rotation][idx]
     return disassemble_packet_soft(pcfg, aligned.reshape(nframes, fb))
 
 
@@ -189,16 +243,18 @@ def _track_hypotheses(rx: RxPacket, start_rot: int, shifts: np.ndarray,
 
 
 def _shift_set(max_slip: int, bps: int = 2) -> np.ndarray:
-    """Symbol-granular bit-lag shifts covering +-max_slip symbol slips."""
+    """Symbol-granular bit-lag shifts covering +-max_slip symbol slips
+    (one symbol = ``bps`` bits)."""
     return np.arange(-bps * max_slip, bps * max_slip + 1, bps, dtype=np.int32)
 
 
 def _tracked_from_streams(pcfg: PacketConfig, streams: torch.Tensor,
                           sync: SyncResult, nframes: int, shifts: np.ndarray,
-                          soft: bool) -> TrackedPackets:
+                          bps: int, soft: bool) -> TrackedPackets:
     """Gather every (rotation x lag-shift) hypothesis span of the
     per-rotation streams (R, n), disassemble all of them in one batched
-    pass, then walk the CRC track."""
+    pass, then walk the CRC track at most one symbol (``bps`` bits) a
+    packet."""
     fb = pcfg.frame_bits
     dev = streams.device
     base = sync.bit_lag + torch.arange(nframes * fb, device=dev)
@@ -207,19 +263,22 @@ def _tracked_from_streams(pcfg: PacketConfig, streams: torch.Tensor,
     cand = streams[:, idx].reshape(streams.shape[0], len(shifts), nframes, fb)
     rx = (disassemble_packet_soft(pcfg, cand) if soft
           else disassemble_packet(pcfg, cand))
-    return _track_hypotheses(rx, int(sync.rotation), shifts, max_step=2)
+    return _track_hypotheses(rx, int(sync.rotation), shifts, max_step=bps)
 
 
 def extract_packets_tracked(pcfg: PacketConfig, bits: torch.Tensor,
                             sync: SyncResult, nframes: int,
-                            max_slip: int = 0) -> TrackedPackets:
+                            max_slip: int = 0,
+                            modulation: str = "qpsk") -> TrackedPackets:
     """``extract_packets`` that recovers from carrier cycle slips (every
-    packet is decoded under all four rotations) and, with ``max_slip`` >
-    0, from symbol slips of up to ``max_slip`` symbols (lag shifts of
-    +-2 bits per symbol; leave that many bits of headroom at the end)."""
-    streams = torch.stack([rotate_dibits(bits, r) for r in range(4)])
-    return _tracked_from_streams(pcfg, streams, sync, nframes,
-                                 _shift_set(max_slip), soft=False)
+    packet is decoded under all ``n_rot`` rotations) and, with
+    ``max_slip`` > 0, from symbol slips of up to ``max_slip`` symbols
+    (lag shifts of +-bps bits per symbol; leave that many bits of
+    headroom at the end)."""
+    _, bps, _ = _mod_geometry(modulation)
+    return _tracked_from_streams(pcfg, rotated_streams(bits, modulation),
+                                 sync, nframes, _shift_set(max_slip, bps),
+                                 bps, soft=False)
 
 
 def extract_packets_soft_tracked(pcfg: PacketConfig, llrs: torch.Tensor,
@@ -229,4 +288,17 @@ def extract_packets_soft_tracked(pcfg: PacketConfig, llrs: torch.Tensor,
     robust low-SNR path, where FEC operates and cycle slips are routine."""
     streams = torch.stack([rotate_soft(llrs, r) for r in range(4)])
     return _tracked_from_streams(pcfg, streams, sync, nframes,
-                                 _shift_set(max_slip), soft=True)
+                                 _shift_set(max_slip), 2, soft=True)
+
+
+def extract_packets_soft_tracked_mod(pcfg: PacketConfig,
+                                     scores: torch.Tensor, sync: SyncResult,
+                                     nframes: int, modulation: str,
+                                     max_slip: int = 0) -> TrackedPackets:
+    """Generic-family twin of ``extract_packets_soft_tracked`` over an
+    (nsym, M) score matrix (``modfam.symbol_scores`` of the demodulated
+    symbols): each rotation's LLR stream is a relabelling of it."""
+    _, bps, _ = _mod_geometry(modulation)
+    return _tracked_from_streams(
+        pcfg, rotated_streams(None, modulation, soft=scores), sync, nframes,
+        _shift_set(max_slip, bps), bps, soft=True)

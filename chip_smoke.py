@@ -22,7 +22,10 @@ Phases, each of which exits non-zero on failure:
    path, TX samples/s, and each kernel's time beside its plain version's,
    after each kernel is held against its plain version at that shape.
 5. The coded link.  (a) The Viterbi and LDPC kernels against their plain
-   versions at 1, 200 and 4096 packets, on noisy codewords (sigma 0.7)
+   versions at 1, 200 and 4096 packets and at the batch sizes of the coded
+   paths (156: a channel's tracked extraction; 16 768: its sync hunt;
+   Viterbi also 67 072: the 8PSK hunt), so that every kernel shape the
+   wrappers pick by batch size is reached, on noisy codewords (sigma 0.7)
    and on hard +-1 LLRs with 3 % flips, and on codewords both must decode
    clean (sigma 0.55 Viterbi, 0.6 LDPC).  (b) The coded loopback at full
    width, kernels only, once for ``fec="conv"`` and once for
@@ -37,7 +40,9 @@ Phases, each of which exits non-zero on failure:
    front-end -> plain Costas on the same PCM) through the decoder
    kernel.  (c) Rates: the composed coded receive (1024 channels x 8
    frames, every demodulated bit decoded) of the kernel and the plain
-   path, and each FEC kernel alone at 4096 packets.
+   path, each FEC kernel alone at 4096 packets, and the kernels alone at
+   the paths' batch sizes (156 packets both, 16 768 Viterbi), with their
+   registers and spills from the build log.
 
 6. The loop and channel options.  (a) Each new kernel or mode against its
    plain version at 1, 200 and 8192 channels, in two chained calls of 8
@@ -83,6 +88,15 @@ kernel-path receive calls with ``torch.profiler`` (the uncoded call at
 the rate point, the composed coded call per code, one call of each
 configuration of phases 6 and 7): device operations and busy time per call
 beside the wall time, and the largest operations.
+
+``python3 chip_smoke.py --fec`` builds the kernels and runs only the two
+decoders: phase 5a, then the Viterbi kernel at every lane count (1, 8 or
+32 lanes of a warp hold a packet's trellis) against the plain
+version and timed from 156 to 67 072 packets, the measurement behind the
+wrapper's rule, and the LDPC kernel at the same batches.  Kernel times
+are taken in a CUDA graph of 20 launches (``fec_times.graph_ms``, the
+script beside this one), so that the host's launch rate does not bound a
+kernel of a few microseconds.
 
 Every kernel-vs-plain comparison gives both sides the same inputs and
 state.  Decisions (timing index, bits) must be equal on the loopback
@@ -135,11 +149,19 @@ NEAR_TIE = 1e-3
 # per channel) of the coded loopback (the coded receive point of
 # benchmarks.coded_rx_throughput), its SNR, and (channels, frames) of the
 # composed coded rate
-FEC_COMPARE = (1, 200, 4096)
+FEC_COMPARE = {"conv": (1, 156, 200, 4096, 16768, 67072),
+               "ldpc": (1, 156, 200, 4096, 16768)}
 CODED_PATH = (1024, 48)
 CODED_SNR_DB = 6.0
 CODED_RATE_POINT = (1024, 8)
 FEC_RATE_PACKETS = 4096
+# the decoders' batch sizes on the coded paths: 4 rotations x about 39
+# packets of a channel's tracked extraction; 4 rotations x 524 lags x 8
+# probe frames of its sync hunt (which decodes only fec="conv")
+FEC_PATH_PACKETS = {"viterbi": (156, 16768), "ldpc": (156,)}
+# the Viterbi kernel's shapes (lanes of a warp that hold a packet's trellis;
+# the wrapper picks one by batch size)
+FEC_LANES = (1, 8, 32)
 # phase 6: name -> (config fields, SNR dB, multipath paths, input level dB,
 # frames) of the option loopbacks; the 1200-baud one runs 64 frames, as a
 # packet fills two frames there and 8 packets are skipped before the sync
@@ -825,6 +847,22 @@ def check_fec(kind: str, llrs, u, label: str, errs: dict):
     print(msg)
 
 
+def check_viterbi_lanes(llrs, errs: dict) -> None:
+    """Every shape of the Viterbi kernel against the plain version,
+    whatever shape the wrapper picks for this batch."""
+    from qpsk_tpu_torch.ops.cuda import viterbi_kernel as vk
+    from qpsk_tpu_torch.packet import ConvCode
+
+    want = vk.viterbi_decode_plain(ConvCode(), llrs, 256)
+    for lanes in FEC_LANES:
+        got = vk._launch(ConvCode(), llrs, 256, lanes=lanes)
+        rate = agree(f"B={llrs.shape[0]} hard 3 %, {lanes} lanes a packet",
+                     "viterbi bit", got == want, exact=True)
+        errs["viterbi"] = max(errs["viterbi"], 1.0 - rate)
+    print(f"  viterbi  B={llrs.shape[0]:5d} hard 3 %: equal with "
+          f"{', '.join(map(str, FEC_LANES))} lanes a packet")
+
+
 def compare_fec(dev, errs: dict) -> None:
     """Phase 5a: each FEC kernel against its plain version, then the
     codewords both must decode clean."""
@@ -833,7 +871,7 @@ def compare_fec(dev, errs: dict) -> None:
     from qpsk_tpu_torch.packet import hard_llrs
 
     for kind in ("conv", "ldpc"):
-        for b in FEC_COMPARE:
+        for b in FEC_COMPARE[kind]:
             gen = torch.Generator(device=dev).manual_seed(b)
             u = torch.randint(0, 2, (b, 256), generator=gen, device=dev,
                               dtype=torch.int32)
@@ -843,7 +881,9 @@ def compare_fec(dev, errs: dict) -> None:
             flips = (torch.rand(c.shape, generator=gen, device=dev) < 0.03)
             hard = hard_llrs(c ^ flips.to(torch.int32))
             for stim, llrs in (("sigma 0.7", noisy), ("hard 3 %", hard)):
-                check_fec(kind, llrs, u, f"B={b:4d} {stim}", errs)
+                check_fec(kind, llrs, u, f"B={b:5d} {stim}", errs)
+            if kind == "conv" and b == 200:
+                check_viterbi_lanes(hard, errs)
 
         # the CPU tests' inputs (tests/test_torch_fec.py, numpy seed 2):
         # 64 codewords at sigma 0.55 (Viterbi) or 0.6 (LDPC)
@@ -1066,29 +1106,95 @@ def coded_rates(cfg, dev, errs: dict) -> dict:
               f"samples/s; plain path {p1:.4f} / {p2:.4f} ms/call, "
               f"{nsamples / min(p1, p2) * 1e3:.6g} samples/s")
 
-    from qpsk_tpu_torch.ops.cuda import ldpc_kernel as lk
-    from qpsk_tpu_torch.packet import LdpcCode
-
     times = {}
     gen = torch.Generator(device=dev).manual_seed(17)
-    code = LdpcCode(k=256)
-    edges = int((lk._tables(code, torch.device("cpu"))[0] >= 0).sum())
     b = FEC_RATE_PACKETS
-    works = {
-        # LLRs in, bits out; 64 states x (2 adds, compare, select) a step
-        "viterbi": bound(b * (524 + 256) * 4, b * 262 * (64 * 4 + 4)),
-        # LLRs in, bits out; about 8 operations per edge and iteration
-        "ldpc": bound(b * (512 + 256) * 4, b * code.iters * edges * 8)}
     for kind, n in (("conv", 524), ("ldpc", 512)):
         llrs = torch.randn((b, n), generator=gen, device=dev)
         check_fec(kind, llrs, None, f"B={b} random LLRs", errs)
         name, kern, plain = fec_decoders(kind)
         times[name] = time_pair(name, kern, plain, (llrs,), {}, 3, 20) \
-            + works[name]
+            + fec_work(name, b)
         info = b * 256
         print(f"  {name:8s} at {b} packets: {info / times[name][0] * 1e3:.6g} "
               f"vs {info / times[name][1] * 1e3:.6g} info bits/s")
+
+    # the kernels alone at the batch sizes the coded paths give them
+    from fec_times import graph_ms
+    for kind, n in (("conv", 524), ("ldpc", 512)):
+        name, kern, _ = fec_decoders(kind)
+        for b in FEC_PATH_PACKETS[name]:
+            llrs = torch.randn((b, n), generator=gen, device=dev)
+            k1, k2 = (graph_ms(lambda: kern(llrs)) for _ in range(2))
+            w1 = cuda_time_ms(lambda: kern(llrs), 50)
+            print(f"  {name:8s} at {b} packets (path shape): kernel alone "
+                  f"{k1:.4f} / {k2:.4f} ms in a CUDA graph, {w1:.4f} ms "
+                  f"launched from the host; bound {fec_work(name, b)[0]:.5f} ms")
     return times
+
+
+def fec_work(name: str, b: int) -> tuple:
+    """A decoder's bound at ``b`` packets: LLRs in, bits out; Viterbi 64
+    states x (2 adds, compare, select) a step, LDPC about 8 operations per
+    edge and iteration."""
+    from qpsk_tpu_torch.ops.cuda import ldpc_kernel as lk
+    from qpsk_tpu_torch.packet import LdpcCode
+    import torch
+
+    if name == "viterbi":
+        return bound(b * (524 + 256) * 4, b * 262 * (64 * 4 + 4))
+    code = LdpcCode(k=256)
+    edges = int((lk._tables(code, torch.device("cpu"))[0] >= 0).sum())
+    return bound(b * (512 + 256) * 4, b * code.iters * edges * 8)
+
+
+def fec_build_lines(log: str) -> None:
+    """Print what ptxas said of the two decoders' kernels: registers,
+    stack frame and spills of every instantiation."""
+    show = False
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            show = "viterbi" in line or "ldpc" in line
+        if show and ("Compiling entry" in line or "registers" in line
+                     or "spill" in line):
+            print("  " + line.strip())
+
+
+def fec_shapes(dev) -> None:
+    """``--fec``: the Viterbi kernel at every lane count against the plain
+    version (equal), timed at the paths' batch sizes, at the rate point
+    and between them: the table behind ``viterbi_kernel._lanes``.  The
+    LDPC kernel, which has one shape, at the same batches."""
+    import torch
+    from fec_times import graph_ms
+    from qpsk_tpu_torch.ops.cuda import viterbi_kernel as vk
+    from qpsk_tpu_torch.packet import ConvCode
+
+    conv = ConvCode()
+    gen = torch.Generator(device=dev).manual_seed(19)
+    _, ldpc, ldpc_plain = fec_decoders("ldpc")
+    for b in (156, 1024, 2048, FEC_RATE_PACKETS, 8192, 16768, 67072):
+        llrs = torch.randn((b, 524), generator=gen, device=dev)
+        want = vk.viterbi_decode_plain(conv, llrs, 256)
+        for lanes in FEC_LANES:
+            def run():
+                return vk._launch(conv, llrs, 256, lanes=lanes)
+            need(torch.equal(run(), want),
+                 f"viterbi with {lanes} lanes a packet differs at B={b}")
+            t1, t2 = (graph_ms(run) for _ in range(2))
+            print(f"  viterbi  B={b:5d} lanes {lanes:2d}"
+                  f"{' (the wrapper picks it)' if lanes == vk._lanes(b) else ''}"
+                  f": equal, {t1:.4f} / {t2:.4f} ms in a CUDA graph, "
+                  f"{cuda_time_ms(run, 50):.4f} ms launched from the host "
+                  f"(bound {fec_work('viterbi', b)[0]:.5f} ms)")
+        llrs = torch.randn((b, 512), generator=gen, device=dev)
+        same = float((ldpc(llrs) == ldpc_plain(llrs)).float().mean())
+        need(same >= 0.999, f"ldpc agrees on {same:.6f} at B={b}")
+        t1, t2 = (graph_ms(lambda: ldpc(llrs)) for _ in range(2))
+        print(f"  ldpc     B={b:5d}: agreement {same:.6f}, {t1:.4f} / {t2:.4f} "
+              f"ms in a CUDA graph, {cuda_time_ms(lambda: ldpc(llrs), 50):.4f} "
+              f"ms launched from the host (bound "
+              f"{fec_work('ldpc', b)[0]:.5f} ms)")
 
 
 # every kernel and mode: (source, the TPU kernel's pallas_call it replaces)
@@ -1675,6 +1781,14 @@ def main() -> int:
             print("  " + line.strip())
 
     cfg, pcfg = ModemConfig(), PacketConfig(payload_bytes=30)
+    if "--fec" in sys.argv[1:]:
+        print("fec: the decoders against their plain versions")
+        fec_build_lines(log)
+        compare_fec(dev, dict.fromkeys(KERNELS, 0.0))
+        print("fec: every kernel shape, checked and timed")
+        fec_shapes(dev)
+        print(smi)
+        return 0
     if "--profile" in sys.argv[1:]:
         print("profile: kernel-path receive calls under torch.profiler")
         profile(cfg, dev)
@@ -1696,6 +1810,7 @@ def main() -> int:
     print(f"  before: {CLOCKS} = {nvidia_smi_line(CLOCKS)}")
     times.update(coded_rates(cfg, dev, errs))
     print(f"  after:  {CLOCKS} = {nvidia_smi_line(CLOCKS)}")
+    fec_build_lines(log)
     print("phase 6: the loop and channel options")
     compare_options(pcfg, dev, errs)
     for name in OPTION_PATHS:

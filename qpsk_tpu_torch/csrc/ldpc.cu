@@ -1,148 +1,226 @@
 // Normalized min-sum LDPC decoder for Hopper (sm_90a): flooding schedule,
-// a fixed number of iterations, one block per packet.
+// a fixed number of iterations, one block per packet, one thread per
+// check, one barrier an iteration.
 //
 // Replaces: qpsk_tpu/ops/pallas/ldpc_kernel.py, _kernel launched by
 // _ldpc_2d (entry ldpc_decode_pallas).  The TPU kernel gathers and
 // scatters messages with a one-hot (dmax*m, n) edge matrix on the MXU
-// because the TPU has no cheap gather; here the edges are a compact index
-// table (qpsk_tpu_torch/packet/ldpc.py, _index_tables) and shared memory
-// does the gather and the scatter:
+// because the TPU has no cheap gather.  Here tensor cores serve nothing:
+// the edges are a compact index table and shared memory does the gather.
+// What the card offers this decoder is registers, shared memory and many
+// warps, and the kernel is built from those:
 //
-//   - thread i owns check i: its <= dmax var->check messages stay in
-//     registers across iterations.  The check phase keeps the running min,
-//     second min, first-wins argmin and sign parity over the check's slots
-//     (the running form of the Pallas kernel's check_update), and writes
-//     the outgoing messages to shared memory;
-//   - the variable phase sums, for each variable, its incoming messages in
-//     the fixed order of its edge list and adds the channel LLR (no
-//     atomics, so the sum order never changes between runs), into a
-//     shared table of totals;
-//   - each check thread then gathers its variables' totals and subtracts
-//     its own message: the next var->check messages.
-//   Two __syncthreads per iteration; the last iteration writes the k
-//   posterior bits (total < 0).
+//   - thread i owns check i.  Its <= DMAX var->check messages and the
+//     channel LLRs of its variables stay in registers across iterations
+//     (DMAX is a template parameter, 5 or 8, so the slice's degree-5 code
+//     carries no dead slots);
+//   - every index lives in registers, loaded once before the loop: for
+//     slot s of the check, the edge list of its variable v (the per-slot
+//     table of packet/ldpc.py, _slot_edge_table), as byte offsets into
+//     the message array packed two to a register; a padded entry points at
+//     a slot that holds zero, so the inner loop has no branch;
+//   - the check->var messages live in shared memory twice (ping-pong).
+//     After the check update (running min, second min and sign parity over
+//     the check's slots: the running form of the Pallas kernel's
+//     check_update) and ONE barrier, the check thread forms its next
+//     var->check message itself,
+//         mm[s] = (llr[v] + ((e[ed0] + e[ed1]) + e[ed2])) - e[s],
+//     from three independent shared loads a slot; no table of totals, no
+//     second and third barrier;
+//   - the LLR row comes in with 16-byte loads; the last iteration ends
+//     with the barrier and the posterior sum of message variable i.
 //
 // Float32 throughout.  The TPU kernel truncates matmul operands to bf16 on
-// the MXU; that is a TPU artifact.  The plain PyTorch version sums each
-// variable's messages in the same order, so the two agree bit for bit
-// wherever the float operations are the same; the contract is the JAX
-// package's own (>= 99.9 % bit agreement, equal frame errors).
+// the MXU; that is a TPU artifact.  The sums run in the order of the plain
+// PyTorch version (the edge list in order, then llr + sum, then - e), so
+// the two agree bit for bit wherever the float operations are the same;
+// the contract is the JAX package's own (>= 99.9 % bit agreement, equal
+// frame errors).  Two forms differ from the plain version's and give the
+// same values: the magnitude of slot s is alpha*m2 where |mm[s]| == m1,
+// else alpha*m1 (on a tie for the minimum m2 == m1, so no argmin is
+// needed), and the sign is taken from the messages' sign bits after the
+// LLRs pass through x + 0.0f, which leaves no -0.0 for a sign bit to
+// differ from `mm < 0` on.
 //
-// What bounds it on the H100: latency.  A packet's iteration is a few
-// dozen dependent instructions and two block barriers per thread, and the
-// data (LLRs, 9 KB of shared messages and totals) stay on the SM; with one
-// 256-thread block per packet, up to 8 packets share an SM, so a batch of
-// 4096 packets runs in about four waves over the 132 SMs.
+// What bounds it on the H100 (NVIDIA H100 80GB HBM3, 700 W; PERF.md has
+// the runs): instruction issue.  An iteration is 107 instructions a check
+// (21 a slot, 15 shared loads and 5 stores among them), about half of
+// them minima, selects and sign logic; 4096 packets take 0.135 ms where
+// the three-barrier kernel before it took 0.31, and the data never leave
+// the SM between the 2 KB row in and the 1 KB of bits out.  A small batch
+// is bound by one packet's latency, 25 rounds of check update, barrier
+// and gather: 156 packets take 0.012 ms.  Measured and not kept: several
+// checks a thread (one warp a packet with __syncwarp for the barrier was
+// 0.035 ms at 156 packets and 0.172 at 4096, at 255 registers with a
+// spill), and unpacked offsets (three more registers, no faster).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int DMAX = 8;  // the largest check degree the kernel takes
 constexpr float BIG = 1e30f;
+constexpr int VMAX = 3;  // the largest variable degree the kernel takes
 
+// the message at a byte offset into a message array
+__device__ __forceinline__ float at(const float* base, unsigned byte_off) {
+  return *(const float*)((const char*)base + byte_off);
+}
+
+// the sum of a variable's incoming messages in edge-list order; lo holds
+// the byte offsets of its first two edges, hi of its third
+__device__ __forceinline__ float incoming(const float* e, unsigned lo,
+                                          unsigned hi) {
+  const float sum = at(e, lo & 0xffffu) + at(e, lo >> 16);
+  return sum + at(e, hi);
+}
+
+// the packed byte offsets {ed0 | ed1 << 16, ed2} of the VMAX edges at
+// list[0], list[stride], ...; a padded (-1) or dead entry reads zero_slot
+__device__ __forceinline__ void edge_offsets(const int32_t* list, int stride,
+                                             bool live, int zero_slot,
+                                             unsigned& lo, unsigned& hi) {
+  unsigned off[VMAX];
+#pragma unroll
+  for (int j = 0; j < VMAX; ++j) {
+    const int ed = live ? list[j * stride] : -1;
+    off[j] = 4u * (unsigned)(ed >= 0 ? ed : zero_slot);
+  }
+  lo = off[0] | (off[1] << 16);
+  hi = off[2];
+}
+
+template <int DMAX>
 __global__ void ldpc_kernel(const float* __restrict__ llrs,
                             const int32_t* __restrict__ check_var,
+                            const int32_t* __restrict__ slot_edges,
                             const int32_t* __restrict__ var_edges,
                             int32_t* __restrict__ bits, int m, int n, int k,
-                            int dmax, int vmax, int iters, float alpha) {
-  extern __shared__ float shm[];
-  float* e_sh = shm;                 // (dmax, m) check->var messages
-  float* llr_sh = shm + dmax * m;    // (n,) channel LLRs
-  float* tot_sh = llr_sh + n;        // (n,) posterior totals
+                            int dmax, int estride, int iters, float alpha,
+                            int vec) {
+  extern __shared__ __align__(16) float shm[];
+  // two (dmax*m + 1) message arrays, the last entry a zero that padded
+  // edges read, then the n channel LLRs
+  float* llr_sh = shm + 2 * estride;
   const int i = threadIdx.x;
   const long long b = blockIdx.x;
   const float* ll = llrs + b * n;
+  const int zero_slot = dmax * m;
 
-  for (int v = i; v < n; v += blockDim.x) llr_sh[v] = ll[v];
+  // x + 0.0f turns a -0.0 LLR into +0.0 and changes nothing else
+  if (vec) {
+    for (int v = i; v < n / 4; v += blockDim.x) {
+      float4 x = ((const float4*)ll)[v];
+      x.x = __fadd_rn(x.x, 0.f);
+      x.y = __fadd_rn(x.y, 0.f);
+      x.z = __fadd_rn(x.z, 0.f);
+      x.w = __fadd_rn(x.w, 0.f);
+      ((float4*)llr_sh)[v] = x;
+    }
+  } else {
+    for (int v = i; v < n; v += blockDim.x) llr_sh[v] = __fadd_rn(ll[v], 0.f);
+  }
+  if (i == 0) {
+    shm[zero_slot] = 0.f;
+    shm[estride + zero_slot] = 0.f;
+  }
 
+  // the edges of each slot's variable, and of message variable i
+  unsigned edge_lo[DMAX], edge_hi[DMAX], post_lo, post_hi;
   int cv[DMAX];
-  int deg = 0;
+  unsigned real = 0u;  // bit s: slot s of the check is an edge
 #pragma unroll
   for (int s = 0; s < DMAX; ++s) {
     cv[s] = (i < m && s < dmax) ? check_var[s * m + i] : -1;
-    deg += cv[s] >= 0;
+    real |= (unsigned)(cv[s] >= 0) << s;
+    edge_offsets(slot_edges + s * VMAX * m + i, m, cv[s] >= 0, zero_slot,
+                 edge_lo[s], edge_hi[s]);
   }
+  edge_offsets(var_edges + i * VMAX, 1, i < k, zero_slot, post_lo, post_hi);
   __syncthreads();
 
-  float mm[DMAX], e[DMAX];
+  // a slot past the check's degree carries BIG: never a minimum, never
+  // negative, and its message is stored nowhere
+  float lv[DMAX], mm[DMAX];
 #pragma unroll
-  for (int s = 0; s < DMAX; ++s) mm[s] = s < deg ? llr_sh[cv[s]] : 0.f;
+  for (int s = 0; s < DMAX; ++s) {
+    lv[s] = cv[s] >= 0 ? llr_sh[cv[s]] : BIG;
+    mm[s] = lv[s];
+  }
 
-  for (int it = 0; it < iters; ++it) {
-    // check phase: min, second min, first-wins argmin, sign parity
+  float* cur = shm;
+  float* oth = shm + estride;
+  for (int it = 0;; ++it) {
+    // check update: mm becomes the check->var message e
     float m1 = BIG, m2 = BIG;
-    int am = 0, parity = 0;
+    unsigned px = 0u;
 #pragma unroll
     for (int s = 0; s < DMAX; ++s) {
-      if (s < deg) {
-        const float a = fabsf(mm[s]);
-        if (a < m1) {
-          m2 = m1;
-          m1 = a;
-          am = s;
-        } else {
-          m2 = fminf(m2, a);
-        }
-        parity ^= mm[s] < 0.f;
-      }
+      const float a = fabsf(mm[s]);
+      m2 = fminf(m2, fmaxf(m1, a));
+      m1 = fminf(m1, a);
+      px ^= __float_as_uint(mm[s]);
     }
+    const float v1 = alpha * m1, v2 = alpha * m2;
 #pragma unroll
     for (int s = 0; s < DMAX; ++s) {
-      if (s < deg) {
-        const float v = alpha * (s == am ? m2 : m1);
-        e[s] = (parity ^ (mm[s] < 0.f)) ? -v : v;
-        e_sh[s * m + i] = e[s];
-      }
+      const float mag = fabsf(mm[s]) > m1 ? v1 : v2;
+      const unsigned sign = (px ^ __float_as_uint(mm[s])) & 0x80000000u;
+      mm[s] = __uint_as_float(__float_as_uint(mag) | sign);
+      if (real >> s & 1u) cur[s * m + i] = mm[s];
     }
     __syncthreads();
+    if (it == iters - 1) break;
 
-    // variable phase: the incoming messages in edge-list order, then the
-    // channel LLR
-    const bool last = it == iters - 1;
-    const int nv = last ? k : n;
-    for (int v = i; v < nv; v += blockDim.x) {
-      float sum = 0.f;
-      for (int j = 0; j < vmax; ++j) {
-        const int ed = var_edges[v * vmax + j];
-        if (ed < 0) break;
-        sum = j == 0 ? e_sh[ed] : sum + e_sh[ed];
-      }
-      const float total = llr_sh[v] + sum;
-      if (last) {
-        bits[b * k + v] = total < 0.f;
-      } else {
-        tot_sh[v] = total;
-      }
-    }
-    if (last) break;
-    __syncthreads();
-
-    // the next var->check messages: the total without the own message
+    // the next var->check messages: the variable's incoming messages in
+    // edge-list order, the channel LLR, then without the own message
 #pragma unroll
     for (int s = 0; s < DMAX; ++s)
-      if (s < deg) mm[s] = tot_sh[cv[s]] - e[s];
-    __syncthreads();
+      mm[s] = (lv[s] + incoming(cur, edge_lo[s], edge_hi[s])) - mm[s];
+    float* t = cur;
+    cur = oth;
+    oth = t;
   }
+
+  // posterior of message bit i: total < 0
+  if (i < k)
+    bits[b * k + i] = (llr_sh[i] + incoming(cur, post_lo, post_hi)) < 0.f;
+}
+
+template <int DMAX>
+int launch(const float* llrs, const int32_t* check_var,
+           const int32_t* slot_edges, const int32_t* var_edges, int32_t* bits,
+           int B, int m, int n, int k, int dmax, int iters, float alpha,
+           cudaStream_t stream) {
+  const int threads = ((m + 31) / 32) * 32;
+  const int estride = ((dmax * m + 1 + 3) / 4) * 4;
+  const size_t smem = sizeof(float) * (2 * (size_t)estride + n);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ldpc_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int vec = n % 4 == 0 && (uintptr_t)llrs % 16 == 0;
+  ldpc_kernel<DMAX><<<B, threads, smem, stream>>>(
+      llrs, check_var, slot_edges, var_edges, bits, m, n, k, dmax, estride,
+      iters, alpha, vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// check_var (dmax, m), slot_edges (dmax, 3, m) and var_edges (n, 3) are the
+// int32 tables of packet/ldpc.py, -1 for padding.  Takes dmax <= 8,
+// k <= m <= 1024 (a thread a check, message offsets of 16 bits).
 extern "C" int qpsk_ldpc(const void* llrs, const void* check_var,
-                         const void* var_edges, void* bits, int B, int m,
-                         int n, int k, int dmax, int vmax, int iters,
-                         float alpha, void* stream) {
-  const int threads = ((m + 31) / 32) * 32;
-  const size_t smem = sizeof(float) * ((size_t)dmax * m + 2 * (size_t)n);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ldpc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  ldpc_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)llrs, (const int32_t*)check_var,
-      (const int32_t*)var_edges, (int32_t*)bits, m, n, k, dmax, vmax, iters,
-      alpha);
-  return (int)cudaGetLastError();
+                         const void* slot_edges, const void* var_edges,
+                         void* bits, int B, int m, int n, int k, int dmax,
+                         int iters, float alpha, void* stream) {
+  if (dmax > 8 || m > 1024 || k > m) return (int)cudaErrorInvalidValue;
+  const auto run = dmax <= 5 ? launch<5> : launch<8>;
+  return run((const float*)llrs, (const int32_t*)check_var,
+             (const int32_t*)slot_edges, (const int32_t*)var_edges,
+             (int32_t*)bits, B, m, n, k, dmax, iters, alpha,
+             (cudaStream_t)stream);
 }

@@ -1,67 +1,369 @@
 // Soft-decision Viterbi decoder for Hopper (sm_90a): the K=7 rate-1/2
-// code, 64 states, one warp per packet.
+// (133, 171) code, 64 states, a packet's trellis in the registers of G
+// lanes.
 //
 // Replaces: qpsk_tpu/ops/pallas/viterbi_kernel.py, _fwd_kernel + _bwd_kernel
 // launched by _viterbi_2d (entry viterbi_decode_pallas).  The TPU layout
 // (states on sublanes, batch on 128 lanes, bf16 0/1 decision planes, time
 // padded with inert zero-LLR steps) exists because the TPU has no cheap
-// gather; this kernel is designed for the warp instead:
+// gather.  Tensor cores serve nothing here: an add-compare-select is no
+// product and the contract is bit-identity in float32.  What the card
+// offers a trellis is registers, shared memory, asynchronous copies and
+// many warps, and viterbi_kernel<G> is built from those:
 //
-//   - lane l holds the path metrics of states 2l and 2l+1.  Both states
-//     have the predecessors l and 32+l (pred(s', p) = p*32 + (s' >> 1)),
-//     which four __shfl_sync fetch from lanes l>>1 and 16+(l>>1);
-//   - the 64 decisions of a step are two __ballot_sync words (bit l of
-//     the first is state 2l, of the second state 2l+1), 8 bytes per step
-//     and packet where the TPU stores 128 bytes of bf16.  Lane t%32 keeps
-//     step t's pair and the warp stores 32 steps with one coalesced store;
-//   - the per-step maximum is a 5-step xor-shuffle reduction (max is
-//     exact, so the order does not matter);
-//   - the traceback reads 32 steps of decision words per coalesced load
-//     and walks them from state 0 at t = nsteps-1 with a uniform shuffle
-//     per step; lane t%32 keeps step t's bit for one coalesced store.
+//   - G lanes (a template parameter, a power of two up to 8; 1 and 8 are
+//     built) hold a packet's 64 path metrics, 64/G a lane at compile-time
+//     register indices.  Lane g owns
+//     the new states [g*64/G, (g+1)*64/G); their predecessors s'>>1 and
+//     32 + (s'>>1) are registers of lanes g>>1 and G/2 + (g>>1).  G = 1
+//     exchanges nothing.  G > 1 fetches them in two rounds of shuffles in
+//     which every lane sends one register to exactly one reader: 64/G
+//     shuffles a lane and step;
+//   - the two new states 2j, 2j+1 of a butterfly share the predecessors j
+//     and 32+j, and because both generators tap the newest and the oldest
+//     bit, their four branch metrics are +-one value: four adds, two
+//     maxima and two differences whose sign bits are the decisions.  For
+//     G = 1 the compiler knows each butterfly's value (+-0.5(l0+l1) or
+//     +-0.5(l0-l1)) at compile time; for G > 1 a lane keeps two
+//     coefficients a butterfly;
+//   - a lane packs its own 64/G decision bits with funnel shifts (no
+//     ballot) and stores them into the (nsteps, B) scratch of 64-bit
+//     words, bit s = state s, so the stores of a warp are contiguous;
+//   - the maximum is a register tree, then log2 G xor-shuffles;
+//   - the LLRs are staged through shared memory in tiles of packets x 16
+//     steps by cp.async (16 bytes a copy), the next tile in flight while
+//     this one is consumed, so the global reads stay coalesced though a
+//     lane walks its own packet;
+//   - the traceback is one thread a packet: a step's word does not depend
+//     on the state, so 16 steps are loaded ahead into registers while the
+//     thread walks the 16 before.  The bits are packed into shared memory
+//     and the block writes the (B, nbits) int32 output coalesced.
 //   Any nsteps and any batch size work with no padding.
+// viterbi_warp_kernel (one warp a packet, two states a lane, the shape the
+// port began with) stays for small batches, with the five shuffle rounds
+// of its maximum replaced by one warp reduction.
 //
 // Bit-identity with the plain PyTorch version (and through it the JAX
 // scan, packet/fec.py): the same -1e9 start metrics, bm = 0.5f*(g0*l0 +
-// g1*l1), strict c1 > c0, and pm - max(pm) after every step.  g*l is exact
-// (g = +-1), so FMA contraction of bm rounds exactly as the separate add
-// does, and so is the 0.5f scaling, so contracting it into the add of the
-// predecessor metric is harmless too; every other operation is a single
-// add, compare or max, which rounds the same in both.  Built without
-// --use_fast_math.
+// g1*l1), strict c1 > c0, and pm - max(pm) after every step (the
+// subtraction rounds, so it is never deferred).  g = +-1, so g0*l0 + g1*l1
+// is l0+l1, l0-l1 or the exact negative of one of them, the 0.5f scaling
+// is exact, and adding the negated value is subtracting it; c1 > c0 is the
+// sign of c0 - c1 (no flush to zero: a difference of unequal floats is not
+// zero); max is exact in any order.  Built without --use_fast_math.
 //
-// What bounds it on the H100: per step and packet the forward pass is a
-// chain of about 12 shuffles and 20 ALU instructions, so a warp advances
-// one step per few hundred cycles of shuffle latency; the design relies on
-// many packets (warps) in flight to hide it.  Memory traffic is small:
-// 8 bytes of LLRs in and 8 bytes of decisions out and back per step.
+// What bounds it on the H100 (NVIDIA H100 80GB HBM3, 700 W; PERF.md has
+// the runs), against 8 bytes of LLRs in and 8 bytes of decisions out and
+// back a step.  A large batch is bound by instruction issue: a step of
+// G = 1 is 475 instructions for 32 packets (130 adds, 128 multiply-adds,
+// 127 maxima, 59 funnel shifts; the maxima and shifts issue at half the
+// adds' rate), and 67 072 packets take 0.37 ms where the warp kernel takes
+// 1.29.  But one lane a packet needs 16 896 packets to give each of the
+// card's 528 warp schedulers one warp, and below that a launch lasts as
+// long as one warp's 262 steps: 0.11 ms.  More lanes a packet shorten the
+// step's dependent chain (exchange shuffle, add, maximum, tree, shuffle
+// rounds, subtract) at the price of shuffles and selects: G = 8 takes
+// 0.048 ms up to 2048 packets and 0.065 at 4096, the warp kernel 0.030 at
+// 156 and 0.090 at 4096.  So the wrapper picks the shape from the batch
+// size (ops/cuda/viterbi_kernel.py, _lanes).  Measured and not kept: 2 and
+// 4 lanes a packet (never the fastest: 0.105 and 0.072 ms at 4096), the
+// warp reduction on the lanes of a group (2.6x slower than shuffles for
+// G = 4), and a maximum taken from the old metrics beside the shuffles
+// (exact, but its two reductions a step cost more than the chain they
+// shorten: 0.040 against 0.030 ms at 156 packets).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int WARPS = 4;              // packets per block
 constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned POLY0 = 0133, POLY1 = 0171;  // the code's generators
+constexpr int TILE = 16;          // trellis steps per staged LLR tile
+constexpr int ROW = 2 * TILE + 4; // floats a packet's row of a tile takes:
+                                  // rows stay 16-byte aligned and half the
+                                  // lanes of a warp fall on distinct banks
+constexpr int CHUNK = 16;         // decision words the traceback loads ahead
 
-__global__ void __launch_bounds__(WARPS * 32)
-viterbi_kernel(const float* __restrict__ llrs, const float* __restrict__ sgn,
-               uint2* __restrict__ dec, int32_t* __restrict__ bits, int B,
-               int nsteps, int nbits) {
+// 1 if output `poly` of the branch (predecessor j0 -> state 2*j0) is a one
+__host__ __device__ constexpr int out_bit(unsigned poly, int j0) {
+  unsigned x = poly & ((unsigned)j0 << 1);
+  x ^= x >> 4;
+  x ^= x >> 2;
+  x ^= x >> 1;
+  return (int)(x & 1u);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+template <int G>
+struct Shape {
+  static constexpr int THREADS = G == 1 ? 32 : 128;
+  static constexpr int N = 64 / G;        // states a lane
+  static constexpr int H = N / 2;         // butterflies a lane
+  static constexpr int P = THREADS / G;   // packets a block
+};
+
+// N sign bits into the low bits of a word, bit r from df[r]: four funnel-
+// shift chains of N/4, merged by multiply-adds (their bits never overlap)
+template <int N>
+__device__ __forceinline__ unsigned pack_signs(const float* df) {
+  constexpr int Q = N / 4;
+  unsigned c[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int r = Q - 1; r >= 0; --r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      c[j] = __funnelshift_l(__float_as_uint(df[j * Q + r]), c[j], 1);
+  return ((c[3] * (1u << Q) + c[2]) * (1u << Q) + c[1]) * (1u << Q) + c[0];
+}
+
+// the maximum of tr[0 .. 2W) into tr[0], a tree of compile-time levels
+template <int W>
+__device__ __forceinline__ void max_tree(float* tr) {
+#pragma unroll
+  for (int r = 0; r < W; ++r) tr[r] = fmaxf(tr[r], tr[r + W]);
+  if constexpr (W > 1) max_tree<W / 2>(tr);
+}
+
+template <int G>
+__global__ void __launch_bounds__(Shape<G>::THREADS)
+viterbi_kernel(const float* __restrict__ llrs, unsigned char* dec,
+               int32_t* __restrict__ bits, int B, int nsteps, int nbits,
+               int vec) {
+  constexpr int T = Shape<G>::THREADS, N = Shape<G>::N, H = Shape<G>::H,
+                P = Shape<G>::P;
+  extern __shared__ __align__(16) float shm[];
+  float* tiles = shm;                                   // 2 x P x ROW
+  unsigned* bits_sh = (unsigned*)(shm + 2 * P * ROW);   // P x wstride
+  const int wstride = (nsteps + 31) / 32 + 1;
+  const int tid = threadIdx.x;
+  const int g = tid % G;    // this lane's place among its packet's lanes
+  const int pl = tid / G;   // its packet within the block
+  const int base = blockIdx.x * P;
+  const int b = base + pl;
+  const bool valid = b < B;  // a lane past the batch computes and stores nothing
+
+  // one tile: P packets x TILE steps x 2 LLRs, rows of packets past the
+  // batch repeat the last packet
+  auto stage = [&](int tile) {
+    float* dst = tiles + (tile & 1) * P * ROW;
+    const int f0 = 2 * TILE * tile;   // first float of the tile in a row
+    if (vec) {  // rows 16-byte aligned and nsteps even: a copy is whole
+      for (int q = tid; q < P * (TILE / 2); q += T) {
+        const int p = q / (TILE / 2), part = q % (TILE / 2);
+        const size_t row = (size_t)min(base + p, B - 1) * 2 * nsteps;
+        if (f0 + 4 * part < 2 * nsteps)
+          cp_async16(dst + p * ROW + 4 * part, llrs + row + f0 + 4 * part);
+      }
+    } else {
+      for (int q = tid; q < P * 2 * TILE; q += T) {
+        const int p = q / (2 * TILE), f = q % (2 * TILE);
+        const size_t row = (size_t)min(base + p, B - 1) * 2 * nsteps;
+        if (f0 + f < 2 * nsteps)
+          cp_async4(dst + p * ROW + f, llrs + row + f0 + f);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // register r of lane g is state g*N + r
+  float pm[N];
+#pragma unroll
+  for (int r = 0; r < N; ++r) pm[r] = (g == 0 && r == 0) ? 0.f : -1e9f;
+
+  // G > 1: butterfly i of lane g is j0 = g*H + i, its branch value
+  // ca*0.5(l0+l1) + cb*0.5(l0-l1) with (ca, cb) one of (+-1, 0), (0, +-1)
+  float ca[G == 1 ? 1 : H], cb[G == 1 ? 1 : H];
+  if constexpr (G > 1) {
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      const int s0 = out_bit(POLY0, g * H + i), s1 = out_bit(POLY1, g * H + i);
+      const float sg = s0 ? -1.f : 1.f;
+      ca[i] = s0 == s1 ? sg : 0.f;
+      cb[i] = s0 == s1 ? 0.f : sg;
+    }
+  }
+  const bool odd = g & 1, upper = g >= G / 2;
+  const int src_even = g >> 1, src_odd = G / 2 + (g >> 1);
+
+  const int ntiles = (nsteps + TILE - 1) / TILE;
+  stage(0);
+  for (int tile = 0; tile < ntiles; ++tile) {
+    cp_async_wait_all();
+    __syncthreads();  // the tile is in; the other buffer is read out
+    if (tile + 1 < ntiles) stage(tile + 1);
+    const float* lt = tiles + (tile & 1) * P * ROW + pl * ROW;
+    const int kmax = min(TILE, nsteps - TILE * tile);
+#pragma unroll 1
+    for (int k = 0; k < kmax; ++k) {
+      const float2 l = *(const float2*)(lt + 2 * k);
+      const float ha = 0.5f * (l.x + l.y), hb = 0.5f * (l.x - l.y);
+
+      // the predecessors of butterfly i: pm[j0] and pm[32 + j0].  G = 1
+      // has them in its own registers.  G > 1: state j0 = g*H + i is
+      // register (g&1)*H + i of lane g>>1, state 32 + j0 the same register
+      // of lane G/2 + (g>>1).  Round 1: even lanes read their lower
+      // source, odd lanes their upper one; round 2 the other way: each
+      // lane is read by one lane a round.
+      float p0[G == 1 ? 1 : H], p1[G == 1 ? 1 : H];
+      if constexpr (G > 1) {
+#pragma unroll
+        for (int i = 0; i < H; ++i) {
+          const float s1 = upper ? pm[H + i] : pm[i];
+          const float s2 = upper ? pm[i] : pm[H + i];
+          const float r1 = __shfl_sync(FULL, s1, odd ? src_odd : src_even, G);
+          const float r2 = __shfl_sync(FULL, s2, odd ? src_even : src_odd, G);
+          p0[i] = odd ? r2 : r1;
+          p1[i] = odd ? r1 : r2;
+        }
+      }
+
+      float nm[N], df[N];
+#pragma unroll
+      for (int i = 0; i < H; ++i) {
+        float bt;
+        if constexpr (G == 1) {
+          const float h = out_bit(POLY0, i) == out_bit(POLY1, i) ? ha : hb;
+          bt = out_bit(POLY0, i) ? -h : h;
+        } else {
+          bt = fmaf(ca[i], ha, cb[i] * hb);
+        }
+        const float q0 = G == 1 ? pm[i] : p0[G == 1 ? 0 : i];
+        const float q1 = G == 1 ? pm[H + i] : p1[G == 1 ? 0 : i];
+        const float x0 = q0 + bt, x1 = q1 - bt;   // into state 2*j0
+        const float y0 = q0 - bt, y1 = q1 + bt;   // into state 2*j0 + 1
+        nm[2 * i] = fmaxf(x0, x1);
+        nm[2 * i + 1] = fmaxf(y0, y1);
+        df[2 * i] = x0 - x1;       // negative where the upper predecessor wins
+        df[2 * i + 1] = y0 - y1;
+      }
+
+      // the maximum: a tree over the lane's registers, then across lanes
+      float tr[H];
+#pragma unroll
+      for (int r = 0; r < H; ++r) tr[r] = fmaxf(nm[r], nm[r + H]);
+      max_tree<H / 2>(tr);
+      float mx = tr[0];
+#pragma unroll
+      for (int lvl = 1; lvl < G; lvl *= 2)
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, lvl));
+#pragma unroll
+      for (int r = 0; r < N; ++r) pm[r] = nm[r] - mx;
+
+      // the lane's decision bits, bit r = state g*N + r
+      const size_t word = (size_t)(TILE * tile + k) * B + b;
+      if constexpr (N == 64) {
+        const unsigned lo = pack_signs<32>(df), hi = pack_signs<32>(df + 32);
+        if (valid) ((uint2*)dec)[word] = make_uint2(lo, hi);
+      } else {
+        const unsigned w = pack_signs<N>(df);
+        static_assert(N == 8, "a lane's decisions are a byte or a word pair");
+        if (valid) dec[word * 8 + g] = (unsigned char)w;
+      }
+    }
+  }
+  __syncthreads();  // the block's decision words are visible to its threads
+
+  // traceback, one thread a packet, from state 0 (tail-terminated) at the
+  // last step; bit t of the packet is the LSB of the state after step t
+  if (tid < P && base + tid < B) {
+    const uint2* dw = (const uint2*)dec + (base + tid);
+    uint2 cur[CHUNK], nxt[CHUNK];
+    int s = 0;
+    unsigned acc = 0u;
+    const int nchunks = (nsteps + CHUNK - 1) / CHUNK;
+#pragma unroll
+    for (int k = 0; k < CHUNK; ++k) {
+      const int t = (nchunks - 1) * CHUNK + k;
+      cur[k] = t < nsteps ? dw[(size_t)t * B] : make_uint2(0u, 0u);
+    }
+    for (int c = nchunks - 1; c >= 0; --c) {
+      if (c > 0) {  // the 16 steps before, in flight while these are walked
+#pragma unroll
+        for (int k = 0; k < CHUNK; ++k)
+          nxt[k] = dw[(size_t)((c - 1) * CHUNK + k) * B];
+      }
+#pragma unroll
+      for (int k = CHUNK - 1; k >= 0; --k) {
+        const int t = c * CHUNK + k;
+        if (t < nsteps) {
+          acc |= (unsigned)(s & 1) << (t & 31);
+          const unsigned w = (s & 32) ? cur[k].y : cur[k].x;
+          s = (s >> 1) | (int)(((w >> (s & 31)) & 1u) << 5);
+        }
+      }
+      if ((c * CHUNK) % 32 == 0) {  // steps [16c, 16c + 32) are walked
+        bits_sh[tid * wstride + (c * CHUNK) / 32] = acc;
+        acc = 0u;
+      }
+      if (c > 0) {
+#pragma unroll
+        for (int k = 0; k < CHUNK; ++k) cur[k] = nxt[k];
+      }
+    }
+  }
+  __syncthreads();
+
+  for (int p = 0; p < P && base + p < B; ++p) {
+    int32_t* out = bits + (size_t)(base + p) * nbits;
+    for (int t = tid; t < nbits; t += T)
+      out[t] = (int32_t)((bits_sh[p * wstride + (t >> 5)] >> (t & 31)) & 1u);
+  }
+}
+
+// the maximum of x over the warp: one integer reduction on the floats'
+// ordered bit patterns (the magnitude bits of the negatives flipped; the
+// map is its own inverse) in place of five shuffle rounds
+__device__ __forceinline__ float warp_max(float x) {
+  int o = __float_as_int(x);
+  o ^= (o >> 31) & 0x7fffffff;
+  o = __reduce_max_sync(FULL, o);
+  o ^= (o >> 31) & 0x7fffffff;
+  return __int_as_float(o);
+}
+
+// One warp a packet, two states a lane: the shape of least latency, for a
+// batch too small to fill the card.  Lane l holds states 2l and 2l+1, whose
+// predecessors l and 32+l four shuffles fetch; a step's decisions are two
+// ballots, kept by lane t%32 for one coalesced store per 32 steps; the
+// maximum is one warp reduction.
+__global__ void __launch_bounds__(128)
+viterbi_warp_kernel(const float* __restrict__ llrs, uint2* dec,
+                    int32_t* __restrict__ bits, int B, int nsteps, int nbits) {
   const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  const int b = blockIdx.x * 4 + (threadIdx.x >> 5);
   if (b >= B) return;  // the whole warp leaves together
 
-  // sgn is the (2 outputs, 64 states, 2 predecessors) sign table;
-  // g[q][j][p] belongs to state 2*lane + q
+  // g[q][j][p]: the sign of output j on the branch from predecessor
+  // p*32 + lane into state 2*lane + q (the butterfly's symmetry)
   float g[2][2][2];
 #pragma unroll
-  for (int q = 0; q < 2; ++q)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int p = 0; p < 2; ++p)
-        g[q][j][p] = sgn[(j * 64 + 2 * lane + q) * 2 + p];
+  for (int j = 0; j < 2; ++j) {
+    const float sg = out_bit(j ? POLY1 : POLY0, lane) ? -1.f : 1.f;
+    g[0][j][0] = sg;
+    g[0][j][1] = -sg;
+    g[1][j][0] = -sg;
+    g[1][j][1] = sg;
+  }
 
   float pm0 = lane == 0 ? 0.f : -1e9f;  // state 2*lane
   float pm1 = -1e9f;                    // state 2*lane + 1
@@ -93,10 +395,7 @@ viterbi_kernel(const float* __restrict__ llrs, const float* __restrict__ sgn,
     const float y1 = p1 + 0.5f * (g[1][0][1] * l0 + g[1][1][1] * l1);
     const bool d0 = x1 > x0, d1 = y1 > y0;
     const float n0 = d0 ? x1 : x0, n1 = d1 ? y1 : y0;
-    float mx = fmaxf(n0, n1);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+    const float mx = warp_max(fmaxf(n0, n1));
     pm0 = n0 - mx;
     pm1 = n1 - mx;
 
@@ -128,14 +427,40 @@ viterbi_kernel(const float* __restrict__ llrs, const float* __restrict__ sgn,
   }
 }
 
+template <int G>
+int launch(const float* llrs, void* dec, int32_t* bits, int B, int nsteps,
+           int nbits, cudaStream_t stream) {
+  constexpr int P = Shape<G>::P;
+  const size_t smem = sizeof(float) * 2 * P * ROW +
+                      sizeof(unsigned) * P * ((nsteps + 31) / 32 + 1);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        viterbi_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int vec = nsteps % 2 == 0 && (uintptr_t)llrs % 16 == 0;
+  viterbi_kernel<G><<<(B + P - 1) / P, Shape<G>::THREADS, smem, stream>>>(
+      llrs, (unsigned char*)dec, bits, B, nsteps, nbits, vec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-extern "C" int qpsk_viterbi(const void* llrs, const void* sgn, void* dec,
-                            void* bits, int B, int nsteps, int nbits,
-                            void* stream) {
-  viterbi_kernel<<<(B + WARPS - 1) / WARPS, WARPS * 32, 0,
-                   (cudaStream_t)stream>>>(
-      (const float*)llrs, (const float*)sgn, (uint2*)dec, (int32_t*)bits, B,
-      nsteps, nbits);
-  return (int)cudaGetLastError();
+// lanes: how many lanes hold a packet's trellis (1 or 8; 32: the warp
+// kernel).  dec is scratch of 8 * nsteps * B bytes.
+extern "C" int qpsk_viterbi(const void* llrs, void* dec, void* bits, int B,
+                            int nsteps, int nbits, int lanes, void* stream) {
+  const float* ll = (const float*)llrs;
+  int32_t* out = (int32_t*)bits;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (lanes) {
+    case 1: return launch<1>(ll, dec, out, B, nsteps, nbits, st);
+    case 8: return launch<8>(ll, dec, out, B, nsteps, nbits, st);
+    case 32:
+      viterbi_warp_kernel<<<(B + 3) / 4, 128, 0, st>>>(ll, (uint2*)dec, out,
+                                                       B, nsteps, nbits);
+      return (int)cudaGetLastError();
+  }
+  return (int)cudaErrorInvalidValue;
 }

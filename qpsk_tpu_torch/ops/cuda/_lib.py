@@ -35,8 +35,8 @@ _SIGNATURES = {
     "qpsk_frontend_cm": [_P] * 7 + [_I, _I, _I, _P, _P, _D, _F, _F, _P],
     "qpsk_costas_tm": [_P] * 15 + [_I] * 5 + [_P, _P, _P],
     "qpsk_tx": [_P] * 7 + [_I, _I, _I, _P, _D, _F, _F, _P],
-    "qpsk_viterbi": [_P] * 4 + [_I, _I, _I, _P],
-    "qpsk_ldpc": [_P] * 4 + [_I] * 7 + [_F, _P],
+    "qpsk_viterbi": [_P] * 3 + [_I] * 4 + [_P],
+    "qpsk_ldpc": [_P] * 5 + [_I] * 6 + [_F, _P],
 }
 
 

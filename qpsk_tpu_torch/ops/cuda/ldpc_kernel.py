@@ -4,7 +4,8 @@
 ``ldpc_decode`` decodes (..., n) LLRs to (..., k) bits with normalized
 min-sum over the code's compact index tables (``packet/ldpc.py``,
 ``_index_tables``).  On a CUDA tensor it launches ``csrc/ldpc.cu`` (one
-block per packet, one thread per check); on a CPU tensor it runs
+block per packet, one barrier an iteration, every index in registers); on
+a CPU tensor it runs
 ``ldpc_decode_plain``, the JAX XLA lowering's semantics in PyTorch:
 ``code.iters`` flooding iterations, first-wins argmin, normalization
 ``code.alpha``, posterior ``total[:k] < 0``, float32 throughout.  Both sum
@@ -22,14 +23,17 @@ import math
 import torch
 
 from qpsk_tpu_torch.ops.cuda import _lib
-from qpsk_tpu_torch.packet.ldpc import LdpcCode, _index_tables
+from qpsk_tpu_torch.packet.ldpc import (LdpcCode, _index_tables,
+                                        _slot_edge_table)
 
 # Kernel launches since the last reset (set to 0 to start a count).
 launches = 0
 
 _BIG = 1e30
-# the kernel's register arrays hold this many slots of a check
-_KERNEL_DMAX = 8
+# the kernel's register arrays hold this many slots of a check and this
+# many edges of a variable; a thread a check and 16-bit message offsets
+# bound the checks
+_KERNEL_DMAX, _KERNEL_VMAX, _KERNEL_M = 8, 3, 1024
 
 
 def _iters(code: LdpcCode, llrs: torch.Tensor, iters) -> int:
@@ -47,6 +51,14 @@ def _tables(code: LdpcCode, device: torch.device):
     check_var, var_edges = _index_tables(code.k, code.dv, code.seed)
     return (torch.from_numpy(check_var).to(device),
             torch.from_numpy(var_edges).to(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_tables(code: LdpcCode, device: torch.device):
+    """``_tables`` and the per-slot edge lists (dmax, vmax, m) that the
+    kernel loads into registers, int32 on ``device``."""
+    slot_edges = _slot_edge_table(code.k, code.dv, code.seed)
+    return _tables(code, device) + (torch.from_numpy(slot_edges).to(device),)
 
 
 def ldpc_decode(code: LdpcCode, llrs: torch.Tensor,
@@ -114,12 +126,16 @@ def _launch(code: LdpcCode, llrs: torch.Tensor, iters) -> torch.Tensor:
     global launches
     its = _iters(code, llrs, iters)
     dev = llrs.device
-    check_var, var_edges = _tables(code, dev)
+    check_var, var_edges, slot_edges = _kernel_tables(code, dev)
     dmax, m = check_var.shape
-    if dmax > _KERNEL_DMAX or m > 1024:
+    vmax = var_edges.shape[1]
+    if dmax > _KERNEL_DMAX or vmax != _KERNEL_VMAX or m > _KERNEL_M \
+            or code.k > m:
         raise NotImplementedError(
-            f"the LDPC kernel takes check degrees <= {_KERNEL_DMAX} and "
-            f"m <= 1024 checks, got dmax={dmax}, m={m}")
+            f"the LDPC kernel takes check degrees <= {_KERNEL_DMAX}, edge "
+            f"lists of {_KERNEL_VMAX} entries a variable and k <= m <= "
+            f"{_KERNEL_M} checks, got dmax={dmax}, vmax={vmax}, m={m}, "
+            f"k={code.k}")
     batch = tuple(llrs.shape[:-1])
     b = math.prod(batch)
     flat = llrs.to(torch.float32).reshape(b, code.n).contiguous()
@@ -127,9 +143,9 @@ def _launch(code: LdpcCode, llrs: torch.Tensor, iters) -> torch.Tensor:
     if b == 0:
         return out.reshape(batch + (code.k,))
     rc = _lib.library().qpsk_ldpc(
-        flat.data_ptr(), check_var.data_ptr(), var_edges.data_ptr(),
-        out.data_ptr(), b, m, code.n, code.k, dmax, var_edges.shape[1], its,
-        code.alpha, _lib.stream_ptr(dev))
+        flat.data_ptr(), check_var.data_ptr(), slot_edges.data_ptr(),
+        var_edges.data_ptr(), out.data_ptr(), b, m, code.n, code.k, dmax,
+        its, code.alpha, _lib.stream_ptr(dev))
     _lib.check(rc, "qpsk_ldpc")
     launches += 1
     return out.reshape(batch + (code.k,))

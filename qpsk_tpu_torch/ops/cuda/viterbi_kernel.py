@@ -3,7 +3,8 @@
 
 ``viterbi_decode`` decodes (..., rd*(nbits+K-1)) LLRs to (..., nbits)
 bits.  On a CUDA tensor it launches ``csrc/viterbi.cu`` (the K=7 rate-1/2
-code, one warp per packet); on a CPU tensor it runs
+(133, 171) code; a packet's trellis in the registers of 1, 8 or 32 lanes
+of a warp, by batch size); on a CPU tensor it runs
 ``viterbi_decode_plain``, the JAX package's scan twin
 (``packet/fec.py``) in PyTorch with the same op order: path metrics start
 at -1e9 with 0 in state 0, ``bm = 0.5*(sgn0*l0 + sgn1*l1)``, gather-free
@@ -15,7 +16,6 @@ decode bit-identically, hard-LLR ties included.
 
 from __future__ import annotations
 
-import functools
 import math
 
 import numpy as np
@@ -86,19 +86,32 @@ def viterbi_decode_plain(code: ConvCode, llrs: torch.Tensor,
     return us.movedim(0, -1)[..., :nbits].contiguous()
 
 
-@functools.lru_cache(maxsize=None)
-def _sign_table(code: ConvCode, device: torch.device) -> torch.Tensor:
-    """(rd, S, 2) branch-metric signs on ``device``, the kernel's table."""
-    _, sgns_np = _trellis(code)
-    return torch.from_numpy(np.ascontiguousarray(sgns_np)).to(device)
+# the generators csrc/viterbi.cu is built for
+_KERNEL_POLYS = (0o133, 0o171)
 
 
-def _launch(code: ConvCode, llrs: torch.Tensor, nbits: int) -> torch.Tensor:
+def _lanes(b: int) -> int:
+    """How many lanes of a warp hold one packet's trellis for a batch of
+    ``b`` packets: the fastest of the kernel's shapes at that size on the
+    H100 (``chip_smoke.py --fec`` measures them all; PERF.md has the
+    table).  One lane a packet needs the fewest instructions but 16 896
+    packets to give each of the card's 528 warp schedulers a warp; below
+    that more lanes a packet shorten a step's dependent chain instead:
+    8 lanes up to 8192 packets, the whole warp (two states a lane) up to
+    2048, where a launch is one packet's latency."""
+    if b <= 2048:
+        return 32
+    return 8 if b <= 8192 else 1
+
+
+def _launch(code: ConvCode, llrs: torch.Tensor, nbits: int,
+            lanes: int | None = None) -> torch.Tensor:
     global launches
-    if (code.constraint, code.rate_den) != (7, 2):
+    if (code.constraint, tuple(code.polys)) != (7, _KERNEL_POLYS):
         raise NotImplementedError(
-            f"the Viterbi kernel is built for K=7 rate-1/2 codes, got "
-            f"constraint={code.constraint}, {code.rate_den} polys")
+            f"the Viterbi kernel is built for the K=7 (133, 171) code, got "
+            f"constraint={code.constraint}, polys="
+            f"{tuple(oct(g) for g in code.polys)}")
     nsteps = _nsteps(code, llrs, nbits)
     dev = llrs.device
     batch = tuple(llrs.shape[:-1])
@@ -107,12 +120,11 @@ def _launch(code: ConvCode, llrs: torch.Tensor, nbits: int) -> torch.Tensor:
     out = torch.empty((b, nbits), dtype=torch.int32, device=dev)
     if b == 0:
         return out.reshape(batch + (nbits,))
-    sgn = _sign_table(code, dev)
     # one 64-bit word of decisions per trellis step and packet
-    dec = torch.empty((b, nsteps, 2), dtype=torch.int32, device=dev)
+    dec = torch.empty((nsteps, b, 2), dtype=torch.int32, device=dev)
     rc = _lib.library().qpsk_viterbi(
-        flat.data_ptr(), sgn.data_ptr(), dec.data_ptr(), out.data_ptr(), b,
-        nsteps, nbits, _lib.stream_ptr(dev))
+        flat.data_ptr(), dec.data_ptr(), out.data_ptr(), b, nsteps, nbits,
+        lanes or _lanes(b), _lib.stream_ptr(dev))
     _lib.check(rc, "qpsk_viterbi")
     launches += 1
     return out.reshape(batch + (nbits,))

@@ -108,6 +108,20 @@ def _index_tables(k: int, dv: int, seed: int):
     return check_var, var_edges
 
 
+@functools.lru_cache(maxsize=None)
+def _slot_edge_table(k: int, dv: int, seed: int) -> np.ndarray:
+    """The per-slot edge lists the LDPC kernel keeps in registers:
+    (dmax, vmax, m) int32 with ``table[s, :, i] = var_edges[check_var[s,
+    i]]``, the edge list (same order, same -1 padding) of the variable on
+    check i's slot s; all -1 where the slot itself is padding.  A check
+    thread forms the slot's next message from it alone: the channel LLR
+    plus the messages on these edges, minus its own."""
+    check_var, var_edges = _index_tables(k, dv, seed)
+    table = np.where(check_var[:, None, :] >= 0,
+                     var_edges[check_var.clip(min=0)].transpose(0, 2, 1), -1)
+    return np.ascontiguousarray(table, dtype=np.int32)
+
+
 def _xor_rows(bits: torch.Tensor, cols: np.ndarray) -> torch.Tensor:
     """(..., n) 0/1 int32 bits -> (..., rows) parity of the bits at each
     row of ``cols`` ((rows, w) int32 column indices, -1 = none)."""

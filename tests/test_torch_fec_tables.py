@@ -1,0 +1,288 @@
+"""The tables and the arithmetic of the torch port's two FEC decoder kernels
+(``csrc/ldpc.cu``, ``csrc/viterbi.cu``), checked on the CPU.
+
+A CUDA kernel runs only on the card, so what can be held here is what it is
+built from: the per-slot edge table the LDPC kernel keeps in registers
+(against ``_index_tables``), the lane and register map of the Viterbi
+kernel's trellis (against ``fec._trellis``), and numpy twins of the two
+kernels' schedules, operation for operation in float32, against the plain
+PyTorch versions.
+
+Tolerances: none.  The tables are integers.  The LDPC twin forms each
+message as ``(llr[v] + ((e[ed0] + e[ed1]) + e[ed2])) - e[s]`` and picks
+magnitudes without an argmin; both are the plain version's float32
+operations in the same order, so messages and bits must be equal.  The
+Viterbi twin computes a butterfly's four candidates from one branch value
+and reads decisions off the sign of a difference; every operation rounds
+as the plain version's, so the bits must be equal, hard-LLR ties included.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from qpsk_tpu_torch.ops.cuda import ldpc_kernel, viterbi_kernel
+from qpsk_tpu_torch.packet import fec, ldpc
+
+torch.set_num_threads(2)
+
+F32 = np.float32
+POLYS = (0o133, 0o171)
+
+
+# --------------------------------------------------------------- LDPC ---
+
+@pytest.mark.parametrize("k", [64, 128, 256])
+def test_slot_edge_table_lists_each_slots_variable_edges(k):
+    check_var, var_edges = ldpc._index_tables(k, 3, 1)
+    table = ldpc._slot_edge_table(k, 3, 1)
+    dmax, m = check_var.shape
+    assert table.shape == (dmax, var_edges.shape[1], m)
+    assert table.dtype == np.int32 and table.flags.c_contiguous
+    for s in range(dmax):
+        for i in range(m):
+            v = check_var[s, i]
+            want = var_edges[v] if v >= 0 else np.full(var_edges.shape[1], -1)
+            np.testing.assert_array_equal(table[s, :, i], want)
+    # every real slot finds itself in its variable's list, once
+    own = np.arange(dmax)[:, None, None] * m + np.arange(m)[None, None, :]
+    hits = (table == own).sum(axis=1)
+    np.testing.assert_array_equal(hits, (check_var >= 0).astype(int))
+    assert table.max() < dmax * m < 2 ** 14     # offsets of 16 bits, in bytes
+
+
+def _plain_next_messages(code, llrs, e):
+    """``gather(totals(e)) - e`` with the plain version's torch operations
+    (``ldpc_kernel.ldpc_decode_plain``)."""
+    check_var, var_edges = ldpc_kernel._tables(code, torch.device("cpu"))
+    dmax, m = check_var.shape
+    batch = tuple(llrs.shape[:-1])
+    valid = check_var >= 0
+    gidx = check_var.clamp(min=0).reshape(-1).to(torch.int64)
+    eidx = torch.where(var_edges >= 0, var_edges, dmax * m).to(torch.int64)
+    zero = torch.zeros(batch + (1,), dtype=torch.float32)
+    flat = torch.cat([e.reshape(batch + (dmax * m,)), zero], dim=-1)
+    g = flat[..., eidx]
+    s = g[..., 0]
+    for j in range(1, g.shape[-1]):
+        s = s + g[..., j]
+    total = llrs + s
+    gathered = torch.where(valid, total[..., gidx].reshape(batch + (dmax, m)),
+                           0.0)
+    return gathered - e, valid.numpy()
+
+
+def _slot_next_messages(k, llrs, e):
+    """The kernel's form: per slot, the channel LLR of its variable plus
+    the messages on the variable's edge list in order (padding reads a
+    zero), minus the own message; float32 numpy."""
+    check_var, _ = ldpc._index_tables(k, 3, 1)
+    table = ldpc._slot_edge_table(k, 3, 1)
+    dmax, m = check_var.shape
+    flat = np.concatenate([e.reshape(e.shape[:-2] + (dmax * m,)),
+                           np.zeros(e.shape[:-2] + (1,), F32)], axis=-1)
+    idx = np.where(table >= 0, table, dmax * m)
+    sums = flat[..., idx[:, 0]] + flat[..., idx[:, 1]]
+    sums = sums + flat[..., idx[:, 2]]
+    return (llrs[..., check_var.clip(min=0)] + sums) - e
+
+
+@pytest.mark.parametrize("k", [64, 128, 256])
+def test_slot_messages_equal_plain_gather_of_totals(k):
+    rng = np.random.default_rng(k)
+    code = ldpc.LdpcCode(k=k)
+    check_var, _ = ldpc._index_tables(k, 3, 1)
+    llrs = rng.normal(0, 2, (7, 2 * k)).astype(F32)
+    e = (rng.normal(0, 1.5, (7,) + check_var.shape)
+         * (check_var >= 0)).astype(F32)
+    want, valid = _plain_next_messages(code, torch.from_numpy(llrs),
+                                       torch.from_numpy(e))
+    got = _slot_next_messages(k, llrs, e)
+    assert got.dtype == F32
+    np.testing.assert_array_equal(got[:, valid], want.numpy()[:, valid])
+
+
+def _ldpc_kernel_twin(code, llrs, iters=None):
+    """The schedule of ``csrc/ldpc.cu`` in float32 numpy: LLRs through
+    ``x + 0.0``, slots past a check's degree carrying 1e30, the running
+    minimum and second minimum without an argmin, signs from sign bits,
+    one message array an iteration, the posterior of the k message bits."""
+    its = code.iters if iters is None else iters
+    check_var, var_edges = ldpc._index_tables(code.k, code.dv, code.seed)
+    dmax, m = check_var.shape
+    real = check_var >= 0
+    big, alpha = F32(1e30), F32(code.alpha)
+    llrs = llrs.astype(F32) + F32(0.0)
+    lv = np.where(real, llrs[..., check_var.clip(min=0)], big).astype(F32)
+    mm = lv.copy()
+    post = np.where(var_edges[:code.k] >= 0, var_edges[:code.k], dmax * m)
+    for it in range(its):
+        m1 = np.full(mm.shape[:-2] + (m,), big)
+        m2 = m1.copy()
+        for s in range(dmax):
+            a = np.abs(mm[..., s, :])
+            m2 = np.minimum(m2, np.maximum(m1, a))
+            m1 = np.minimum(m1, a)
+        parity = np.bitwise_xor.reduce(mm.view(np.uint32), axis=-2)
+        mag = np.where(np.abs(mm) > m1[..., None, :], (alpha * m1)[..., None, :],
+                       (alpha * m2)[..., None, :]).astype(F32)
+        sign = (parity[..., None, :] ^ mm.view(np.uint32)) & np.uint32(1 << 31)
+        e = (mag.view(np.uint32) | sign).view(F32)
+        e_stored = np.where(real, e, F32(0.0))
+        if it == its - 1:
+            break
+        mm = _slot_next_messages(code.k, llrs, e_stored)
+        mm = np.where(real, mm, (lv + F32(0.0)) - e).astype(F32)
+    flat = np.concatenate([e_stored.reshape(e.shape[:-2] + (dmax * m,)),
+                           np.zeros(e.shape[:-2] + (1,), F32)], axis=-1)
+    sums = flat[..., post[:, 0]] + flat[..., post[:, 1]]
+    sums = sums + flat[..., post[:, 2]]
+    return ((llrs[..., :code.k] + sums) < 0).astype(np.int32)
+
+
+# (k, batch, sigma, iters)
+@pytest.mark.parametrize("k,batch,sigma,iters",
+                         [(256, 24, 0.7, None), (128, 9, 0.8, None),
+                          (64, 11, 0.7, 8), (256, 6, None, None)])
+def test_ldpc_kernel_schedule_equals_plain(k, batch, sigma, iters):
+    """Noisy codewords (or, with ``sigma=None``, LLRs with exact zeros and
+    negative zeros planted) decode to the same bits."""
+    rng = np.random.default_rng(3 * k + batch)
+    code = ldpc.LdpcCode(k=k)
+    u = torch.from_numpy(rng.integers(0, 2, (batch, k), dtype=np.int32))
+    c = ldpc.ldpc_encode(code, u).numpy()
+    llrs = ((1.0 - 2.0 * c) + rng.normal(0, sigma or 0.7, c.shape)).astype(F32)
+    if sigma is None:
+        llrs[:, ::3] = 0.0
+        llrs[:, 1::7] = -0.0
+    want = ldpc_kernel.ldpc_decode_plain(code, torch.from_numpy(llrs), iters)
+    got = _ldpc_kernel_twin(code, llrs, iters)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+def test_ldpc_kernel_refuses_what_it_does_not_take():
+    code = ldpc.LdpcCode(k=64, dv=4)     # variables of degree 4
+    with pytest.raises(NotImplementedError, match="vmax=4"):
+        ldpc_kernel._launch(code, torch.zeros(2, 128), None)
+
+
+# ------------------------------------------------------------ Viterbi ---
+
+def _out_bit(poly, j0):
+    """``out_bit`` of ``csrc/viterbi.cu``: the output of generator ``poly``
+    on the branch from predecessor j0 into state 2*j0."""
+    return bin(poly & (j0 << 1)).count("1") & 1
+
+
+def test_butterfly_branch_values_match_trellis():
+    """The four branch metrics of a butterfly are +-one value, 0.5(l0+l1)
+    or 0.5(l0-l1) with the sign of the first generator's output."""
+    code = fec.ConvCode()
+    assert tuple(code.polys) == POLYS == viterbi_kernel._KERNEL_POLYS
+    preds, sgns = fec._trellis(code)
+    l0, l1 = F32(0.8125), F32(-1.71875)
+    for j0 in range(32):
+        s0, s1 = _out_bit(POLYS[0], j0), _out_bit(POLYS[1], j0)
+        h = F32(0.5) * (l0 + l1) if s0 == s1 else F32(0.5) * (l0 - l1)
+        bt = -h if s0 else h
+        for q, p, want in ((0, 0, bt), (0, 1, -bt), (1, 0, -bt), (1, 1, bt)):
+            state = 2 * j0 + q
+            assert preds[state, p] == p * 32 + j0
+            bm = F32(0.5) * (sgns[0, state, p] * l0 + sgns[1, state, p] * l1)
+            assert bm == want
+
+
+@pytest.mark.parametrize("lanes", [2, 4, 8])
+def test_lane_register_map_fetches_the_predecessors(lanes):
+    """Lane g holds states [g*N, (g+1)*N); the two shuffle rounds of the
+    kernel hand butterfly i of lane g the metrics of the predecessors of
+    states g*N + 2i and g*N + 2i + 1."""
+    preds, _ = fec._trellis(fec.ConvCode())
+    n, h = 64 // lanes, 32 // lanes
+    pm = np.arange(64, dtype=F32).reshape(lanes, n)     # pm[g][r] = state
+    for g in range(lanes):
+        odd, src_even, src_odd = g & 1, g >> 1, lanes // 2 + (g >> 1)
+        for i in range(h):
+            def sent(lane, rnd):
+                upper = lane >= lanes // 2
+                first = pm[lane][h + i] if upper else pm[lane][i]
+                second = pm[lane][i] if upper else pm[lane][h + i]
+                return first if rnd == 1 else second
+            r1 = sent(src_odd if odd else src_even, 1)
+            r2 = sent(src_even if odd else src_odd, 2)
+            p0, p1 = (r2, r1) if odd else (r1, r2)
+            for q in (0, 1):
+                state = g * n + 2 * i + q
+                assert (p0, p1) == tuple(preds[state])
+
+
+def _viterbi_kernel_twin(llrs, nbits, lanes):
+    """``viterbi_kernel<G>`` of ``csrc/viterbi.cu`` in float32 numpy: lane
+    g owns states [g*N, (g+1)*N), butterflies from one branch value,
+    decisions from the sign of c0 - c1 packed into a 64-bit word a step
+    (bit s = state s), the maximum subtracted after every step, and the
+    traceback over the words from state 0."""
+    batch, nsteps = llrs.shape[0], nbits + 6
+    n, h = 64 // lanes, 32 // lanes
+    pm = np.full((batch, 64), -1e9, F32)
+    pm[:, 0] = 0.0
+    words = np.zeros((nsteps, batch), np.uint64)
+    for t in range(nsteps):
+        l0, l1 = llrs[:, 2 * t], llrs[:, 2 * t + 1]
+        ha, hb = F32(0.5) * (l0 + l1), F32(0.5) * (l0 - l1)
+        new = np.empty_like(pm)
+        for g in range(lanes):
+            for i in range(h):
+                j0 = g * h + i
+                s0, s1 = _out_bit(POLYS[0], j0), _out_bit(POLYS[1], j0)
+                hval = ha if s0 == s1 else hb
+                bt = -hval if s0 else hval
+                p0, p1 = pm[:, j0], pm[:, 32 + j0]
+                for q, (c0, c1) in enumerate(((p0 + bt, p1 - bt),
+                                              (p0 - bt, p1 + bt))):
+                    state = g * n + 2 * i + q
+                    new[:, state] = np.maximum(c0, c1)
+                    won = np.signbit(c0 - c1)
+                    words[t] |= won.astype(np.uint64) << np.uint64(state)
+        pm = new - new.max(axis=1, keepdims=True)
+    s = np.zeros(batch, np.uint64)
+    bits = np.zeros((batch, nsteps), np.int32)
+    one = np.uint64(1)
+    for t in range(nsteps - 1, -1, -1):
+        bits[:, t] = (s & one).astype(np.int32)
+        won = (words[t] >> s) & one
+        s = (s >> one) | (won << np.uint64(5))
+    return bits[:, :nbits]
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8])
+@pytest.mark.parametrize("hard", [False, True], ids=["noisy", "hard"])
+def test_viterbi_kernel_schedule_equals_plain(lanes, hard):
+    rng = np.random.default_rng(lanes + 10 * hard)
+    code = fec.ConvCode()
+    nbits = 96
+    u = torch.from_numpy(rng.integers(0, 2, (13, nbits), dtype=np.int32))
+    c = fec.conv_encode(code, u).numpy()
+    if hard:     # +-1 LLRs with 3 % flips: ties at every step
+        flips = (rng.random(c.shape) < 0.03).astype(np.int32)
+        llrs = (1 - 2 * ((c + flips) % 2)).astype(F32)
+    else:
+        llrs = ((1.0 - 2.0 * c) + rng.normal(0, 0.7, c.shape)).astype(F32)
+    want = viterbi_kernel.viterbi_decode_plain(code, torch.from_numpy(llrs),
+                                               nbits)
+    np.testing.assert_array_equal(_viterbi_kernel_twin(llrs, nbits, lanes),
+                                  want.numpy())
+
+
+def test_viterbi_shape_follows_the_batch_size():
+    """The coded paths' batches: a channel's tracked extraction (156), the
+    rate point (4096), the QPSK and 8PSK sync hunts (16 768, 67 072)."""
+    picks = [viterbi_kernel._lanes(b) for b in (1, 156, 2048, 4096, 8192,
+                                                16768, 67072)]
+    assert picks == [32, 32, 32, 8, 8, 1, 1]
+
+
+def test_viterbi_kernel_refuses_other_generators():
+    code = fec.ConvCode(polys=(0o133, 0o165))
+    with pytest.raises(NotImplementedError, match="133, 171"):
+        viterbi_kernel._launch(code, torch.zeros(2, 2 * 14), 8)

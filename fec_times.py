@@ -1,38 +1,63 @@
 #!/usr/bin/env python3
-"""Times of the torch port's two FEC decoder kernels at the batch sizes the
-coded paths give them, on one NVIDIA GPU.
+"""Times of the torch port's kernels through their wrappers, on one NVIDIA
+GPU: the two FEC decoders at the batch sizes the coded paths give them,
+and the Costas loop and RX front-end at the receiver's rate point (8192
+channels x 8 frames of 512 samples, 1024 symbols a channel).
 
-    python3 fec_times.py [ROOT]
+    python3 fec_times.py [ROOT] [--fec | --modem]
 
 ROOT is a checkout of this repository (default: the directory of this
 script).  The script imports ``qpsk_tpu_torch`` from ROOT, builds its
-kernels and times ``viterbi_decode`` and ``ldpc_decode`` through their
-wrappers on random LLRs: 156 packets (a channel's tracked extraction),
-4096 (the rate point of ``chip_smoke.py``) and 16 768 (a channel's sync
-hunt), Viterbi also 67 072 (the 8PSK hunt).  Only the wrappers' public
-signatures are used, so one copy of the script can time two checkouts in
-one call, each in a process of its own, to compare two commits on the same
-card:
+kernels and calls only the wrappers' public signatures, so one copy of it
+can time two checkouts in one call, each in a process of its own, to
+compare two commits on the same card:
 
     python3 fec_times.py archive/parent; python3 fec_times.py
 
-Each time is taken twice: the kernel alone (20 launches captured into a
-CUDA graph, replayed 10 times between CUDA events, so the host's launch
-rate does not bound a kernel of a few microseconds) and launched from the
-host (CUDA events around 50 wrapper calls).  The last line is one JSON
-object ``{"card": ..., "root": ..., "ms": {"viterbi": {"156": [graph,
-graph, host], ...}, "ldpc": {...}}}``.  Exits non-zero without a CUDA
-device.
+``--fec`` times only the decoders, ``--modem`` only the Costas loop, the
+front-end and the default receive call; with neither it times all.
+
+Decoders: ``viterbi_decode`` and ``ldpc_decode`` on random LLRs at 156
+packets (a channel's tracked extraction), 4096 (the rate point of
+``chip_smoke.py``) and 16 768 (a channel's sync hunt), Viterbi also 67 072
+(the 8PSK hunt).  Each time is taken twice as the kernel alone (20
+launches captured into a CUDA graph, replayed 10 times between CUDA
+events, so the host's launch rate does not bound a kernel of a few
+microseconds) and once launched from the host (CUDA events around 50
+wrapper calls).
+
+Modem kernels: the front-end's four launches (time-major, time-major with
+the AGC power output, channel-major at 4 and at 8 samples per symbol) on
+noise PCM, and the Costas loop's modes (QPSK, gear, gains,
+decision-directed BPSK, 8PSK and 16QAM with gains) on Gaussian symbols.
+Each row gives the wrapper launched from the host (CUDA events around 20
+calls after 3 warm-ups), the wrapper alone in a CUDA graph ("null" for a
+wrapper that copies to the card, which a graph cannot capture from
+pageable host memory), and the kernel alone: the device time per call of
+the kernel itself (``costas_tm_kernel``, ``frontend_kernel``) by
+``torch.profiler`` over 10 calls.  Then the default ``rx_stream`` call
+(state chained): ms per call by CUDA events, and by ``torch.profiler``
+over 5 calls the device operations, the device's busy time (the union of
+their intervals), the host-to-device copies and the host's
+synchronisations per call.
+
+The last line is one JSON object ``{"card": ..., "root": ..., "ms":
+{"viterbi": {"156": [graph, graph, host], ...}, "ldpc": {...}}, "rows":
+{name: [host, graph, kernel]}, "rx": {...}}`` (the keys of the groups
+timed).  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
 
 BATCHES = {"viterbi": (156, 4096, 16768, 67072), "ldpc": (156, 4096, 16768)}
+# the modem kernels' rate point: channels, frames
+C, NFRAMES = 8192, 8
 
 
 def graph_ms(fn, launches: int = 20, replays: int = 10) -> float:
@@ -75,25 +100,62 @@ def host_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def main() -> int:
+def host_waits(events) -> int:
+    """The host's synchronisations among profiler ``events``; with None,
+    those of a window that only synchronises once (the profiler's own and
+    the closing one), the baseline to subtract."""
     import torch
-    if not torch.cuda.is_available():
-        print("fec_times: no CUDA device", file=sys.stderr)
-        return 2
-    root = os.path.abspath(sys.argv[1] if len(sys.argv) > 1
-                           else os.path.dirname(os.path.abspath(__file__)))
-    sys.path.insert(0, root)
-    from qpsk_tpu_torch.ops.cuda import _lib
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if events is None:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+        events = prof.events()
+    return sum(e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                          "cudaEventSynchronize")
+               for e in events if e.device_type == DeviceType.CPU)
+
+
+def profiled(fn, calls: int, kernel: str | None = None) -> dict:
+    """``torch.profiler`` over ``calls`` calls of ``fn`` after 3 warm-ups:
+    per call, the device time of the kernels whose name holds ``kernel``,
+    the device operations, the busy time, HtoD copies and host waits."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    ops = sorted((e.time_range.start, e.time_range.end, e.name)
+                 for e in events if e.device_type == DeviceType.CUDA)
+    busy, reach = 0.0, ops[0][0] if ops else 0.0
+    for start, end, _ in ops:
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    waits = host_waits(events) - host_waits(None)
+    return {"kernel_ms": sum(end - start for start, end, name in ops
+                             if kernel and kernel in name) / calls / 1e3,
+            "ops": len(ops) / calls, "busy_ms": busy / calls / 1e3,
+            "htod": sum("HtoD" in name for _, _, name in ops) / calls,
+            "waits": max(0, waits) / calls}
+
+
+
+
+def decoder_times(dev) -> dict:
+    """{decoder: {batch: [graph ms, graph ms, host ms]}} on random LLRs."""
+    import torch
     from qpsk_tpu_torch.ops.cuda import ldpc_kernel as lk
     from qpsk_tpu_torch.ops.cuda import viterbi_kernel as vk
     from qpsk_tpu_torch.packet import ConvCode, LdpcCode
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(f"card: {card}; kernels of {root}")
-    _lib.library()
-    dev = torch.device("cuda", 0)
     conv, ldpc = ConvCode(), LdpcCode(k=256)
     decoders = {"viterbi": (524, lambda x: vk.viterbi_decode(conv, x, 256)),
                 "ldpc": (512, lambda x: lk.ldpc_decode(ldpc, x))}
@@ -108,7 +170,108 @@ def main() -> int:
             out[name][str(b)] = times
             print(f"  {name:8s} at {b:5d} packets: kernel alone {times[0]:.4f} / "
                   f"{times[1]:.4f} ms, launched from the host {times[2]:.4f} ms")
-    print(json.dumps({"card": card, "root": root, "ms": out}))
+    return out
+
+
+def modem_times(dev) -> tuple:
+    """({row: [host ms, graph ms or None, kernel ms]}, {default rx_stream
+    call's ms, ops, busy_ms, htod, waits}) at the rate point."""
+    import torch
+    from qpsk_tpu_torch import ModemConfig, rx_init, rx_stream
+    from qpsk_tpu_torch.config import config_1200
+    from qpsk_tpu_torch.ops.costas import costas_init, costas_params, gear_for
+    from qpsk_tpu_torch.ops.cuda import costas_kernel as ck
+    from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(29)
+    base, agc, slow = ModemConfig(), ModemConfig(agc=True), config_1200()
+
+    def noise(cfg):
+        return (torch.randn((C, NFRAMES, cfg.frame_size), generator=gen,
+                            device=dev) * 8000.0).to(torch.int16)
+    pcm4, pcm8 = noise(base), noise(slow)
+    st = rx_init(base, (C,), device=dev)
+    t = NFRAMES * base.symbols_per_frame
+    zr, zi = (torch.randn((t, C), generator=gen, device=dev) for _ in range(2))
+    gains = torch.rand((NFRAMES, C), generator=gen, device=dev) * 1.5 + 0.5
+    params = costas_params(base.loop_bw, base.damping, base.min_freq,
+                           base.max_freq)
+    gear = gear_for(2.0 * math.pi / 200.0, base.damping)
+    cs, cs_gear = costas_init((C,), device=dev), costas_init((C,), gear=True,
+                                                             device=dev)
+    a = base.agc_target
+
+    def costas(state, kw, scale=1.0):
+        x, y = zr * scale, zi * scale
+        return lambda: ck.costas_run_tm(state, x, y, params, 128, **kw)
+    rows = {
+        "frontend_tm": (lambda: fk.rx_frontend_tm(
+            base, pcm4, st.nco_phase, st.fir_tail, st.decim_delay), "frontend_kernel"),
+        "frontend_tm_power": (lambda: fk.rx_frontend_tm(
+            agc, pcm4, st.nco_phase, st.fir_tail, st.decim_delay), "frontend_kernel"),
+        "frontend_cm4": (lambda: fk.rx_frontend(
+            base, pcm4, st.nco_phase, st.fir_tail), "frontend_kernel"),
+        "frontend_cm8": (lambda: fk.rx_frontend(
+            slow, pcm8, st.nco_phase, st.fir_tail), "frontend_kernel"),
+        "costas": (costas(cs, {}), "costas_tm_kernel"),
+        "costas_gear": (costas(cs_gear, dict(gear=gear)), "costas_tm_kernel"),
+        "costas_gains": (costas(cs, dict(gains=gains)), "costas_tm_kernel"),
+        "costas_dd_bpsk": (costas(cs, dict(dd=("bpsk", a)), a), "costas_tm_kernel"),
+        "costas_dd_8psk": (costas(cs, dict(dd=("8psk", a)), a), "costas_tm_kernel"),
+        "costas_dd_16qam": (costas(cs, dict(dd=("16qam", a), gains=gains), a),
+                            "costas_tm_kernel"),
+    }
+    out = {}
+    for name, (fn, kernel) in rows.items():
+        host = host_ms(fn, 20)
+        prof = profiled(fn, 10, kernel)
+        alone = prof["kernel_ms"]
+        # a copy from pageable host memory cannot be captured into a graph
+        graph = None if prof["htod"] else graph_ms(fn)
+        out[name] = [host, graph, alone]
+        print(f"  {name:18s} wrapper {host:.4f} ms, in a CUDA graph "
+              f"{'null' if graph is None else f'{graph:.4f}'} ms, kernel "
+              f"alone {alone:.4f} ms")
+
+    state = [rx_init(base, (C,), device=dev)]
+
+    def step():
+        state[0], _ = rx_stream(base, state[0], pcm4)
+    rx = profiled(step, 5)
+    rx.pop("kernel_ms")
+    rx["ms"] = host_ms(step, 20)
+    print(f"  rx_stream default: {rx['ms']:.4f} ms a call; {rx['ops']:g} device "
+          f"operations, busy {rx['busy_ms']:.4f} ms, {rx['htod']:g} HtoD "
+          f"copies, {rx['waits']:g} host waits a call")
+    return out, rx
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("fec_times: no CUDA device", file=sys.stderr)
+        return 2
+    args = sys.argv[1:]
+    groups = {"--fec", "--modem"} & set(args) or {"--fec", "--modem"}
+    paths = [a for a in args if not a.startswith("--")]
+    root = os.path.abspath(paths[0] if paths
+                           else os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    from qpsk_tpu_torch.ops.cuda import _lib
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}; kernels of {root}")
+    _lib.library()
+    dev = torch.device("cuda", 0)
+    result = {"card": card, "root": root}
+    if "--fec" in groups:
+        result["ms"] = decoder_times(dev)
+    if "--modem" in groups:
+        result["rows"], result["rx"] = modem_times(dev)
+    print(json.dumps(result))
     return 0
 
 

@@ -8,7 +8,7 @@
 // What it computes, per channel, in series over the T symbols of the
 // time-major (T, C) input:
 //   gains mode: z *= g[t / nsf], one multiply per plane, the frame-rate AGC
-//       gain of the symbol's frame ((T/nsf, C) input);
+//       gain of the symbol's frame ((ceil(T/nsf), C) input);
 //   out = z * e^{-j*phase};  err = sign+(Re out)*Im out - sign+(Im out)*Re out;
 //   dd mode (BPSK, 8PSK, 16QAM; the program of qpsk_tpu/ops/modfam.py
 //       dd_err_ops): exact comparisons on (Re out, Im out) decide the Gray
@@ -21,50 +21,58 @@
 //   freq += beta*err;  phase = (phase + freq) + alpha*err;
 //   phase wrapped to +-TAU by two conditional subtractions each way;
 //   freq clamped to [min_freq, max_freq].
-// It writes the derotated (T, C) planes, the slicer's decisions of the
-// STORED derotation -- QPSK: the diagonal slicer's dibits packed 16
-// symbols per int32 word ((T/16, C), symbol t at bits 2*(t%16) with
-// b1 = Im<0 in the low bit, the layout of unpack_bits_tm); dd: the 4-bit
-// Gray labels the detector decided, 8 per word ((T/8, C), symbol t at
-// bits 4*(t%8), the layout of unpack_labels_tm) -- the loop frequency after
+// It writes the derotated (T, C) planes, the decided bits as the (C, BPS*T)
+// int32 array the wrapper returns -- QPSK: modmap.demod_bits of the STORED
+// derotation, (Im < 0, Re < 0) per symbol; dd: the Gray label the detector
+// decided, MSB first (modfam.labels_to_bits) -- the loop frequency after
 // every trace_every-th symbol ((T/trace_every, C)) and the final phase,
-// frequency and (gear mode) lock level and gear.
+// frequency and (gear mode) lock level and gear.  Any T >= 1 works.
 //
 // The op order is that of qpsk_tpu/ops/costas.py (and of the plain
 // PyTorch loop beside this kernel): every multiply, add and the division
 // of errn is a round-to-nearest intrinsic, so nvcc cannot contract them
-// into FMAs, and cosf/sinf are the precise library functions PyTorch's own
-// cos/sin call.  gamma is a power of two, so gamma*(errn - lev) is exact.
-// Bit-identity matters most in gear mode: a lock level one ulp off moves a
-// gear change by a symbol and the two trajectories part from there; and in
-// dd mode, where the error's products are not by +-1 as QPSK's are, so a
-// contracted (u - v) would round differently from step one.  The dd
-// constants are a by-value struct read at indices the comparison tree
-// fixes at compile time, and a __grid_constant__ kernel parameter, so they
-// are read from the parameter bank and never copied to local memory.
+// into FMAs, and the sine and cosine are the precise library functions
+// PyTorch's own cos/sin call (one sincosf; chip_smoke.py checks it against
+// torch.cos/torch.sin on every float of magnitude <= 8).  gamma is a power
+// of two, so gamma*(errn - lev) is exact.  Bit-identity matters most in
+// gear mode (a lock level one ulp off moves a gear change by a symbol and
+// the trajectories part from there) and in dd mode (the error's products
+// are not by +-1).  The dd constants are a __grid_constant__ by-value
+// struct, copied once into registers that the comparison tree selects
+// among at compile-time indices.
 //
-// What bounds it on the H100: the serial dependence.  Each step waits on
-// the previous step's phase through cosf/sinf and about 15 dependent float
-// ops (about 25 with the gear's divide), so a channel advances one symbol
-// per few hundred cycles, while its memory traffic (8 bytes in, 8.25 bytes
-// out per symbol) is coalesced across the channels of a warp (thread =
-// channel, (T, C) rows).  The design therefore puts one channel on one
-// thread with the state in registers and relies on many channels in flight
-// to hide the latency.  The gain multiply sits off the chain: its load and
-// product do not depend on the loop state.  The dd detectors put their
-// comparisons and selects on the chain in place of QPSK's two signs
-// (8PSK's select tree, 16QAM's three) and write 0.5 byte of labels a
-// symbol in place of 0.25 of dibits.  Occupancy is the first thing a
-// later change should look at: at 8192 channels this launch is 64 blocks
-// of 128 threads, under half of the 132 SMs, each SM running at most 4
-// warps of the chain.
+// What bounds it on the H100: the serial dependence, a step's chain of
+// sincosf (range reduction and two polynomials) and about 15 dependent
+// pinned float operations (25 with the gear's divide): a channel advances
+// one symbol per chain latency, whatever the occupancy.  Memory (8 bytes in,
+// 8 + BPS/8 bytes out a symbol) is far below the card's rate.  So the design
+// keeps everything but the chain off the chain:
+//   * one warp a block, one channel a lane (32 channels a block: 256 blocks
+//     for 8192 channels spread over the 132 SMs);
+//   * the inputs (zr, zi and the gain rows) arrive in tiles of S = 32
+//     symbols by cp.async into a double buffer in shared memory, the next
+//     tile in flight while the current one runs, so a step reads shared
+//     memory only; a lane copies and reads its own channel's column, so
+//     cp.async.wait_group needs no barrier;
+//   * the derotated symbols leave as one 128-byte row of the warp's 32
+//     channels a step (stores do not wait), the trace likewise; the trace
+//     and gain rows advance by countdowns, not divisions;
+//   * the bits accumulate in a register bit stream (a symbol's BPS bits in
+//     output order), are parked a 32-bit word at a time in shared memory,
+//     and after each tile the warp writes them out channel by channel, each
+//     store a 128-byte run of one channel's (C, BPS*T) row: the wrapper
+//     launches this one kernel and runs no unpack;
+//   * the 8PSK detector selects its constants without a branch (a switch
+//     on the sector diverged within a warp).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 128;
+constexpr int CB = 32;                   // channels a block (one warp)
+constexpr int S = 32;                    // symbols a tile
+constexpr int MAXW = 4 * S / 32;         // bit words a tile, BPS <= 4
 
 struct LoopParams {
   float alpha, beta, min_freq, max_freq;        // acquisition gear, clamp
@@ -74,16 +82,42 @@ struct LoopParams {
 // The phase detector (ops/cuda/costas_kernel.py _DETECTOR).
 enum Detector { QPSK = 0, BPSK = 1, PSK8 = 2, QAM16 = 3 };
 
+template <int DET>
+__host__ __device__ constexpr int bits_per_symbol() {
+  return DET == QPSK ? 2 : DET == BPSK ? 1 : DET == PSK8 ? 3 : 4;
+}
+
 // modfam.dd_constants: [cre(M), cim(M), 1/|c|^2(M)] (+ the 16QAM axis
 // threshold), at most 3*16 + 1 values.
 struct DdConsts {
   float c[49];
 };
 
+// The detector's constants in registers, copied once through an opaque
+// move: read from the parameter bank inside the select trees, nvcc turned
+// the selects into branches and a lane-indexed constant load, which a warp
+// serialises over its distinct indices.
+struct DdRegs {
+  float c[49];
+};
+
+__device__ __forceinline__ float opaque(float v) {
+  float r;
+  asm("mov.b32 %0, %1;\n" : "=f"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ DdRegs dd_regs(const DdConsts& k) {
+  DdRegs out;                 // the entries a detector does not read are dead
+#pragma unroll
+  for (int i = 0; i < 49; ++i) out.c[i] = opaque(k.c[i]);
+  return out;
+}
+
 // The dd error of derotated (r, q) and its Gray label: modfam.dd_err_ops,
 // with the same exact comparisons and the products pinned.
 template <int DET>
-__device__ __forceinline__ float dd_error(float r, float q, const DdConsts& k,
+__device__ __forceinline__ float dd_error(float r, float q, const DdRegs& k,
                                           uint32_t& label) {
   float cr, ci, ic2;
   if constexpr (DET == BPSK) {          // M = 2: cre at 0..1, 1/|c|^2 at 4
@@ -96,15 +130,13 @@ __device__ __forceinline__ float dd_error(float r, float q, const DdConsts& k,
     const bool s_im = q < 0.f, s_re = r < 0.f;
     const bool diag = fabsf(q) > fabsf(r);
     const int sector = (s_im ? 4 : 0) | (s_re ? 2 : 0);
-    // pick(a, b) = diag ? c[base + a] : c[base + b] with (a, b) =
-    // (2s+1, 2s) for sector s = (s_im, s_re), as the select tree of
-    // dd_err_ops; written as a switch so every index is a constant
-    switch (sector) {
-      case 6: cr = diag ? k.c[7] : k.c[6]; ci = diag ? k.c[15] : k.c[14]; break;
-      case 4: cr = diag ? k.c[5] : k.c[4]; ci = diag ? k.c[13] : k.c[12]; break;
-      case 2: cr = diag ? k.c[3] : k.c[2]; ci = diag ? k.c[11] : k.c[10]; break;
-      default: cr = diag ? k.c[1] : k.c[0]; ci = diag ? k.c[9] : k.c[8]; break;
-    }
+    // c[base + sector + diag], as the select tree of dd_err_ops, written
+    // as selects on compile-time indices: a switch on the sector would
+    // diverge within a warp
+    cr = s_im ? (s_re ? (diag ? k.c[7] : k.c[6]) : (diag ? k.c[5] : k.c[4]))
+              : (s_re ? (diag ? k.c[3] : k.c[2]) : (diag ? k.c[1] : k.c[0]));
+    ci = s_im ? (s_re ? (diag ? k.c[15] : k.c[14]) : (diag ? k.c[13] : k.c[12]))
+              : (s_re ? (diag ? k.c[11] : k.c[10]) : (diag ? k.c[9] : k.c[8]));
     label = (uint32_t)(sector | (diag ? 1 : 0));
     ic2 = k.c[16];
   } else {                              // QAM16, M = 16: threshold at 48
@@ -123,8 +155,57 @@ __device__ __forceinline__ float dd_error(float r, float q, const DdConsts& k,
   return __fmul_rn(__fsub_rn(u, v), ic2);
 }
 
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// One tile of inputs in shared memory: [S][CB] planes and the gain rows
+// g0 .. g0 + S (at most S + 1 rows meet S symbols), double-buffered, and a
+// tile's bit words: what one warp owns.
+struct WarpSmem {
+  float zr[2][S][CB];
+  float zi[2][S][CB];
+  float g[2][S + 1][CB];
+  uint32_t words[MAXW][CB];              // a tile's bit words, by channel
+};
+
+// Issue the copies of tile ``k`` (symbols k*S ..) of this lane's channel.
+template <bool GAINS>
+__device__ __forceinline__ void load_tile(WarpSmem& w, int b, const float* zr,
+                                          const float* zi, const float* gains,
+                                          int k, int T, int C, int nsf, int c,
+                                          int lane) {
+  const int t0 = k * S;
+  const int n = min(S, T - t0);
+  if (c < C) {
+    const float* pr = zr + (long long)t0 * C + c;
+    const float* pi = zi + (long long)t0 * C + c;
+    for (int j = 0; j < n; ++j, pr += C, pi += C) {
+      cp_async4(&w.zr[b][j][lane], pr);
+      cp_async4(&w.zi[b][j][lane], pi);
+    }
+    if (GAINS) {
+      const int g0 = t0 / nsf, g1 = (t0 + n - 1) / nsf;
+      for (int r = g0; r <= g1; ++r)
+        cp_async4(&w.g[b][r - g0][lane], gains + (long long)r * C + c);
+    }
+  }
+  cp_async_commit();
+}
+
 template <int DET, bool GEAR, bool GAINS>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(CB)
 costas_tm_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
                  const float* __restrict__ phase0,
                  const float* __restrict__ freq0,
@@ -134,76 +215,135 @@ costas_tm_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
                  float* __restrict__ outi, float* __restrict__ ftrace,
                  float* __restrict__ phase_out, float* __restrict__ freq_out,
                  float* __restrict__ lev_out, float* __restrict__ locked_out,
-                 int32_t* __restrict__ packed, int T, int C, int trace_every,
+                 int32_t* __restrict__ bits, int T, int C, int trace_every,
                  int nsf, const LoopParams lp,
                  const __grid_constant__ DdConsts dd) {
-  const int c = blockIdx.x * THREADS + threadIdx.x;
-  if (c >= C) return;
+  constexpr int BPS = bits_per_symbol<DET>();
+  __shared__ WarpSmem ws;
+  const int lane = threadIdx.x;
+  const int cb0 = blockIdx.x * CB;
+  const int c = cb0 + lane;
+  const bool live = c < C;
   const float tau = 6.283185307179586f;
-  float phase = phase0[c];
-  float freq = freq0[c];
-  float lev = GEAR ? lev0[c] : 0.f;
-  float locked = GEAR ? locked0[c] : 0.f;
-  uint32_t word = 0;
-  for (int t = 0; t < T; ++t) {
-    const long long o = (long long)t * C + c;
-    float a = zr[o], b = zi[o];
-    if (GAINS) {
-      const float g = gains[(long long)(t / nsf) * C + c];
-      a = __fmul_rn(a, g);
-      b = __fmul_rn(b, g);
-    }
-    const float cs = cosf(phase), sn = sinf(phase);
-    const float r = __fadd_rn(__fmul_rn(a, cs), __fmul_rn(b, sn));
-    const float q = __fsub_rn(__fmul_rn(b, cs), __fmul_rn(a, sn));
-    outr[o] = r;
-    outi[o] = q;
-    float err;
-    if constexpr (DET == QPSK) {
-      word |= (uint32_t)((q < 0.f ? 1 : 0) | (r < 0.f ? 2 : 0)) << (2 * (t & 15));
-      if ((t & 15) == 15) {
-        packed[(long long)(t >> 4) * C + c] = (int32_t)word;
-        word = 0;
-      }
-      const float sr = r > 0.f ? 1.f : -1.f;
-      const float si = q > 0.f ? 1.f : -1.f;
-      err = __fsub_rn(__fmul_rn(sr, q), __fmul_rn(si, r));
+  float phase = live ? phase0[c] : 0.f;
+  float freq = live ? freq0[c] : 0.f;
+  float lev = GEAR && live ? lev0[c] : 0.f;
+  float locked = GEAR && live ? locked0[c] : 0.f;
+  const long long nbits = (long long)BPS * T;
+  const int ntiles = (T + S - 1) / S;
+  DdRegs kr;
+  if constexpr (DET != QPSK) kr = dd_regs(dd);
+  float* po_r = outr + c;                // this lane's column, row t
+  float* po_i = outi + c;
+  float* ptr = ftrace + c;
+  int trace_left = trace_every;          // symbols to the next trace row
+  int gain_left = nsf, grow = 0;         // symbols to the next gain row
+
+  load_tile<GAINS>(ws, 0, zr, zi, gains, 0, T, C, nsf, c, lane);
+  for (int k = 0; k < ntiles; ++k) {
+    if (k + 1 < ntiles) {
+      load_tile<GAINS>(ws, (k + 1) & 1, zr, zi, gains, k + 1, T, C, nsf, c,
+                       lane);
+      cp_async_wait<1>();                // tile k has landed
     } else {
-      uint32_t label;
-      err = dd_error<DET>(r, q, dd, label);
-      word |= label << (4 * (t & 7));
-      if ((t & 7) == 7) {
-        packed[(long long)(t >> 3) * C + c] = (int32_t)word;
-        word = 0;
+      cp_async_wait<0>();
+    }
+    const int b = k & 1;
+    const int t0 = k * S;
+    const int n = min(S, T - t0);
+    uint64_t acc = 0;                    // this tile's bit stream
+    int nb = 0, nw = 0;
+    // one symbol, branch-free but for a full bit word; the loop stays
+    // rolled: the chain is latency-bound and an unrolled tile (32 copies
+    // of the step) measured slower, out of the instruction cache
+#pragma unroll 1
+    for (int j = 0; j < n; ++j) {
+      float a = ws.zr[b][j][lane], bq = ws.zi[b][j][lane];
+      if (GAINS) {
+        const float g = ws.g[b][grow][lane];
+        a = __fmul_rn(a, g);
+        bq = __fmul_rn(bq, g);
+        const bool next = --gain_left == 0;
+        gain_left = next ? nsf : gain_left;
+        grow += next ? 1 : 0;
+      }
+      float sn, cs;
+      sincosf(phase, &sn, &cs);
+      const float r = __fadd_rn(__fmul_rn(a, cs), __fmul_rn(bq, sn));
+      const float q = __fsub_rn(__fmul_rn(bq, cs), __fmul_rn(a, sn));
+      if (live) {
+        *po_r = r;
+        *po_i = q;
+      }
+      po_r += C;
+      po_i += C;
+      float err;
+      uint32_t v;                        // the symbol's bits, output order
+      if constexpr (DET == QPSK) {
+        v = (q < 0.f ? 1u : 0u) | (r < 0.f ? 2u : 0u);
+        const float sr = r > 0.f ? 1.f : -1.f;
+        const float si = q > 0.f ? 1.f : -1.f;
+        err = __fsub_rn(__fmul_rn(sr, q), __fmul_rn(si, r));
+      } else {
+        uint32_t label;
+        err = dd_error<DET>(r, q, kr, label);
+        v = __brev(label) >> (32 - BPS);   // MSB of the label first
+      }
+      acc |= (uint64_t)v << nb;
+      nb += BPS;
+      if (nb >= 32) {
+        ws.words[nw++][lane] = (uint32_t)acc;
+        acc >>= 32;
+        nb -= 32;
+      }
+      float alpha = lp.alpha, beta = lp.beta;
+      if (GEAR) {
+        const float errn = __fdiv_rn(
+            fabsf(err), __fadd_rn(__fadd_rn(fabsf(r), fabsf(q)), 1e-9f));
+        lev = __fadd_rn(lev, __fmul_rn(lp.gamma, __fsub_rn(errn, lev)));
+        locked = lev < lp.enter ? 1.f : (lev > lp.exit ? 0.f : locked);
+        const bool trk = locked > 0.5f;
+        alpha = trk ? lp.alpha_trk : alpha;
+        beta = trk ? lp.beta_trk : beta;
+      }
+      freq = __fadd_rn(freq, __fmul_rn(beta, err));
+      phase = __fadd_rn(__fadd_rn(phase, freq), __fmul_rn(alpha, err));
+      // the two conditional subtractions each way, their candidates formed
+      // side by side: a value above tau never ends below -tau, and one at
+      // or below tau is left alone by the first pair
+      const float s1 = __fsub_rn(phase, tau), a1 = __fadd_rn(phase, tau);
+      const float s2 = __fsub_rn(s1, tau), a2 = __fadd_rn(a1, tau);
+      phase = phase > tau ? (s1 > tau ? s2 : s1)
+                          : (phase < -tau ? (a1 < -tau ? a2 : a1) : phase);
+      freq = fminf(fmaxf(freq, lp.min_freq), lp.max_freq);
+      const bool traced = --trace_left == 0;
+      trace_left = traced ? trace_every : trace_left;
+      if (traced && live) *ptr = freq;
+      ptr += traced ? C : 0;
+    }
+    grow = 0;             // the next tile's rows start at its first symbol's
+    if (nb > 0) ws.words[nw++][lane] = (uint32_t)acc;   // a partial tile
+    __syncwarp();
+    // the tile's bits: word w of channel cc is bits BPS*t0 + 32*w + lane of
+    // its row; every lane writes one bit, the warp a 128-byte run
+    const int ncb = min(CB, C - cb0);
+    const long long left = nbits - (long long)BPS * t0;
+    int32_t* row = bits + (long long)cb0 * nbits + (long long)BPS * t0 + lane;
+    for (int cc = 0; cc < ncb; ++cc, row += nbits) {
+      for (int w = 0; w < nw; ++w) {
+        if (32 * w + lane < left)
+          row[32 * w] = (int32_t)((ws.words[w][cc] >> lane) & 1u);
       }
     }
-    float alpha = lp.alpha, beta = lp.beta;
-    if (GEAR) {
-      const float errn = __fdiv_rn(
-          fabsf(err), __fadd_rn(__fadd_rn(fabsf(r), fabsf(q)), 1e-9f));
-      lev = __fadd_rn(lev, __fmul_rn(lp.gamma, __fsub_rn(errn, lev)));
-      locked = lev < lp.enter ? 1.f : (lev > lp.exit ? 0.f : locked);
-      if (locked > 0.5f) {
-        alpha = lp.alpha_trk;
-        beta = lp.beta_trk;
-      }
-    }
-    freq = __fadd_rn(freq, __fmul_rn(beta, err));
-    phase = __fadd_rn(__fadd_rn(phase, freq), __fmul_rn(alpha, err));
-    if (phase > tau) phase = __fsub_rn(phase, tau);
-    if (phase > tau) phase = __fsub_rn(phase, tau);
-    if (phase < -tau) phase = __fadd_rn(phase, tau);
-    if (phase < -tau) phase = __fadd_rn(phase, tau);
-    freq = fminf(fmaxf(freq, lp.min_freq), lp.max_freq);
-    if ((t + 1) % trace_every == 0) {
-      ftrace[(long long)(t / trace_every) * C + c] = freq;
-    }
+    __syncwarp();
   }
-  phase_out[c] = phase;
-  freq_out[c] = freq;
-  if (GEAR) {
-    lev_out[c] = lev;
-    locked_out[c] = locked;
+  if (live) {
+    phase_out[c] = phase;
+    freq_out[c] = freq;
+    if (GEAR) {
+      lev_out[c] = lev;
+      locked_out[c] = locked;
+    }
   }
 }
 
@@ -212,16 +352,28 @@ int launch(const void* zr, const void* zi, const void* phase0,
            const void* freq0, const void* lev0, const void* locked0,
            const void* gains, void* outr, void* outi, void* ftrace,
            void* phase_out, void* freq_out, void* lev_out, void* locked_out,
-           void* packed, int T, int C, int trace_every, int nsf,
+           void* bits, int T, int C, int trace_every, int nsf,
            const LoopParams& lp, const DdConsts& dd, void* stream) {
-  costas_tm_kernel<DET, GEAR, GAINS><<<(C + THREADS - 1) / THREADS, THREADS,
-                                       0, (cudaStream_t)stream>>>(
+  costas_tm_kernel<DET, GEAR, GAINS><<<(C + CB - 1) / CB, CB, 0,
+                                       (cudaStream_t)stream>>>(
       (const float*)zr, (const float*)zi, (const float*)phase0,
       (const float*)freq0, (const float*)lev0, (const float*)locked0,
       (const float*)gains, (float*)outr, (float*)outi, (float*)ftrace,
       (float*)phase_out, (float*)freq_out, (float*)lev_out,
-      (float*)locked_out, (int32_t*)packed, T, C, trace_every, nsf, lp, dd);
+      (float*)locked_out, (int32_t*)bits, T, C, trace_every, nsf, lp, dd);
   return (int)cudaGetLastError();
+}
+
+__global__ void sincos_kernel(const float* __restrict__ x,
+                              float* __restrict__ s, float* __restrict__ c,
+                              long long n) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    float sn, cs;
+    sincosf(x[i], &sn, &cs);
+    s[i] = sn;
+    c[i] = cs;
+  }
 }
 
 }  // namespace
@@ -232,15 +384,15 @@ int launch(const void* zr, const void* zi, const void* phase0,
 // with the QPSK detector only; gains mode when ``gains`` is not null, with
 // ``nsf`` symbols per gain row.  ``det`` picks the detector (0 QPSK,
 // 1 BPSK, 2 8PSK, 3 16QAM) and ``dd`` is a host array of 49 floats, the
-// modfam.dd_constants of the dd modes.  ``packed`` holds (T/16, C) words
-// for QPSK, (T/8, C) in the dd modes.  Returns a CUDA error code, or
+// modfam.dd_constants of the dd modes.  ``bits`` is the (C, BPS*T) int32
+// output, BPS = 2, 1, 3, 4 by detector.  Returns a CUDA error code, or
 // cudaErrorInvalidValue for gear with a dd detector or an unknown one.
 extern "C" int qpsk_costas_tm(const void* zr, const void* zi,
                               const void* phase0, const void* freq0,
                               const void* lev0, const void* locked0,
                               const void* gains, void* outr, void* outi,
                               void* ftrace, void* phase_out, void* freq_out,
-                              void* lev_out, void* locked_out, void* packed,
+                              void* lev_out, void* locked_out, void* bits,
                               int T, int C, int trace_every, int nsf, int det,
                               const void* params, const void* dd,
                               void* stream) {
@@ -270,10 +422,19 @@ extern "C" int qpsk_costas_tm(const void* zr, const void* zi,
       run = g ? launch<QAM16, false, true> : launch<QAM16, false, false>;
       break;
   }
-  if (run == nullptr || (gear && det != QPSK)) {
+  if (run == nullptr || (gear && det != QPSK) || T < 1 || nsf < 0) {
     return (int)cudaErrorInvalidValue;
   }
   return run(zr, zi, phase0, freq0, lev0, locked0, gains, outr, outi, ftrace,
-             phase_out, freq_out, lev_out, locked_out, packed, T, C,
+             phase_out, freq_out, lev_out, locked_out, bits, T, C,
              trace_every, nsf, lp, k, stream);
+}
+
+// sincosf of ``n`` floats, as the Costas kernel computes its phasor: the
+// check that one sincosf gives the bits of PyTorch's cos and sin.
+extern "C" int qpsk_sincosf(const void* x, void* s, void* c, long long n,
+                            void* stream) {
+  sincos_kernel<<<1056, 256, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (float*)s, (float*)c, n);
+  return (int)cudaGetLastError();
 }

@@ -6,7 +6,8 @@
 //
 // What it computes, per channel: QPSK symbols -> zero-stuff x CYC -> 127-tap
 // RRC -> x gain -> mix up by phase0 * e^{j*omega*(t+1)} -> Re * pcm_scale
-// -> int16, truncating toward zero like C's float-to-int conversion.  The
+// -> int16, truncating toward zero like C's float-to-int conversion and
+// saturating at the int16 range like the JAX package's astype.  The
 // zero-stuffed signal is never built: output sample t = CYC*m + q only
 // meets the symbols m - d at taps 126 - CYC*d - q, so each output is a
 // polyphase sum over symbols: 32 terms at CYC 4 (31 for q = 3), 16 at CYC 8
@@ -102,7 +103,7 @@ tx_kernel(const float* __restrict__ sym_re, const float* __restrict__ sym_im,
     const float fr = pr0 * er - pi0 * ei;
     const float fi = pr0 * ei + pi0 * er;
     const float re = (yr[q] * gain) * fr - (yi[q] * gain) * fi;
-    out.v[q] = (short)__float2int_rz(re * pcm_scale);
+    out.v[q] = (short)max(-32768, min(32767, __float2int_rz(re * pcm_scale)));
   }
   pcm[(long long)c * S + m] = out;
 }

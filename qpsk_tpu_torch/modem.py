@@ -20,8 +20,11 @@ Every function takes ``cfg`` and explicit state and works on a channel
 batch ``(C, ...)`` or a single stream.  The device of the input tensors
 picks the lowering: CUDA tensors go through the hand-written kernels, CPU
 tensors through each kernel's plain PyTorch version (the JAX package's
-staged lowering, in the kernels' layouts).  Configurations off the port
-raise ``NotImplementedError`` naming the field.
+staged lowering, in the kernels' layouts), at any geometry the JAX package
+takes.  A CUDA tensor at a geometry or code a kernel does not cover (taps,
+samples per symbol, frame size, an LDPC or convolutional code) makes that
+kernel's wrapper raise ``NotImplementedError`` naming it before the launch,
+as do configurations off the port on either device.
 
 The family's receive recipe: ``rx_acquire_hz`` on the first frames of
 PCM -> ``rx_init(acq_freq=acquire.hz_to_costas_freq(hz, cfg.rs))`` ->
@@ -40,7 +43,6 @@ from qpsk_tpu_torch.ops import rrc as rrc_ops
 from qpsk_tpu_torch.ops.agc import agc_gains, agc_stream
 from qpsk_tpu_torch.ops.costas import costas_params, freq_to_hz, gear_for
 from qpsk_tpu_torch.ops.cplx import CF32, cmap
-from qpsk_tpu_torch.ops.cuda._lib import check_geometry
 from qpsk_tpu_torch.ops.cuda.costas_kernel import costas_run_cm, costas_run_tm
 # frontend_xla and taps_for are re-exported where the JAX package has them
 from qpsk_tpu_torch.ops.cuda.frontend_kernel import (  # noqa: F401
@@ -63,17 +65,16 @@ _SLICE = (("modulation", ("qpsk", "bpsk", "8psk", "16qam")),
 def check_slice(cfg: ModemConfig) -> None:
     """Raise ``NotImplementedError`` naming the first field that sets
     ``cfg`` off the ported modes: coherent QPSK, BPSK, 8PSK or 16QAM,
-    power timing, fast NCO and FIR, diagonal slicer, and the geometry the
-    CUDA kernels are built for (4 or 8 samples per symbol, 127 taps,
-    512-sample frames).  The AGC, the CMA equalizer and the gear-shift
-    loop are ported."""
+    power timing, fast NCO and FIR, diagonal slicer.  The AGC, the CMA
+    equalizer and the gear-shift loop are ported.  The geometry is not
+    checked here: CPU tensors run any geometry the JAX package takes, and
+    each kernel wrapper checks its own before it launches."""
     for field, want in _SLICE:
         if getattr(cfg, field) not in (want if isinstance(want, tuple)
                                        else (want,)):
             raise NotImplementedError(
                 f"{field}={getattr(cfg, field)!r} is not ported "
                 f"(the torch port implements {field}={want!r})")
-    check_geometry(cfg)
 
 
 def _mod_for(cfg: ModemConfig):

@@ -31,9 +31,10 @@ LINK_FLAGS = _ARCH + ("-shared",)
 
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
-    "qpsk_frontend_tm": [_P] * 12 + [_I, _I, _P, _P, _D, _F, _F, _P],
-    "qpsk_frontend_cm": [_P] * 7 + [_I, _I, _I, _P, _P, _D, _F, _F, _P],
+    "qpsk_frontend_tm": [_P] * 17 + [_I, _I, _P, _P, _D, _F, _F, _P],
+    "qpsk_frontend_cm": [_P] * 12 + [_I, _I, _I, _P, _P, _D, _F, _F, _P],
     "qpsk_costas_tm": [_P] * 15 + [_I] * 5 + [_P, _P, _P],
+    "qpsk_sincosf": [_P] * 3 + [ctypes.c_longlong, _P],
     "qpsk_tx": [_P] * 7 + [_I, _I, _I, _P, _D, _F, _F, _P],
     "qpsk_viterbi": [_P] * 3 + [_I] * 4 + [_P],
     "qpsk_ldpc": [_P] * 5 + [_I] * 6 + [_F, _P],
@@ -105,16 +106,18 @@ def library() -> ctypes.CDLL:
 
 def check_geometry(cfg, cycles=(4, 8)) -> None:
     """Raise ``NotImplementedError`` naming the first field of ``cfg`` off
-    the geometry the kernels are built for: 127 taps, ``cycles`` samples
-    per symbol (4 or 8: 2400 or 1200 baud; a kernel may take fewer),
-    512-sample frames."""
+    the geometry a kernel is built for: 127 taps, ``cycles`` samples per
+    symbol (4 or 8: 2400 or 1200 baud; a kernel may take fewer),
+    512-sample frames.  A wrapper asks this before it launches, on CUDA
+    tensors only: a CPU tensor runs the plain version at any geometry."""
     for field, name, want in (("ntaps", "ntaps", (127,)),
                               ("cycles", "fs/rs", tuple(cycles)),
                               ("frame_size", "frame_size", (512,))):
         if getattr(cfg, field) not in want:
             raise NotImplementedError(
-                f"{name}={getattr(cfg, field)!r} is not ported (the kernels "
-                f"are built for {name} in {want!r})")
+                f"{name}={getattr(cfg, field)!r} is not ported to the CUDA "
+                f"kernels (they are built for {name} in {want!r}); run it "
+                f"on CPU tensors")
 
 
 def check(rc: int, name: str) -> None:

@@ -4,10 +4,11 @@
 gains and decision-directed (``dd``) modes, and of its channel-major entry
 ``costas_run_pallas_traced``).
 
-``costas_run_tm`` consumes the (T, C) planes the front-end emits.  On a
-CUDA tensor it launches ``csrc/costas.cu``, which also slices the derotated
-symbols: QPSK packs 16 dibits per int32 word, the dd mode 8 Gray labels of
-4 bits.  On a CPU tensor it runs ``costas_run_tm_plain``: the gain-scaled
+``costas_run_tm`` consumes the (T, C) planes the front-end emits, any
+T >= 1.  On a CUDA tensor it launches ``csrc/costas.cu`` once, which also
+slices the derotated symbols and writes the (C, bps*T) bits the wrapper
+returns (QPSK dibits; the dd mode's Gray labels, MSB first).  On a CPU
+tensor it runs ``costas_run_tm_plain``: the gain-scaled
 symbols through ``costas_run_traced`` (with ``modfam.dd_detector`` in dd
 mode) or ``costas_run_gear_traced``, then ``demod_bits`` (dd mode:
 ``modfam.demod_bits_cmp``) and the frame-boundary frequency readback.
@@ -16,6 +17,7 @@ mode) or ``costas_run_gear_traced``, then ``demod_bits`` (dd mode:
 from __future__ import annotations
 
 import collections
+import functools
 
 import numpy as np
 import torch
@@ -102,7 +104,8 @@ def costas_run_cm(state: CostasState, symbols: CF32, params: CostasParams,
 
 
 def unpack_bits_tm(packed: torch.Tensor) -> torch.Tensor:
-    """(T/16, C) int32 words -> (C, 2T) bits, the layout of
+    """(T/16, C) int32 words -> (C, 2T) bits (a CPU helper: the kernel
+    writes the bits itself, in this order), the layout of
     ``modmap.demod_bits`` on the (C, T) derotated symbols: symbol ``t`` sits
     at bits ``2*(t%16)`` (b1, the low bit) and ``2*(t%16)+1`` (b0) of word
     ``t // 16``.  The shifts are arithmetic, so every shift is masked."""
@@ -113,7 +116,8 @@ def unpack_bits_tm(packed: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_labels_tm(packed: torch.Tensor) -> torch.Tensor:
-    """(T/8, C) int32 words -> (C, T) int32 labels, the layout of
+    """(T/8, C) int32 words -> (C, T) int32 labels (a CPU helper, as
+    ``unpack_bits_tm``), the layout of
     ``modfam.slice_labels_cmp`` on the (C, T) derotated symbols: symbol
     ``t`` sits at bits ``4*(t%8)`` of word ``t // 8``.  A label of 8 or
     more in the top slot sets the sign bit, and the shifts are arithmetic,
@@ -126,11 +130,10 @@ def unpack_labels_tm(packed: torch.Tensor) -> torch.Tensor:
 def _launch(state, zr_tm, zi_tm, params, trace_every, gear, gains, dd):
     global launches
     t, c = zr_tm.shape
-    per_word = 16 if dd is None else 8
-    if t < 1 or c < 1 or t % per_word or trace_every < 1 or t % trace_every:
+    if t < 1 or c < 1 or trace_every < 1 or t % trace_every:
         raise ValueError(
-            f"the Costas kernel takes T > 0 with T % {per_word} == 0 and T % "
-            f"trace_every == 0, got T={t}, trace_every={trace_every}")
+            f"the Costas kernel takes T > 0 with T % trace_every == 0, got "
+            f"T={t}, C={c}, trace_every={trace_every}")
     dev = zr_tm.device
     _lib.require(zr_tm, "zr_tm", torch.float32, (t, c), dev)
     _lib.require(zi_tm, "zi_tm", torch.float32, (t, c), dev)
@@ -152,30 +155,18 @@ def _launch(state, zr_tm, zi_tm, params, trace_every, gear, gains, dd):
     outr, outi = empty((t, c)), empty((t, c))
     ftrace = empty((t // trace_every, c))
     out = {name: empty((c,)) for name in fields}
-    packed = empty((t // per_word, c), torch.int32)
-    vals = [params.alpha, params.beta, params.min_freq, params.max_freq]
-    vals += [gear.alpha_trk, gear.beta_trk, gear.gamma, gear.enter,
-             gear.exit] if gear else [0.0] * 5
-    consts = np.asarray(vals, np.float32)
-    # the detector's constants, read by the kernel as modfam.dd_err_ops
-    # reads them (49 floats: 16QAM's 3*16 + 1)
-    det, dd_consts = 0, np.zeros(49, np.float32)
-    if dd is not None:
-        mod = modfam.get(dd[0])
-        det = _DETECTOR[mod.name]
-        k = modfam.dd_constants(mod, dd[1])
-        dd_consts[:k.size] = k
-
-    def ptr(x):
-        return None if x is None else x.data_ptr()
+    mod = None if dd is None else modfam.get(dd[0])
+    bits = empty((c, (2 if mod is None else mod.bps) * t), torch.int32)
     rc = _lib.library().qpsk_costas_tm(
         zr_tm.data_ptr(), zi_tm.data_ptr(), state.phase.data_ptr(),
-        state.freq.data_ptr(), ptr(state.lev if gear else None),
-        ptr(state.locked if gear else None), ptr(gains), outr.data_ptr(),
+        state.freq.data_ptr(), _ptr(state.lev if gear else None),
+        _ptr(state.locked if gear else None), _ptr(gains), outr.data_ptr(),
         outi.data_ptr(), ftrace.data_ptr(), out["phase"].data_ptr(),
-        out["freq"].data_ptr(), ptr(out.get("lev")), ptr(out.get("locked")),
-        packed.data_ptr(), t, c, trace_every, nsf, det, consts.ctypes.data,
-        dd_consts.ctypes.data, _lib.stream_ptr(dev))
+        out["freq"].data_ptr(), _ptr(out.get("lev")), _ptr(out.get("locked")),
+        bits.data_ptr(), t, c, trace_every, nsf,
+        0 if mod is None else _DETECTOR[mod.name],
+        *(a.ctypes.data for a in _constants(params, gear, dd)),
+        _lib.stream_ptr(dev))
     _lib.check(rc, "qpsk_costas_tm")
     launches += 1
     if gear:
@@ -186,9 +177,24 @@ def _launch(state, zr_tm, zi_tm, params, trace_every, gear, gains, dd):
         by_mode[f"dd_{dd[0]}"] += 1
     elif not gear and gains is None:
         by_mode["qpsk"] += 1
-    if dd is None:
-        bits = unpack_bits_tm(packed)
-    else:
-        bits = modfam.labels_to_bits(unpack_labels_tm(packed),
-                                     modfam.get(dd[0]))
     return CostasState(**out), CF32(outr, outi), ftrace.T, bits
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+@functools.lru_cache(maxsize=None)
+def _constants(params, gear, dd) -> tuple:
+    """The kernel's host arrays: 9 loop constants (alpha, beta, min_freq,
+    max_freq, then the gear's five or zeros) and the 49 detector
+    constants, read by the kernel as ``modfam.dd_err_ops`` reads them
+    (16QAM's 3*16 + 1; zeros for QPSK)."""
+    vals = [params.alpha, params.beta, params.min_freq, params.max_freq]
+    vals += [gear.alpha_trk, gear.beta_trk, gear.gamma, gear.enter,
+             gear.exit] if gear else [0.0] * 5
+    dd_consts = np.zeros(49, np.float32)
+    if dd is not None:
+        k = modfam.dd_constants(modfam.get(dd[0]), dd[1])
+        dd_consts[:k.size] = k
+    return np.asarray(vals, np.float32), dd_consts

@@ -9,18 +9,23 @@ index, the new state and, for the frame-rate AGC, the per-frame power of
 the emitted picks.  ``rx_frontend`` returns the undelayed picks channel-major
 ``(C, nframes, nsym)``, at 4 or 8 samples per symbol: the composed receive
 path's front-end (1200 baud, the CMA equalizer).  On a CUDA tensor each
-launches ``csrc/frontend.cu``; on a CPU tensor each runs its plain version:
-``frontend_xla``, the staged chain (``modem.frontend_xla`` in the JAX
-package), plus for the time-major one the delay concat and
-``agc._frame_power``, in the same layouts.  The tail conversions and the
-phase advance are host-side torch helpers (``ops/frontend.py``), as in the
-JAX package.
+launches ``csrc/frontend.cu`` once, which also converts the carried tail
+and advances the phase (``ops/frontend.py``'s ``unmix_tail``,
+``remix_tail`` and ``advance_phase``), so a call makes no host-to-device
+copy and does not synchronise; on a CPU tensor each runs its plain
+version: ``frontend_xla``, the staged chain (``modem.frontend_xla`` in the
+JAX package), plus for the time-major one the delay concat and
+``agc._frame_power``, in the same layouts.  A CUDA call at a geometry the
+kernel does not cover (it takes 127 taps, 512-sample frames, 4 samples per
+symbol time-major, 4 or 8 channel-major) raises ``NotImplementedError``
+naming the field before any launch; a CPU call runs any geometry.
 """
 
 from __future__ import annotations
 
 import collections
 import functools
+import math
 
 import numpy as np
 import torch
@@ -117,12 +122,14 @@ def rx_frontend_tm_plain(cfg, pcm, nco_phase, fir_tail, decim_delay):
             powers)
 
 
-def _check_inputs(cfg, pcm, nco_phase, fir_tail):
-    """Validate what the kernel reads by pointer; return (C, nframes)."""
+def _check_inputs(cfg, pcm, nco_phase, fir_tail, cycles):
+    """Check the geometry, then validate what the kernel reads by pointer;
+    return (C, nframes)."""
+    _lib.check_geometry(cfg, cycles)
     c, nframes, _ = pcm.shape
-    if not 1 <= nframes <= 65535 or c < 1:
-        raise ValueError(f"the front-end kernel takes 1..65535 frames and "
-                         f"at least one channel, got {tuple(pcm.shape)}")
+    if nframes < 1 or c < 1:
+        raise ValueError(f"the front-end kernel takes at least one frame and "
+                         f"one channel, got {tuple(pcm.shape)}")
     dev = pcm.device
     _lib.require(pcm, "pcm", torch.int16, (c, nframes, cfg.frame_size), dev)
     for name, t, shape in (("nco_phase", nco_phase, (c,)),
@@ -132,36 +139,38 @@ def _check_inputs(cfg, pcm, nco_phase, fir_tail):
     return c, nframes
 
 
-def _carried(cfg, pcm, nco_phase):
-    """The new (nco_phase, fir_tail) after this call, from the raw PCM."""
-    c, nframes, fsz = pcm.shape
-    n, ntaps_m1 = nframes * fsz, cfg.ntaps - 1
+@functools.lru_cache(maxsize=None)
+def _launch_consts(cfg) -> tuple:
+    """(modulated taps (2, ntaps) float32, omega, gain, 1/pcm_scale) of a
+    config: host values the launch passes by value.  The kernel splits the
+    taps into float16 hi + lo parts, so they go scaled by a power of two
+    that puts the largest near 2^14 and keeps the low parts of the small
+    ones normal; the gain carries the inverse scale, exactly."""
     omega = float(-cfg.omega_center)
-    last_raw = pcm.reshape(c, n)[:, n - ntaps_m1:].to(torch.float32) \
-        / cfg.pcm_scale
-    return (fe.advance_phase(nco_phase, omega, n),
-            fe.remix_tail(last_raw, nco_phase, omega, n))
+    hm = fe.modulated_taps_np(_taps_key(cfg), omega)
+    scale = 2.0 ** (14 - math.ceil(math.log2(float(np.abs(hm).max()))))
+    return (np.ascontiguousarray(hm * np.float32(scale)), omega,
+            float(cfg.gain) / scale, 1.0 / float(cfg.pcm_scale))
 
 
-def _operands(cfg, nco_phase, fir_tail):
-    """(raw tail, modulated taps (2, ntaps), omega) of a launch."""
-    omega = float(-cfg.omega_center)
-    raw_tail = fe.unmix_tail(fir_tail, nco_phase, omega).contiguous()
-    hm = np.ascontiguousarray(fe.modulated_taps_np(_taps_key(cfg), omega))
-    return raw_tail, hm, omega
+def _state_out(c, ntaps_m1, dev):
+    """Empty (new_nco_phase, new_fir_tail) for the kernel to fill."""
+    def empty(shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    return (CF32(empty((c,)), empty((c,))),
+            CF32(empty((c, ntaps_m1)), empty((c, ntaps_m1))))
 
 
 def _launch_tm(cfg, pcm, nco_phase, fir_tail, decim_delay):
     global launches
     want_power = bool(cfg.agc)
-    _lib.check_geometry(cfg, cycles=(4,))
-    c, nframes = _check_inputs(cfg, pcm, nco_phase, fir_tail)
+    c, nframes = _check_inputs(cfg, pcm, nco_phase, fir_tail, (4,))
     dev = pcm.device
     nsym = cfg.symbols_per_frame
     for part, plane in zip(("re", "im"), decim_delay):
         _lib.require(plane, f"decim_delay.{part}", torch.float32, (c, nsym),
                      dev)
-    raw_tail, hm, omega = _operands(cfg, nco_phase, fir_tail)
+    hm, omega, gain, inv_scale = _launch_consts(cfg)
 
     def empty(shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
@@ -169,37 +178,40 @@ def _launch_tm(cfg, pcm, nco_phase, fir_tail, decim_delay):
     index = torch.empty((c, nframes), dtype=torch.int32, device=dev)
     ndd = CF32(empty((c, nsym)), empty((c, nsym)))
     powers = empty((c, nframes)) if want_power else None
+    phase, tail = _state_out(c, cfg.ntaps - 1, dev)
     rc = _lib.library().qpsk_frontend_tm(
-        pcm.data_ptr(), raw_tail.data_ptr(), nco_phase.re.data_ptr(),
-        nco_phase.im.data_ptr(), decim_delay.re.data_ptr(),
-        decim_delay.im.data_ptr(), zr.data_ptr(), zi.data_ptr(),
-        index.data_ptr(), ndd.re.data_ptr(), ndd.im.data_ptr(),
-        powers.data_ptr() if want_power else None, c, nframes,
-        hm[0].ctypes.data, hm[1].ctypes.data, omega, float(cfg.gain),
-        1.0 / float(cfg.pcm_scale), _lib.stream_ptr(dev))
+        pcm.data_ptr(), fir_tail.re.data_ptr(), fir_tail.im.data_ptr(),
+        nco_phase.re.data_ptr(), nco_phase.im.data_ptr(),
+        decim_delay.re.data_ptr(), decim_delay.im.data_ptr(), zr.data_ptr(),
+        zi.data_ptr(), index.data_ptr(), ndd.re.data_ptr(), ndd.im.data_ptr(),
+        powers.data_ptr() if want_power else None, phase.re.data_ptr(),
+        phase.im.data_ptr(), tail.re.data_ptr(), tail.im.data_ptr(), c,
+        nframes, hm[0].ctypes.data, hm[1].ctypes.data, omega, gain,
+        inv_scale, _lib.stream_ptr(dev))
     _lib.check(rc, "qpsk_frontend_tm")
     launches += 1
     by_mode["tm_power" if want_power else "tm"] += 1
-    return (zr, zi, index, *_carried(cfg, pcm, nco_phase), ndd, powers)
+    return zr, zi, index, phase, tail, ndd, powers
 
 
 def _launch_cm(cfg, pcm, nco_phase, fir_tail):
     global launches
-    _lib.check_geometry(cfg)
-    c, nframes = _check_inputs(cfg, pcm, nco_phase, fir_tail)
+    c, nframes = _check_inputs(cfg, pcm, nco_phase, fir_tail, (4, 8))
     dev = pcm.device
     nsym = cfg.symbols_per_frame
-    raw_tail, hm, omega = _operands(cfg, nco_phase, fir_tail)
+    hm, omega, gain, inv_scale = _launch_consts(cfg)
     picks = CF32(*(torch.empty((c, nframes, nsym), dtype=torch.float32,
                                device=dev) for _ in range(2)))
     index = torch.empty((c, nframes), dtype=torch.int32, device=dev)
+    phase, tail = _state_out(c, cfg.ntaps - 1, dev)
     rc = _lib.library().qpsk_frontend_cm(
-        pcm.data_ptr(), raw_tail.data_ptr(), nco_phase.re.data_ptr(),
-        nco_phase.im.data_ptr(), picks.re.data_ptr(), picks.im.data_ptr(),
-        index.data_ptr(), c, nframes, cfg.cycles, hm[0].ctypes.data,
-        hm[1].ctypes.data, omega, float(cfg.gain), 1.0 / float(cfg.pcm_scale),
-        _lib.stream_ptr(dev))
+        pcm.data_ptr(), fir_tail.re.data_ptr(), fir_tail.im.data_ptr(),
+        nco_phase.re.data_ptr(), nco_phase.im.data_ptr(), picks.re.data_ptr(),
+        picks.im.data_ptr(), index.data_ptr(), phase.re.data_ptr(),
+        phase.im.data_ptr(), tail.re.data_ptr(), tail.im.data_ptr(), c,
+        nframes, cfg.cycles, hm[0].ctypes.data, hm[1].ctypes.data, omega,
+        gain, inv_scale, _lib.stream_ptr(dev))
     _lib.check(rc, "qpsk_frontend_cm")
     launches += 1
     by_mode[f"cm{cfg.cycles}"] += 1
-    return (picks, index, *_carried(cfg, pcm, nco_phase))
+    return picks, index, phase, tail

@@ -6,7 +6,11 @@
 the ``TxState`` contract of the staged path (zero-stuffed ``fir_tail``,
 unit-phasor ``nco_phase``), so kernel and plain calls chain with each
 other.  On a CUDA tensor it launches ``csrc/tx.cu``; on a CPU tensor it runs
-``tx_modulate_plain``: zero-stuff, block FIR, NCO mix, int16.
+``tx_modulate_plain``: zero-stuff, block FIR, NCO mix, int16.  A CUDA call
+the kernel does not cover (a geometry other than 127 taps at 4 or 8
+samples per symbol, more than ``_MAX_SYMBOLS`` symbols a channel) raises
+``NotImplementedError`` naming it before any launch; a CPU call runs any
+geometry.
 """
 
 from __future__ import annotations
@@ -28,6 +32,9 @@ from qpsk_tpu_torch.ops.modmap import upsample_zero_stuff
 # the same launches by mode: "cycles4", "cycles8" (clear() it).
 launches = 0
 by_mode = collections.Counter()
+
+# 128-symbol blocks on the grid's y axis, at most 65 535 of them
+_MAX_SYMBOLS = 128 * 65535
 
 
 def tx_modulate(cfg, symbols: CF32, nco_phase: CF32, fir_tail: CF32,
@@ -51,7 +58,11 @@ def tx_modulate_plain(cfg, symbols, nco_phase, fir_tail, tx_offset_hz=0.0):
     sig, tail = rrc_ops.fir_block(sig, fir_tail, tmat.to(sig.re.device),
                                   cfg.gain, block)
     sig, phase = nco.mix(sig, nco_phase, _omega(cfg, tx_offset_hz))
-    return (sig.re * cfg.pcm_scale).to(torch.int16), phase, tail
+    # truncation toward zero, saturating at the int16 range as the JAX
+    # package's astype does (at 2 samples per symbol the pulse overshoots
+    # full scale)
+    pcm = torch.clamp(sig.re * cfg.pcm_scale, -32768.0, 32767.0)
+    return pcm.to(torch.int16), phase, tail
 
 
 def _launch(cfg, symbols, nco_phase, fir_tail, tx_offset_hz):
@@ -59,8 +70,12 @@ def _launch(cfg, symbols, nco_phase, fir_tail, tx_offset_hz):
     _lib.check_geometry(cfg)
     c, s = symbols.shape
     cycles, ntaps_m1 = cfg.cycles, cfg.ntaps - 1
-    if c < 1 or not 1 <= s <= 128 * 65535:
-        raise ValueError(f"the TX kernel takes C >= 1 channels and 1..{128 * 65535} "
+    if s > _MAX_SYMBOLS:
+        raise NotImplementedError(
+            f"symbols={s} a channel is not ported to the TX kernel (it takes "
+            f"at most {_MAX_SYMBOLS}); run it on CPU tensors")
+    if c < 1 or s < 1:
+        raise ValueError(f"the TX kernel takes C >= 1 channels and S >= 1 "
                          f"symbols, got {(c, s)}")
     dev = symbols.re.device
     for name, t, shape in (("symbols", symbols, (c, s)),

@@ -95,3 +95,86 @@ def test_unpack_bits_tm_layout():
     np.testing.assert_array_equal(
         unpack_bits_tm(torch.from_numpy(words)).numpy(),
         np.asarray(j_unpack(jnp.asarray(words), T, 5)))
+
+
+# ---------------------------------------------- the kernel's bit writer ---
+
+_TILE, _LANES = 32, 32           # csrc/costas.cu: S symbols a tile, CB lanes
+
+
+def _brev(v, width):
+    """__brev(v) >> (32 - width): the low ``width`` bits reversed."""
+    out = np.zeros_like(v)
+    for i in range(width):
+        out |= ((v >> i) & 1) << (width - 1 - i)
+    return out
+
+
+def _kernel_bits(vals, bps):
+    """csrc/costas.cu's bit writer on (C, T) per-symbol values ``v`` (a
+    symbol's bits in output order, the first in bit 0): each lane's 64-bit
+    stream, a word parked per 32 bits and flushed after each tile, every
+    lane writing bit ``lane`` of a word to ``row[BPS*t0 + 32*w + lane]``
+    where that index is below BPS*T."""
+    c, t = vals.shape
+    nbits = bps * t
+    out = np.full((c, nbits), -1, np.int64)
+    for cb0 in range(0, c, _LANES):
+        ncb = min(_LANES, c - cb0)
+        for t0 in range(0, t, _TILE):
+            n = min(_TILE, t - t0)
+            words = []
+            for cc in range(ncb):
+                acc, nb, ws = 0, 0, []
+                for j in range(n):
+                    acc |= int(vals[cb0 + cc, t0 + j]) << nb
+                    nb += bps
+                    if nb >= 32:
+                        ws.append(acc & 0xFFFFFFFF)
+                        acc >>= 32
+                        nb -= 32
+                if nb > 0:
+                    ws.append(acc & 0xFFFFFFFF)
+                words.append(ws)
+            left = nbits - bps * t0
+            for cc in range(ncb):
+                for w, word in enumerate(words[cc]):
+                    for lane in range(32):
+                        if 32 * w + lane < left:
+                            out[cb0 + cc, bps * t0 + 32 * w + lane] = \
+                                (word >> lane) & 1
+    return out
+
+
+@pytest.mark.parametrize("t", [16, 1024, 1, 17, 100])
+def test_kernel_qpsk_bits_match_unpack_bits_tm(t):
+    """QPSK: v = (Im < 0) | (Re < 0) << 1 through the writer equals
+    ``demod_bits``, and for T % 16 == 0 ``unpack_bits_tm`` of the words
+    the earlier kernel packed (16 dibits a word)."""
+    rng = np.random.default_rng(t)
+    c = 37
+    re, im = rng.normal(size=(2, c, t)).astype(np.float32)
+    v = (im < 0).astype(np.int64) | ((re < 0).astype(np.int64) << 1)
+    got = _kernel_bits(v, 2)
+    want = j_demod_bits(JCF32(jnp.asarray(re), jnp.asarray(im)))
+    np.testing.assert_array_equal(got, np.asarray(want))
+    if t % 16 == 0:
+        words = np.zeros((t // 16, c), np.int64)
+        for s in range(t):
+            words[s // 16] |= v[:, s] << (2 * (s % 16))
+        packed = torch.from_numpy(words.astype(np.uint32).view(np.int32))
+        np.testing.assert_array_equal(got, unpack_bits_tm(packed).numpy())
+
+
+@pytest.mark.parametrize("name", ["bpsk", "8psk", "16qam"])
+@pytest.mark.parametrize("t", [1024, 8, 33, 91])
+def test_kernel_label_bits_match_labels_to_bits(name, t):
+    """dd: v = the label's bits reversed (MSB first) through the writer
+    equals ``modfam.labels_to_bits`` of the labels."""
+    from qpsk_tpu_torch.ops import modfam
+    mod = modfam.get(name)
+    rng = np.random.default_rng(t + mod.bps)
+    labels = rng.integers(0, 1 << mod.bps, (45, t), dtype=np.int64)
+    got = _kernel_bits(_brev(labels, mod.bps), mod.bps)
+    want = modfam.labels_to_bits(torch.from_numpy(labels), mod)
+    np.testing.assert_array_equal(got, want.numpy())

@@ -7,7 +7,10 @@
     at 10 dB -> ``rx_stream`` -> ``find_sync`` -> ``extract_packets``;
 (c) the package imports no jax and nothing of the JAX package;
 (d) every configuration off the port raises ``NotImplementedError``, and
-    the loop and channel options that were once off it run and match JAX.
+    the loop and channel options that were once off it run and match JAX;
+(e) geometries off the kernels (2 samples per symbol, 63 taps, 256- and
+    1024-sample frames) run their plain versions on CPU tensors and match
+    JAX, and the kernels' gate names each of them.
 """
 
 import dataclasses
@@ -124,8 +127,7 @@ _OFF_SLICE = [{"differential": True},
               {"fir_precision": "exact"}, {"slicer": "reference"},
               {"costas_impl": "scan"}, {"costas_impl": "pallas"},
               {"frontend_impl": "xla"}, {"frontend_impl": "pallas"},
-              {"tx_impl": "xla"}, {"tx_impl": "pallas"}, {"rs": 4800.0},
-              {"ntaps": 63}, {"frame_size": 256}]
+              {"tx_impl": "xla"}, {"tx_impl": "pallas"}]
 
 
 @pytest.mark.parametrize("kwargs", _OFF_SLICE,
@@ -134,7 +136,7 @@ _OFF_SLICE = [{"differential": True},
 def test_off_slice_config_raises(kwargs):
     cfg = dataclasses.replace(CFG, **kwargs)
     field = next(iter(kwargs))
-    with pytest.raises(NotImplementedError, match="fs/rs" if field == "rs" else field):
+    with pytest.raises(NotImplementedError, match=field):
         tx_stream(cfg, tx_init(CFG, (1,), device="cpu"), torch.zeros((1, 1, 256), dtype=torch.int32))
     with pytest.raises(NotImplementedError):
         rx_stream(cfg, rx_init(CFG, (1,), device="cpu"), torch.zeros((1, 1, 512), dtype=torch.int16))
@@ -192,3 +194,73 @@ def test_option_config_runs_and_matches_jax(kwargs):
     if cfg.loop_bw_track:
         np.testing.assert_allclose(st.costas.lev.numpy(),
                                    np.asarray(jst.costas.lev), atol=1e-4)
+
+
+_GEOMETRIES = [{"rs": 4800.0}, {"ntaps": 63}, {"frame_size": 256},
+               {"frame_size": 1024}]
+
+
+@pytest.mark.parametrize("kwargs", _GEOMETRIES,
+                         ids=[",".join(f"{k}={v}" for k, v in d.items())
+                              for d in _GEOMETRIES])
+def test_geometry_off_the_kernels_matches_jax(kwargs):
+    """What the kernels are not built for runs through the plain versions:
+    ``tx_stream`` within 1 LSB of JAX on the same bits (2 samples per
+    symbol overshoots full scale: both saturate), then ``rx_stream`` on the
+    same PCM with equal timing decisions and bits, both planes of the
+    symbols within 1e-4 and the frequency readback within 0.05 Hz, chained
+    halves equal to one call.  A CPU tensor never asks for a kernel, so no
+    launch counter moves."""
+    from qpsk_tpu_torch.ops.cuda import (costas_kernel, frontend_kernel,
+                                         tx_kernel)
+    mods = (costas_kernel, frontend_kernel, tx_kernel)
+    before = [m.launches for m in mods]
+    cfg, jc = dataclasses.replace(CFG, **kwargs), JCfg(**kwargs)
+    rng = np.random.default_rng(17)
+    bits = rng.integers(0, 2, (C, 6, cfg.bits_per_frame), dtype=np.int32)
+    _, jpcm = j_tx_stream(jc, j_tx_init(jc, batch_shape=(C,)), bits,
+                          tx_offset_hz=50.0)
+    _, tpcm = tx_stream(cfg, tx_init(cfg, (C,), device="cpu"),
+                        torch.from_numpy(bits), tx_offset_hz=50.0)
+    assert tpcm.shape == (C, 6, cfg.frame_size)
+    assert np.abs(tpcm.numpy().astype(np.int32)
+                  - np.asarray(jpcm).astype(np.int32)).max() <= 1
+    x = np.asarray(jpcm).astype(np.float64)
+    pcm = np.clip(np.round(x + rng.normal(size=x.shape)
+                           * np.sqrt((x ** 2).mean() / 10.0)),
+                  -32768, 32767).astype(np.int16)
+    _, jout = j_rx_stream(jc, j_rx_init(jc, batch_shape=(C,)), pcm)
+    st0 = rx_init(cfg, (C,), device="cpu")
+    _, out = rx_stream(cfg, st0, torch.from_numpy(pcm))
+    np.testing.assert_array_equal(out.timing_index.numpy(),
+                                  np.asarray(jout.timing_index))
+    np.testing.assert_array_equal(out.bits.numpy(), np.asarray(jout.bits))
+    for part in ("re", "im"):
+        np.testing.assert_allclose(getattr(out.symbols, part).numpy(),
+                                   np.asarray(getattr(jout.symbols, part)),
+                                   atol=1e-4)
+    np.testing.assert_allclose(out.freq_hz.numpy(), np.asarray(jout.freq_hz),
+                               atol=0.05)
+    st1, a = rx_stream(cfg, st0, torch.from_numpy(pcm[:, :2]))
+    _, b = rx_stream(cfg, st1, torch.from_numpy(pcm[:, 2:]))
+    assert torch.equal(torch.cat([a.bits, b.bits], 1), out.bits)
+    assert [m.launches for m in mods] == before
+
+
+@pytest.mark.parametrize("kwargs", _GEOMETRIES,
+                         ids=[",".join(f"{k}={v}" for k, v in d.items())
+                              for d in _GEOMETRIES])
+def test_kernel_gate_names_the_geometry(kwargs):
+    """The check a wrapper makes before it launches on a CUDA tensor
+    raises ``NotImplementedError`` naming the field off the kernels, while
+    ``check_slice`` (asked on every call) lets the geometry through."""
+    from qpsk_tpu_torch.modem import check_slice
+    from qpsk_tpu_torch.ops.cuda import _lib
+    cfg = dataclasses.replace(CFG, **kwargs)
+    check_slice(cfg)
+    field = next(iter(kwargs))
+    with pytest.raises(NotImplementedError,
+                       match="fs/rs" if field == "rs" else field):
+        _lib.check_geometry(cfg)
+    _lib.check_geometry(CFG)
+    _lib.check_geometry(dataclasses.replace(CFG, rs=1200.0))

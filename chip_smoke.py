@@ -44,7 +44,11 @@ Phases, each of which exits non-zero on failure:
    frames, every demodulated bit decoded) of the kernel and the plain
    path, each FEC kernel alone at 4096 packets, and the kernels alone at
    the paths' batch sizes (156 packets both, 16 768 Viterbi), with their
-   registers and spills from the build log.
+   registers and spills from the build log.  Phase 5a also holds the
+   codes beside the slice's: LDPC at ``PacketConfig(payload_bytes=127)``
+   (1032 checks, two a thread) at 1, 156 and 4096 packets and Viterbi
+   with the generators swapped, (171, 133), at 1, 156, 200 (every lane
+   count), 4096 and 16 768 packets, against their plain versions.
 
 6. The loop and channel options.  (a) Each new kernel or mode against its
    plain version at 1, 200 and 8192 channels, in two chained calls of 8
@@ -94,23 +98,35 @@ Phases, each of which exits non-zero on failure:
    estimator on CPU tensors (the version the tests hold against JAX):
    at most 0.1 % of all channels may be flagged on the card and not on
    the CPU; sampled spur channels must still sync alike on both paths,
-   and their packets count as lost in the CRC gate.  (f) One
-   call at a geometry the TX and front-end kernels do not cover (2
-   samples per symbol, 256 channels x 8 frames): ``tx_stream`` and
-   ``rx_stream`` on the card must raise ``NotImplementedError`` naming
-   it, before any launch.
+   and their packets count as lost in the CRC gate.  (f) The geometries
+   on the card: ``rs=4800`` (2 samples per symbol), ``ntaps=63``,
+   ``frame_size=256`` (the composed chain), ``frame_size=1024`` and 1200
+   baud at ``frame_size=1024``, each a loopback of 256 channels x 32
+   packets at 10 dB through the kernels (every launch counter must move),
+   each kernel against its plain version on the path's own inputs with
+   phase 2's bounds, the plain path on the same PCM syncing alike and
+   passing the same packets (at 2 samples per symbol the link carries no
+   packet at 10 dB, in the JAX package too, so there neither the payloads
+   nor the loops' offset are held); TX against its plain version at 2 samples
+   per symbol (1, 200, 8192 channels), and in one
+   call of 2 channels x (128 * 65 536 + 37) symbols at 2, 4 and 8 against
+   chained plain calls; then one call at 131 taps, past the kernels' coverage:
+   ``tx_stream`` and ``rx_stream`` on the card must raise
+   ``NotImplementedError`` naming it, before any launch.
 
 The Costas kernel is also held at a chain of 1000 symbols, not a multiple
-of 16, in every mode (phases 2, 6a and 7a).  Beside each Costas and front-end
-wrapper time, the kernel alone in a CUDA graph (``fec_times.graph_ms``),
+of 16, in every mode (phases 2, 6a and 7a).  Beside each Costas, front-end
+and TX wrapper time, the kernel alone in a CUDA graph (``fec_times.graph_ms``),
 and for Costas the cycles a step that time gives at the card's top clock.
 
 ``python3 chip_smoke.py --profile`` builds the kernels and only traces
 kernel-path receive calls with ``torch.profiler`` (the uncoded call at
 the rate point, the composed coded call per code, one call of each
-configuration of phases 6 and 7): device operations and busy time per call
-beside the wall time, the host-to-device copies and synchronisations per
-call (none allowed in the uncoded call), and the largest operations.
+configuration of phases 6 and 7), then one ``tx_modulate`` and one
+``tx_stream`` call at the rate point: device operations and busy time per
+call beside the wall time, the host-to-device copies and synchronisations
+per call (none allowed in the uncoded call; ``tx_modulate`` must be its
+kernel's launch alone), and the largest operations.
 
 ``python3 chip_smoke.py --fec`` builds the kernels and runs only the two
 decoders: phase 5a, then the Viterbi kernel at every lane count (1, 8 or
@@ -131,7 +147,12 @@ version's); LDPC bits must agree on >= 99.9 % with the same number of
 packets decoding clean (the JAX package's bound between its lowerings),
 and the coded loopback's CRC verdicts may differ between the LDPC kernel
 and plain decoders, and between the kernel and plain modem paths' LLRs,
-on <= 0.1 % of packets each, every difference printed.
+on <= 0.1 % of packets each, every difference printed.  A loopback's kernel
+path and plain path on the same PCM may differ in a bit only within 1e-3
+of a decision boundary, or on a channel whose two loops parted at such a
+tie of their own detector (the loop carries the other decision into
+every later symbol): its derotated symbols must agree within 1e-4 up to
+the tie, and at most 0.1 % of the channels may part; each is printed.
 
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``; the line before them lists every kernel
@@ -140,9 +161,9 @@ plain version, its time and its plain version's at the rate point, and
 its bound: the least time the card could take for the same work, the
 larger of the bytes it must move over 3.35 TB/s and its operations over
 the peak of their type (the H100 SXM's published peaks): float32 at 67
-TFLOP/s, and for the front-end's FIR, which runs on the tensor cores in
-three float16 passes with float32 sums, 989 TFLOP/s (its float32-FMA
-floor is printed beside).
+TFLOP/s, and for the front-end's and TX's FIRs, which run on the tensor
+cores in three float16 passes with float32 sums, 989 TFLOP/s (their
+float32-FMA floors are printed beside).
 ``library_ms`` is null: no single PyTorch call computes any of these
 functions (PERF.md says why for each).
 With no CUDA device, or without the package beside it, it exits non-zero
@@ -210,10 +231,24 @@ FAMILY_CODED_SNR_DB = 13.0
 # costas_run_cm): (config fields, SNR dB, frames), the point of the CPU
 # test test_torch_modfam_link.py::test_composed_chain_matches_jax
 FAMILY_1200 = (dict(modulation="8psk", rs=1200.0), 18.0, 64)
-# an off-geometry call on the card: 2 samples per symbol, which the TX and
-# front-end kernels do not cover, so their wrappers refuse it (channels,
-# frames)
-OFF_GEOMETRY = (dict(rs=4800.0), (256, 8))
+# phase 7f: the geometries the kernels were widened to, each a loopback
+# through the kernels: name -> config fields; (channels, packets) of each;
+# the TX kernel's long call (channels, symbols: past 65 535 blocks of 128);
+# and a geometry past the kernels' coverage, 131 taps (the TPU front-end
+# takes ntaps <= 129), whose wrappers must refuse it (channels, frames)
+GEOMETRY_PATHS = {"rs=4800": dict(rs=4800.0), "ntaps=63": dict(ntaps=63),
+                  "frame_size=256": dict(frame_size=256),
+                  "frame_size=1024": dict(frame_size=1024),
+                  "1200,frame_size=1024": dict(rs=1200.0, frame_size=1024)}
+GEOMETRY_SHAPE = (256, 32)
+TX_LONG = (2, 128 * 65536 + 37)
+OFF_GEOMETRY = (dict(ntaps=131), (256, 8))
+# phase 5a: the coded link's other codes on the card: LDPC at
+# PacketConfig(payload_bytes=127) (m = k = 1032 checks) and Viterbi with
+# the generators swapped, at these batch sizes
+FEC_OTHER = {"ldpc": (1, 156, 4096), "conv": (1, 156, 200, 4096, 16768)}
+LDPC_K_127 = 8 * 127 + 16
+CONV_SWAPPED = (0o171, 0o133)
 # a Costas chain length that is not a multiple of 16 (nor of 8), and its
 # trace period
 ODD_T = (1000, 125)
@@ -320,8 +355,8 @@ def check_tx(cfg, sym, st, label: str, errs: dict, key: str = "tx",
     import torch
     from qpsk_tpu_torch.ops.cuda import tx_kernel as tk
 
-    pk, phk, tlk = tk.tx_modulate(cfg, sym, st.nco_phase, st.fir_tail,
-                                  TX_OFFSET_HZ)
+    args = (cfg, sym, st.nco_phase, st.fir_tail, TX_OFFSET_HZ)
+    pk, phk, tlk = tk.tx_modulate(*args)
     pp, php, tlp = tk.tx_modulate_plain(cfg, sym, st.nco_phase, st.fir_tail,
                                         TX_OFFSET_HZ)
     worst = int((pk.to(torch.int32) - pp.to(torch.int32)).abs().max())
@@ -587,7 +622,7 @@ def check_path(cfg, bits, clean, pcm, out, dev, label: str, errs: dict,
     c, nsym = pcm.shape[0], cfg.symbols_per_frame
     pk, _ = check_tx(cfg, tx_symbols(cfg, bits.reshape(c, -1)),
                      tx_init(cfg, (c,), device=dev), label, errs, key=tx_key,
-                     lsb=2 if cfg.cycles == 4 else 1)
+                     lsb=1 if cfg.cycles == 8 else 2)
     need(torch.equal(pk, clean.reshape(c, -1)),
          f"the TX kernel's re-run differs ({label})")
     st = rx_init(cfg, (c,), device=dev) if st0 is None else st0
@@ -625,16 +660,72 @@ def check_path(cfg, bits, clean, pcm, out, dev, label: str, errs: dict,
         tie = (boundary_distance(cfg, d) < NEAR_TIE).repeat_interleave(
             cfg.bits_per_symbol, dim=-1)
     flips = plain.bits != out.bits
-    need(bool(tie[flips].all()), "the kernel and plain paths' bits differ "
-         f"away from a decision boundary (|x| >= {NEAR_TIE}) ({label})")
+    parted = parted_at_a_tie(cfg, out.symbols, plain.symbols,
+                             flips & ~tie, label)
+    # every channel whose derotated symbols part by more than NEAR_TIE,
+    # with its first such symbol, flipped bits or not
+    far = torch.maximum((d.re - plain.symbols.re).abs(),
+                        (d.im - plain.symbols.im).abs()).reshape(c, -1) > NEAR_TIE
+    apart = [(ch, int(torch.nonzero(far[ch])[0]))
+             for ch in torch.nonzero(far.any(-1)).flatten().tolist()]
     print(f"  plain path on the same PCM ({label}): {int(flips.sum())} of "
           f"{flips.numel()} bits differ, all within {NEAR_TIE} of a decision "
-          f"boundary; derot max diff {cmax_abs(plain.symbols, d):.3g}")
+          f"boundary"
+          + (f" but on {len(parted)} channels whose loops parted at a tie "
+             f"{parted}" if parted else "")
+          + f"; derot max diff {cmax_abs(plain.symbols, d):.3g}"
+          + (f"; derotated symbols part by more than {NEAR_TIE} on "
+             f"{len(apart)} channels (channel, first symbol) {apart[:8]}"
+             if apart else ""))
     return plain.symbols, plain.bits, flips
 
 
+def parted_at_a_tie(cfg, sym_k, sym_p, away, label: str) -> list:
+    """The channels whose kernel-path and plain-path loops part at a tie
+    of the loop's own decision, as [(channel, symbol of the tie)]: the
+    Costas detector slices every symbol, so a symbol within NEAR_TIE of a
+    decision boundary (the tie the bit check allows) may slice differently
+    on the two paths, and the loop then carries the other decision into
+    every later symbol.  A channel with bits ``away`` from a boundary must
+    have parted so: its derotated symbols agree within 1e-4 (the derotated
+    bound of the kernel comparisons) on every symbol up to and including a
+    symbol t that lies within NEAR_TIE of a boundary on one of the two
+    paths, and part (by more than NEAR_TIE) after t, before the first such
+    bit; and at most 0.1 % of the channels may part."""
+    import torch
+
+    if not bool(away.any()):
+        return []
+    c = away.shape[0]
+    diff = torch.maximum((sym_k.re - sym_p.re).abs(),
+                         (sym_k.im - sym_p.im).abs()).reshape(c, -1)
+    dist = torch.minimum(boundary_distance(cfg, sym_k),
+                         boundary_distance(cfg, sym_p)).reshape(c, -1)
+    away_sym = away.reshape(c, diff.shape[1], -1).any(-1)
+    parted = []
+    for ch in torch.nonzero(away_sym.any(-1)).flatten().tolist():
+        first_bit = int(torch.nonzero(away_sym[ch])[0])
+        off = torch.nonzero(diff[ch] > 1e-4).flatten()
+        agree = int(off[0]) if off.numel() else diff.shape[1]
+        off = torch.nonzero(diff[ch] > NEAR_TIE).flatten()
+        first_off = int(off[0]) if off.numel() else first_bit + 1
+        # the last tie of the stretch on which the paths agree within 1e-4
+        ties = torch.nonzero(dist[ch, :agree] < NEAR_TIE).flatten()
+        t = int(ties[-1]) if ties.numel() else -1
+        ok = 0 <= t < first_off <= first_bit
+        need(ok, f"channel {ch}: the kernel and plain paths' bits differ away "
+             f"from a decision boundary (|x| >= {NEAR_TIE}) at symbol "
+             f"{first_bit} without a tie of the loop before it on which the "
+             f"paths agree within 1e-4 ({label})")
+        if ok:
+            parted.append((ch, t))
+    need(len(parted) <= 0.001 * c, f"{len(parted)} of {c} channels' loops "
+         f"parted ({label})")
+    return parted
+
+
 def compare_decodes(pcfg, out, plain_bits, flips, payload, label: str,
-                    modulation: str = "qpsk", spur=None):
+                    modulation: str = "qpsk", spur=None, link: bool = True):
     """``find_sync`` / ``extract_packets`` on 64 sampled channels of the
     kernel path's and the plain path's bits, 8 packets skipped: both must
     sync alike and pass the same packets (a packet holding a flipped bit
@@ -642,8 +733,13 @@ def compare_decodes(pcfg, out, plain_bits, flips, payload, label: str,
     sampled channel marked in ``spur`` (whose acquisition took a spur of
     the M-power spectrum, so that the loop locks a constellation step
     away) must sync alike too, but its payloads and offset are not
-    checked and its packets count as lost.  Prints the loss; returns
-    (packets, packets passing CRC, mean offset Hz)."""
+    checked and its packets count as lost.  With ``link`` (a geometry
+    that carries the link) every passing payload must be the one sent and
+    the loops' mean readback lie within 2 Hz of the offset sent (each
+    channel's within 5 Hz); without, only the two paths' agreement is
+    held, as a packet passing CRC on garbage bits is a CRC-16 false
+    positive.  Prints the loss; returns (packets, packets passing CRC,
+    mean offset Hz)."""
     import torch
 
     c, nframes = out.bits.shape[:2]
@@ -671,7 +767,8 @@ def compare_decodes(pcfg, out, plain_bits, flips, payload, label: str,
         npk += navail
         if ch in spurs:
             continue
-        nok += check_payloads(krx, payload[ch], ch)
+        nok += (check_payloads(krx, payload[ch], ch) if link
+                else int(krx.crc_ok.sum()))
         full += int(ks.score) == 4
         offsets.append(float(out.freq_hz[ch, nframes // 2:].mean()))
     mean_offset = sum(offsets) / len(offsets)
@@ -681,11 +778,14 @@ def compare_decodes(pcfg, out, plain_bits, flips, payload, label: str,
              f"lost; " if spur is not None else "")
           + f"{full} synced at 4/4, "
           f"{nok}/{npk} packets pass CRC (PER {1 - nok / max(npk, 1):.5f}), "
-          f"all bit-exact; detected offset {mean_offset:.4f} Hz (per channel "
+          + ("all bit-exact" if link else "payloads not checked (no link)")
+          + f"; detected offset {mean_offset:.4f} Hz (per channel "
           f"{min(offsets):.3f}..{max(offsets):.3f})")
-    need(abs(mean_offset - TX_OFFSET_HZ) <= 2.0, f"detected offset {mean_offset} Hz")
-    need(max(abs(o - TX_OFFSET_HZ) for o in offsets) <= 5.0,
-         "a channel's detected offset is off by more than 5 Hz")
+    if link:
+        need(abs(mean_offset - TX_OFFSET_HZ) <= 2.0,
+             f"detected offset {mean_offset} Hz")
+        need(max(abs(o - TX_OFFSET_HZ) for o in offsets) <= 5.0,
+             "a channel's detected offset is off by more than 5 Hz")
     return npk, nok, mean_offset
 
 
@@ -818,7 +918,7 @@ def time_pair(name: str, kern, plain, args, kw: dict, n_plain: int,
     k2 = cuda_time_ms(lambda: kern(*args, **kw), iters)
     p2 = cuda_time_ms(lambda: plain(*args, **kw), n_plain, warmup=1)
     print(f"  {name:8s} kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms")
-    if name.startswith(("costas", "frontend")):
+    if name.startswith(("costas", "frontend", "tx")):
         kernel_alone(name, lambda: kern(*args, **kw),
                      args[1].shape[0] if name.startswith("costas") else None)
     return min(k1, k2), min(p1, p2)
@@ -898,12 +998,23 @@ def costas_work(c, t, trace_every, gear: bool = False,
 
 
 def tx_work(c, s, cycles) -> tuple:
-    """TX's bound: symbols, tail and phasor in, int16 PCM out; per sample
-    two planes of 127 / cycles polyphase FMAs and the carrier mix."""
+    """TX's bound on the route the kernel takes, (least ms, what bounds
+    it, the float32-FMA floor ms): symbols, the carried tail's 126 //
+    cycles symbol lanes (all the function reads of it) and the phasor in,
+    int16 PCM, the whole new zero-stuffed tail and the phasor out; per sample two planes
+    of 127 / cycles polyphase multiply-adds, on the tensor cores in three
+    float16 passes at the float16 peak, beside the carrier mix's float32
+    work on the CUDA cores (two complex products and the real part, 8
+    operations).  The third value is the same FIR as float32 FMAs on the
+    CUDA cores, the floor of the route the kernel left."""
     n = s * cycles
-    nbytes = c * (s * 8 + n * 2 + (126 // cycles) * 8 + 8)
-    flops = c * n * (2 * 2 * -(-127 // cycles) + 8)
-    return bound(nbytes, flops)
+    nbytes = c * (s * 8 + n * 2 + (126 // cycles) * 8 + 126 * 8 + 2 * 8)
+    fir, rest = c * n * 2 * 2 * -(-127 // cycles), c * n * 8
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = (3 * fir / PEAK_F16_S + rest / PEAK_FLOP_S) * 1e3
+    fma = max(t_bytes, (fir + rest) / PEAK_FLOP_S * 1e3)
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")) \
+        + (fma,)
 
 
 @contextlib.contextmanager
@@ -920,33 +1031,39 @@ def plain_decoders():
         vk.viterbi_decode, lk.ldpc_decode = saved
 
 
-def fec_decoders(kind: str):
-    """(name, kernel wrapper, plain version) of the slice's code, each
-    taking (..., n) LLRs to (..., 256) bits."""
-    from qpsk_tpu_torch.ops.cuda import ldpc_kernel as lk
-    from qpsk_tpu_torch.ops.cuda import viterbi_kernel as vk
+def fec_code(kind: str, other: bool = False):
+    """The slice's code (256 message bits), or with ``other`` the phase-5a
+    one: the swapped generators, LDPC at 127-byte payloads."""
     from qpsk_tpu_torch.packet import ConvCode, LdpcCode
     if kind == "conv":
-        code = ConvCode()
+        return ConvCode(polys=CONV_SWAPPED) if other else ConvCode()
+    return LdpcCode(k=LDPC_K_127 if other else 256)
+
+
+def fec_decoders(kind: str, other: bool = False):
+    """(name, kernel wrapper, plain version) of ``fec_code(kind, other)``,
+    each taking (..., n) LLRs to (..., k) bits."""
+    from qpsk_tpu_torch.ops.cuda import ldpc_kernel as lk
+    from qpsk_tpu_torch.ops.cuda import viterbi_kernel as vk
+    code = fec_code(kind, other)
+    if kind == "conv":
         return ("viterbi", lambda x: vk.viterbi_decode(code, x, 256),
                 lambda x: vk.viterbi_decode_plain(code, x, 256))
-    code = LdpcCode(k=256)
     return ("ldpc", lambda x: lk.ldpc_decode(code, x),
             lambda x: lk.ldpc_decode_plain(code, x))
 
 
-def fec_encode(kind: str, u):
-    from qpsk_tpu_torch.packet import (ConvCode, LdpcCode, conv_encode,
-                                       ldpc_encode)
-    return conv_encode(ConvCode(), u) if kind == "conv" else \
-        ldpc_encode(LdpcCode(k=256), u)
+def fec_encode(kind: str, u, other: bool = False):
+    from qpsk_tpu_torch.packet import conv_encode, ldpc_encode
+    code = fec_code(kind, other)
+    return conv_encode(code, u) if kind == "conv" else ldpc_encode(code, u)
 
 
-def check_fec(kind: str, llrs, u, label: str, errs: dict):
+def check_fec(kind: str, llrs, u, label: str, errs: dict, other: bool = False):
     """A FEC kernel against its plain version on the same LLRs: Viterbi
     bits equal, LDPC bits >= 99.9 % equal; with the payload ``u`` sent,
     both must decode the same number of packets clean."""
-    name, kern, plain = fec_decoders(kind)
+    name, kern, plain = fec_decoders(kind, other)
     k, p = kern(llrs), plain(llrs)
     rate = agree(label, f"{name} bit", k == p, exact=kind == "conv")
     errs[name] = max(errs[name], 1.0 - rate)
@@ -958,20 +1075,21 @@ def check_fec(kind: str, llrs, u, label: str, errs: dict):
     print(msg)
 
 
-def check_viterbi_lanes(llrs, errs: dict) -> None:
+def check_viterbi_lanes(llrs, errs: dict, other: bool = False) -> None:
     """Every shape of the Viterbi kernel against the plain version,
     whatever shape the wrapper picks for this batch."""
     from qpsk_tpu_torch.ops.cuda import viterbi_kernel as vk
-    from qpsk_tpu_torch.packet import ConvCode
 
-    want = vk.viterbi_decode_plain(ConvCode(), llrs, 256)
+    code = fec_code("conv", other)
+    want = vk.viterbi_decode_plain(code, llrs, 256)
     for lanes in FEC_LANES:
-        got = vk._launch(ConvCode(), llrs, 256, lanes=lanes)
+        got = vk._launch(code, llrs, 256, lanes=lanes)
         rate = agree(f"B={llrs.shape[0]} hard 3 %, {lanes} lanes a packet",
                      "viterbi bit", got == want, exact=True)
         errs["viterbi"] = max(errs["viterbi"], 1.0 - rate)
     print(f"  viterbi  B={llrs.shape[0]:5d} hard 3 %: equal with "
-          f"{', '.join(map(str, FEC_LANES))} lanes a packet")
+          f"{', '.join(map(str, FEC_LANES))} lanes a packet"
+          + (f", polys {tuple(oct(g) for g in code.polys)}" if other else ""))
 
 
 def compare_fec(dev, errs: dict) -> None:
@@ -1008,6 +1126,27 @@ def compare_fec(dev, errs: dict) -> None:
         for which, fn in (("kernel", kern), ("plain", plain)):
             need(torch.equal(fn(lt), ut),
                  f"the {which} {name} decoder misses sigma {sigma} codewords")
+
+    # the other codes: LDPC with 1032 checks (two a thread), Viterbi with
+    # the generators swapped (the sign masks from the argument)
+    for kind, batches in FEC_OTHER.items():
+        k = fec_code(kind, True).k if kind == "ldpc" else 256
+        for b in batches:
+            gen = torch.Generator(device=dev).manual_seed(b + 5)
+            u = torch.randint(0, 2, (b, k), generator=gen, device=dev,
+                              dtype=torch.int32)
+            c = fec_encode(kind, u, True)
+            noisy = (1.0 - 2.0 * c) + 0.7 * torch.randn(c.shape, generator=gen,
+                                                        device=dev)
+            flips = (torch.rand(c.shape, generator=gen, device=dev) < 0.03)
+            hard = hard_llrs(c ^ flips.to(torch.int32))
+            what = ("m=1032" if kind == "ldpc"
+                    else f"polys {tuple(oct(g) for g in CONV_SWAPPED)}")
+            for stim, llrs in (("sigma 0.7", noisy), ("hard 3 %", hard)):
+                check_fec(kind, llrs, u, f"{what} B={b:5d} {stim}", errs,
+                          other=True)
+            if kind == "conv" and b == 200:
+                check_viterbi_lanes(hard, errs, other=True)
         print(f"  {name:8s} 64 codewords at sigma {sigma}: kernel and plain "
               "decode all clean")
 
@@ -1730,11 +1869,112 @@ def spur_channels(cfg, pcm, hz, name: str):
     return spur
 
 
+def geometry_path(name: str, pcfg, dev, errs: dict) -> None:
+    """Phase 7f: one widened geometry at 256 channels x 32 packets through
+    the kernels (packets -> TX at +50 Hz -> AWGN 10 dB -> RX), every
+    launch counter reset before and each kernel's read after; then, as in
+    phase 3, each kernel against its plain version on the path's own
+    inputs and the plain path on the same PCM, which must sync alike and
+    pass the same packets."""
+    import torch
+    from qpsk_tpu_torch import ModemConfig, rx_init, rx_stream
+
+    cfg = ModemConfig(**GEOMETRY_PATHS[name])
+    c, npk = GEOMETRY_SHAPE
+    nframes = npk * pcfg.frame_bits // cfg.bits_per_frame
+    mods = kernel_modules()
+    reset_launches()
+    payload, chan, clean, pcm = loopback_pcm(cfg, pcfg, c, nframes,
+                                             seed=2030, dev=dev)
+    _, out = rx_stream(cfg, rx_init(cfg, (c,), device=dev), pcm)
+    torch.cuda.synchronize()
+    counts = {n: mods[n].launches for n in ("tx", "frontend", "costas")}
+    modes = {n: dict(mods[n].by_mode) for n in ("tx", "frontend")}
+    print(f"  {name}: {c} channels x {nframes} frames of {cfg.frame_size} "
+          f"samples, {cfg.cycles} samples per symbol, {cfg.ntaps} taps: "
+          f"launches {counts}, modes {modes}")
+    for kernel, n in counts.items():
+        need(n > 0, f"the {name} path never launched the {kernel} kernel")
+    need(bool(torch.isfinite(out.symbols.re).all()
+              and torch.isfinite(out.symbols.im).all()), "non-finite symbols")
+    slow = cfg.cycles == 8
+    _, plain_bits, flips = check_path(
+        cfg, chan, clean, pcm, out, dev, f"C={c} {name}", errs,
+        tx_key="tx_1200" if slow else "tx",
+        fe_key="frontend_cm_1200" if slow else "frontend_cm")
+    # 2 samples per symbol carries no link at 10 dB in either package (the
+    # port's bits equal the JAX package's on the same PCM,
+    # tests/test_torch_loopback.py): no lock, no packet to check
+    compare_decodes(pcfg, out, plain_bits, flips, payload, name,
+                    link=cfg.cycles > 2)
+
+
+def tx_geometries(dev, errs: dict) -> None:
+    """Phase 7f: the TX kernel against its plain version at 2 samples per
+    symbol (1, 200 and 8192 channels, two chained calls; 4 and 8 are held
+    in phases 2 and 6a), then one call of TX_LONG symbols a channel at 2,
+    4 and 8, past 65 535 blocks of 128, against chained plain calls
+    (pieces of at most 65 536 symbols, each a whole number of 128 but the
+    first): PCM within 2 LSB, the carried phase within 1e-5, tail exact."""
+    import torch
+    from qpsk_tpu_torch import ModemConfig, tx_init
+    from qpsk_tpu_torch.ops.cplx import CF32
+    from qpsk_tpu_torch.ops.cuda import tx_kernel as tk
+    from qpsk_tpu_torch.ops.modmap import bits_to_symbols
+
+    fast = ModemConfig(rs=4800.0)
+    t = RATE_POINT[1] * fast.symbols_per_frame
+    for c in COMPARE_CHANNELS:
+        gen = torch.Generator(device=dev).manual_seed(c + 31)
+        sym = bits_to_symbols(torch.randint(0, 2, (c, 4 * t), generator=gen,
+                                            device=dev, dtype=torch.int32))
+        st = tx_init(fast, (c,), device=dev)
+        for i in range(2):
+            s = CF32(sym.re[:, i * t:(i + 1) * t].contiguous(),
+                     sym.im[:, i * t:(i + 1) * t].contiguous())
+            _, st = check_tx(fast, s, st, f"rs=4800 C={c:5d} call {i}", errs)
+
+    c, n = TX_LONG
+    gen = torch.Generator(device=dev).manual_seed(37)
+    sym = bits_to_symbols(torch.randint(0, 2, (c, 2 * n), generator=gen,
+                                        device=dev, dtype=torch.int32))
+    sym = CF32(sym.re.contiguous(), sym.im.contiguous())
+    first = n % 128 + 128 if n % 128 else 0
+    bounds = [0] + ([first] if first else []) + list(
+        range(first + 65536, n, 65536)) + [n]
+    for rs in (4800.0, 2400.0, 1200.0):
+        cfg = ModemConfig(rs=rs)
+        st = tx_init(cfg, (c,), device=dev)
+        pk, phk, tlk = tk.tx_modulate(cfg, sym, st.nco_phase, st.fir_tail,
+                                      TX_OFFSET_HZ)
+        worst = 0
+        for a, b in zip(bounds[:-1], bounds[1:]):
+            piece = CF32(sym.re[:, a:b].contiguous(), sym.im[:, a:b].contiguous())
+            pp, php, tlp = tk.tx_modulate_plain(cfg, piece, st.nco_phase,
+                                                st.fir_tail, TX_OFFSET_HZ)
+            worst = max(worst, int((pk[:, a * cfg.cycles:b * cfg.cycles]
+                                    .to(torch.int32) - pp.to(torch.int32))
+                                   .abs().max()))
+            st = st._replace(nco_phase=php, fir_tail=tlp)
+        ph_err = cmax_abs(phk, st.nco_phase)
+        tail_err = cmax_abs(tlk, st.fir_tail)
+        print(f"  tx {cfg.cycles} samples per symbol, {c} channels x {n} "
+              f"symbols ({-(-n // 128)} blocks of 128) in one call: PCM within "
+              f"{worst} LSB of {len(bounds) - 1} chained plain calls, phase "
+              f"{ph_err:.3g}, tail {tail_err:.3g}")
+        need(worst <= 2, f"TX long call: PCM differs by {worst} LSB")
+        need(ph_err <= 1e-5, f"TX long call: phase differs by {ph_err}")
+        need(tail_err == 0, "TX long call: the tail differs")
+        errs["tx_1200" if cfg.cycles == 8 else "tx"] = max(
+            errs["tx_1200" if cfg.cycles == 8 else "tx"], worst)
+        del pk
+
+
 def off_geometry_call(pcfg, dev) -> None:
     """Phase 7f: ``tx_stream`` and ``rx_stream`` on the card at a geometry
-    the TX and front-end kernels do not cover (2 samples per symbol): each
-    must raise ``NotImplementedError`` naming the field before any kernel
-    launches (CPU tensors run it; the tests hold that against JAX)."""
+    past the TX and front-end kernels' coverage (131 taps): each must raise
+    ``NotImplementedError`` naming the field before any kernel launches
+    (CPU tensors run it)."""
     import torch
     from qpsk_tpu_torch import ModemConfig, rx_init, rx_stream, tx_init, tx_stream
 
@@ -1753,12 +1993,12 @@ def off_geometry_call(pcfg, dev) -> None:
         try:
             call()
         except NotImplementedError as err:
-            need(f"fs/rs={cfg.cycles}" in str(err),
-                 f"{what} at rs={cfg.rs:g} raised {err!r}")
-            print(f"  {what} at rs={cfg.rs:g} on the card: NotImplementedError "
-                  f"({err})")
+            need(f"ntaps={cfg.ntaps}" in str(err),
+                 f"{what} at ntaps={cfg.ntaps} raised {err!r}")
+            print(f"  {what} at ntaps={cfg.ntaps} on the card: "
+                  f"NotImplementedError ({err})")
         else:
-            need(False, f"{what} at rs={cfg.rs:g} ran on the card")
+            need(False, f"{what} at ntaps={cfg.ntaps} ran on the card")
     launched = {n: m.launches for n, m in kernel_modules().items()}
     need(not any(launched.values()),
          f"the off-geometry calls launched kernels: {launched}")
@@ -1909,16 +2149,63 @@ def family_rates(dev, errs: dict) -> dict:
     return times
 
 
+def traced(step, steps: int) -> tuple:
+    """``steps`` calls of ``step`` under ``torch.profiler`` after 3
+    warm-up calls: (device operations [(start, end, name)], HtoD copies,
+    host synchronisations beyond the window's own, host wall us)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as trace
+    from fec_times import host_waits
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    ops = sorted((e.time_range.start, e.time_range.end, e.name)
+                 for e in events if e.device_type == DeviceType.CUDA)
+    need(ops, "the profiler saw no device operation")
+    htod = sum("HtoD" in name for _, _, name in ops)
+    # the host's waits, less those of a window that only synchronises
+    return ops, htod, host_waits(events) - host_waits(None), wall_us
+
+
+def report_trace(label: str, ops, htod, syncs, wall_us, steps: int) -> None:
+    """One line per traced call: operations, busy time against the wall,
+    copies, waits and the operations that take the most device time."""
+    busy, reach, by_name = 0.0, ops[0][0], {}
+    for start, end, name in ops:
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+        by_name[name] = by_name.get(name, 0.0) + end - start
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"  {label}: {len(ops) / steps:.1f} "
+          f"device ops per call, device busy {busy / steps / 1e3:.4f} ms of "
+          f"{wall_us / steps / 1e3:.4f} ms wall per call (idle share "
+          f"{1 - busy / wall_us:.3f}); {htod / steps:g} HtoD copies and "
+          f"{syncs / steps:g} synchronisations per call; most device time: "
+          + "; ".join(f"{n[:48]} {t / steps / 1e3:.4f} ms" for n, t in top))
+
+
 def profile(cfg, dev, steps: int = 5) -> None:
     """``--profile``: a ``torch.profiler`` trace of ``steps`` kernel-path
     receive calls after 3 warm-up calls, uncoded at the rate point, coded
     at the composed coded point and each phase-6 and phase-7 configuration
     at the rate point: per call, the device operations launched, the device's busy
     time (the union of their intervals) beside the host's wall time under
-    the profiler, and the operations that take the most device time."""
+    the profiler, and the operations that take the most device time.  Then
+    the same for one ``tx_modulate`` call (which must be one kernel launch,
+    no other device operation, no copy to the card and no wait) and one
+    ``tx_stream`` call at the rate point."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as trace
+    from qpsk_tpu_torch import tx_init, tx_stream
+    from qpsk_tpu_torch.ops.cuda import tx_kernel as tk
 
     for label, rcfg, kind, (c, nframes) in (
             ("uncoded", cfg, None, RATE_POINT),
@@ -1930,38 +2217,33 @@ def profile(cfg, dev, steps: int = 5) -> None:
               for name in FAMILY_PATHS)):
         step, _ = rx_step(rcfg, dev, noise_pcm(rcfg, c, nframes, 13, dev),
                           "kernel", kind)
-        for _ in range(3):
-            step()
-        torch.cuda.synchronize()
-        with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                step()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        events = prof.events()
-        ops = sorted((e.time_range.start, e.time_range.end, e.name)
-                     for e in events if e.device_type == DeviceType.CUDA)
-        need(ops, "the profiler saw no device operation")
-        htod = sum("HtoD" in name for _, _, name in ops)
-        # the host's waits, less those of a window that only synchronises
-        from fec_times import host_waits
-        syncs = host_waits(events) - host_waits(None)
-        busy, reach, by_name = 0.0, ops[0][0], {}
-        for start, end, name in ops:
-            busy += max(0.0, end - max(start, reach))
-            reach = max(reach, end)
-            by_name[name] = by_name.get(name, 0.0) + end - start
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        print(f"  {label} RX at {c} x {nframes}: {len(ops) / steps:.1f} "
-              f"device ops per call, device busy {busy / steps / 1e3:.4f} ms of "
-              f"{wall_us / steps / 1e3:.4f} ms wall per call (idle share "
-              f"{1 - busy / wall_us:.3f}); {htod / steps:g} HtoD copies and "
-              f"{syncs / steps:g} synchronisations per call; most device time: "
-              + "; ".join(f"{n[:48]} {t / steps / 1e3:.4f} ms" for n, t in top))
+        ops, htod, syncs, wall_us = traced(step, steps)
+        report_trace(f"{label} RX at {c} x {nframes}", ops, htod, syncs,
+                     wall_us, steps)
         if label == "uncoded":
             need(htod == 0 and syncs <= 0, "the default receive call copies to "
                  "the card or waits for it")
+
+    c, nframes = RATE_POINT
+    gen = torch.Generator(device=dev).manual_seed(41)
+    bits = torch.randint(0, 2, (c, nframes, cfg.bits_per_frame), generator=gen,
+                         device=dev, dtype=torch.int32)
+    sym = tx_symbols(cfg, bits.reshape(c, -1))
+    st = [tx_init(cfg, (c,), device=dev)]
+
+    def modulate():
+        tk.tx_modulate(cfg, sym, st[0].nco_phase, st[0].fir_tail, TX_OFFSET_HZ)
+
+    def stream():
+        st[0], _ = tx_stream(cfg, st[0], bits, TX_OFFSET_HZ)
+    for label, step in (("tx_modulate", modulate), ("tx_stream", stream)):
+        ops, htod, syncs, wall_us = traced(step, steps)
+        report_trace(f"{label} at {c} x {nframes}", ops, htod, syncs, wall_us,
+                     steps)
+        if label == "tx_modulate":
+            need(len(ops) == steps and all("tx_kernel" in n for *_, n in ops)
+                 and htod == 0 and syncs <= 0,
+                 "a tx_modulate call is not one kernel launch alone")
 
 
 def main() -> int:
@@ -2039,14 +2321,17 @@ def main() -> int:
         family_coded(kind, dev, errs)
     print("phase 7e: 8PSK at 1200 baud on the composed chain")
     family_loopback("8psk_1200", pcfg, dev, errs)
-    print("phase 7f: a geometry off the kernels, on the card")
+    print("phase 7f: the geometries on the card")
+    for name in GEOMETRY_PATHS:
+        geometry_path(name, pcfg, dev, errs)
+    tx_geometries(dev, errs)
     off_geometry_call(pcfg, dev)
     print(f"  before: {CLOCKS} = {nvidia_smi_line(CLOCKS)}")
     times.update(family_rates(dev, errs))
     print(f"  after:  {CLOCKS} = {nvidia_smi_line(CLOCKS)}")
 
     for name in KERNELS:
-        if name.startswith("frontend"):
+        if name.startswith(("frontend", "tx")):
             print(f"  {name}: bound {times[name][2]:.4f} ms ({times[name][3]}; "
                   f"the FIR on the tensor cores in three float16 passes, the kernel's route), "
                   f"float32-FMA floor {times[name][4]:.4f} ms")

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Times of the torch port's kernels through their wrappers, on one NVIDIA
 GPU: the two FEC decoders at the batch sizes the coded paths give them,
-and the Costas loop and RX front-end at the receiver's rate point (8192
-channels x 8 frames of 512 samples, 1024 symbols a channel).
+and the Costas loop, RX front-end and TX at the receiver's rate point
+(8192 channels x 8 frames of 512 samples, 1024 symbols a channel).
 
     python3 fec_times.py [ROOT] [--fec | --modem]
 
@@ -15,7 +15,7 @@ compare two commits on the same card:
     python3 fec_times.py archive/parent; python3 fec_times.py
 
 ``--fec`` times only the decoders, ``--modem`` only the Costas loop, the
-front-end and the default receive call; with neither it times all.
+front-end, TX and the default receive call; with neither it times all.
 
 Decoders: ``viterbi_decode`` and ``ldpc_decode`` on random LLRs at 156
 packets (a channel's tracked extraction), 4096 (the rate point of
@@ -28,13 +28,15 @@ wrapper calls).
 
 Modem kernels: the front-end's four launches (time-major, time-major with
 the AGC power output, channel-major at 4 and at 8 samples per symbol) on
-noise PCM, and the Costas loop's modes (QPSK, gear, gains,
-decision-directed BPSK, 8PSK and 16QAM with gains) on Gaussian symbols.
+noise PCM, the Costas loop's modes (QPSK, gear, gains,
+decision-directed BPSK, 8PSK and 16QAM with gains) on Gaussian symbols,
+and ``tx_modulate`` at 4 and 8 samples per symbol on random QPSK symbols.
 Each row gives the wrapper launched from the host (CUDA events around 20
 calls after 3 warm-ups), the wrapper alone in a CUDA graph ("null" for a
 wrapper that copies to the card, which a graph cannot capture from
 pageable host memory), and the kernel alone: the device time per call of
-the kernel itself (``costas_tm_kernel``, ``frontend_kernel``) by
+the kernel itself (``costas_tm_kernel``, ``frontend_kernel``,
+``tx_kernel``) by
 ``torch.profiler`` over 10 calls.  Then the default ``rx_stream`` call
 (state chained): ms per call by CUDA events, and by ``torch.profiler``
 over 5 calls the device operations, the device's busy time (the union of
@@ -177,11 +179,14 @@ def modem_times(dev) -> tuple:
     """({row: [host ms, graph ms or None, kernel ms]}, {default rx_stream
     call's ms, ops, busy_ms, htod, waits}) at the rate point."""
     import torch
-    from qpsk_tpu_torch import ModemConfig, rx_init, rx_stream
+    from qpsk_tpu_torch import ModemConfig, rx_init, rx_stream, tx_init
     from qpsk_tpu_torch.config import config_1200
     from qpsk_tpu_torch.ops.costas import costas_init, costas_params, gear_for
+    from qpsk_tpu_torch.ops.cplx import CF32
     from qpsk_tpu_torch.ops.cuda import costas_kernel as ck
     from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
+    from qpsk_tpu_torch.ops.cuda import tx_kernel as tk
+    from qpsk_tpu_torch.ops.modmap import bits_to_symbols
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(29)
@@ -222,6 +227,17 @@ def modem_times(dev) -> tuple:
         "costas_dd_16qam": (costas(cs, dict(dd=("16qam", a), gains=gains), a),
                             "costas_tm_kernel"),
     }
+
+    def tx(cfg):
+        s = NFRAMES * cfg.symbols_per_frame
+        sym = bits_to_symbols(torch.randint(0, 2, (C, 2 * s), generator=gen,
+                                            device=dev, dtype=torch.int32))
+        sym = CF32(sym.re.contiguous(), sym.im.contiguous())
+        ts = tx_init(cfg, (C,), device=dev)
+        args = (cfg, sym, ts.nco_phase, ts.fir_tail, 50.0)
+        return lambda: tk.tx_modulate(*args)
+    rows["tx"] = (tx(base), "tx_kernel")
+    rows["tx_1200"] = (tx(slow), "tx_kernel")
     out = {}
     for name, (fn, kernel) in rows.items():
         host = host_ms(fn, 20)

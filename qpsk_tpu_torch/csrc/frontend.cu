@@ -3,52 +3,66 @@
 // Replaces: qpsk_tpu/ops/pallas/frontend_kernel.py, _kernel launched by
 //   * _frontend_2d_tm (entry rx_frontend_fused_tm): the time-major launch
 //     with the in-kernel one-frame delay and, on request, the per-frame
-//     AGC power of the emitted picks (emit_power); 4 samples per symbol;
+//     AGC power of the emitted picks (emit_power);
 //   * _frontend_2d (entry rx_frontend_fused): the channel-major launch
-//     without the delay, at 4 or 8 samples per symbol (2400 and 1200 baud).
+//     without the delay.
+// Both at 2, 4 or 8 samples per symbol (CYC: 4800, 2400 and 1200 baud at
+// 9600 S/s), any odd tap count up to 129 and any frame of FSZ samples, FSZ
+// a multiple of 128, up to the shared-memory budget (the wrapper's
+// _MAX_FRAME).
 //
-// What it computes, per channel and 512-sample frame f of one call, with
-// CYC samples per symbol and NSYM = 512 / CYC symbols per frame:
-//   halo: frame 0's is the carried mixed-domain tail un-mixed,
-//       raw[k] = Re(tail[k] * conj(phase0 * e^{j*omega*(k-125)})) (the
-//       ops/frontend.py unmix_tail); frame f's the raw samples ending f-1;
-//   x = int16 PCM * (1/pcm_scale), preceded by the 126-sample halo;
-//   y[s] = gain * sum_k hm[k] * x[s + k], k = 0..126, with the complex
-//       carrier-MODULATED RRC taps hm (the NCO mix folded into the filter);
+// What it computes, per channel and FSZ-sample frame f of one call, with
+// NSYM = FSZ / CYC symbols per frame and H = ntaps - 1 carried samples:
+//   the taps: the complex carrier-MODULATED RRC taps hm (the NCO mix
+//       folded into the filter), padded at the front with 129 - ntaps
+//       zeros to KT = 129 taps; a zero tap adds an exact zero, so every
+//       tap count runs through the same FIR;
+//   halo: the HALO = 128 raw samples before the frame.  Frame 0's are the
+//       carried mixed-domain tail un-mixed, raw[k] = Re(tail[k] *
+//       conj(phase0 * e^{j*omega*(k-(H-1))})) (ops/frontend.py
+//       unmix_tail), behind 128 - H zeros; frame f's the raw samples
+//       ending f-1;
+//   x = int16 PCM * (1/pcm_scale), preceded by the 128-sample halo;
+//   y[s] = gain * sum_k hm[k] * x[s + k], k = 0..128;
 //   e[p] = sum_i |y[CYC*i + p]|^2, p < CYC; index = first argmax of e;
 //   pick[i] = y[CYC*i + index] * phase0 * e^{j*omega*(pos+1)},
-//       pos = f*512 + CYC*i + index, with the angle of each thread's first
+//       pos = f*FSZ + CYC*i + index, with the angle of each thread's first
 //       pick reduced mod 2*pi in float64;
 //   and, after the last frame, the carried state: the new mixed-domain
-//   tail, raw[n-126+k] * phase0 * e^{j*omega*(n-126+k+1)} (remix_tail), and
+//   tail, raw[n-H+k] * phase0 * e^{j*omega*(n-H+k+1)} (remix_tail), and
 //   the new phase, normalize(phase0 * e^{j*omega*n}) (advance_phase), every
 //   angle reduced mod 2*pi in float64, n the call's samples.  So a call is
 //   one launch and no host-to-device copy.
 // Time-major mode: the one-frame decimation delay.  Frame f's picks go to
 //   rows (f+1)*NSYM .. of the (T, C) output, frame 0's rows are the carried
 //   decim_delay and the last frame's picks are the new decim_delay.  With a
-//   power output, power[c, f] is the mean |pick|^2 of output frame f: the
-//   squares |re|^2 + |im|^2 of the stored picks, summed by halves pairing
-//   (p[i] += p[i + h] for h = NSYM/2, .., 1), times 1/NSYM, every step a
-//   round-to-nearest intrinsic: the bits of ops/agc.py::_frame_power.
+//   power output (NSYM a power of two), power[c, f] is the mean |pick|^2 of
+//   output frame f: the squares |re|^2 + |im|^2 of the stored picks, summed
+//   by halves pairing (p[i] += p[i + h] for h = NSYM/2, .., 1: in
+//   registers and warp shuffles at the default frame size, in shared
+//   memory at the others), times 1/NSYM, every step a round-to-nearest
+//   intrinsic: the bits of ops/agc.py::_frame_power.
 // Channel-major mode: picks (C, F, NSYM) and index (C, F), no delay.
 //
 // What bounds it on the H100: arithmetic.  Each output sample costs 127
-// complex taps on a real input, 130 k multiply-adds per frame and channel,
-// against 2 bytes of PCM read and 2 (CYC 4) or 1 (CYC 8) bytes of picks
-// written per sample.  On the CUDA cores that is 0.26 ms at 8192 x 8
-// frames; so the FIR runs on the tensor cores as a Toeplitz product:
+// complex taps on a real input, 130 k multiply-adds per 512-sample frame
+// and channel, against 2 bytes of PCM read and 2 (CYC 4) or 1 (CYC 8)
+// bytes of picks written per sample.  On the CUDA cores that is 0.26 ms at
+// 8192 x 8 frames; so the FIR runs on the tensor cores as a Toeplitz
+// product:
 //   D[m, n] = sum_j A[m, j] B[j, n],  A[m, j] = x_m[s0 + j],
-//   B[j, n] = hm[j - n] (0 <= j - n <= 126), n < 32 outputs a row block,
+//   B[j, n] = hm[j - n] (0 <= j - n <= 128), n < 32 outputs a row block,
 // with mma.sync m16n8k16 in float16 with float32 sums.  The A rows are 8
-// channels at s0 and the same 8 channels at s0 + 256, read in place from
-// the staged window as half pairs (rows overlap by 126 samples).  B depends
-// on the tile only through the offset D = 16*k-tile - 8*n-tile (-8..128, the
-// band), so a warp keeps the 18 fragments of its plane (re or im) in
+// channels at s0 and the same 8 channels at s0 + FSZ/2, read in place from
+// the staged window as half pairs (rows overlap by 128 samples).  B depends
+// on the tile only through the offset D = 16*k-tile - 8*n-tile (-8..128,
+// the band), so a warp keeps the 18 fragments of its plane (re or im) in
 // registers, and only band tiles are multiplied.  Precision: three passes.
 // An int16 over a power of two has at most 16 significant bits, so
 // x = x_hi + x_lo exactly in two float16 (2^-22 relative for the float
-// halo of frame 0); the taps are h_hi + h_lo; each tile is x_lo*h_hi +
+// halo of frame 0); the taps are h_hi + h_lo, scaled by the wrapper by the
+// power of two that puts the set's largest near 2^14, so every part rounds
+// within 2^-22 of the largest tap; each tile is x_lo*h_hi +
 // x_hi*h_lo + x_hi*h_hi, the x_lo*h_lo term (2^-22 relative) dropped: the
 // picks stay within the 3e-4 the float32 chain is held to.  (Three TF32
 // passes of m16n8k8, the first design, took twice the instructions and
@@ -58,18 +72,20 @@
 // Layout and overlap: one block of 4 warps per (8 channels, up to FPB
 // consecutive frames); frames ride grid.x, so any frame count works.  The
 // PCM of the next frame arrives by cp.async into a second stage buffer
-// while the current frame's FIR runs; the window of a frame (126 halo +
-// 512 samples, as float16 hi and lo planes) sits in shared memory with a
-// row of 324 words (4 mod 32), so the 32 lanes' A loads hit 32 banks.
-// Warps 0/1 compute the re / im plane of row blocks 0-3, warps 2/3 of row
-// blocks 4-7; the outputs go to shared memory [plane][phase][symbol]
-// [channel] with per-lane phase energies, then all 128 threads rotate and
-// store the picks, 16 threads a channel; a thread holds the symbols
-// i = part + 16m, so the power tree's first levels stay in its registers
-// and its last four are warp shuffles; every thread of a channel sums the
-// phase energies itself, so no thread waits on a serial argmax.  Two
-// blocks share an SM (73 KB of shared memory each), so one block's picks
-// run beside another's FIR.
+// while the current frame's FIR runs; the window of a frame (128 halo +
+// FSZ samples, as float16 hi and lo planes) sits in shared memory with a
+// row of FSZ/2 + 68 words (4 mod 32), so the 32 lanes' A loads hit 32
+// banks.  Warps 0/1 compute the re / im plane of the first half of the
+// row blocks of a half frame, warps 2/3 of the second half; the outputs go
+// to shared memory [plane][phase][symbol][channel] with per-lane phase
+// energies, then all 128 threads rotate and store the picks, 16 threads a
+// channel (a thread holds the symbols i = part + 16m); every thread of a
+// channel sums the phase energies itself, so no thread waits on a serial
+// argmax.  Shared memory is laid out at launch for the frame size: at 512
+// samples (74 KB) two blocks share an SM, so one block's picks run beside
+// another's FIR.  The default 512-sample frame has instances of its own
+// with the size at compile time; every other size runs the instances
+// that read it from the launch.
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -78,32 +94,38 @@
 
 namespace {
 
-constexpr int NTAPS = 127;
-constexpr int HALO = NTAPS - 1;          // raw samples carried from before
-constexpr int FSZ = 512;                 // samples per frame
+constexpr int KT = 129;                  // taps the kernel runs (padded)
+constexpr int HALO = KT - 1;             // raw samples before a frame
 constexpr int CG = 8;                    // channels a block
 constexpr int NWARP = 4;
 constexpr int NTHR = 32 * NWARP;
-constexpr int STRIDE = 648;              // window row in halves: >= 640,
-                                         // 324 words = 4 mod 32
 constexpr int ND = 18;                   // B fragments: 16*kt - 8*nt = -8..128
 constexpr int NKT = 10;                  // 16-wide k-tiles of a row block
 constexpr int FPB = 4;                   // frames a block
+constexpr int KEEP = CG * HALO / NTHR;   // halo samples a thread carries
 constexpr double TWO_PI = 6.283185307179586476925286766559;
 
 struct Taps {
-  float re[NTAPS];
-  float im[NTAPS];
+  float re[KT];
+  float im[KT];
 };
 
-struct Smem {
-  int16_t stage[2][CG][FSZ];             // the next frames' PCM
-  int16_t halo16[CG][128];               // the samples ending frame f0-1
-  __half xh[CG][STRIDE];                 // halo + frame, then zeros, as
-  __half xl[CG][STRIDE];                 // x = hi + lo
-  float y[2][FSZ][CG];                   // [plane][p*NSYM + i][channel]
-  float epart[NWARP][4][CG][2];          // [warp][t][channel][2t+b]
-  float ph[2][HALO];                     // e^{j*omega*(k-125)}, frame 0
+// The shared-memory layout of a frame of ``fsz`` samples, in bytes; every
+// offset is a multiple of 16.
+struct Layout {
+  int stride;                            // window row in halves
+  int stage, halo16, xh, xl, y, epart, ph, bytes;
+  __host__ __device__ explicit Layout(int fsz) {
+    stride = fsz + HALO + 8;             // fsz/2 + 68 words: 4 mod 32
+    stage = 0;                           // int16 [2][CG][fsz]
+    halo16 = stage + 2 * CG * fsz * 2;   // int16 [CG][128]
+    xh = halo16 + CG * 128 * 2;          // half [CG][stride]
+    xl = xh + CG * stride * 2;           // half [CG][stride]
+    y = xl + CG * stride * 2;            // float [2][fsz][CG]
+    epart = y + 2 * fsz * CG * 4;        // float [NWARP][4][CG][2]
+    ph = epart + NWARP * 4 * CG * 2 * 4; // float [2][HALO]
+    bytes = ph + 2 * HALO * 4;
+  }
 };
 
 __device__ __forceinline__ float sq(float r, float i) {
@@ -167,20 +189,21 @@ __device__ __forceinline__ void cmul_pinned(float ar, float ai, float er,
   pi = __fadd_rn(__fmul_rn(ar, ei), __fmul_rn(ai, er));
 }
 
-// Stage frame f of the block's channels (1 KB each) into ``dst``.
-__device__ __forceinline__ void stage_frame(int16_t (*dst)[FSZ],
-                                            const int16_t* pcm, int c0, int C,
-                                            int F, int f, int tid) {
-#pragma unroll
-  for (int e = tid; e < CG * FSZ / 8; e += NTHR) {
-    const int ch = e / (FSZ / 8), q = e % (FSZ / 8);
+// Stage frame f of the block's channels (2*fsz bytes each) into ``dst``.
+__device__ __forceinline__ void stage_frame(int16_t* dst, const int16_t* pcm,
+                                            int c0, int C, int F, int f,
+                                            int fsz, int tid) {
+  const int q8 = fsz / 8;                // 16-byte copies a channel
+  for (int e = tid; e < CG * q8; e += NTHR) {
+    const int ch = e / q8, q = e - ch * q8;
     const int c = c0 + ch;
-    const int16_t* src = pcm + ((long long)min(c, C - 1) * F + f) * FSZ + 8 * q;
-    cp_async16(&dst[ch][8 * q], src, c < C);
+    const int16_t* src =
+        pcm + ((long long)min(c, C - 1) * F + f) * fsz + 8 * q;
+    cp_async16(dst + ch * fsz + 8 * q, src, c < C);
   }
 }
 
-template <int CYC, bool TM>
+template <int CYC, bool TM, int FSZ>
 __global__ void __launch_bounds__(NTHR, 2)
 frontend_kernel(const int16_t* __restrict__ pcm,
                 const float* __restrict__ tail_re,
@@ -195,18 +218,30 @@ frontend_kernel(const int16_t* __restrict__ pcm,
                 float* __restrict__ power,
                 float* __restrict__ nph_re, float* __restrict__ nph_im,
                 float* __restrict__ ntail_re, float* __restrict__ ntail_im,
-                int C, int F, int nchunks, const __grid_constant__ Taps taps,
-                double omega, float gain, float inv_scale) {
-  constexpr int NSYM = FSZ / CYC;        // symbols per frame
-  constexpr int SPT = NSYM / 16;         // picks a thread
+                int C, int F, int fsz_arg, int H, int nchunks,
+                const __grid_constant__ Taps taps, double omega, float gain,
+                float inv_scale) {
+  // FSZ > 0: the frame size at compile time (the default 512), so that
+  // its loops unroll and its divisions fold; 0: the launch's
+  const int fsz = FSZ > 0 ? FSZ : fsz_arg;
+  const int nsym = fsz / CYC;            // symbols per frame
+  const int spt = nsym / 16;             // picks a thread
+  const Layout L(fsz);
+  const int stride = L.stride;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  int16_t* stage = reinterpret_cast<int16_t*>(smem_raw + L.stage);
+  int16_t* halo16 = reinterpret_cast<int16_t*>(smem_raw + L.halo16);
+  __half* xh = reinterpret_cast<__half*>(smem_raw + L.xh);
+  __half* xl = reinterpret_cast<__half*>(smem_raw + L.xl);
+  float* y = reinterpret_cast<float*>(smem_raw + L.y);
+  float* epart = reinterpret_cast<float*>(smem_raw + L.epart);
+  float* ph = reinterpret_cast<float*>(smem_raw + L.ph);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int c0 = (blockIdx.x / nchunks) * CG;
   const int f0 = (blockIdx.x % nchunks) * FPB;
   const int f1 = min(F, f0 + FPB);
-  const long long n = (long long)F * FSZ;
+  const long long n = (long long)F * fsz;
   const int g = lane >> 2, t = lane & 3;
   const int plane = warp & 1;
 
@@ -215,11 +250,12 @@ frontend_kernel(const int16_t* __restrict__ pcm,
   if (f0 > 0) {
     const int ch = tid / 16, q = tid % 16;
     const int c = c0 + ch;
-    cp_async16(&sm.halo16[ch][8 * q],
-               pcm + ((long long)min(c, C - 1) * F + f0 - 1) * FSZ + 384 + 8 * q,
+    cp_async16(halo16 + ch * 128 + 8 * q,
+               pcm + ((long long)min(c, C - 1) * F + f0 - 1) * fsz + fsz -
+                   128 + 8 * q,
                c < C);
   }
-  stage_frame(sm.stage[0], pcm, c0, C, F, f0, tid);
+  stage_frame(stage, pcm, c0, C, F, f0, fsz, tid);
   cp_async_commit();
 
   // this warp's plane of the B fragments, D = 8*(d - 1): b0 holds
@@ -234,42 +270,34 @@ frontend_kernel(const int16_t* __restrict__ pcm,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int k = 8 * (d - 1) + 2 * t + 8 * r + e - g;
-        split((k >= 0 && k < NTAPS) ? h[k] : 0.f, hi[e], lo[e]);
+        split((k >= 0 && k < KT) ? h[k] : 0.f, hi[e], lo[e]);
       }
       bh[d][r] = pack(hi[0], hi[1]);
       bl[d][r] = pack(lo[0], lo[1]);
     }
   }
   if (f0 == 0) {
-    for (int k = tid; k < HALO; k += NTHR)
-      phasor(omega * (double)(k - (HALO - 1)), sm.ph[0][k], sm.ph[1][k]);
+    for (int k = tid; k < H; k += NTHR)
+      phasor(omega * (double)(k - (H - 1)), ph[k], ph[HALO + k]);
   }
   float sr, si;                          // the pick phasor's step, 16 symbols
   phasor(omega * (16.0 * CYC), sr, si);
-  // zeros past the window: the band's last k-tile reads two of them
-  for (int e = tid; e < CG * (STRIDE - HALO - FSZ); e += NTHR) {
-    const int w = STRIDE - HALO - FSZ;
-    sm.xh[e / w][HALO + FSZ + e % w] = __float2half_rn(0.f);
-    sm.xl[e / w][HALO + FSZ + e % w] = __float2half_rn(0.f);
-  }
 
   for (int f = f0; f < f1; ++f) {
     const int buf = (f - f0) & 1;
     // the halo of frame f: carried (un-mixed), staged, or the end of f-1
-    __half keep_h[(CG * HALO + NTHR - 1) / NTHR];
-    __half keep_l[(CG * HALO + NTHR - 1) / NTHR];
+    __half keep_h[KEEP], keep_l[KEEP];
     if (f > f0) {
 #pragma unroll
-      for (int j = 0; j < (CG * HALO + NTHR - 1) / NTHR; ++j) {
+      for (int j = 0; j < KEEP; ++j) {
         const int e = tid + j * NTHR;
-        if (e < CG * HALO) {
-          keep_h[j] = sm.xh[e / HALO][FSZ + e % HALO];
-          keep_l[j] = sm.xl[e / HALO][FSZ + e % HALO];
-        }
+        keep_h[j] = xh[(e / HALO) * stride + fsz + e % HALO];
+        keep_l[j] = xl[(e / HALO) * stride + fsz + e % HALO];
       }
     }
     if (f + 1 < f1) {
-      stage_frame(sm.stage[buf ^ 1], pcm, c0, C, F, f + 1, tid);
+      stage_frame(stage + (buf ^ 1) * CG * fsz, pcm, c0, C, F, f + 1, fsz,
+                  tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -277,43 +305,49 @@ frontend_kernel(const int16_t* __restrict__ pcm,
     }
     __syncthreads();   // (A) frame f staged; frame f-1 read out of the window, y
 #pragma unroll
-    for (int j = 0; j < (CG * HALO + NTHR - 1) / NTHR; ++j) {
+    for (int j = 0; j < KEEP; ++j) {
       const int e = tid + j * NTHR;
-      if (e >= CG * HALO) break;
       const int ch = e / HALO, k = e % HALO;
       const int c = c0 + ch;
       if (f > f0) {
-        sm.xh[ch][k] = keep_h[j];
-        sm.xl[ch][k] = keep_l[j];
+        xh[ch * stride + k] = keep_h[j];
+        xl[ch * stride + k] = keep_l[j];
         continue;
       }
       float v = 0.f;
       if (f0 > 0) {
-        v = (float)sm.halo16[ch][128 - HALO + k] * inv_scale;
-      } else if (c < C) {
+        v = (float)halo16[ch * 128 + k] * inv_scale;
+      } else if (c < C && k >= HALO - H) {
+        const int kk = k - (HALO - H);   // the carried tail's sample
         float pr, pi;
-        cmul_pinned(p0_re[c], p0_im[c], sm.ph[0][k], sm.ph[1][k], pr, pi);
-        v = __fadd_rn(__fmul_rn(tail_re[(long long)c * HALO + k], pr),
-                      __fmul_rn(tail_im[(long long)c * HALO + k], pi));
+        cmul_pinned(p0_re[c], p0_im[c], ph[kk], ph[HALO + kk], pr, pi);
+        v = __fadd_rn(__fmul_rn(tail_re[(long long)c * H + kk], pr),
+                      __fmul_rn(tail_im[(long long)c * H + kk], pi));
       }
-      split(v, sm.xh[ch][k], sm.xl[ch][k]);
+      split(v, xh[ch * stride + k], xl[ch * stride + k]);
     }
+    const int16_t* st = stage + buf * CG * fsz;
+    // one flat loop over the block's samples, four loads in flight a
+    // thread (a loop a channel, four iterations each, cost the default
+    // frame 3 %)
 #pragma unroll 4
-    for (int e = tid; e < CG * FSZ; e += NTHR) {
-      const int ch = e / FSZ, s = e % FSZ;
-      split((float)sm.stage[buf][ch][s] * inv_scale, sm.xh[ch][HALO + s],
-            sm.xl[ch][HALO + s]);
+    for (int e = tid; e < CG * fsz; e += NTHR) {
+      const int ch = e / fsz, s = e - ch * fsz;
+      split((float)st[ch * fsz + s] * inv_scale,
+            xh[ch * stride + HALO + s], xl[ch * stride + HALO + s]);
     }
     __syncthreads();   // (B) the window of frame f
 
-    // the FIR of this warp's plane over row blocks rb0 .. rb0+3: rows g and
-    // g + 8 are channel g at s0 and at s0 + 256
+    // the FIR of this warp's plane over its row blocks: rows g and g + 8
+    // are channel g at s0 and at s0 + fsz/2
     float e0 = 0.f, e1 = 0.f;            // energies of phases 2t, 2t+1
+    const int nrb = fsz / 128;           // row blocks a warp pair
+    const int half = fsz / 2;
 #pragma unroll 1
-    for (int rb = 0; rb < 4; ++rb) {
-      const int s0 = 32 * ((warp >> 1) * 4 + rb);
-      const __half* xh = &sm.xh[g][s0 + 2 * t];
-      const __half* xl = &sm.xl[g][s0 + 2 * t];
+    for (int rb = 0; rb < nrb; ++rb) {
+      const int s0 = 32 * ((warp >> 1) * nrb + rb);
+      const __half* ah_p = xh + g * stride + s0 + 2 * t;
+      const __half* al_p = xl + g * stride + s0 + 2 * t;
       float acc[4][4];
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt)
@@ -321,14 +355,14 @@ frontend_kernel(const int16_t* __restrict__ pcm,
         for (int r = 0; r < 4; ++r) acc[nt][r] = 0.f;
 #pragma unroll
       for (int kt = 0; kt < NKT; ++kt) {
-        // A: rows g (s0) and g + 8 (s0 + 256), columns 16kt + 2t, +1 and
+        // A: rows g (s0) and g + 8 (s0 + fsz/2), columns 16kt + 2t, +1 and
         // 16kt + 2t + 8, +1, read in place as half pairs
-        const uint32_t ah[4] = {ld32(xh + 16 * kt), ld32(xh + 256 + 16 * kt),
-                                ld32(xh + 16 * kt + 8),
-                                ld32(xh + 256 + 16 * kt + 8)};
-        const uint32_t al[4] = {ld32(xl + 16 * kt), ld32(xl + 256 + 16 * kt),
-                                ld32(xl + 16 * kt + 8),
-                                ld32(xl + 256 + 16 * kt + 8)};
+        const uint32_t ah[4] = {ld32(ah_p + 16 * kt), ld32(ah_p + half + 16 * kt),
+                                ld32(ah_p + 16 * kt + 8),
+                                ld32(ah_p + half + 16 * kt + 8)};
+        const uint32_t al[4] = {ld32(al_p + 16 * kt), ld32(al_p + half + 16 * kt),
+                                ld32(al_p + 16 * kt + 8),
+                                ld32(al_p + half + 16 * kt + 8)};
         // the three passes in turn over the n-tiles, so that consecutive
         // products accumulate into different tiles; tile (kt, nt) meets
         // the band at fragment d = 2kt - nt + 1
@@ -349,15 +383,15 @@ frontend_kernel(const int16_t* __restrict__ pcm,
       for (int nt = 0; nt < 4; ++nt) {
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          const int s = s0 + 8 * nt + 2 * t + (r & 1) + (r >> 1) * 256;
+          const int s = s0 + 8 * nt + 2 * t + (r & 1) + (r >> 1) * half;
           const float v = acc[nt][r] * gain;
-          sm.y[plane][(s % CYC) * NSYM + s / CYC][g] = v;
+          y[((plane * fsz) + (s % CYC) * nsym + s / CYC) * CG + g] = v;
           if (r & 1) e1 += v * v; else e0 += v * v;
         }
       }
     }
-    sm.epart[warp][t][g][0] = e0;
-    sm.epart[warp][t][g][1] = e1;
+    epart[((warp * 4 + t) * CG + g) * 2] = e0;
+    epart[((warp * 4 + t) * CG + g) * 2 + 1] = e1;
     __syncthreads();   // (C) outputs and energies of frame f
 
     // picks: 16 threads a channel, thread ``part`` holds i = part + 16m
@@ -378,7 +412,8 @@ frontend_kernel(const int16_t* __restrict__ pcm,
           for (int tt = 0; tt < 4; ++tt)
 #pragma unroll
             for (int bb = 0; bb < 2; ++bb)
-              if ((2 * tt + bb) % CYC == pp) sum += sm.epart[w][tt][ch][bb];
+              if ((2 * tt + bb) % CYC == pp)
+                sum += epart[((w * 4 + tt) * CG + ch) * 2 + bb];
         if (pp == 0 || sum > best_e) {
           best_e = sum;
           p = pp;
@@ -388,15 +423,24 @@ frontend_kernel(const int16_t* __restrict__ pcm,
     if (part == 0 && live) index[(long long)c * F + f] = p;
     const float pr0 = live ? p0_re[c] : 1.f, pi0 = live ? p0_im[c] : 0.f;
     float er, ei;
-    phasor(omega * (double)((long long)f * FSZ + part * CYC + p + 1), er, ei);
+    phasor(omega * (double)((long long)f * fsz + part * CYC + p + 1), er, ei);
     float fr = pr0 * er - pi0 * ei;
     float fi = pr0 * ei + pi0 * er;
-    float pw[SPT], pd[SPT];
-#pragma unroll
-    for (int m = 0; m < SPT; ++m) {
+    // with a power output the squares stay in registers when the frame
+    // size is known at compile time; else they go to y[.][i][ch], i <
+    // nsym: this thread has read that slot already (p == 0) or no thread
+    // reads it (p > 0 reads only slots >= nsym)
+    const bool pow_out = TM && power != nullptr;   // uniform over the grid
+    constexpr int SPT = FSZ > 0 ? FSZ / CYC / 16 : 1;   // picks a thread
+    constexpr int UNR = FSZ > 0 ? SPT : 4;
+    float pwr[SPT], pdr[SPT];
+    float* pw = y + ch;                  // [i * CG]: squares of frame f
+    float* pd = y + fsz * CG + ch;       // squares of the carried delay
+#pragma unroll UNR
+    for (int m = 0; m < spt; ++m) {
       const int i = part + 16 * m;
-      const float ur = sm.y[0][p * NSYM + i][ch];
-      const float ui = sm.y[1][p * NSYM + i][ch];
+      const float ur = y[(p * nsym + i) * CG + ch];
+      const float ui = y[(fsz + p * nsym + i) * CG + ch];
       const float outr = ur * fr - ui * fi;
       const float outi = ur * fi + ui * fr;
       const float nr = fr * sr - fi * si;
@@ -405,47 +449,69 @@ frontend_kernel(const int16_t* __restrict__ pcm,
       if (TM) {
         if (live) {
           if (f + 1 < F) {
-            const long long o = ((long long)(f + 1) * NSYM + i) * C + c;
+            const long long o = ((long long)(f + 1) * nsym + i) * C + c;
             zr[o] = outr;
             zi[o] = outi;
           } else {
-            ndd_re[(long long)c * NSYM + i] = outr;
-            ndd_im[(long long)c * NSYM + i] = outi;
+            ndd_re[(long long)c * nsym + i] = outr;
+            ndd_im[(long long)c * nsym + i] = outi;
           }
         }
-        pw[m] = sq(outr, outi);
+        if (pow_out) {
+          if constexpr (FSZ > 0) pwr[m] = sq(outr, outi);
+          else pw[i * CG] = sq(outr, outi);
+        }
         if (f == 0) {
-          const float dr = live ? dd_re[(long long)c * NSYM + i] : 0.f;
-          const float di = live ? dd_im[(long long)c * NSYM + i] : 0.f;
+          const float dr = live ? dd_re[(long long)c * nsym + i] : 0.f;
+          const float di = live ? dd_im[(long long)c * nsym + i] : 0.f;
           if (live) {
             zr[(long long)i * C + c] = dr;
             zi[(long long)i * C + c] = di;
           }
-          pd[m] = sq(dr, di);
+          if (pow_out) {
+            if constexpr (FSZ > 0) pdr[m] = sq(dr, di);
+            else pd[i * CG] = sq(dr, di);
+          }
         }
       } else if (live) {
-        const long long o = ((long long)c * F + f) * NSYM + i;
+        const long long o = ((long long)c * F + f) * nsym + i;
         zr[o] = outr;
         zi[o] = outi;
       }
     }
-    if (TM && power != nullptr) {       // uniform over the grid
-      // halves pairing: levels h = 16*hm in registers, then h = 8 .. 1
+    if (pow_out) {
+      // halves pairing over the channel's 16 threads (one half warp)
+      float vw, vd = 0.f;
+      if constexpr (FSZ > 0) {
+        // levels h = 16*hm in registers, then h = 8 .. 1 by shuffles
 #pragma unroll
-      for (int hm = SPT / 2; hm >= 1; hm >>= 1)
+        for (int hm = SPT / 2; hm >= 1; hm >>= 1)
 #pragma unroll
-        for (int m = 0; m < hm; ++m) {
-          pw[m] = __fadd_rn(pw[m], pw[m + hm]);
-          if (f == 0) pd[m] = __fadd_rn(pd[m], pd[m + hm]);
+          for (int m = 0; m < hm; ++m) {
+            pwr[m] = __fadd_rn(pwr[m], pwr[m + hm]);
+            if (f == 0) pdr[m] = __fadd_rn(pdr[m], pdr[m + hm]);
+          }
+        vw = pwr[0];
+        if (f == 0) vd = pdr[0];
+#pragma unroll
+        for (int hh = 8; hh >= 1; hh >>= 1) {
+          vw = __fadd_rn(vw, __shfl_down_sync(0xffffffffu, vw, hh, 16));
+          vd = __fadd_rn(vd, __shfl_down_sync(0xffffffffu, vd, hh, 16));
         }
-      float vw = pw[0], vd = f == 0 ? pd[0] : 0.f;
-#pragma unroll
-      for (int hh = 8; hh >= 1; hh >>= 1) {
-        vw = __fadd_rn(vw, __shfl_down_sync(0xffffffffu, vw, hh, 16));
-        vd = __fadd_rn(vd, __shfl_down_sync(0xffffffffu, vd, hh, 16));
+      } else {
+        __syncwarp();
+        for (int hh = nsym / 2; hh >= 1; hh >>= 1) {
+          for (int i = part; i < hh; i += 16) {
+            pw[i * CG] = __fadd_rn(pw[i * CG], pw[(i + hh) * CG]);
+            if (f == 0) pd[i * CG] = __fadd_rn(pd[i * CG], pd[(i + hh) * CG]);
+          }
+          __syncwarp();
+        }
+        vw = pw[0];
+        vd = pd[0];
       }
       if (part == 0 && live) {
-        const float inv = 1.f / (float)NSYM;          // a power of two: exact
+        const float inv = 1.f / (float)nsym;          // a power of two: exact
         if (f + 1 < F) power[(long long)c * F + f + 1] = __fmul_rn(vw, inv);
         if (f == 0) power[(long long)c * F] = __fmul_rn(vd, inv);
       }
@@ -455,19 +521,19 @@ frontend_kernel(const int16_t* __restrict__ pcm,
   if (f1 != F) return;
   // the carried state after the call: the raw samples ending it re-mixed,
   // and the phase advanced by n samples
-  for (int e = tid; e < CG * HALO; e += NTHR) {
-    const int ch = e / HALO, k = e % HALO;
+  for (int e = tid; e < CG * H; e += NTHR) {
+    const int ch = e / H, k = e % H;
     const int c = c0 + ch;
     if (c >= C) continue;
     float er, ei, pr, pi;
-    phasor(omega * (double)(n - HALO + k + 1), er, ei);
+    phasor(omega * (double)(n - H + k + 1), er, ei);
     cmul_pinned(p0_re[c], p0_im[c], er, ei, pr, pi);
     // hi + lo gives back the sample (the split is exact for int16 PCM
     // over a power-of-two scale)
-    const float raw = __fadd_rn(__half2float(sm.xh[ch][FSZ + k]),
-                                __half2float(sm.xl[ch][FSZ + k]));
-    ntail_re[(long long)c * HALO + k] = __fmul_rn(raw, pr);
-    ntail_im[(long long)c * HALO + k] = __fmul_rn(raw, pi);
+    const int w = ch * stride + HALO + fsz - H + k;
+    const float raw = __fadd_rn(__half2float(xh[w]), __half2float(xl[w]));
+    ntail_re[(long long)c * H + k] = __fmul_rn(raw, pr);
+    ntail_im[(long long)c * H + k] = __fmul_rn(raw, pi);
   }
   if (tid < CG && c0 + tid < C) {
     const int c = c0 + tid;
@@ -480,42 +546,55 @@ frontend_kernel(const int16_t* __restrict__ pcm,
   }
 }
 
-template <int CYC, bool TM>
+template <int CYC, bool TM, int FSZ>
 int launch(const void* pcm, const void* tail_re, const void* tail_im,
            const void* p0_re, const void* p0_im, const void* dd_re,
            const void* dd_im, void* zr, void* zi, void* index, void* ndd_re,
            void* ndd_im, void* power, void* nph_re, void* nph_im,
-           void* ntail_re, void* ntail_im, int C, int F, const void* taps_re,
-           const void* taps_im, double omega, float gain, float inv_scale,
-           void* stream) {
+           void* ntail_re, void* ntail_im, int C, int F, int fsz, int ntaps,
+           const void* taps_re, const void* taps_im, double omega, float gain,
+           float inv_scale, void* stream) {
+  // the taps behind KT - ntaps zeros
   Taps taps;
-  for (int k = 0; k < NTAPS; ++k) {
-    taps.re[k] = static_cast<const float*>(taps_re)[k];
-    taps.im[k] = static_cast<const float*>(taps_im)[k];
+  for (int k = 0; k < KT; ++k) {
+    const int j = k - (KT - ntaps);
+    taps.re[k] = j >= 0 ? static_cast<const float*>(taps_re)[j] : 0.f;
+    taps.im[k] = j >= 0 ? static_cast<const float*>(taps_im)[j] : 0.f;
   }
-  auto kernel = frontend_kernel<CYC, TM>;
-  const int bytes = (int)sizeof(Smem);
+  auto kernel = frontend_kernel<CYC, TM, FSZ>;
+  const int bytes = Layout(fsz).bytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   const int nchunks = (F + FPB - 1) / FPB;
   const long long blocks = (long long)((C + CG - 1) / CG) * nchunks;
-  if (C < 1 || F < 1 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, NTHR, bytes, (cudaStream_t)stream>>>(
       (const int16_t*)pcm, (const float*)tail_re, (const float*)tail_im,
       (const float*)p0_re, (const float*)p0_im, (const float*)dd_re,
       (const float*)dd_im, (float*)zr, (float*)zi, (int32_t*)index,
       (float*)ndd_re, (float*)ndd_im, (float*)power, (float*)nph_re,
-      (float*)nph_im, (float*)ntail_re, (float*)ntail_im, C, F, nchunks, taps,
-      omega, gain, inv_scale);
+      (float*)nph_im, (float*)ntail_re, (float*)ntail_im, C, F, fsz,
+      ntaps - 1, nchunks, taps, omega, gain, inv_scale);
   return (int)cudaGetLastError();
+}
+
+// the geometry both launches take: 2, 4 or 8 samples per symbol, odd
+// ntaps <= 129, frames of a multiple of 128 samples (with a power output,
+// a power of two of symbols), at least one frame and channel
+bool covered(int C, int F, int fsz, int cycles, int ntaps) {
+  if (C < 1 || F < 1 || ntaps < 1 || ntaps > KT || ntaps % 2 == 0 ||
+      fsz < 128 || fsz % 128 != 0 || Layout(fsz).bytes > 227 * 1024)
+    return false;
+  const long long blocks =
+      (long long)((C + CG - 1) / CG) * ((F + FPB - 1) / FPB);
+  return (cycles == 2 || cycles == 4 || cycles == 8) && blocks <= 0x7fffffffLL;
 }
 
 }  // namespace
 
-// Time-major launch, 4 samples per symbol; ``power`` may be null.  Reads
-// the carried mixed-domain tail (C, 126) and phase (C,), writes the new
-// ones beside the picks.
+// Time-major launch; ``power`` may be null.  Reads the carried
+// mixed-domain tail (C, ntaps-1) and phase (C,), writes the new ones
+// beside the picks.
 extern "C" int qpsk_frontend_tm(const void* pcm, const void* tail_re,
                                 const void* tail_im, const void* p0_re,
                                 const void* p0_im, const void* dd_re,
@@ -523,35 +602,37 @@ extern "C" int qpsk_frontend_tm(const void* pcm, const void* tail_re,
                                 void* index, void* ndd_re, void* ndd_im,
                                 void* power, void* nph_re, void* nph_im,
                                 void* ntail_re, void* ntail_im, int C, int F,
+                                int fsz, int cycles, int ntaps,
                                 const void* taps_re, const void* taps_im,
                                 double omega, float gain, float inv_scale,
                                 void* stream) {
-  return launch<4, true>(pcm, tail_re, tail_im, p0_re, p0_im, dd_re, dd_im,
-                         zr, zi, index, ndd_re, ndd_im, power, nph_re, nph_im,
-                         ntail_re, ntail_im, C, F, taps_re, taps_im, omega,
-                         gain, inv_scale, stream);
+  if (!covered(C, F, fsz, cycles, ntaps)) return (int)cudaErrorInvalidValue;
+  const bool d = fsz == 512;
+  const auto run = cycles == 2 ? (d ? launch<2, true, 512> : launch<2, true, 0>)
+                   : cycles == 4 ? (d ? launch<4, true, 512> : launch<4, true, 0>)
+                                 : (d ? launch<8, true, 512> : launch<8, true, 0>);
+  return run(pcm, tail_re, tail_im, p0_re, p0_im, dd_re, dd_im, zr, zi, index,
+             ndd_re, ndd_im, power, nph_re, nph_im, ntail_re, ntail_im, C, F,
+             fsz, ntaps, taps_re, taps_im, omega, gain, inv_scale, stream);
 }
 
-// Channel-major launch at ``cycles`` = 4 or 8 samples per symbol.
+// Channel-major launch.
 extern "C" int qpsk_frontend_cm(const void* pcm, const void* tail_re,
                                 const void* tail_im, const void* p0_re,
                                 const void* p0_im, void* picks_re,
                                 void* picks_im, void* index, void* nph_re,
                                 void* nph_im, void* ntail_re, void* ntail_im,
-                                int C, int F, int cycles, const void* taps_re,
-                                const void* taps_im, double omega, float gain,
-                                float inv_scale, void* stream) {
-  if (cycles == 4)
-    return launch<4, false>(pcm, tail_re, tail_im, p0_re, p0_im, nullptr,
-                            nullptr, picks_re, picks_im, index, nullptr,
-                            nullptr, nullptr, nph_re, nph_im, ntail_re,
-                            ntail_im, C, F, taps_re, taps_im, omega, gain,
-                            inv_scale, stream);
-  if (cycles == 8)
-    return launch<8, false>(pcm, tail_re, tail_im, p0_re, p0_im, nullptr,
-                            nullptr, picks_re, picks_im, index, nullptr,
-                            nullptr, nullptr, nph_re, nph_im, ntail_re,
-                            ntail_im, C, F, taps_re, taps_im, omega, gain,
-                            inv_scale, stream);
-  return (int)cudaErrorInvalidValue;
+                                int C, int F, int fsz, int cycles, int ntaps,
+                                const void* taps_re, const void* taps_im,
+                                double omega, float gain, float inv_scale,
+                                void* stream) {
+  if (!covered(C, F, fsz, cycles, ntaps)) return (int)cudaErrorInvalidValue;
+  const bool d = fsz == 512;
+  const auto run = cycles == 2 ? (d ? launch<2, false, 512> : launch<2, false, 0>)
+                   : cycles == 4 ? (d ? launch<4, false, 512> : launch<4, false, 0>)
+                                 : (d ? launch<8, false, 512> : launch<8, false, 0>);
+  return run(pcm, tail_re, tail_im, p0_re, p0_im, nullptr, nullptr, picks_re,
+             picks_im, index, nullptr, nullptr, nullptr, nph_re, nph_im,
+             ntail_re, ntail_im, C, F, fsz, ntaps, taps_re, taps_im, omega,
+             gain, inv_scale, stream);
 }

@@ -1,6 +1,7 @@
 // Normalized min-sum LDPC decoder for Hopper (sm_90a): flooding schedule,
 // a fixed number of iterations, one block per packet, one thread per
-// check, one barrier an iteration.
+// check up to 1024 checks (CPT checks a thread beyond), one barrier an
+// iteration.
 //
 // Replaces: qpsk_tpu/ops/pallas/ldpc_kernel.py, _kernel launched by
 // _ldpc_2d (entry ldpc_decode_pallas).  The TPU kernel gathers and
@@ -10,10 +11,12 @@
 // What the card offers this decoder is registers, shared memory and many
 // warps, and the kernel is built from those:
 //
-//   - thread i owns check i.  Its <= DMAX var->check messages and the
-//     channel LLRs of its variables stay in registers across iterations
-//     (DMAX is a template parameter, 5 or 8, so the slice's degree-5 code
-//     carries no dead slots);
+//   - thread i owns check i, and for a code of more than 1024 checks
+//     (a block has at most 1024 threads) also checks i + T, .. (CPT = 2
+//     or 4 checks a thread, T threads).  Their <= DMAX var->check
+//     messages and the channel LLRs of their variables stay in registers
+//     across iterations (DMAX is a template parameter, 5 or 8, so the
+//     slice's degree-5 code carries no dead slots);
 //   - every index lives in registers, loaded once before the loop: for
 //     slot s of the check, the edge list of its variable v (the per-slot
 //     table of packet/ldpc.py, _slot_edge_table), as byte offsets into
@@ -50,9 +53,11 @@
 // the SM between the 2 KB row in and the 1 KB of bits out.  A small batch
 // is bound by one packet's latency, 25 rounds of check update, barrier
 // and gather: 156 packets take 0.012 ms.  Measured and not kept: several
-// checks a thread (one warp a packet with __syncwarp for the barrier was
-// 0.035 ms at 156 packets and 0.172 at 4096, at 255 registers with a
-// spill), and unpacked offsets (three more registers, no faster).
+// checks a thread for small codes (one warp a packet with __syncwarp for
+// the barrier was 0.035 ms at 156 packets and 0.172 at 4096, at 255
+// registers with a spill), and unpacked offsets (three more registers, no
+// faster).  The 16-bit byte offsets bound dmax*m below 16384: m <= 3276
+// for the slice's degree-5 codes (PacketConfig payloads up to 407 bytes).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -90,7 +95,7 @@ __device__ __forceinline__ void edge_offsets(const int32_t* list, int stride,
   hi = off[2];
 }
 
-template <int DMAX>
+template <int DMAX, int CPT>
 __global__ void ldpc_kernel(const float* __restrict__ llrs,
                             const int32_t* __restrict__ check_var,
                             const int32_t* __restrict__ slot_edges,
@@ -102,14 +107,15 @@ __global__ void ldpc_kernel(const float* __restrict__ llrs,
   // two (dmax*m + 1) message arrays, the last entry a zero that padded
   // edges read, then the n channel LLRs
   float* llr_sh = shm + 2 * estride;
-  const int i = threadIdx.x;
+  const int T = blockDim.x;
+  const int tid = threadIdx.x;
   const long long b = blockIdx.x;
   const float* ll = llrs + b * n;
   const int zero_slot = dmax * m;
 
   // x + 0.0f turns a -0.0 LLR into +0.0 and changes nothing else
   if (vec) {
-    for (int v = i; v < n / 4; v += blockDim.x) {
+    for (int v = tid; v < n / 4; v += T) {
       float4 x = ((const float4*)ll)[v];
       x.x = __fadd_rn(x.x, 0.f);
       x.y = __fadd_rn(x.y, 0.f);
@@ -118,56 +124,68 @@ __global__ void ldpc_kernel(const float* __restrict__ llrs,
       ((float4*)llr_sh)[v] = x;
     }
   } else {
-    for (int v = i; v < n; v += blockDim.x) llr_sh[v] = __fadd_rn(ll[v], 0.f);
+    for (int v = tid; v < n; v += T) llr_sh[v] = __fadd_rn(ll[v], 0.f);
   }
-  if (i == 0) {
+  if (tid == 0) {
     shm[zero_slot] = 0.f;
     shm[estride + zero_slot] = 0.f;
   }
 
-  // the edges of each slot's variable, and of message variable i
-  unsigned edge_lo[DMAX], edge_hi[DMAX], post_lo, post_hi;
-  int cv[DMAX];
-  unsigned real = 0u;  // bit s: slot s of the check is an edge
+  // checks i = tid + j*T, j < CPT: the edges of each slot's variable, and
+  // of message variable i
+  unsigned edge_lo[CPT][DMAX], edge_hi[CPT][DMAX], post_lo[CPT], post_hi[CPT];
+  int cv[CPT][DMAX];
+  unsigned real[CPT];  // bit s: slot s of the check is an edge
 #pragma unroll
-  for (int s = 0; s < DMAX; ++s) {
-    cv[s] = (i < m && s < dmax) ? check_var[s * m + i] : -1;
-    real |= (unsigned)(cv[s] >= 0) << s;
-    edge_offsets(slot_edges + s * VMAX * m + i, m, cv[s] >= 0, zero_slot,
-                 edge_lo[s], edge_hi[s]);
+  for (int j = 0; j < CPT; ++j) {
+    const int i = tid + j * T;
+    real[j] = 0u;
+#pragma unroll
+    for (int s = 0; s < DMAX; ++s) {
+      cv[j][s] = (i < m && s < dmax) ? check_var[s * m + i] : -1;
+      real[j] |= (unsigned)(cv[j][s] >= 0) << s;
+      edge_offsets(slot_edges + s * VMAX * m + i, m, cv[j][s] >= 0, zero_slot,
+                   edge_lo[j][s], edge_hi[j][s]);
+    }
+    edge_offsets(var_edges + i * VMAX, 1, i < k, zero_slot, post_lo[j],
+                 post_hi[j]);
   }
-  edge_offsets(var_edges + i * VMAX, 1, i < k, zero_slot, post_lo, post_hi);
   __syncthreads();
 
   // a slot past the check's degree carries BIG: never a minimum, never
   // negative, and its message is stored nowhere
-  float lv[DMAX], mm[DMAX];
+  float lv[CPT][DMAX], mm[CPT][DMAX];
 #pragma unroll
-  for (int s = 0; s < DMAX; ++s) {
-    lv[s] = cv[s] >= 0 ? llr_sh[cv[s]] : BIG;
-    mm[s] = lv[s];
-  }
+  for (int j = 0; j < CPT; ++j)
+#pragma unroll
+    for (int s = 0; s < DMAX; ++s) {
+      lv[j][s] = cv[j][s] >= 0 ? llr_sh[cv[j][s]] : BIG;
+      mm[j][s] = lv[j][s];
+    }
 
   float* cur = shm;
   float* oth = shm + estride;
   for (int it = 0;; ++it) {
     // check update: mm becomes the check->var message e
-    float m1 = BIG, m2 = BIG;
-    unsigned px = 0u;
 #pragma unroll
-    for (int s = 0; s < DMAX; ++s) {
-      const float a = fabsf(mm[s]);
-      m2 = fminf(m2, fmaxf(m1, a));
-      m1 = fminf(m1, a);
-      px ^= __float_as_uint(mm[s]);
-    }
-    const float v1 = alpha * m1, v2 = alpha * m2;
+    for (int j = 0; j < CPT; ++j) {
+      float m1 = BIG, m2 = BIG;
+      unsigned px = 0u;
 #pragma unroll
-    for (int s = 0; s < DMAX; ++s) {
-      const float mag = fabsf(mm[s]) > m1 ? v1 : v2;
-      const unsigned sign = (px ^ __float_as_uint(mm[s])) & 0x80000000u;
-      mm[s] = __uint_as_float(__float_as_uint(mag) | sign);
-      if (real >> s & 1u) cur[s * m + i] = mm[s];
+      for (int s = 0; s < DMAX; ++s) {
+        const float a = fabsf(mm[j][s]);
+        m2 = fminf(m2, fmaxf(m1, a));
+        m1 = fminf(m1, a);
+        px ^= __float_as_uint(mm[j][s]);
+      }
+      const float v1 = alpha * m1, v2 = alpha * m2;
+#pragma unroll
+      for (int s = 0; s < DMAX; ++s) {
+        const float mag = fabsf(mm[j][s]) > m1 ? v1 : v2;
+        const unsigned sign = (px ^ __float_as_uint(mm[j][s])) & 0x80000000u;
+        mm[j][s] = __uint_as_float(__float_as_uint(mag) | sign);
+        if (real[j] >> s & 1u) cur[s * m + tid + j * T] = mm[j][s];
+      }
     }
     __syncthreads();
     if (it == iters - 1) break;
@@ -175,34 +193,42 @@ __global__ void ldpc_kernel(const float* __restrict__ llrs,
     // the next var->check messages: the variable's incoming messages in
     // edge-list order, the channel LLR, then without the own message
 #pragma unroll
-    for (int s = 0; s < DMAX; ++s)
-      mm[s] = (lv[s] + incoming(cur, edge_lo[s], edge_hi[s])) - mm[s];
+    for (int j = 0; j < CPT; ++j)
+#pragma unroll
+      for (int s = 0; s < DMAX; ++s)
+        mm[j][s] = (lv[j][s] + incoming(cur, edge_lo[j][s], edge_hi[j][s])) -
+                   mm[j][s];
     float* t = cur;
     cur = oth;
     oth = t;
   }
 
   // posterior of message bit i: total < 0
-  if (i < k)
-    bits[b * k + i] = (llr_sh[i] + incoming(cur, post_lo, post_hi)) < 0.f;
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) {
+    const int i = tid + j * T;
+    if (i < k)
+      bits[b * k + i] =
+          (llr_sh[i] + incoming(cur, post_lo[j], post_hi[j])) < 0.f;
+  }
 }
 
-template <int DMAX>
+template <int DMAX, int CPT>
 int launch(const float* llrs, const int32_t* check_var,
            const int32_t* slot_edges, const int32_t* var_edges, int32_t* bits,
            int B, int m, int n, int k, int dmax, int iters, float alpha,
            cudaStream_t stream) {
-  const int threads = ((m + 31) / 32) * 32;
+  const int threads = ((m + CPT - 1) / CPT + 31) / 32 * 32;
   const int estride = ((dmax * m + 1 + 3) / 4) * 4;
   const size_t smem = sizeof(float) * (2 * (size_t)estride + n);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ldpc_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ldpc_kernel<DMAX, CPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int vec = n % 4 == 0 && (uintptr_t)llrs % 16 == 0;
-  ldpc_kernel<DMAX><<<B, threads, smem, stream>>>(
+  ldpc_kernel<DMAX, CPT><<<B, threads, smem, stream>>>(
       llrs, check_var, slot_edges, var_edges, bits, m, n, k, dmax, estride,
       iters, alpha, vec);
   return (int)cudaGetLastError();
@@ -212,13 +238,22 @@ int launch(const float* llrs, const int32_t* check_var,
 
 // check_var (dmax, m), slot_edges (dmax, 3, m) and var_edges (n, 3) are the
 // int32 tables of packet/ldpc.py, -1 for padding.  Takes dmax <= 8,
-// k <= m <= 1024 (a thread a check, message offsets of 16 bits).
+// k <= m <= 4096 with dmax*m < 16384 (message offsets of 16 bits, in
+// bytes) and 4*(2*dmax*m + n) + 16 bytes of shared memory at most 227 KB;
+// one check a thread up to m = 1024, two up to 2048, four beyond.
 extern "C" int qpsk_ldpc(const void* llrs, const void* check_var,
                          const void* slot_edges, const void* var_edges,
                          void* bits, int B, int m, int n, int k, int dmax,
                          int iters, float alpha, void* stream) {
-  if (dmax > 8 || m > 1024 || k > m) return (int)cudaErrorInvalidValue;
-  const auto run = dmax <= 5 ? launch<5> : launch<8>;
+  const long long smem = 4LL * (2 * ((dmax * (long long)m + 4) / 4 * 4) + n);
+  if (dmax > 8 || m > 4096 || k > m || dmax * (long long)m >= 16384 ||
+      smem > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
+  const int cpt = m <= 1024 ? 1 : m <= 2048 ? 2 : 4;
+  const auto run = dmax <= 5 ? (cpt == 1 ? launch<5, 1>
+                                : cpt == 2 ? launch<5, 2> : launch<5, 4>)
+                             : (cpt == 1 ? launch<8, 1>
+                                : cpt == 2 ? launch<8, 2> : launch<8, 4>);
   return run((const float*)llrs, (const int32_t*)check_var,
              (const int32_t*)slot_edges, (const int32_t*)var_edges,
              (int32_t*)bits, B, m, n, k, dmax, iters, alpha,

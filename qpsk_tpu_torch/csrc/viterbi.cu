@@ -1,6 +1,7 @@
-// Soft-decision Viterbi decoder for Hopper (sm_90a): the K=7 rate-1/2
-// (133, 171) code, 64 states, a packet's trellis in the registers of G
-// lanes.
+// Soft-decision Viterbi decoder for Hopper (sm_90a): any K=7 rate-1/2
+// code whose two generators tap the newest and the oldest bit (the
+// default (133, 171) and every other such pair), 64 states, a packet's
+// trellis in the registers of G lanes.
 //
 // Replaces: qpsk_tpu/ops/pallas/viterbi_kernel.py, _fwd_kernel + _bwd_kernel
 // launched by _viterbi_2d (entry viterbi_decode_pallas).  The TPU layout
@@ -22,10 +23,20 @@
 //   - the two new states 2j, 2j+1 of a butterfly share the predecessors j
 //     and 32+j, and because both generators tap the newest and the oldest
 //     bit, their four branch metrics are +-one value: four adds, two
-//     maxima and two differences whose sign bits are the decisions.  For
-//     G = 1 the compiler knows each butterfly's value (+-0.5(l0+l1) or
-//     +-0.5(l0-l1)) at compile time; for G > 1 a lane keeps two
-//     coefficients a butterfly;
+//     maxima and two differences whose sign bits are the decisions.  The
+//     code arrives as its sign table's two bit masks (bit j of mask k:
+//     output k of the branch j -> 2j is a one; the wrapper reads them off
+//     the plain version's _trellis), so a butterfly's value is
+//     +-0.5(l0+l1) where its two bits agree, +-0.5(l0-l1) where they
+//     differ, negative where bit 0 is set.  For G = 1 and the default
+//     code the instance viterbi_kernel<1, true> knows every butterfly's
+//     value at compile time (the launch picks it when the masks are the
+//     default code's), so the default code loses nothing to the
+//     argument; viterbi_kernel<1, false> selects each value from the
+//     masks; for G > 1 a lane keeps two coefficients a butterfly, taken
+//     from the masks, or in viterbi_kernel<8, true> from the default
+//     code's generators as before the masks (computed from the runtime
+//     masks they cost the default code 7 % at 4096 packets);
 //   - a lane packs its own 64/G decision bits with funnel shifts (no
 //     ballot) and stores them into the (nsteps, B) scratch of 64-bit
 //     words, bit s = state s, so the stores of a warp are contiguous;
@@ -78,7 +89,9 @@
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr unsigned POLY0 = 0133, POLY1 = 0171;  // the code's generators
+// the default code's generators: viterbi_kernel<1, true> is compiled for
+// their butterflies
+constexpr unsigned POLY0 = 0133, POLY1 = 0171;
 constexpr int TILE = 16;          // trellis steps per staged LLR tile
 constexpr int ROW = 2 * TILE + 4; // floats a packet's row of a tile takes:
                                   // rows stay 16-byte aligned and half the
@@ -92,6 +105,13 @@ __host__ __device__ constexpr int out_bit(unsigned poly, int j0) {
   x ^= x >> 2;
   x ^= x >> 1;
   return (int)(x & 1u);
+}
+
+// the sign mask of a generator: bit j0 is out_bit(poly, j0)
+__host__ __device__ constexpr unsigned code_mask(unsigned poly) {
+  unsigned m = 0u;
+  for (int j0 = 0; j0 < 32; ++j0) m |= (unsigned)out_bit(poly, j0) << j0;
+  return m;
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
@@ -144,11 +164,11 @@ __device__ __forceinline__ void max_tree(float* tr) {
   if constexpr (W > 1) max_tree<W / 2>(tr);
 }
 
-template <int G>
+template <int G, bool FIXED>
 __global__ void __launch_bounds__(Shape<G>::THREADS)
 viterbi_kernel(const float* __restrict__ llrs, unsigned char* dec,
                int32_t* __restrict__ bits, int B, int nsteps, int nbits,
-               int vec) {
+               int vec, unsigned mask0, unsigned mask1) {
   constexpr int T = Shape<G>::THREADS, N = Shape<G>::N, H = Shape<G>::H,
                 P = Shape<G>::P;
   extern __shared__ __align__(16) float shm[];
@@ -196,7 +216,9 @@ viterbi_kernel(const float* __restrict__ llrs, unsigned char* dec,
   if constexpr (G > 1) {
 #pragma unroll
     for (int i = 0; i < H; ++i) {
-      const int s0 = out_bit(POLY0, g * H + i), s1 = out_bit(POLY1, g * H + i);
+      const int j0 = g * H + i;
+      const int s0 = FIXED ? out_bit(POLY0, j0) : (int)(mask0 >> j0 & 1u);
+      const int s1 = FIXED ? out_bit(POLY1, j0) : (int)(mask1 >> j0 & 1u);
       const float sg = s0 ? -1.f : 1.f;
       ca[i] = s0 == s1 ? sg : 0.f;
       cb[i] = s0 == s1 ? 0.f : sg;
@@ -241,9 +263,12 @@ viterbi_kernel(const float* __restrict__ llrs, unsigned char* dec,
 #pragma unroll
       for (int i = 0; i < H; ++i) {
         float bt;
-        if constexpr (G == 1) {
+        if constexpr (G == 1 && FIXED) {
           const float h = out_bit(POLY0, i) == out_bit(POLY1, i) ? ha : hb;
           bt = out_bit(POLY0, i) ? -h : h;
+        } else if constexpr (G == 1) {
+          const float h = ((mask0 ^ mask1) >> i & 1u) ? hb : ha;
+          bt = __uint_as_float(__float_as_uint(h) ^ (mask0 >> i << 31));
         } else {
           bt = fmaf(ca[i], ha, cb[i] * hb);
         }
@@ -348,7 +373,8 @@ __device__ __forceinline__ float warp_max(float x) {
 // maximum is one warp reduction.
 __global__ void __launch_bounds__(128)
 viterbi_warp_kernel(const float* __restrict__ llrs, uint2* dec,
-                    int32_t* __restrict__ bits, int B, int nsteps, int nbits) {
+                    int32_t* __restrict__ bits, int B, int nsteps, int nbits,
+                    unsigned mask0, unsigned mask1) {
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * 4 + (threadIdx.x >> 5);
   if (b >= B) return;  // the whole warp leaves together
@@ -358,7 +384,7 @@ viterbi_warp_kernel(const float* __restrict__ llrs, uint2* dec,
   float g[2][2][2];
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
-    const float sg = out_bit(j ? POLY1 : POLY0, lane) ? -1.f : 1.f;
+    const float sg = ((j ? mask1 : mask0) >> lane & 1u) ? -1.f : 1.f;
     g[0][j][0] = sg;
     g[0][j][1] = -sg;
     g[1][j][0] = -sg;
@@ -427,39 +453,48 @@ viterbi_warp_kernel(const float* __restrict__ llrs, uint2* dec,
   }
 }
 
-template <int G>
+template <int G, bool FIXED>
 int launch(const float* llrs, void* dec, int32_t* bits, int B, int nsteps,
-           int nbits, cudaStream_t stream) {
+           int nbits, unsigned mask0, unsigned mask1, cudaStream_t stream) {
   constexpr int P = Shape<G>::P;
   const size_t smem = sizeof(float) * 2 * P * ROW +
                       sizeof(unsigned) * P * ((nsteps + 31) / 32 + 1);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        viterbi_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        viterbi_kernel<G, FIXED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int vec = nsteps % 2 == 0 && (uintptr_t)llrs % 16 == 0;
-  viterbi_kernel<G><<<(B + P - 1) / P, Shape<G>::THREADS, smem, stream>>>(
-      llrs, (unsigned char*)dec, bits, B, nsteps, nbits, vec);
+  viterbi_kernel<G, FIXED>
+      <<<(B + P - 1) / P, Shape<G>::THREADS, smem, stream>>>(
+          llrs, (unsigned char*)dec, bits, B, nsteps, nbits, vec, mask0,
+          mask1);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // lanes: how many lanes hold a packet's trellis (1 or 8; 32: the warp
-// kernel).  dec is scratch of 8 * nsteps * B bytes.
+// kernel).  dec is scratch of 8 * nsteps * B bytes.  mask0, mask1: the
+// code's sign masks (code_mask of its two generators).
 extern "C" int qpsk_viterbi(const void* llrs, void* dec, void* bits, int B,
-                            int nsteps, int nbits, int lanes, void* stream) {
+                            int nsteps, int nbits, int lanes, unsigned mask0,
+                            unsigned mask1, void* stream) {
   const float* ll = (const float*)llrs;
   int32_t* out = (int32_t*)bits;
   cudaStream_t st = (cudaStream_t)stream;
+  const bool fixed = mask0 == code_mask(POLY0) && mask1 == code_mask(POLY1);
   switch (lanes) {
-    case 1: return launch<1>(ll, dec, out, B, nsteps, nbits, st);
-    case 8: return launch<8>(ll, dec, out, B, nsteps, nbits, st);
+    case 1:
+      return (fixed ? launch<1, true> : launch<1, false>)(
+          ll, dec, out, B, nsteps, nbits, mask0, mask1, st);
+    case 8:
+      return (fixed ? launch<8, true> : launch<8, false>)(
+          ll, dec, out, B, nsteps, nbits, mask0, mask1, st);
     case 32:
-      viterbi_warp_kernel<<<(B + 3) / 4, 128, 0, st>>>(ll, (uint2*)dec, out,
-                                                       B, nsteps, nbits);
+      viterbi_warp_kernel<<<(B + 3) / 4, 128, 0, st>>>(
+          ll, (uint2*)dec, out, B, nsteps, nbits, mask0, mask1);
       return (int)cudaGetLastError();
   }
   return (int)cudaErrorInvalidValue;

@@ -31,12 +31,12 @@ LINK_FLAGS = _ARCH + ("-shared",)
 
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
-    "qpsk_frontend_tm": [_P] * 17 + [_I, _I, _P, _P, _D, _F, _F, _P],
-    "qpsk_frontend_cm": [_P] * 12 + [_I, _I, _I, _P, _P, _D, _F, _F, _P],
+    "qpsk_frontend_tm": [_P] * 17 + [_I] * 5 + [_P, _P, _D, _F, _F, _P],
+    "qpsk_frontend_cm": [_P] * 12 + [_I] * 5 + [_P, _P, _D, _F, _F, _P],
     "qpsk_costas_tm": [_P] * 15 + [_I] * 5 + [_P, _P, _P],
     "qpsk_sincosf": [_P] * 3 + [ctypes.c_longlong, _P],
-    "qpsk_tx": [_P] * 7 + [_I, _I, _I, _P, _D, _F, _F, _P],
-    "qpsk_viterbi": [_P] * 3 + [_I] * 4 + [_P],
+    "qpsk_tx": [_P] * 11 + [_I] * 4 + [_P, _D, _F, _F, _P],
+    "qpsk_viterbi": [_P] * 3 + [_I] * 4 + [ctypes.c_uint] * 2 + [_P],
     "qpsk_ldpc": [_P] * 5 + [_I] * 6 + [_F, _P],
 }
 
@@ -104,20 +104,17 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def check_geometry(cfg, cycles=(4, 8)) -> None:
-    """Raise ``NotImplementedError`` naming the first field of ``cfg`` off
-    the geometry a kernel is built for: 127 taps, ``cycles`` samples per
-    symbol (4 or 8: 2400 or 1200 baud; a kernel may take fewer),
-    512-sample frames.  A wrapper asks this before it launches, on CUDA
-    tensors only: a CPU tensor runs the plain version at any geometry."""
-    for field, name, want in (("ntaps", "ntaps", (127,)),
-                              ("cycles", "fs/rs", tuple(cycles)),
-                              ("frame_size", "frame_size", (512,))):
-        if getattr(cfg, field) not in want:
-            raise NotImplementedError(
-                f"{name}={getattr(cfg, field)!r} is not ported to the CUDA "
-                f"kernels (they are built for {name} in {want!r}); run it "
-                f"on CPU tensors")
+def check_geometry(off) -> None:
+    """Raise ``NotImplementedError`` naming the field a kernel does not
+    cover: ``off`` is what the kernel module's ``coverage(cfg)`` returns,
+    None when it covers the config, else (field, value, what the kernel
+    takes).  A wrapper asks this before it launches, on CUDA tensors only:
+    a CPU tensor runs the plain version at any geometry."""
+    if off is not None:
+        name, value, takes = off
+        raise NotImplementedError(
+            f"{name}={value!r} is not ported to the CUDA kernel (it takes "
+            f"{takes}); run it on CPU tensors")
 
 
 def check(rc: int, name: str) -> None:

@@ -7,18 +7,23 @@ unit ``nco_phase``, ``decim_delay``) and returns the one-frame-delayed,
 carrier-rotated symbol picks as time-major ``(T, C)`` planes, the timing
 index, the new state and, for the frame-rate AGC, the per-frame power of
 the emitted picks.  ``rx_frontend`` returns the undelayed picks channel-major
-``(C, nframes, nsym)``, at 4 or 8 samples per symbol: the composed receive
-path's front-end (1200 baud, the CMA equalizer).  On a CUDA tensor each
+``(C, nframes, nsym)``: the composed receive path's front-end (frames of
+fewer than 128 symbols, the CMA equalizer).  On a CUDA tensor each
 launches ``csrc/frontend.cu`` once, which also converts the carried tail
 and advances the phase (``ops/frontend.py``'s ``unmix_tail``,
 ``remix_tail`` and ``advance_phase``), so a call makes no host-to-device
 copy and does not synchronise; on a CPU tensor each runs its plain
 version: ``frontend_xla``, the staged chain (``modem.frontend_xla`` in the
 JAX package), plus for the time-major one the delay concat and
-``agc._frame_power``, in the same layouts.  A CUDA call at a geometry the
-kernel does not cover (it takes 127 taps, 512-sample frames, 4 samples per
-symbol time-major, 4 or 8 channel-major) raises ``NotImplementedError``
-naming the field before any launch; a CPU call runs any geometry.
+``agc._frame_power``, in the same layouts.
+
+The kernel covers (``coverage``) 2, 4 or 8 samples per symbol in both
+launches, any odd ``ntaps`` up to 129 (the TPU kernel's ``ntaps - 1 <=
+128``) and any ``frame_size`` that is a multiple of 128 up to
+``_MAX_FRAME`` samples (its shared-memory budget); with the AGC power
+output the frame's symbols are a power of two, as ``agc._frame_power``
+requires.  A CUDA call off that raises ``NotImplementedError`` naming the
+field before any launch; a CPU call runs any geometry.
 """
 
 from __future__ import annotations
@@ -38,9 +43,44 @@ from qpsk_tpu_torch.ops.cplx import CF32, cmap
 from qpsk_tpu_torch.ops.cuda import _lib
 
 # Kernel launches since the last reset (set to 0 to start a count), and
-# the same launches by mode: "tm", "tm_power", "cm4", "cm8" (clear() it).
+# the same launches by mode: "tm", "tm_power", "cm4", "cm8", and for a
+# geometry off the default config, e.g. "tm_cyc2", "cm4_fsz256",
+# "tm_ntaps63" (clear() it).
 launches = 0
 by_mode = collections.Counter()
+
+# the samples per symbol the kernel is built for, its largest tap count
+# (a 128-sample halo) and its largest frame (csrc/frontend.cu, Layout:
+# 128 * frame_size + 8448 bytes of shared memory, at most 227 KB)
+_CYCLES, _MAX_TAPS, _MAX_FRAME = (2, 4, 8), 129, 1664
+
+
+def coverage(cfg, power: bool = False):
+    """None if the kernel covers ``cfg``, else (field, value, what the
+    kernel takes) of the first field off it; ``power``: the time-major
+    launch with the AGC power output."""
+    nsym = cfg.symbols_per_frame
+    if cfg.cycles not in _CYCLES:
+        return "fs/rs", cfg.cycles, "2, 4 or 8 samples per symbol"
+    if cfg.ntaps > _MAX_TAPS:
+        return "ntaps", cfg.ntaps, f"odd ntaps <= {_MAX_TAPS}"
+    if cfg.frame_size % 128 or cfg.frame_size > _MAX_FRAME:
+        return ("frame_size", cfg.frame_size,
+                f"a multiple of 128 up to {_MAX_FRAME} samples")
+    if power and nsym & (nsym - 1):
+        return ("frame_size", cfg.frame_size,
+                "a power of two of symbols a frame with the AGC power output")
+    return None
+
+
+def _mode(cfg, base: str) -> str:
+    """``by_mode``'s key of a launch: ``base``, then each field off the
+    default geometry."""
+    extra = [f"{name}{value}" for name, value, default in (
+        ("cyc", cfg.cycles, 4 if base.startswith("tm") else cfg.cycles),
+        ("ntaps", cfg.ntaps, 127), ("fsz", cfg.frame_size, 512))
+        if value != default]
+    return "_".join([base] + extra)
 
 
 def rx_frontend_tm(cfg, pcm: torch.Tensor, nco_phase: CF32, fir_tail: CF32,
@@ -122,10 +162,10 @@ def rx_frontend_tm_plain(cfg, pcm, nco_phase, fir_tail, decim_delay):
             powers)
 
 
-def _check_inputs(cfg, pcm, nco_phase, fir_tail, cycles):
+def _check_inputs(cfg, pcm, nco_phase, fir_tail, power=False):
     """Check the geometry, then validate what the kernel reads by pointer;
     return (C, nframes)."""
-    _lib.check_geometry(cfg, cycles)
+    _lib.check_geometry(coverage(cfg, power))
     c, nframes, _ = pcm.shape
     if nframes < 1 or c < 1:
         raise ValueError(f"the front-end kernel takes at least one frame and "
@@ -143,9 +183,11 @@ def _check_inputs(cfg, pcm, nco_phase, fir_tail, cycles):
 def _launch_consts(cfg) -> tuple:
     """(modulated taps (2, ntaps) float32, omega, gain, 1/pcm_scale) of a
     config: host values the launch passes by value.  The kernel splits the
-    taps into float16 hi + lo parts, so they go scaled by a power of two
-    that puts the largest near 2^14 and keeps the low parts of the small
-    ones normal; the gain carries the inverse scale, exactly."""
+    taps into float16 hi + lo parts, so they go scaled by the power of two
+    that puts this tap set's largest near 2^14: every part then rounds
+    within 2^-22 of the largest tap, the subnormal low parts of the
+    smallest taps included (their spacing, 2^-24, is 2^-38 of it); the
+    gain carries the inverse scale, exactly."""
     omega = float(-cfg.omega_center)
     hm = fe.modulated_taps_np(_taps_key(cfg), omega)
     scale = 2.0 ** (14 - math.ceil(math.log2(float(np.abs(hm).max()))))
@@ -164,7 +206,7 @@ def _state_out(c, ntaps_m1, dev):
 def _launch_tm(cfg, pcm, nco_phase, fir_tail, decim_delay):
     global launches
     want_power = bool(cfg.agc)
-    c, nframes = _check_inputs(cfg, pcm, nco_phase, fir_tail, (4,))
+    c, nframes = _check_inputs(cfg, pcm, nco_phase, fir_tail, want_power)
     dev = pcm.device
     nsym = cfg.symbols_per_frame
     for part, plane in zip(("re", "im"), decim_delay):
@@ -186,17 +228,17 @@ def _launch_tm(cfg, pcm, nco_phase, fir_tail, decim_delay):
         zi.data_ptr(), index.data_ptr(), ndd.re.data_ptr(), ndd.im.data_ptr(),
         powers.data_ptr() if want_power else None, phase.re.data_ptr(),
         phase.im.data_ptr(), tail.re.data_ptr(), tail.im.data_ptr(), c,
-        nframes, hm[0].ctypes.data, hm[1].ctypes.data, omega, gain,
-        inv_scale, _lib.stream_ptr(dev))
+        nframes, cfg.frame_size, cfg.cycles, cfg.ntaps, hm[0].ctypes.data,
+        hm[1].ctypes.data, omega, gain, inv_scale, _lib.stream_ptr(dev))
     _lib.check(rc, "qpsk_frontend_tm")
     launches += 1
-    by_mode["tm_power" if want_power else "tm"] += 1
+    by_mode[_mode(cfg, "tm_power" if want_power else "tm")] += 1
     return zr, zi, index, phase, tail, ndd, powers
 
 
 def _launch_cm(cfg, pcm, nco_phase, fir_tail):
     global launches
-    c, nframes = _check_inputs(cfg, pcm, nco_phase, fir_tail, (4, 8))
+    c, nframes = _check_inputs(cfg, pcm, nco_phase, fir_tail)
     dev = pcm.device
     nsym = cfg.symbols_per_frame
     hm, omega, gain, inv_scale = _launch_consts(cfg)
@@ -209,9 +251,9 @@ def _launch_cm(cfg, pcm, nco_phase, fir_tail):
         nco_phase.re.data_ptr(), nco_phase.im.data_ptr(), picks.re.data_ptr(),
         picks.im.data_ptr(), index.data_ptr(), phase.re.data_ptr(),
         phase.im.data_ptr(), tail.re.data_ptr(), tail.im.data_ptr(), c,
-        nframes, cfg.cycles, hm[0].ctypes.data, hm[1].ctypes.data, omega,
-        gain, inv_scale, _lib.stream_ptr(dev))
+        nframes, cfg.frame_size, cfg.cycles, cfg.ntaps, hm[0].ctypes.data,
+        hm[1].ctypes.data, omega, gain, inv_scale, _lib.stream_ptr(dev))
     _lib.check(rc, "qpsk_frontend_cm")
     launches += 1
-    by_mode[f"cm{cfg.cycles}"] += 1
+    by_mode[_mode(cfg, f"cm{cfg.cycles}")] += 1
     return picks, index, phase, tail

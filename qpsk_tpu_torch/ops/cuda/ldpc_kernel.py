@@ -4,8 +4,13 @@
 ``ldpc_decode`` decodes (..., n) LLRs to (..., k) bits with normalized
 min-sum over the code's compact index tables (``packet/ldpc.py``,
 ``_index_tables``).  On a CUDA tensor it launches ``csrc/ldpc.cu`` (one
-block per packet, one barrier an iteration, every index in registers); on
-a CPU tensor it runs
+block per packet, one barrier an iteration, every index in registers,
+one check a thread up to 1024 checks and two or four beyond); it takes
+codes of check degree <= 8, variable degree 3 (``PacketConfig`` builds
+``dv=3`` only) and k <= m <= ``_KERNEL_M`` = 3276 checks
+(``PacketConfig(payload_bytes=407, fec="ldpc")``), and raises
+``NotImplementedError`` naming the field before any launch for anything
+else; on a CPU tensor it runs
 ``ldpc_decode_plain``, the JAX XLA lowering's semantics in PyTorch:
 ``code.iters`` flooding iterations, first-wins argmin, normalization
 ``code.alpha``, posterior ``total[:k] < 0``, float32 throughout.  Both sum
@@ -31,9 +36,10 @@ launches = 0
 
 _BIG = 1e30
 # the kernel's register arrays hold this many slots of a check and this
-# many edges of a variable; a thread a check and 16-bit message offsets
-# bound the checks
-_KERNEL_DMAX, _KERNEL_VMAX, _KERNEL_M = 8, 3, 1024
+# many edges of a variable; 16-bit byte offsets of the messages bound
+# dmax*m below 16384 (m <= 3276 at the codes' check degree 5), and with
+# four checks a thread a block of 1024 threads takes 4096 checks
+_KERNEL_DMAX, _KERNEL_VMAX, _KERNEL_M = 8, 3, 3276
 
 
 def _iters(code: LdpcCode, llrs: torch.Tensor, iters) -> int:
@@ -122,20 +128,30 @@ def ldpc_decode_plain(code: LdpcCode, llrs: torch.Tensor,
     return (total[..., :code.k] < 0).to(torch.int32)
 
 
+def coverage(code: LdpcCode):
+    """None if the kernel covers ``code``, else (field, value, what the
+    kernel takes) of the first field off it; the check count is asked
+    before the index tables of a large code are built."""
+    if code.m > _KERNEL_M:
+        return "m", code.m, f"m <= {_KERNEL_M} checks"
+    if code.dv != _KERNEL_VMAX:
+        return "dv", code.dv, f"variable degree {_KERNEL_VMAX}"
+    check_var, _ = _index_tables(code.k, code.dv, code.seed)
+    dmax, m = check_var.shape
+    if dmax > _KERNEL_DMAX:
+        return "dmax", dmax, f"check degrees <= {_KERNEL_DMAX}"
+    if dmax * m >= 16384:
+        return "m", m, "dmax*m < 16384 (16-bit message offsets)"
+    return None
+
+
 def _launch(code: LdpcCode, llrs: torch.Tensor, iters) -> torch.Tensor:
     global launches
     its = _iters(code, llrs, iters)
+    _lib.check_geometry(coverage(code))
     dev = llrs.device
     check_var, var_edges, slot_edges = _kernel_tables(code, dev)
     dmax, m = check_var.shape
-    vmax = var_edges.shape[1]
-    if dmax > _KERNEL_DMAX or vmax != _KERNEL_VMAX or m > _KERNEL_M \
-            or code.k > m:
-        raise NotImplementedError(
-            f"the LDPC kernel takes check degrees <= {_KERNEL_DMAX}, edge "
-            f"lists of {_KERNEL_VMAX} entries a variable and k <= m <= "
-            f"{_KERNEL_M} checks, got dmax={dmax}, vmax={vmax}, m={m}, "
-            f"k={code.k}")
     batch = tuple(llrs.shape[:-1])
     b = math.prod(batch)
     flat = llrs.to(torch.float32).reshape(b, code.n).contiguous()

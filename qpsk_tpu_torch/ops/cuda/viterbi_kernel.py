@@ -2,9 +2,12 @@
 ``qpsk_tpu/ops/pallas/viterbi_kernel.py``, ``viterbi_decode_pallas``).
 
 ``viterbi_decode`` decodes (..., rd*(nbits+K-1)) LLRs to (..., nbits)
-bits.  On a CUDA tensor it launches ``csrc/viterbi.cu`` (the K=7 rate-1/2
-(133, 171) code; a packet's trellis in the registers of 1, 8 or 32 lanes
-of a warp, by batch size); on a CPU tensor it runs
+bits.  On a CUDA tensor it launches ``csrc/viterbi.cu`` (a K=7 rate-1/2
+code whose generators tap the newest and the oldest bit, handed to the
+kernel as the two bit masks of its sign table, ``code_masks``; a packet's
+trellis in the registers of 1, 8 or 32 lanes of a warp, by batch size),
+and raises ``NotImplementedError`` naming the code before any launch for
+any other; on a CPU tensor it runs
 ``viterbi_decode_plain``, the JAX package's scan twin
 (``packet/fec.py``) in PyTorch with the same op order: path metrics start
 at -1e9 with 0 in state 0, ``bm = 0.5*(sgn0*l0 + sgn1*l1)``, gather-free
@@ -86,8 +89,34 @@ def viterbi_decode_plain(code: ConvCode, llrs: torch.Tensor,
     return us.movedim(0, -1)[..., :nbits].contiguous()
 
 
-# the generators csrc/viterbi.cu is built for
-_KERNEL_POLYS = (0o133, 0o171)
+def code_masks(code: ConvCode) -> tuple[int, int] | None:
+    """The kernel's form of ``code``'s sign table: for each output k the
+    32-bit mask whose bit j is set where that output is a one on the branch
+    from state j to state 2j (``fec._trellis``: ``sgns[k, 2j, 0] < 0``).
+    None unless the code is K=7 rate 1/2 with the butterfly symmetry the
+    kernel runs on (both generators tap the newest and the oldest bit):
+    the branches into 2j + 1 and from 32 + j carry the same signs, negated
+    once each."""
+    if code.constraint != 7 or code.rate_den != 2:
+        return None
+    _, sgns = _trellis(code)
+    s = sgns[:, 0::2, 0]                  # (2, 32): branch j -> 2j
+    if not (np.array_equal(sgns[:, 0::2, 1], -s)
+            and np.array_equal(sgns[:, 1::2, 0], -s)
+            and np.array_equal(sgns[:, 1::2, 1], s)):
+        return None
+    weights = 1 << np.arange(32, dtype=np.int64)
+    return tuple(int(((s[k] < 0) * weights).sum()) for k in range(2))
+
+
+def coverage(code: ConvCode):
+    """None if the kernel covers ``code``, else (field, value, what the
+    kernel takes)."""
+    if code_masks(code) is None:
+        return ("polys", tuple(oct(g) for g in code.polys),
+                "K=7 rate-1/2 codes whose generators tap the newest and the "
+                "oldest bit")
+    return None
 
 
 def _lanes(b: int) -> int:
@@ -107,11 +136,7 @@ def _lanes(b: int) -> int:
 def _launch(code: ConvCode, llrs: torch.Tensor, nbits: int,
             lanes: int | None = None) -> torch.Tensor:
     global launches
-    if (code.constraint, tuple(code.polys)) != (7, _KERNEL_POLYS):
-        raise NotImplementedError(
-            f"the Viterbi kernel is built for the K=7 (133, 171) code, got "
-            f"constraint={code.constraint}, polys="
-            f"{tuple(oct(g) for g in code.polys)}")
+    _lib.check_geometry(coverage(code))
     nsteps = _nsteps(code, llrs, nbits)
     dev = llrs.device
     batch = tuple(llrs.shape[:-1])
@@ -124,7 +149,7 @@ def _launch(code: ConvCode, llrs: torch.Tensor, nbits: int,
     dec = torch.empty((nsteps, b, 2), dtype=torch.int32, device=dev)
     rc = _lib.library().qpsk_viterbi(
         flat.data_ptr(), dec.data_ptr(), out.data_ptr(), b, nsteps, nbits,
-        lanes or _lanes(b), _lib.stream_ptr(dev))
+        lanes or _lanes(b), *code_masks(code), _lib.stream_ptr(dev))
     _lib.check(rc, "qpsk_viterbi")
     launches += 1
     return out.reshape(batch + (nbits,))

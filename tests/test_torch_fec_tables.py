@@ -3,10 +3,11 @@
 
 A CUDA kernel runs only on the card, so what can be held here is what it is
 built from: the per-slot edge table the LDPC kernel keeps in registers
-(against ``_index_tables``), the lane and register map of the Viterbi
-kernel's trellis (against ``fec._trellis``), and numpy twins of the two
-kernels' schedules, operation for operation in float32, against the plain
-PyTorch versions.
+(against ``_index_tables``) and its map of checks to threads past 1024
+checks, the lane and register map of the Viterbi kernel's trellis and the
+sign masks it takes for any K=7 rate-1/2 code (against ``fec._trellis``),
+and numpy twins of the two kernels' schedules, operation for operation in
+float32, against the plain PyTorch versions.
 
 Tolerances: none.  The tables are integers.  The LDPC twin forms each
 message as ``(llr[v] + ((e[ed0] + e[ed1]) + e[ed2])) - e[s]`` and picks
@@ -32,7 +33,7 @@ POLYS = (0o133, 0o171)
 
 # --------------------------------------------------------------- LDPC ---
 
-@pytest.mark.parametrize("k", [64, 128, 256])
+@pytest.mark.parametrize("k", [64, 128, 256, 1032])
 def test_slot_edge_table_lists_each_slots_variable_edges(k):
     check_var, var_edges = ldpc._index_tables(k, 3, 1)
     table = ldpc._slot_edge_table(k, 3, 1)
@@ -143,7 +144,8 @@ def _ldpc_kernel_twin(code, llrs, iters=None):
 # (k, batch, sigma, iters)
 @pytest.mark.parametrize("k,batch,sigma,iters",
                          [(256, 24, 0.7, None), (128, 9, 0.8, None),
-                          (64, 11, 0.7, 8), (256, 6, None, None)])
+                          (64, 11, 0.7, 8), (256, 6, None, None),
+                          (1032, 3, 0.7, None)])
 def test_ldpc_kernel_schedule_equals_plain(k, batch, sigma, iters):
     """Noisy codewords (or, with ``sigma=None``, LLRs with exact zeros and
     negative zeros planted) decode to the same bits."""
@@ -160,9 +162,62 @@ def test_ldpc_kernel_schedule_equals_plain(k, batch, sigma, iters):
     np.testing.assert_array_equal(got, want.numpy())
 
 
+def _checks_of_threads(m):
+    """The launch's check map: one check a thread up to 1024 checks, two
+    up to 2048, four beyond; thread ``tid`` of a block of ``T`` (a whole
+    number of warps) owns checks tid + j*T, j < CPT, those below m."""
+    cpt = 1 if m <= 1024 else 2 if m <= 2048 else 4
+    threads = -(-(-(-m // cpt)) // 32) * 32
+    checks = np.arange(threads)[:, None] + threads * np.arange(cpt)[None, :]
+    return threads, np.where(checks < m, checks, -1)
+
+
+@pytest.mark.parametrize("m", [256, 1024, 1032, 2048, 2056, 3276])
+def test_ldpc_checks_a_thread_cover_every_check_once(m):
+    """A block of at most 1024 threads owns every check and every message
+    bit (k = m) exactly once, and the 16-bit byte offsets of the messages
+    reach the zero slot at check degree 5, the degree of every dv=3 code
+    (the tables of the codes past 1032 checks are not built here: their
+    dense edge matrices take 170 to 430 MB)."""
+    threads, checks = _checks_of_threads(m)
+    assert threads <= 1024 and threads % 32 == 0
+    owned = np.sort(checks[checks >= 0])
+    np.testing.assert_array_equal(owned, np.arange(m))
+    assert 4 * 5 * m < 2 ** 16
+    if m <= 1032:
+        assert ldpc._index_tables(m, 3, 1)[0].shape[0] == 5
+        assert ldpc_kernel.coverage(ldpc.LdpcCode(k=m)) is None
+
+
+def test_ldpc_kernel_tables_at_1032_checks():
+    """``PacketConfig(payload_bytes=127, fec="ldpc")``: the per-slot
+    tables the check threads of a two-checks-a-thread block load, each
+    thread's slots gathered through its check map, equal the whole
+    table's columns; the kernel twin decodes as the plain version."""
+    k = 1032
+    table = ldpc._slot_edge_table(k, 3, 1)
+    check_var, _ = ldpc._index_tables(k, 3, 1)
+    threads, checks = _checks_of_threads(k)
+    assert checks.shape == (threads, 2) and threads == 544
+    for j in range(2):
+        own = checks[:, j]
+        live = own >= 0
+        np.testing.assert_array_equal(check_var[:, own[live]],
+                                      check_var[:, live.nonzero()[0] + j * threads])
+        np.testing.assert_array_equal(table[:, :, own[live]],
+                                      table[:, :, live.nonzero()[0] + j * threads])
+    rng = np.random.default_rng(1032)
+    code = ldpc.LdpcCode(k=k)
+    u = torch.from_numpy(rng.integers(0, 2, (2, k), dtype=np.int32))
+    c = ldpc.ldpc_encode(code, u).numpy()
+    llrs = ((1.0 - 2.0 * c) + rng.normal(0, 0.75, c.shape)).astype(F32)
+    want = ldpc_kernel.ldpc_decode(code, torch.from_numpy(llrs))
+    np.testing.assert_array_equal(_ldpc_kernel_twin(code, llrs), want.numpy())
+
+
 def test_ldpc_kernel_refuses_what_it_does_not_take():
     code = ldpc.LdpcCode(k=64, dv=4)     # variables of degree 4
-    with pytest.raises(NotImplementedError, match="vmax=4"):
+    with pytest.raises(NotImplementedError, match="dv=4"):
         ldpc_kernel._launch(code, torch.zeros(2, 128), None)
 
 
@@ -174,11 +229,18 @@ def _out_bit(poly, j0):
     return bin(poly & (j0 << 1)).count("1") & 1
 
 
+def _masks(polys):
+    """``code_mask`` of csrc/viterbi.cu for each generator."""
+    return tuple(sum(_out_bit(p, j0) << j0 for j0 in range(32)) for p in polys)
+
+
 def test_butterfly_branch_values_match_trellis():
     """The four branch metrics of a butterfly are +-one value, 0.5(l0+l1)
-    or 0.5(l0-l1) with the sign of the first generator's output."""
+    or 0.5(l0-l1) with the sign of the first generator's output; the
+    wrapper's sign masks of the default code are the masks the kernel's
+    compile-time instance is built for."""
     code = fec.ConvCode()
-    assert tuple(code.polys) == POLYS == viterbi_kernel._KERNEL_POLYS
+    assert viterbi_kernel.code_masks(code) == _masks(POLYS)
     preds, sgns = fec._trellis(code)
     l0, l1 = F32(0.8125), F32(-1.71875)
     for j0 in range(32):
@@ -216,12 +278,14 @@ def test_lane_register_map_fetches_the_predecessors(lanes):
                 assert (p0, p1) == tuple(preds[state])
 
 
-def _viterbi_kernel_twin(llrs, nbits, lanes):
+def _viterbi_kernel_twin(llrs, nbits, lanes, masks=None):
     """``viterbi_kernel<G>`` of ``csrc/viterbi.cu`` in float32 numpy: lane
-    g owns states [g*N, (g+1)*N), butterflies from one branch value,
-    decisions from the sign of c0 - c1 packed into a 64-bit word a step
-    (bit s = state s), the maximum subtracted after every step, and the
-    traceback over the words from state 0."""
+    g owns states [g*N, (g+1)*N), butterflies from one branch value read
+    off the code's sign masks (default: the default code's), decisions
+    from the sign of c0 - c1 packed into a 64-bit word a step (bit s =
+    state s), the maximum subtracted after every step, and the traceback
+    over the words from state 0."""
+    m0, m1 = _masks(POLYS) if masks is None else masks
     batch, nsteps = llrs.shape[0], nbits + 6
     n, h = 64 // lanes, 32 // lanes
     pm = np.full((batch, 64), -1e9, F32)
@@ -234,7 +298,7 @@ def _viterbi_kernel_twin(llrs, nbits, lanes):
         for g in range(lanes):
             for i in range(h):
                 j0 = g * h + i
-                s0, s1 = _out_bit(POLYS[0], j0), _out_bit(POLYS[1], j0)
+                s0, s1 = m0 >> j0 & 1, m1 >> j0 & 1
                 hval = ha if s0 == s1 else hb
                 bt = -hval if s0 else hval
                 p0, p1 = pm[:, j0], pm[:, 32 + j0]
@@ -282,7 +346,46 @@ def test_viterbi_shape_follows_the_batch_size():
     assert picks == [32, 32, 32, 8, 8, 1, 1]
 
 
+_OTHER_CODES = [(0o171, 0o133), (0o117, 0o155)]
+
+
+@pytest.mark.parametrize("polys", _OTHER_CODES, ids=["171_133", "117_155"])
+def test_sign_masks_rebuild_the_trellis(polys):
+    """Another K=7 rate-1/2 code: the masks the wrapper hands the kernel
+    expand, through the butterfly symmetry, into ``fec._trellis``'s whole
+    (2, 64, 2) sign table."""
+    code = fec.ConvCode(polys=polys)
+    masks = viterbi_kernel.code_masks(code)
+    assert masks == _masks(polys)
+    _, sgns = fec._trellis(code)
+    for k in range(2):
+        s = np.array([1.0 - 2.0 * (masks[k] >> j0 & 1) for j0 in range(32)],
+                     F32)
+        want = np.empty((64, 2), F32)
+        want[0::2, 0], want[0::2, 1] = s, -s
+        want[1::2, 0], want[1::2, 1] = -s, s
+        np.testing.assert_array_equal(sgns[k], want)
+
+
+@pytest.mark.parametrize("lanes", [1, 8])
+@pytest.mark.parametrize("polys", _OTHER_CODES, ids=["171_133", "117_155"])
+def test_viterbi_kernel_schedule_equals_plain_other_code(polys, lanes):
+    rng = np.random.default_rng(lanes)
+    code = fec.ConvCode(polys=polys)
+    nbits = 64
+    u = torch.from_numpy(rng.integers(0, 2, (9, nbits), dtype=np.int32))
+    c = fec.conv_encode(code, u).numpy()
+    llrs = ((1.0 - 2.0 * c) + rng.normal(0, 0.7, c.shape)).astype(F32)
+    want = viterbi_kernel.viterbi_decode_plain(code, torch.from_numpy(llrs),
+                                               nbits)
+    got = _viterbi_kernel_twin(llrs, nbits, lanes,
+                               viterbi_kernel.code_masks(code))
+    np.testing.assert_array_equal(got, want.numpy())
+
+
 def test_viterbi_kernel_refuses_other_generators():
-    code = fec.ConvCode(polys=(0o133, 0o165))
-    with pytest.raises(NotImplementedError, match="133, 171"):
+    """A generator without the oldest tap breaks the butterfly symmetry
+    the kernel runs on."""
+    code = fec.ConvCode(polys=(0o132, 0o171))
+    with pytest.raises(NotImplementedError, match="polys"):
         viterbi_kernel._launch(code, torch.zeros(2, 2 * 14), 8)

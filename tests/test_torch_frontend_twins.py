@@ -5,13 +5,16 @@ card:
 (a) the carried state the kernel computes itself, its float64 angles and
     pinned float32 products, against ``ops/frontend.py``'s ``unmix_tail``,
     ``remix_tail`` and ``advance_phase``;
-(b) the FIR as the kernel runs it on the tensor cores: a Toeplitz product
-    in 16-wide k-tiles over the band, each tile x_lo*h_hi + x_hi*h_lo +
-    x_hi*h_hi with the operands split into float16 hi + lo (round to
-    nearest even), accumulated in float32 tile by tile; then power timing
-    and the pick phasor of the plain chain.  Against ``frontend_xla`` on a
-    loopback stimulus: picks within 3e-4 and equal timing indices; and the
-    split exact where it must be (int16 / 2^14 = hi + lo).
+(b) the FIR as the kernel runs it on the tensor cores: the taps padded at
+    the front with zeros to 129 behind a 128-sample halo, a Toeplitz
+    product in 16-wide k-tiles over the band, each tile x_lo*h_hi +
+    x_hi*h_lo + x_hi*h_hi with the operands split into float16 hi + lo
+    (round to nearest even), accumulated in float32 tile by tile; then
+    power timing and the pick phasor of the plain chain.  Against
+    ``frontend_xla`` on a loopback stimulus, at the default geometry, 1200
+    baud, 4800 baud (2 samples per symbol), 63 taps and 256- and
+    1024-sample frames: picks within 3e-4 and equal timing indices; and
+    the split exact where it must be (int16 / 2^14 = hi + lo).
 """
 
 import numpy as np
@@ -29,7 +32,8 @@ from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
 torch.set_num_threads(2)
 
 F32 = np.float32
-HALO, FSZ = 126, 512
+HALO, FSZ = 126, 512        # the default config's carried tail and frame
+KT = 129                    # the kernel's tap count, a 128-sample halo
 
 
 def _phasor(ang):
@@ -102,33 +106,40 @@ def _split(x):
 
 
 def _tc_fir(window, h):
-    """(..., 638) float32 windows -> (..., 512) outputs of one modulated-tap
-    plane, as the kernel's band of m16n8k16 tiles (the last k-tile reads
-    two zeros past the window): output s sits at column n = s % 32 of row
-    block s0 = s - n; k-tile kt covers window columns s0 + 16kt .. +15 and
-    meets n-tile n // 8 when -8 <= 16kt - 8(n // 8) <= 128."""
-    pad = np.zeros(window.shape[:-1] + (2,), F32)
-    xh, xl = _split(np.concatenate([window, pad], axis=-1))
+    """(..., 128 + fsz) float32 windows -> (..., fsz) outputs of one
+    modulated-tap plane (``h``: 129 taps), as the kernel's band of m16n8k16
+    tiles: output s sits at column n = s % 32 of row block s0 = s - n;
+    k-tile kt covers window columns s0 + 16kt .. +15 and meets n-tile
+    n // 8 when -8 <= 16kt - 8(n // 8) <= 128."""
+    fsz = window.shape[-1] - (KT - 1)
+    xh, xl = _split(window)
     hh, hl = _split(h)
-    s = np.arange(FSZ)
+    s = np.arange(fsz)
     n = s % 32
-    acc = np.zeros(window.shape[:-1] + (FSZ,), F32)
+    acc = np.zeros(window.shape[:-1] + (fsz,), F32)
     for kt in range(10):
         d = 16 * kt - 8 * (n // 8)
         live = (d >= -8) & (d <= 128)
         j = 16 * kt + np.arange(16)[None, :]                # (1, 16)
-        k = j - n[:, None]                                  # tap (512, 16)
-        ok = (k >= 0) & (k < 127) & live[:, None]
-        kk = np.clip(k, 0, 126)
-        col = (s - n)[:, None] + j                          # window (512, 16)
+        k = j - n[:, None]                                  # tap (fsz, 16)
+        ok = (k >= 0) & (k < KT) & live[:, None]
+        kk = np.clip(k, 0, KT - 1)
+        col = (s - n)[:, None] + j                          # window (fsz, 16)
         for a, b in ((xl, hh), (xh, hl), (xh, hh)):
             prod = a[..., col].astype(np.float64) * np.where(ok, b[kk], 0.0)
             acc = np.where(live, (acc + prod.sum(-1)).astype(F32), acc)
     return acc
 
 
-@pytest.mark.parametrize("cfg", [ModemConfig(), config_1200()],
-                         ids=["2400", "1200"])
+_TWIN_CFGS = {"2400": ModemConfig(), "1200": config_1200(),
+              "rs=4800": ModemConfig(rs=4800.0),
+              "ntaps=63": ModemConfig(ntaps=63),
+              "frame_size=256": ModemConfig(frame_size=256),
+              "frame_size=1024": ModemConfig(frame_size=1024)}
+
+
+@pytest.mark.parametrize("cfg", list(_TWIN_CFGS.values()),
+                         ids=list(_TWIN_CFGS))
 def test_split_precision_fir_holds_frontend_xla(cfg):
     c, nframes = 3, 4
     gen = torch.Generator().manual_seed(5)
@@ -149,13 +160,16 @@ def test_split_precision_fir_holds_frontend_xla(cfg):
     raw = fe.unmix_tail(tail, phase0, omega).numpy()
     x = body.numpy().astype(F32).reshape(c, -1) * F32(1.0 / cfg.pcm_scale)
     assert np.array_equal(sum(_split(x)), x)       # hi + lo is exact
-    flat = np.concatenate([raw, x], axis=1)
-    windows = np.stack([flat[:, f * FSZ:f * FSZ + HALO + FSZ]
-                        for f in range(nframes)], axis=1)   # (C, F, 638)
+    fsz, halo = cfg.frame_size, KT - 1
+    flat = np.concatenate([np.zeros((c, halo - raw.shape[1]), F32), raw, x],
+                          axis=1)
+    windows = np.stack([flat[:, f * fsz:f * fsz + halo + fsz]
+                        for f in range(nframes)], axis=1)   # (C, F, 128+fsz)
     hm, _, gain, _ = fk._launch_consts(cfg)       # the taps the kernel gets
+    hm = np.concatenate([np.zeros((2, KT - cfg.ntaps), F32), hm], axis=1)
     y = CF32(*(torch.from_numpy(_tc_fir(windows, h) * F32(gain)) for h in hm))
     picks_u, index = timing_ops.estimate_and_decimate(y, cfg.cycles)
-    got = fe.rotate_picks(picks_u, index, phase0, omega, FSZ, cfg.cycles)
+    got = fe.rotate_picks(picks_u, index, phase0, omega, fsz, cfg.cycles)
     np.testing.assert_array_equal(index.numpy(), want_index.numpy())
     for a, b in ((got.re, want.re), (got.im, want.im)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=3e-4)

@@ -8,9 +8,10 @@
 (c) the package imports no jax and nothing of the JAX package;
 (d) every configuration off the port raises ``NotImplementedError``, and
     the loop and channel options that were once off it run and match JAX;
-(e) geometries off the kernels (2 samples per symbol, 63 taps, 256- and
-    1024-sample frames) run their plain versions on CPU tensors and match
-    JAX, and the kernels' gate names each of them.
+(e) the geometries the kernels were widened to (2 samples per symbol, 63
+    taps, 256- and 1024-sample frames) run their plain versions on CPU
+    tensors and match JAX, and the kernels' gates pass them; past the
+    kernels' coverage the gate names the field.
 """
 
 import dataclasses
@@ -247,20 +248,47 @@ def test_geometry_off_the_kernels_matches_jax(kwargs):
     assert [m.launches for m in mods] == before
 
 
-@pytest.mark.parametrize("kwargs", _GEOMETRIES,
-                         ids=[",".join(f"{k}={v}" for k, v in d.items())
-                              for d in _GEOMETRIES])
-def test_kernel_gate_names_the_geometry(kwargs):
+def _gate_cases():
+    """(id, config fields or None, the kernel gates asked, the field they
+    must name or None)."""
+    from qpsk_tpu_torch.ops.cuda import frontend_kernel, ldpc_kernel, tx_kernel
+    from qpsk_tpu_torch.ops.cuda import viterbi_kernel
+    from qpsk_tpu_torch.packet import ConvCode, LdpcCode
+
+    def modem(**kwargs):
+        cfg = dataclasses.replace(CFG, **kwargs)
+        return [frontend_kernel.coverage(cfg),
+                frontend_kernel.coverage(cfg, power=True),
+                tx_kernel.coverage(cfg)]
+    cases = [(",".join(f"{k}={v}" for k, v in d.items()), d,
+              lambda d=d: modem(**d), None) for d in _GEOMETRIES]
+    return cases + [
+        ("ntaps=131", {"ntaps": 131}, lambda: modem(ntaps=131), "ntaps"),
+        ("ldpc_m=4104", None,
+         lambda: [ldpc_kernel.coverage(LdpcCode(k=4104))], "m"),
+        ("conv_K=5", None,
+         lambda: [viterbi_kernel.coverage(ConvCode(constraint=5,
+                                                   polys=(0o23, 0o35)))],
+         "polys")]
+
+
+@pytest.mark.parametrize("case", _gate_cases(), ids=lambda c: c[0])
+def test_kernel_gate_names_the_geometry(case):
     """The check a wrapper makes before it launches on a CUDA tensor
-    raises ``NotImplementedError`` naming the field off the kernels, while
-    ``check_slice`` (asked on every call) lets the geometry through."""
+    (``_lib.check_geometry`` of the kernel's ``coverage``) passes the four
+    geometries the kernels were widened to, and ``check_slice`` (asked on
+    every call) lets them through; past a kernel's coverage (131 taps,
+    beyond the TPU front-end's gate; an LDPC code of more checks than the
+    kernel takes; a K=5 convolutional code) it raises
+    ``NotImplementedError`` naming the field."""
     from qpsk_tpu_torch.modem import check_slice
     from qpsk_tpu_torch.ops.cuda import _lib
-    cfg = dataclasses.replace(CFG, **kwargs)
-    check_slice(cfg)
-    field = next(iter(kwargs))
-    with pytest.raises(NotImplementedError,
-                       match="fs/rs" if field == "rs" else field):
-        _lib.check_geometry(cfg)
-    _lib.check_geometry(CFG)
-    _lib.check_geometry(dataclasses.replace(CFG, rs=1200.0))
+    _, fields, gates, field = case
+    check_slice(dataclasses.replace(CFG, **(fields or {})))
+    if field is None:
+        for off in gates():
+            _lib.check_geometry(off)
+        return
+    with pytest.raises(NotImplementedError, match=field):
+        for off in gates():
+            _lib.check_geometry(off)

@@ -110,9 +110,41 @@ Phases, each of which exits non-zero on failure:
    nor the loops' offset are held); TX against its plain version at 2 samples
    per symbol (1, 200, 8192 channels), and in one
    call of 2 channels x (128 * 65 536 + 37) symbols at 2, 4 and 8 against
-   chained plain calls; then one call at 131 taps, past the kernels' coverage:
-   ``tx_stream`` and ``rx_stream`` on the card must raise
+   chained plain calls; then one call at 1031 taps, past the kernels'
+   coverage (the TPU gates': 129 taps for the front-end, a 128-symbol halo
+   for TX): ``tx_stream`` and ``rx_stream`` on the card must raise
    ``NotImplementedError`` naming it, before any launch.
+8. The lowering switches, the general kernel instances and the streaming
+   runtime.  (a) ``costas_impl`` / ``frontend_impl`` / ``tx_impl``
+   "pallas" move each kernel's counter and equal "auto"; "scan" / "xla"
+   move none and equal the plain wrappers; the decoders' ``impl`` alike;
+   "pallas" on CPU tensors raises.  (b) Loopbacks of 256 channels x 32
+   packets at 10 dB through the general instances (``rs=3200``,
+   ``frame_size=384``: 3 samples per symbol; ``rs=1600``, 768: 6, and
+   384: 6 on the composed chain; ``rs=600``, 2048: 16;
+   ``frame_size=4096``; ``frame_size=1536`` with
+   ``agc=True``: the power output at 384 symbols a frame), held as in 7f
+   (at 3 and 16 samples per symbol the JAX package passes no packet
+   either, so only sync and CRC agreement are held there); TX at 16
+   samples per symbol and at 255 taps with 8; Viterbi at K=5 (23, 35),
+   K=9 (561, 753) and rate 1/4 K=7, LDPC at (256, dv 2, 5, 6) and (192,
+   dv 8), at 1, 156 and 4096 packets (Viterbi bit-equal, LDPC >= 99.9 %);
+   each general instance's time beside its plain version's; then calls
+   past the new coverage (1031 taps, K=16, dv=9), which raise before any
+   launch.  (c) ``StreamModulator`` on the card, 1536 packets in seeded
+   pushes of 1-97 and a flush, QPSK and 8PSK, against ``tx_impl="xla"``:
+   PCM within 3 LSB, pending bits equal, tail exact, one TX launch a
+   ``tx_stream`` call.  (d) ``StreamDemodulator`` on one stream against
+   the same class with ``costas_impl="scan"``, ``frontend_impl="xla"``,
+   on the same PCM in seeded chunks of 1-9600 samples: uncoded QPSK
+   (+50 Hz, 10 dB, 1536 packets, a 3 s gap under ``squelch_db=6`` and the
+   resync after it, saved halfway and resumed in a fresh receiver),
+   ``fec="conv"`` and ``fec="ldpc"`` at 6 dB (512 packets), 8PSK at
+   +250 Hz (the M-power spur; it must sync through the candidate
+   rotation): the same packets and counters, every kernel counter of the
+   path moved.  (e) The audio seconds a wall second of each side, the
+   launches per bucket.  ``--runtime`` runs phase 8 alone; ``--profile``
+   also traces one bucket of each phase-8d case.
 
 The Costas kernel is also held at a chain of 1000 symbols, not a multiple
 of 16, in every mode (phases 2, 6a and 7a).  Beside each Costas, front-end
@@ -173,6 +205,7 @@ before printing any result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -242,7 +275,7 @@ GEOMETRY_PATHS = {"rs=4800": dict(rs=4800.0), "ntaps=63": dict(ntaps=63),
                   "1200,frame_size=1024": dict(rs=1200.0, frame_size=1024)}
 GEOMETRY_SHAPE = (256, 32)
 TX_LONG = (2, 128 * 65536 + 37)
-OFF_GEOMETRY = (dict(ntaps=131), (256, 8))
+OFF_GEOMETRY = (dict(ntaps=1031), (256, 8))
 # phase 5a: the coded link's other codes on the card: LDPC at
 # PacketConfig(payload_bytes=127) (m = k = 1032 checks) and Viterbi with
 # the generators swapped, at these batch sizes
@@ -252,6 +285,42 @@ CONV_SWAPPED = (0o171, 0o133)
 # a Costas chain length that is not a multiple of 16 (nor of 8), and its
 # trace period
 ODD_T = (1000, 125)
+# phase 8b: the geometries of the general kernel instances, each a
+# loopback of GEOMETRY_SHAPE at 10 dB: name -> (config fields, whether the
+# link carries packets there; at 3 and 16 samples per symbol the JAX
+# package passes none either, measured on CPU with the same stimulus), TX
+# at 16 samples per symbol and at 255 taps with 8 (channels, symbols), and
+# the decoders' other codes: Viterbi (K, generators), LDPC (k, dv), at
+# these batches; LDPC also at its instances' largest thread counts, the
+# general one's 512 checks and PacketConfig(payload_bytes=407)'s 3272
+# (four checks a thread), which launch only within their launch bounds
+GEOMETRY8_PATHS = {
+    "rs=3200,frame_size=384": (dict(rs=3200.0, frame_size=384), False),
+    "rs=1600,frame_size=768": (dict(rs=1600.0, frame_size=768), True),
+    "rs=1600,frame_size=384": (dict(rs=1600.0, frame_size=384), True),
+    "rs=600,frame_size=2048": (dict(rs=600.0, frame_size=2048), False),
+    "frame_size=4096": (dict(frame_size=4096), True),
+    "frame_size=1536,agc": (dict(frame_size=1536, agc=True), True)}
+TX8 = ((dict(rs=600.0, frame_size=2048), (256, 4096)),
+       (dict(rs=1200.0, ntaps=255), (256, 4096)))
+VITERBI8 = ((5, (0o23, 0o35)), (9, (0o561, 0o753)),
+            (7, (0o117, 0o127, 0o155, 0o171)))
+LDPC8 = ((256, 2), (256, 5), (256, 6), (192, 8), (512, 2), (3272, 3))
+FEC8_BATCHES = (1, 156, 4096)
+# phase 8c: StreamModulator, packets of 30 bytes in seeded pushes of 1 to
+# this many packets
+RUNTIME_TX = (1536, 97)
+# phase 8d: StreamDemodulator on one stream: name -> (config fields, packet
+# fields, SNR dB, offset Hz, packets); PCM pushed in seeded chunks of 1 to
+# RUNTIME_CHUNK samples; the uncoded case has RUNTIME_GAP_S of dead air in
+# the middle, received with squelch_db=RUNTIME_SQUELCH_DB, and is saved
+# halfway and resumed in a fresh receiver
+RUNTIME_CASES = {
+    "uncoded": (dict(), dict(), 10.0, 50.0, 1536),
+    "conv": (dict(), dict(fec="conv"), 6.0, 50.0, 512),
+    "ldpc": (dict(), dict(fec="ldpc"), 6.0, 50.0, 512),
+    "8psk_spur": (dict(modulation="8psk"), dict(), 20.0, 250.0, 200)}
+RUNTIME_CHUNK, RUNTIME_GAP_S, RUNTIME_SQUELCH_DB = 9600, 3.0, 6.0
 # the H100 SXM's published peaks: HBM bytes/s, float32 (non-tensor) FLOP/s
 # and dense float16 tensor-core FLOP/s
 PEAK_BYTES_S, PEAK_FLOP_S, PEAK_F16_S = 3.35e12, 67e12, 989e12
@@ -368,7 +437,8 @@ def check_tx(cfg, sym, st, label: str, errs: dict, key: str = "tx",
     return pk, st._replace(nco_phase=php, fir_tail=tlp)
 
 
-def check_frontend(cfg, pcm, st, exact: bool, label: str, errs: dict):
+def check_frontend(cfg, pcm, st, exact: bool, label: str, errs: dict,
+                   key: str = "frontend", pow_key: str = "frontend_tm_power"):
     """The time-major front-end kernel against its plain version on the
     same PCM and state; with ``cfg.agc`` its power output too, which
     must equal ``agc._frame_power`` of its own picks bit for bit and the
@@ -394,8 +464,8 @@ def check_frontend(cfg, pcm, st, exact: bool, label: str, errs: dict):
     need(err <= 3e-4, f"front-end picks differ by {err} ({label})")
     state_err = max(cmax_abs(k[3], p[3]), cmax_abs(k[4], p[4]))
     need(state_err <= 1e-5, f"front-end state differs by {state_err} ({label})")
-    errs["frontend"] = max(errs["frontend"], err)
-    msg = (f"  frontend {label}: index agreement {rate:.6f}, picks max err "
+    errs[key] = max(errs[key], err)
+    msg = (f"  {key} {label}: index agreement {rate:.6f}, picks max err "
            f"{err:.3g}, state max err {state_err:.3g}")
     if cfg.agc:
         need(torch.equal(k[6], agc.frame_powers_tm(k[0], k[1], pcm.shape[1])),
@@ -403,7 +473,7 @@ def check_frontend(cfg, pcm, st, exact: bool, label: str, errs: dict):
         rel = float(((k[6] - p[6]).abs() / p[6].clamp(min=1e-30))[emitted].max())
         need(rel <= 1e-4, f"the power output differs from the plain "
              f"version's by {rel} relative ({label})")
-        errs["frontend_tm_power"] = max(errs["frontend_tm_power"], rel)
+        errs[pow_key] = max(errs[pow_key], rel)
         msg += f"; powers bit-equal to _frame_power, {rel:.3g} relative from plain"
     print(msg)
     return k, p
@@ -558,21 +628,13 @@ def compare_kernels(cfg, pcfg, dev, errs: dict) -> None:
                      True, f"C={c:5d} noise T={t_odd}", errs)
 
 
-def rx_path(cfg, kind: str):
-    """(chain, front-end, Costas) that ``rx_stream`` runs for ``cfg``, with
-    the kernel wrappers (``kind="kernel"``) or their plain versions."""
-    from qpsk_tpu_torch import modem
-    from qpsk_tpu_torch.ops.cuda import costas_kernel as ck
-    from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
-
-    chain, frontend, costas = modem._rx_path(cfg)
+def path_cfg(cfg, kind: str):
+    """``cfg`` with the lowering switches of a receive path: the kernels
+    (``kind="kernel"``, "auto" on CUDA tensors) or their plain versions
+    (``costas_impl="scan"``, ``frontend_impl="xla"``)."""
     if kind == "plain":
-        frontend = {fk.rx_frontend_tm: fk.rx_frontend_tm_plain,
-                    fk.rx_frontend: fk.frontend_xla}[frontend]
-        costas = {ck.costas_run_tm: ck.costas_run_tm_plain,
-                  ck.costas_run_cm: functools.partial(
-                      ck.costas_run_cm, run=ck.costas_run_tm_plain)}[costas]
-    return chain, frontend, costas
+        return dataclasses.replace(cfg, costas_impl="scan", frontend_impl="xla")
+    return cfg
 
 
 def tx_symbols(cfg, bits):
@@ -604,7 +666,8 @@ def boundary_distance(cfg, sym):
 
 
 def check_path(cfg, bits, clean, pcm, out, dev, label: str, errs: dict,
-               tx_key: str = "tx", fe_key: str = "frontend", st0=None):
+               tx_key: str = "tx", fe_key: str = "frontend", st0=None,
+               tm_key: str = "frontend", pow_key: str = "frontend_tm_power"):
     """Each modem kernel against its plain version on a path's own inputs
     (the channel bits sent, the clean and the received PCM; the Costas
     kernel on the symbols the path handed it) and its re-run from the
@@ -626,9 +689,10 @@ def check_path(cfg, bits, clean, pcm, out, dev, label: str, errs: dict,
     need(torch.equal(pk, clean.reshape(c, -1)),
          f"the TX kernel's re-run differs ({label})")
     st = rx_init(cfg, (c,), device=dev) if st0 is None else st0
-    chain, frontend, costas = rx_path(cfg, "kernel")
+    chain, frontend, costas = modem._rx_path(cfg)
     if chain is modem._rx_stream_tm:
-        kf, _ = check_frontend(cfg, pcm, st, True, label, errs)
+        kf, _ = check_frontend(cfg, pcm, st, True, label, errs, tm_key,
+                               pow_key)
         index = kf[2]
     else:
         kf, _ = check_frontend_cm(cfg, pcm, st, True, label, errs, fe_key)
@@ -651,7 +715,7 @@ def check_path(cfg, bits, clean, pcm, out, dev, label: str, errs: dict,
     check_costas(cs, planes[0], planes[1], params, nsym, True, label, errs,
                  gear=kw.get("gear"), gains=kw.get("gains"), dd=kw.get("dd"))
 
-    _, plain = chain(cfg, st, pcm, *rx_path(cfg, "plain")[1:])
+    _, plain = chain(path_cfg(cfg, "plain"), st, pcm, frontend, costas)
     d = out.symbols
     if cfg.modulation == "qpsk":
         tie = torch.stack([d.im.abs() < NEAR_TIE, d.re.abs() < NEAR_TIE],
@@ -966,6 +1030,15 @@ def frontend_work(c, nframes, cycles, tm: bool, power: bool) -> tuple:
     if power:
         nbytes += c * nframes * 4
         rest += c * t * 3
+    return fir_bound(nbytes, fir, rest)
+
+
+def fir_bound(nbytes: float, fir: float, rest: float) -> tuple:
+    """(least ms, what bounds it, the float32-FMA floor ms) of a function
+    moving ``nbytes`` whose FIR's ``fir`` float operations could run on the
+    tensor cores in three float16 passes (hi*hi, hi*lo, lo*hi) at the
+    float16 peak, beside ``rest`` float32 operations on the CUDA cores;
+    the floor is the same FIR as float32 FMAs on the CUDA cores."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = (3 * fir / PEAK_F16_S + rest / PEAK_FLOP_S) * 1e3
     fma = max(t_bytes, (fir + rest) / PEAK_FLOP_S * 1e3)
@@ -1009,12 +1082,7 @@ def tx_work(c, s, cycles) -> tuple:
     CUDA cores, the floor of the route the kernel left."""
     n = s * cycles
     nbytes = c * (s * 8 + n * 2 + (126 // cycles) * 8 + 126 * 8 + 2 * 8)
-    fir, rest = c * n * 2 * 2 * -(-127 // cycles), c * n * 8
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = (3 * fir / PEAK_F16_S + rest / PEAK_FLOP_S) * 1e3
-    fma = max(t_bytes, (fir + rest) / PEAK_FLOP_S * 1e3)
-    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")) \
-        + (fma,)
+    return fir_bound(nbytes, c * n * 2 * 2 * -(-127 // cycles), c * n * 8)
 
 
 @contextlib.contextmanager
@@ -1024,7 +1092,10 @@ def plain_decoders():
     from qpsk_tpu_torch.ops.cuda import ldpc_kernel as lk
     from qpsk_tpu_torch.ops.cuda import viterbi_kernel as vk
     saved = vk.viterbi_decode, lk.ldpc_decode
-    vk.viterbi_decode, lk.ldpc_decode = vk.viterbi_decode_plain, lk.ldpc_decode_plain
+    vk.viterbi_decode = (lambda code, llrs, nbits, impl="auto":
+                         saved[0](code, llrs, nbits, "scan"))
+    lk.ldpc_decode = (lambda code, llrs, iters=None, impl="auto":
+                      saved[1](code, llrs, iters, "xla"))
     try:
         yield
     finally:
@@ -1313,8 +1384,11 @@ def rx_step(cfg, dev, pcm, path: str, kind: str | None = None):
     from qpsk_tpu_torch.ops.modmap import demod_soft
     from qpsk_tpu_torch.packet import PacketConfig, disassemble_packet_soft
 
+    from qpsk_tpu_torch import modem
+
     c, nframes = pcm.shape[:2]
-    chain, frontend, costas = rx_path(cfg, path)
+    cfg = path_cfg(cfg, path)
+    chain, frontend, costas = modem._rx_path(cfg)
     state = [rx_init(cfg, (c,), device=dev)]
     nbits = c * nframes * cfg.bits_per_frame
     pcfg = PacketConfig(payload_bytes=30, fec=kind or False)
@@ -1467,6 +1541,15 @@ KERNELS = {
                 "qpsk_tpu/ops/pallas/viterbi_kernel.py:151+166"),
     "ldpc": ("qpsk_tpu_torch/csrc/ldpc.cu",
              "qpsk_tpu/ops/pallas/ldpc_kernel.py:116"),
+    # the general instances (phase 8b)
+    "frontend_gen": (_FE, "qpsk_tpu/ops/pallas/frontend_kernel.py:545"),
+    "frontend_gen_power": (_FE, "qpsk_tpu/ops/pallas/frontend_kernel.py:545"),
+    "frontend_cm_gen": (_FE, "qpsk_tpu/ops/pallas/frontend_kernel.py:451"),
+    "tx_gen": (_TX, "qpsk_tpu/ops/pallas/tx_kernel.py:145"),
+    "viterbi_gen": ("qpsk_tpu_torch/csrc/viterbi.cu",
+                    "qpsk_tpu/ops/pallas/viterbi_kernel.py:151+166"),
+    "ldpc_gen": ("qpsk_tpu_torch/csrc/ldpc.cu",
+                 "qpsk_tpu/ops/pallas/ldpc_kernel.py:116"),
 }
 
 
@@ -1869,17 +1952,21 @@ def spur_channels(cfg, pcm, hz, name: str):
     return spur
 
 
-def geometry_path(name: str, pcfg, dev, errs: dict) -> None:
-    """Phase 7f: one widened geometry at 256 channels x 32 packets through
-    the kernels (packets -> TX at +50 Hz -> AWGN 10 dB -> RX), every
-    launch counter reset before and each kernel's read after; then, as in
-    phase 3, each kernel against its plain version on the path's own
-    inputs and the plain path on the same PCM, which must sync alike and
-    pass the same packets."""
+def geometry_path(name: str, pcfg, dev, errs: dict, fields=None,
+                  link=None) -> dict:
+    """Phase 7f (and 8b, with ``fields`` and ``link``): one widened
+    geometry at 256 channels x 32 packets through the kernels (packets ->
+    TX at +50 Hz -> AWGN 10 dB -> RX), every launch counter reset before
+    and each kernel's read after; then, as in phase 3, each kernel against
+    its plain version on the path's own inputs and the plain path on the
+    same PCM, which must sync alike and pass the same packets (with
+    ``link`` false, at a point where the JAX package passes no packet
+    either, only sync and CRC agreement are held).  Returns the path's
+    launches by kernel instance, as ``kernel_keys`` names them."""
     import torch
     from qpsk_tpu_torch import ModemConfig, rx_init, rx_stream
 
-    cfg = ModemConfig(**GEOMETRY_PATHS[name])
+    cfg = ModemConfig(**(fields or GEOMETRY_PATHS[name]))
     c, npk = GEOMETRY_SHAPE
     nframes = npk * pcfg.frame_bits // cfg.bits_per_frame
     mods = kernel_modules()
@@ -1897,16 +1984,41 @@ def geometry_path(name: str, pcfg, dev, errs: dict) -> None:
         need(n > 0, f"the {name} path never launched the {kernel} kernel")
     need(bool(torch.isfinite(out.symbols.re).all()
               and torch.isfinite(out.symbols.im).all()), "non-finite symbols")
-    slow = cfg.cycles == 8
+    keys = kernel_keys(cfg)
+    on_path = {keys["tx"]: counts["tx"], keys["frontend"]: counts["frontend"]}
     _, plain_bits, flips = check_path(
         cfg, chan, clean, pcm, out, dev, f"C={c} {name}", errs,
-        tx_key="tx_1200" if slow else "tx",
-        fe_key="frontend_cm_1200" if slow else "frontend_cm")
+        tx_key=keys["tx"], fe_key=keys["frontend"], tm_key=keys["frontend"],
+        pow_key=keys["frontend"])
     # 2 samples per symbol carries no link at 10 dB in either package (the
     # port's bits equal the JAX package's on the same PCM,
     # tests/test_torch_loopback.py): no lock, no packet to check
     compare_decodes(pcfg, out, plain_bits, flips, payload, name,
-                    link=cfg.cycles > 2)
+                    link=cfg.cycles > 2 if link is None else link)
+    return on_path
+
+
+def kernel_keys(cfg) -> dict:
+    """The ``kernels`` line's names of the TX and front-end instances that
+    ``rx_stream`` / ``tx_stream`` launch for ``cfg``: the tensor-core
+    instances' ("tx", "tx_1200", "frontend", "frontend_tm_power",
+    "frontend_cm", "frontend_cm_1200") or the general ones' ("tx_gen",
+    "frontend_gen", "frontend_gen_power", "frontend_cm_gen")."""
+    from qpsk_tpu_torch import modem
+    from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
+    from qpsk_tpu_torch.ops.cuda import tx_kernel as tk
+
+    slow = cfg.cycles == 8
+    tx = ("tx_1200" if slow else "tx") if tk._fast(cfg) else "tx_gen"
+    tm = modem._rx_path(cfg)[0] is modem._rx_stream_tm
+    if not fk._fast(cfg, tm and cfg.agc):
+        fe = ("frontend_gen_power" if cfg.agc else "frontend_gen") if tm \
+            else "frontend_cm_gen"
+    elif tm:
+        fe = "frontend_tm_power" if cfg.agc else "frontend"
+    else:
+        fe = "frontend_cm_1200" if slow else "frontend_cm"
+    return {"tx": tx, "frontend": fe}
 
 
 def tx_geometries(dev, errs: dict) -> None:
@@ -2246,6 +2358,535 @@ def profile(cfg, dev, steps: int = 5) -> None:
                  "a tx_modulate call is not one kernel launch alone")
 
 
+def lowering_switches(pcfg, dev) -> None:
+    """Phase 8a: the lowering switches on the card.  With every ``*_impl``
+    "pallas", ``rx_stream`` and ``tx_stream`` launch the front-end, Costas
+    and TX kernels (their counters move) and equal "auto"; with
+    ``costas_impl="scan"`` and ``frontend_impl`` / ``tx_impl`` "xla" no
+    counter moves and the outputs equal the plain wrappers'; the decoders'
+    ``impl`` likewise; "pallas" on a CPU tensor raises."""
+    import torch
+    from qpsk_tpu_torch import ModemConfig, modem, rx_init, rx_stream, tx_init
+    from qpsk_tpu_torch import tx_stream
+    from qpsk_tpu_torch.ops.cuda import costas_kernel as ck
+    from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
+    from qpsk_tpu_torch.ops.cuda import tx_kernel as tk
+    from qpsk_tpu_torch.packet import ConvCode, LdpcCode
+    from qpsk_tpu_torch.packet.fec import viterbi_decode
+    from qpsk_tpu_torch.packet.ldpc import ldpc_decode
+
+    c, nframes = 64, 8
+    base = ModemConfig()
+    _, chan, clean, pcm = loopback_pcm(base, pcfg, c, nframes, seed=2040,
+                                       dev=dev)
+    pallas = dataclasses.replace(base, costas_impl="pallas",
+                                 frontend_impl="pallas", tx_impl="pallas")
+    plain = dataclasses.replace(base, costas_impl="scan", frontend_impl="xla",
+                                tx_impl="xla")
+    mods = kernel_modules()
+    st0, ts0 = rx_init(base, (c,), device=dev), tx_init(base, (c,), device=dev)
+    _, auto_out = rx_stream(base, st0, pcm)
+    for cfg, moved in ((pallas, True), (plain, False)):
+        reset_launches()
+        _, out = rx_stream(cfg, st0, pcm)
+        _, txp = tx_stream(cfg, ts0, chan, TX_OFFSET_HZ)
+        torch.cuda.synchronize()
+        launched = {n: mods[n].launches for n in ("frontend", "costas", "tx")}
+        need(all(launched.values()) if moved else not any(launched.values()),
+             f"{cfg.costas_impl}/{cfg.frontend_impl}/{cfg.tx_impl}: launches "
+             f"{launched}")
+        if moved:
+            same = (torch.equal(out.bits, auto_out.bits)
+                    and torch.equal(txp, clean))
+        else:
+            zr, zi = fk.rx_frontend_tm_plain(base, pcm, st0.nco_phase,
+                                             st0.fir_tail, st0.decim_delay)[:2]
+            params, gear, dd = modem._loop(base)
+            _, derot, _, bits = ck.costas_run_tm_plain(
+                st0.costas, zr, zi, params, base.symbols_per_frame, gear=gear,
+                dd=dd)
+            sym = tx_symbols(base, chan.reshape(c, -1))
+            pp, _, _ = tk.tx_modulate_plain(base, sym, ts0.nco_phase,
+                                            ts0.fir_tail, TX_OFFSET_HZ)
+            same = (torch.equal(out.bits.reshape(c, -1), bits)
+                    and torch.equal(out.symbols.re.reshape(c, -1),
+                                    derot.re.T)
+                    and torch.equal(txp.reshape(c, -1), pp))
+        need(same, f"{cfg.costas_impl}/{cfg.frontend_impl}/{cfg.tx_impl}: "
+             "outputs differ")
+        print(f"  costas_impl={cfg.costas_impl} frontend_impl="
+              f"{cfg.frontend_impl} tx_impl={cfg.tx_impl}: launches "
+              f"{launched}, outputs equal to the "
+              f"{'kernel path' if moved else 'plain wrappers'}")
+    gen = torch.Generator(device=dev).manual_seed(2041)
+    llrs = torch.randn((64, 2 * 262), generator=gen, device=dev)
+    ll = torch.randn((64, 512), generator=gen, device=dev)
+    reset_launches()
+    v = viterbi_decode(ConvCode(), llrs, 256, impl="scan")
+    lq = ldpc_decode(LdpcCode(256), ll, impl="xla")
+    need(not mods["viterbi"].launches and not mods["ldpc"].launches,
+         "a decoder's plain impl launched its kernel")
+    need(torch.equal(v, viterbi_decode(ConvCode(), llrs, 256))
+         and float((lq == ldpc_decode(LdpcCode(256), ll)).float().mean())
+         >= 0.999, "a decoder's plain impl differs from its kernel")
+    for what, call in (
+            ("costas_impl", lambda: rx_stream(
+                dataclasses.replace(base, costas_impl="pallas"),
+                rx_init(base, (1,), device="cpu"), pcm[:1].cpu())),
+            ("tx_impl", lambda: tx_stream(
+                pallas, tx_init(base, (1,), device="cpu"), chan[:1].cpu()))):
+        try:
+            call()
+        except RuntimeError as err:
+            need(what in str(err), f"{what}='pallas' on the CPU raised {err!r}")
+        else:
+            need(False, f"{what}='pallas' ran on CPU tensors")
+    print("  viterbi impl=scan, ldpc impl=xla: no launch, equal to the "
+          "kernels; 'pallas' on CPU tensors raises")
+
+
+def general_work(kind: str, cfg=None, c=0, nframes=0, s=0, code=None,
+                 b=0, nbits=0) -> tuple:
+    """The bound of a general instance on its inputs, (least ms, what
+    bounds it), and for the front-end and TX the float32-FMA floor ms: the
+    front-end (``kind`` "tm", "tm_power" or "cm") moves the PCM, the
+    carried tail and phase in and the picks, index, new tail and phase (the
+    delay in and out, the powers) out, and does 2 x ntaps multiply-adds a
+    sample for the FIR plus 3 operations a sample and the energy and a
+    phasor a pick; TX moves the symbols and the tail's symbol lanes in,
+    PCM and the new tail out, 2 x ceil(ntaps/cycles) multiply-adds and 8
+    carrier operations a sample.  Both FIRs as ``fir_bound`` prices them
+    (on the tensor cores, as the fast instances run them).  Viterbi moves
+    the LLRs in and the bits out, 2 x rate_den + 8 operations a state and
+    step; LDPC as ``fec_work`` on its code's edges; both float32."""
+    if kind in ("tm", "tm_power", "cm"):
+        fsz, nsym, h = cfg.frame_size, cfg.symbols_per_frame, cfg.ntaps - 1
+        n, t = nframes * fsz, nframes * nsym
+        nbytes = c * (n * 2 + 2 * (h * 4 + 4) * 2 + 2 * t * 4 + nframes * 4)
+        fir, rest = c * n * 4 * cfg.ntaps, c * n * 3 + c * t * 6
+        if kind != "cm":
+            nbytes += 2 * 2 * c * nsym * 4
+        if kind == "tm_power":
+            nbytes += c * nframes * 4
+            rest += c * t * 3
+        return fir_bound(nbytes, fir, rest)
+    if kind == "tx":
+        n, h = s * cfg.cycles, cfg.ntaps - 1
+        nbytes = c * (s * 8 + n * 2 + (h // cfg.cycles) * 8 + h * 8 + 2 * 8)
+        return fir_bound(nbytes, c * n * 4 * -(-cfg.ntaps // cfg.cycles),
+                         c * n * 8)
+    if kind == "viterbi":
+        nsteps = nbits + code.constraint - 1
+        return bound(b * (code.rate_den * nsteps + nbits) * 4,
+                     b * nsteps * code.nstates * (2 * code.rate_den + 8))
+    import torch
+    from qpsk_tpu_torch.ops.cuda import ldpc_kernel as lk
+    edges = int((lk._tables(code, torch.device("cpu"))[0] >= 0).sum())
+    return bound(b * (code.n + code.k) * 4, b * code.iters * edges * 8)
+
+
+def general_instances(pcfg, dev, errs: dict, counts: dict,
+                      times: dict) -> None:
+    """Phase 8b: the geometries and codes of the general instances on the
+    card.  Loopbacks through the kernels (``GEOMETRY8_PATHS``), each kernel
+    held against its plain version on the path's inputs and the plain
+    path against the kernel path; TX at 16 samples per symbol and at 255
+    taps; the decoders' other codes against their plain versions (Viterbi
+    bit-equal, LDPC >= 99.9 %); each general instance's time at one shape;
+    then calls past the coverage, which raise before any launch."""
+    import torch
+    from qpsk_tpu_torch import ModemConfig, rx_init, tx_init
+    from qpsk_tpu_torch.ops.cplx import CF32
+    from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
+    from qpsk_tpu_torch.ops.cuda import ldpc_kernel as lk
+    from qpsk_tpu_torch.ops.cuda import tx_kernel as tk
+    from qpsk_tpu_torch.ops.cuda import viterbi_kernel as vk
+    from qpsk_tpu_torch.ops.modmap import bits_to_symbols
+    from qpsk_tpu_torch.packet import (ConvCode, LdpcCode, conv_encode,
+                                       hard_llrs, ldpc_encode)
+
+    for name, (fields, link) in GEOMETRY8_PATHS.items():
+        for key, n in geometry_path(name, pcfg, dev, errs, fields,
+                                    link).items():
+            if "gen" in key:
+                counts[key] = counts.get(key, 0) + n
+    for key in ("frontend_gen", "frontend_gen_power", "frontend_cm_gen",
+                "tx_gen"):
+        need(counts.get(key, 0) > 0, f"no phase-8b path launched {key}")
+    for fields, (c, s) in TX8:
+        cfg = ModemConfig(**fields)
+        gen = torch.Generator(device=dev).manual_seed(c + s)
+        sym = bits_to_symbols(torch.randint(0, 2, (c, 4 * s), generator=gen,
+                                            device=dev, dtype=torch.int32))
+        st = tx_init(cfg, (c,), device=dev)
+        for i in range(2):
+            piece = CF32(sym.re[:, i * s:(i + 1) * s].contiguous(),
+                         sym.im[:, i * s:(i + 1) * s].contiguous())
+            _, st = check_tx(cfg, piece, st, f"{fields} C={c} call {i}", errs,
+                             key="tx_gen")
+
+    reset_launches()
+    codes = [("viterbi", ConvCode(k, polys)) for k, polys in VITERBI8] + \
+        [("ldpc", LdpcCode(k, dv=dv)) for k, dv in LDPC8]
+    for name, code in codes:
+        nbits = 256
+        for b in FEC8_BATCHES:
+            gen = torch.Generator(device=dev).manual_seed(b + code.k
+                                                          if name == "ldpc"
+                                                          else b)
+            u = torch.randint(0, 2, (b, code.k if name == "ldpc" else nbits),
+                              generator=gen, device=dev, dtype=torch.int32)
+            cw = ldpc_encode(code, u) if name == "ldpc" else conv_encode(code, u)
+            noisy = (1.0 - 2.0 * cw) + 0.7 * torch.randn(cw.shape, generator=gen,
+                                                         device=dev)
+            hard = hard_llrs(cw ^ (torch.rand(cw.shape, generator=gen,
+                                              device=dev) < 0.03).to(torch.int32))
+            for stim, llrs in (("sigma 0.7", noisy), ("hard 3 %", hard)):
+                if name == "ldpc":
+                    k, p = lk.ldpc_decode(code, llrs), lk.ldpc_decode_plain(code, llrs)
+                else:
+                    k = vk.viterbi_decode(code, llrs, nbits)
+                    p = vk.viterbi_decode_plain(code, llrs, nbits)
+                label = f"{code} B={b} {stim}"
+                rate = agree(label, f"{name} bit", k == p, exact=name == "viterbi")
+                ck_, cp = int((k == u).all(-1).sum()), int((p == u).all(-1).sum())
+                need(ck_ == cp, f"{label}: {ck_} packets clean, plain {cp}")
+                key = "ldpc" if name == "ldpc" and code.dv == 3 else f"{name}_gen"
+                errs[key] = max(errs[key], 1.0 - rate)
+            print(f"  {name}_gen {code} B={b:5d}: "
+                  f"{'equal' if name == 'viterbi' else f'agreement {rate:.6f}'}"
+                  f", {ck_}/{b} clean (plain {cp})")
+    counts["viterbi_gen"] = sum(vk.by_mode.values()) - vk.by_mode["k7"]
+    counts["ldpc_gen"] = sum(lk.by_mode.values()) - lk.by_mode["dv3"]
+    need(counts["viterbi_gen"] > 0 and counts["ldpc_gen"] > 0,
+         "the general decoder instances never launched")
+    print(f"  decoder launches: viterbi {dict(vk.by_mode)}, ldpc "
+          f"{dict(lk.by_mode)}")
+
+    # each general instance's time at one shape of its path, beside its
+    # plain version's
+    print("  times of the general instances:")
+    c, nframes, iters = 256, 8, 20
+    for key, fields, kind in (("frontend_gen", dict(frame_size=4096), "tm"),
+                              ("frontend_gen_power",
+                               dict(frame_size=1536, agc=True), "tm_power"),
+                              ("frontend_cm_gen",
+                               dict(rs=3200.0, frame_size=384), "cm")):
+        cfg = ModemConfig(**fields)
+        pcm = noise_pcm(cfg, c, nframes, 71, dev)
+        st = rx_init(cfg, (c,), device=dev)
+        if kind == "cm":
+            check_frontend_cm(cfg, pcm, st, False, f"C={c} F={nframes} noise",
+                              errs, key)
+            args, kern, plain = ((cfg, pcm, st.nco_phase, st.fir_tail),
+                                 fk.rx_frontend, fk.frontend_xla)
+        else:
+            check_frontend(cfg, pcm, st, False, f"C={c} F={nframes} noise",
+                           errs, key, key)
+            args, kern, plain = ((cfg, pcm, st.nco_phase, st.fir_tail,
+                                  st.decim_delay), fk.rx_frontend_tm,
+                                 fk.rx_frontend_tm_plain)
+        times[key] = time_pair(key, kern, plain, args, {}, iters, iters) + \
+            general_work(kind, cfg, c, nframes)
+    fields, (c, s) = TX8[0]
+    cfg = ModemConfig(**fields)
+    gen = torch.Generator(device=dev).manual_seed(73)
+    sym = bits_to_symbols(torch.randint(0, 2, (c, 2 * s), generator=gen,
+                                        device=dev, dtype=torch.int32))
+    sym = CF32(sym.re.contiguous(), sym.im.contiguous())
+    ts = tx_init(cfg, (c,), device=dev)
+    times["tx_gen"] = time_pair(
+        "tx_gen", tk.tx_modulate, tk.tx_modulate_plain,
+        (cfg, sym, ts.nco_phase, ts.fir_tail, TX_OFFSET_HZ), {}, iters,
+        iters) + general_work("tx", cfg, c, s=s)
+    b = FEC8_BATCHES[-1]
+    gen = torch.Generator(device=dev).manual_seed(79)
+    code = ConvCode(*VITERBI8[1])
+    llrs = torch.randn((b, code.rate_den * (256 + code.constraint - 1)),
+                       generator=gen, device=dev)
+    times["viterbi_gen"] = time_pair(
+        f"viterbi_gen K={code.constraint}", lambda x: vk.viterbi_decode(code, x, 256),
+        lambda x: vk.viterbi_decode_plain(code, x, 256), (llrs,), {}, 2,
+        iters) + general_work("viterbi", code=code, b=b, nbits=256)
+    code = LdpcCode(*LDPC8[1][:1], dv=LDPC8[1][1])
+    ll = torch.randn((b, code.n), generator=gen, device=dev)
+    times["ldpc_gen"] = time_pair(
+        f"ldpc_gen dv={code.dv}", lambda x: lk.ldpc_decode(code, x),
+        lambda x: lk.ldpc_decode_plain(code, x), (ll,), {}, 5, iters) + \
+        general_work("ldpc", code=code, b=b)
+
+    off_geometry_call(pcfg, dev)
+    reset_launches()
+    for what, field, call in (
+            ("viterbi_decode", "constraint", lambda: vk.viterbi_decode(
+                ConvCode(16, (0o100003, 0o170001)),
+                torch.zeros((2, 2 * 23), device=dev), 8)),
+            ("ldpc_decode", "dv", lambda: lk.ldpc_decode(
+                LdpcCode(64, dv=9), torch.zeros((2, 128), device=dev)))):
+        try:
+            call()
+        except NotImplementedError as err:
+            need(field in str(err), f"{what} raised {err!r}")
+            print(f"  {what} past the coverage on the card: "
+                  f"NotImplementedError ({err})")
+        else:
+            need(False, f"{what} past the coverage ran on the card")
+    launched = {n: m.launches for n, m in kernel_modules().items()}
+    need(not any(launched.values()),
+         f"the calls past the coverage launched kernels: {launched}")
+
+
+def runtime_stimulus(name: str, dev):
+    """(payload (npkts, 240), int16 PCM) of a phase-8d case, both numpy:
+    ``tests/test_round4_fixes.py``'s ``_tx_8psk_offset`` recipe with the
+    port's functions (random packets from a numpy seed, channel bits padded
+    with random bits to whole modem frames, one ``tx_stream`` call on the
+    card at the case's offset), then AWGN at the case's SNR from numpy;
+    the uncoded case with RUNTIME_GAP_S of weak noise in the middle."""
+    import numpy as np
+    import torch
+    from qpsk_tpu_torch import ModemConfig, tx_init, tx_stream
+    from qpsk_tpu_torch.packet import PacketConfig, assemble_packet
+
+    fields, pfields, snr, offset, npkts = RUNTIME_CASES[name]
+    cfg, pcfg = ModemConfig(**fields), PacketConfig(payload_bytes=30, **pfields)
+    seed = 0 if name == "8psk_spur" else len(name)
+    rng = np.random.default_rng(seed)
+    payload = rng.integers(0, 2, (npkts, 240), dtype=np.int32)
+    chan = assemble_packet(pcfg, torch.from_numpy(payload).to(dev)).reshape(-1)
+    mfb = cfg.bits_per_frame
+    pad = torch.from_numpy(rng.integers(0, 2, ((-chan.numel()) % mfb,),
+                                        dtype=np.int32)).to(dev)
+    chan = torch.cat([chan, pad]).reshape(-1, mfb)
+    _, pcm = tx_stream(cfg, tx_init(cfg, device=dev), chan, offset)
+    x = pcm.reshape(-1).cpu().numpy().astype(np.float64)
+    noise = np.random.default_rng(seed + 10)
+    sigma = np.sqrt((x ** 2).mean() / 10.0 ** (snr / 10.0))
+    x = np.clip(np.round(x + noise.normal(size=x.shape) * sigma), -32768,
+                32767).astype(np.int16)
+    if name == "uncoded":
+        gap = noise.normal(0.0, 0.1 * sigma, int(RUNTIME_GAP_S * cfg.fs))
+        half = x.size // 2
+        x = np.concatenate([x[:half], gap.astype(np.int16), x[half:]])
+    return payload, x
+
+
+def runtime_tx(dev) -> None:
+    """Phase 8c: ``StreamModulator`` on the card, RUNTIME_TX packets of 30
+    bytes in seeded pushes of 1 up to RUNTIME_TX[1] packets, then
+    ``flush``, for QPSK and 8PSK, against the same class with
+    ``tx_impl="xla"`` on the card: the PCM within 3 LSB, the pending bits
+    equal after every push, the carried tail exact and the phase within
+    1e-5 at the end; the TX counter equals the ``tx_stream`` calls the
+    class made (a push that modulates a row, and a flush that has bits to
+    send) and the plain side launches nothing."""
+    import numpy as np
+    import torch
+    from qpsk_tpu_torch import ModemConfig, StreamModulator
+    from qpsk_tpu_torch.ops.cuda import tx_kernel as tk
+    from qpsk_tpu_torch.packet import PacketConfig
+
+    npk, most = RUNTIME_TX
+    for name in ("qpsk", "8psk"):
+        cfg, pcfg = ModemConfig(modulation=name), PacketConfig(payload_bytes=30)
+        rng = np.random.default_rng(len(name) + 200)
+        payload = rng.integers(0, 2, (npk, 240), dtype=np.int32)
+        cuts = np.cumsum(rng.integers(1, most + 1, npk))
+        cuts = [0] + [int(v) for v in cuts[cuts < npk]] + [npk]
+        out, walls, calls = {}, {}, 0
+        for side, scfg in (("kernel", cfg),
+                           ("plain", dataclasses.replace(cfg, tx_impl="xla"))):
+            mod = StreamModulator(scfg, pcfg, tx_offset_hz=TX_OFFSET_HZ,
+                                  device=dev)
+            reset_launches()
+            torch.cuda.synchronize()
+            t0, pcm, pends, calls = time.perf_counter(), [], [], 0
+            for a, b in zip(cuts[:-1], cuts[1:]):
+                # a push modulates a row if its bits fill one
+                bits = mod._pend.size + (b - a) * pcfg.frame_bits
+                calls += mod._aligned or bits >= mod._chunk_bits
+                pcm.append(mod.push(payload[a:b]))
+                pends.append(mod._pend.copy())
+            calls += mod._pend.size > 0
+            pcm.append(mod.flush())
+            torch.cuda.synchronize()
+            walls[side] = time.perf_counter() - t0
+            out[side] = (np.concatenate(pcm), pends, mod, tk.launches)
+        (pk, ek, mk, nk), (pp, ep, mp, np_) = out["kernel"], out["plain"]
+        worst = int(np.abs(pk.astype(np.int32) - pp.astype(np.int32)).max())
+        need(pk.shape == pp.shape and worst <= 3,
+             f"StreamModulator {name}: PCM differs by {worst} LSB")
+        need(all(np.array_equal(a, b) for a, b in zip(ek, ep)),
+             f"StreamModulator {name}: pending bits differ")
+        need(cmax_abs(mk._state.fir_tail, mp._state.fir_tail) == 0,
+             f"StreamModulator {name}: the carried tail differs")
+        ph = cmax_abs(mk._state.nco_phase, mp._state.nco_phase)
+        need(ph <= 1e-5, f"StreamModulator {name}: the phase differs by {ph}")
+        need(nk == calls and np_ == 0, f"StreamModulator {name}: {nk} TX "
+             f"launches for {calls} tx_stream calls, plain side {np_}")
+        audio = pk.size / cfg.fs
+        print(f"  StreamModulator {name}: {npk} packets in {len(cuts) - 1} "
+              f"pushes + flush, {audio:.1f} s of audio: PCM within {worst} "
+              f"LSB of tx_impl='xla', pending bits equal, tail exact, phase "
+              f"{ph:.3g}; {nk} TX launches for {calls} calls; "
+              f"{audio / walls['kernel']:.1f} audio s a wall s (plain "
+              f"{audio / walls['plain']:.1f})")
+
+
+def runtime_case(name: str, dev, rtf: dict) -> None:
+    """Phase 8d/e: one stream through ``StreamDemodulator`` on the card,
+    once with the kernels ("auto") and once with ``costas_impl="scan"`` and
+    ``frontend_impl="xla"`` (the decoders on "auto" both sides), on the
+    same PCM in the same seeded chunks: the same packets (payload,
+    ``crc_ok``, ``stream_index``) and the same counters, every passing
+    payload one that was sent, every kernel counter of the path moved on
+    the kernel side and the front-end's and Costas' on neither the plain
+    side.  The uncoded case resyncs after its dead air under squelch, and
+    is saved halfway and resumed in a fresh receiver on the card, which
+    must emit the uninterrupted run's packets; the 8PSK case must sync
+    through the candidate rotation.  Prints the audio seconds a wall
+    second of each side and the launches per bucket."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from qpsk_tpu_torch import ModemConfig, StreamDemodulator
+    from qpsk_tpu_torch.packet import PacketConfig
+
+    fields, pfields, _, _, _ = RUNTIME_CASES[name]
+    cfg, pcfg = ModemConfig(**fields), PacketConfig(payload_bytes=30, **pfields)
+    payload, pcm = runtime_stimulus(name, dev)
+    rng = np.random.default_rng(len(name) + 100)
+    cuts = np.cumsum(rng.integers(1, RUNTIME_CHUNK + 1, pcm.size))
+    cuts = [0] + [int(v) for v in cuts[cuts < pcm.size]] + [pcm.size]
+    chunks = list(zip(cuts[:-1], cuts[1:]))
+    knobs = (dict(squelch_db=RUNTIME_SQUELCH_DB) if name == "uncoded" else {})
+    half = len(chunks) // 2
+    mods = kernel_modules()
+    path = os.path.join(tempfile.mkdtemp(), f"{name}.npz")
+    runs, at_half = {}, 0
+    for side, scfg in (("kernel", cfg), ("plain", path_cfg(cfg, "plain"))):
+        demod = StreamDemodulator(scfg, pcfg, device=dev, **knobs)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0, saved_s = time.perf_counter(), 0.0
+        pkts = []
+        for i, (a, b) in enumerate(chunks):
+            pkts += demod.push(pcm[a:b])
+            if i == half and side == "kernel":
+                t1 = time.perf_counter()
+                demod.save(path)
+                saved_s, at_half = time.perf_counter() - t1, len(pkts)
+        pkts += demod.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0 - saved_s
+        runs[side] = (demod, pkts, wall,
+                      {n: m.launches for n, m in mods.items()})
+    (dk, pk, wk, lk_), (dp, pp, wp, lp) = runs["kernel"], runs["plain"]
+    need(len(pk) == len(pp) and all(
+        (a.crc_ok, a.stream_index) == (b.crc_ok, b.stream_index)
+        and np.array_equal(a.payload, b.payload) for a, b in zip(pk, pp)),
+        f"{name}: the kernel and plain runtimes emit different packets")
+    fields_c = ("frames", "packets", "crc_failures", "resyncs", "synced")
+    need(all(getattr(dk.counters, f) == getattr(dp.counters, f)
+             for f in fields_c), f"{name}: counters differ: {dk.counters} vs "
+         f"{dp.counters}")
+    sent = {row.tobytes() for row in payload}
+    ok = [p for p in pk if p.crc_ok]
+    need(all(p.payload.astype(np.int32).tobytes() in sent for p in ok),
+         f"{name}: a passing payload was not sent")
+    path_kernels = ["frontend", "costas"] + (
+        ["viterbi"] if pcfg.fec_kind == "conv" else
+        ["ldpc"] if pcfg.fec_kind == "ldpc" else [])
+    for k in path_kernels:
+        need(lk_[k] > 0, f"{name}: the runtime never launched the {k} kernel")
+    need(not lp["frontend"] and not lp["costas"],
+         f"{name}: the plain runtime launched {lp}")
+    need(dk.counters.synced or dk.counters.resyncs > 0,
+         f"{name}: the runtime never synced")
+    if name == "uncoded":
+        need(dk.counters.resyncs >= 1, "uncoded: no resync after the gap")
+        resumed = StreamDemodulator(cfg, pcfg, device=dev, **knobs)
+        resumed.load(path)
+        rest = []
+        for a, b in chunks[half + 1:]:
+            rest += resumed.push(pcm[a:b])
+        rest += resumed.flush()
+        tail = pk[at_half:]
+        need(len(rest) == len(tail) and all(
+            (a.crc_ok, a.stream_index) == (b.crc_ok, b.stream_index)
+            and np.array_equal(a.payload, b.payload)
+            for a, b in zip(rest, tail)),
+            "uncoded: the resumed receiver's packets differ")
+        need(resumed.counters.packets == dk.counters.packets,
+             "uncoded: the resumed receiver's counters differ")
+        print(f"  uncoded: saved at push {half} of {len(chunks)} "
+              f"({at_half} packets out), loaded into a fresh receiver on the "
+              f"card: the remaining {len(rest)} packets equal")
+    if name == "8psk_spur":
+        need(dk._acq_idx >= 1 and dk.counters.synced,
+             f"8psk_spur: no sync through the candidate rotation "
+             f"(_acq_idx {dk._acq_idx})")
+    audio = pcm.size / cfg.fs
+    buckets = max(lk_["frontend"], 1)
+    per_bucket = {k: round(lk_[k] / buckets, 3) for k in path_kernels}
+    rtf[name] = (audio / wk, audio / wp)
+    print(f"  {name}: {len(pk)} packets, {len(ok)} pass CRC, counters "
+          f"{ {f: getattr(dk.counters, f) for f in fields_c} }, offset "
+          f"{dk.counters.detected_offset_hz:.3f} Hz, acquisition candidate "
+          f"{dk._acq_idx}; the plain runtime alike.  {audio:.1f} s of audio "
+          f"in {len(chunks)} pushes: kernel runtime {wk:.3f} s wall "
+          f"({audio / wk:.2f} audio s a wall s), plain {wp:.3f} s "
+          f"({audio / wp:.2f}); {buckets} buckets, launches per bucket "
+          f"{per_bucket}")
+
+
+def runtime_profile(dev, steps: int = 5) -> None:
+    """``--profile``: one bucket of each phase-8d case through a synced
+    ``StreamDemodulator`` on the card under ``torch.profiler``: device
+    operations, device busy time against the wall, copies and waits."""
+    from qpsk_tpu_torch import ModemConfig, StreamDemodulator
+    from qpsk_tpu_torch.packet import PacketConfig
+
+    for name, (fields, pfields, _, _, _) in RUNTIME_CASES.items():
+        cfg = ModemConfig(**fields)
+        pcfg = PacketConfig(payload_bytes=30, **pfields)
+        _, pcm = runtime_stimulus(name, dev)
+        demod = StreamDemodulator(cfg, pcfg, device=dev)
+        bucket = demod.bucket_frames * cfg.frame_size
+        pos = [0]
+        demod.push(pcm[:pcm.size // 2])
+        pos[0] = pcm.size // 2
+
+        def step():
+            demod.push(pcm[pos[0]:pos[0] + bucket])
+            pos[0] += bucket
+        ops, htod, syncs, wall_us = traced(step, steps)
+        report_trace(f"runtime {name}, one bucket of {demod.bucket_frames} "
+                     f"frames (synced: {demod.counters.synced})", ops, htod,
+                     syncs, wall_us, steps)
+
+
+def runtime_phase(pcfg, dev, errs: dict, counts: dict, times: dict) -> None:
+    """Phase 8: the lowering switches, the general kernel instances and the
+    streaming runtime on the card (``--runtime`` runs it alone)."""
+    t0 = time.perf_counter()
+    print("phase 8a: the lowering switches")
+    lowering_switches(pcfg, dev)
+    print("phase 8b: the general kernel instances")
+    general_instances(pcfg, dev, errs, counts, times)
+    print("phase 8c: StreamModulator on the card")
+    runtime_tx(dev)
+    print("phase 8d: StreamDemodulator on the card, one stream")
+    rtf = {}
+    for name in RUNTIME_CASES:
+        runtime_case(name, dev, rtf)
+    print("phase 8e: audio seconds a wall second, kernel runtime / plain: "
+          + ", ".join(f"{n} {k:.2f} / {p:.2f}" for n, (k, p) in rtf.items())
+          + f" ({nvidia_smi_line()}); phase 8 took "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2286,9 +2927,14 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         print("profile: kernel-path receive calls under torch.profiler")
         profile(cfg, dev)
+        runtime_profile(dev)
         print(smi)
         return 0
     errs = dict.fromkeys(KERNELS, 0.0)
+    if "--runtime" in sys.argv[1:]:
+        runtime_phase(pcfg, dev, errs, {}, {})
+        print(smi)
+        return 0
     print("phase 2: kernels against their plain versions")
     check_sincosf(dev)
     compare_kernels(cfg, pcfg, dev, errs)
@@ -2329,11 +2975,14 @@ def main() -> int:
     print(f"  before: {CLOCKS} = {nvidia_smi_line(CLOCKS)}")
     times.update(family_rates(dev, errs))
     print(f"  after:  {CLOCKS} = {nvidia_smi_line(CLOCKS)}")
+    runtime_phase(pcfg, dev, errs, counts, times)
 
     for name in KERNELS:
         if name.startswith(("frontend", "tx")):
+            route = "the route the general instance left" if "gen" in name \
+                else "the kernel's route"
             print(f"  {name}: bound {times[name][2]:.4f} ms ({times[name][3]}; "
-                  f"the FIR on the tensor cores in three float16 passes, the kernel's route), "
+                  f"the FIR on the tensor cores in three float16 passes, {route}), "
                   f"float32-FMA floor {times[name][4]:.4f} ms")
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": counts[name], "max_abs_err": errs[name],

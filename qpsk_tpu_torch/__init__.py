@@ -9,12 +9,16 @@ with the AGC, the gear-shift loop, the CMA equalizer and 1200 baud, and
 for the generic family (``ModemConfig(modulation="bpsk" | "8psk" |
 "16qam")``), whose receive starts with FFT carrier acquisition:
 ``modem.rx_acquire_hz`` -> ``rx_init(acq_freq=...)`` -> ``rx_stream`` ->
-``sync.find_sync(..., modulation=...)``.  It imports torch and numpy,
-never jax.
+``sync.find_sync(..., modulation=...)``.  ``StreamDemodulator`` and
+``StreamModulator`` (``runtime.py``) are the push-mode objects a
+deployment runs: PCM of any chunk size in, packets out, with acquisition,
+sync, slip tracking, squelch, soft FEC and checkpoints.  It imports torch
+and numpy, never jax.
 """
 
 from qpsk_tpu_torch.config import ModemConfig, config_2400
 from qpsk_tpu_torch.modem import rx_stream, tx_stream
+from qpsk_tpu_torch.runtime import StreamDemodulator, StreamModulator
 from qpsk_tpu_torch.state import RxState, TxState, rx_init, tx_init
 
 __version__ = "0.1.0"

@@ -57,9 +57,9 @@ class ModemConfig:
     slicer: str = "diagonal"
     acquisition: str = "fft"
     differential: bool = False
-    # The *_impl fields select a lowering in the JAX package.  In the port
-    # the tensor's device picks kernel (CUDA) or plain version (CPU), and
-    # any value but "auto" raises in the modem.
+    # The *_impl fields select a lowering: "auto", the tensor's device
+    # picks kernel (CUDA) or plain version (CPU); "scan" / "xla", the
+    # plain version on any device; "pallas", the kernel (CUDA only).
     costas_impl: str = "auto"
     frontend_impl: str = "auto"
     tx_impl: str = "auto"

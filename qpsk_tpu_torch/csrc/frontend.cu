@@ -9,7 +9,9 @@
 // Both at 2, 4 or 8 samples per symbol (CYC: 4800, 2400 and 1200 baud at
 // 9600 S/s), any odd tap count up to 129 and any frame of FSZ samples, FSZ
 // a multiple of 128, up to the shared-memory budget (the wrapper's
-// _MAX_FRAME).
+// _FAST_MAX_FRAME).  The rest of the TPU kernel's gate (other samples per
+// symbol, longer frames, the power output at a symbol count that is not a
+// power of two) runs frontend_general_kernel, at the end of this file.
 //
 // What it computes, per channel and FSZ-sample frame f of one call, with
 // NSYM = FSZ / CYC symbols per frame and H = ntaps - 1 carried samples:
@@ -590,6 +592,254 @@ bool covered(int C, int F, int fsz, int cycles, int ntaps) {
   return (cycles == 2 || cycles == 4 || cycles == 8) && blocks <= 0x7fffffffLL;
 }
 
+// ---------------------------------------------------------------------------
+// The general instance, frontend_general_kernel<TM>: both launches (TM:
+// the time-major one with the one-frame delay and the power output; else
+// the channel-major one) at the geometries the instances above do not
+// take and the TPU kernel's gate admits (qpsk_tpu/ops/pallas/
+// frontend_kernel.py, frontend_supported): any samples per symbol CYC that
+// divides the frame (3, 6 or 16 at a custom rs), any frame of a multiple
+// of 128 samples with no cap (4096 samples and more), any odd ntaps <= 129,
+// and the AGC power output at any number of symbols a frame (384 at a
+// 1536-sample frame): the halves pairing of ops/agc.py::_frame_power while
+// the count is even, then its odd residue summed in order, then times
+// float32(1/NSYM).  It computes what the instances above compute (their
+// header has the formulas); what differs is how.
+//
+// What bounds it on the H100: arithmetic on the CUDA cores, 2 x 129 float32
+// multiply-adds a sample and pass, where the instances above run the FIR on
+// the tensor cores.  The design is the plain one, so that no geometry is
+// special: one block of GNT threads a (channel, frame); the frame is walked
+// in chunks of CYC * (1024 / CYC) outputs, each chunk's window of that
+// many + 128 samples staged in shared memory as float32 (the carried tail
+// un-mixed in frame 0, the previous frame's PCM otherwise), so no frame is
+// too long for a block.  Pass 1 computes every output's |y|^2 and sums each
+// phase p = s % CYC: a warp a phase over the chunk, a shuffle tree, then
+// the chunks in order; the first maximum wins.  Pass 2 runs the FIR again
+// only at the picks y[CYC*i + p] (1/CYC of the samples), rotates and stores
+// them, and for the power output writes their squares to a scratch row in
+// device memory, where the block runs the pairing tree (so the tree is not
+// capped by shared memory either).  The FIR thus runs 1 + 1/CYC times over
+// a frame; the phasor of each pick is taken in float64.
+constexpr int GNT = 256;                 // threads a block
+constexpr int GNW = GNT / 32;
+constexpr int GCH = 1024;                // outputs a chunk, at most
+constexpr int GMAXCYC = 256;             // samples per symbol, at most
+
+struct GenSmem {
+  float tr[KT], ti[KT];                  // the taps, front-padded to KT
+  float x[GCH + HALO];                   // a chunk's window
+  float e[GCH];                          // a chunk's |y|^2
+  float esum[GMAXCYC];                   // the phase energies
+  int phase;
+};
+
+// the window of frame f's outputs [s0, s0 + len): frame samples s0 - 128
+// .. s0 + len - 1, the halo before the frame from the carried tail (f ==
+// 0, un-mixed) or the previous frame's PCM
+__device__ void gen_window(float* x, const int16_t* pcm, const float* tail_re,
+                           const float* tail_im, float p0r, float p0i, int c,
+                           int F, int f, int fsz, int H, int s0, int len,
+                           double omega, float inv_scale) {
+  const long long row = ((long long)c * F + f) * fsz;
+  for (int j = threadIdx.x; j < len + HALO; j += GNT) {
+    const int q = s0 - HALO + j;
+    float v = 0.f;
+    if (q >= 0) {
+      v = (float)pcm[row + q] * inv_scale;
+    } else if (f > 0) {
+      v = (float)pcm[row + q] * inv_scale;   // the end of frame f-1
+    } else if (q >= -H) {
+      const int kk = q + H;              // the carried tail's sample
+      float er, ei, pr, pi;
+      phasor(omega * (double)(kk - (H - 1)), er, ei);
+      cmul_pinned(p0r, p0i, er, ei, pr, pi);
+      v = __fadd_rn(__fmul_rn(tail_re[(long long)c * H + kk], pr),
+                    __fmul_rn(tail_im[(long long)c * H + kk], pi));
+    }
+    x[j] = v;
+  }
+}
+
+// y = gain * sum_k h[k] x[s + k] at window position s, re and im, k in order
+__device__ __forceinline__ void gen_fir(const GenSmem& sm, int s, float gain,
+                                        float& yr, float& yi) {
+  float ar = 0.f, ai = 0.f;
+#pragma unroll 8
+  for (int k = 0; k < KT; ++k) {
+    const float v = sm.x[s + k];
+    ar = fmaf(sm.tr[k], v, ar);
+    ai = fmaf(sm.ti[k], v, ai);
+  }
+  yr = ar * gain;
+  yi = ai * gain;
+}
+
+// the halves pairing of ops/agc.py::_frame_power over p[0 .. n) in place,
+// then the odd residue summed in order, times ``inv``.  Every thread of the
+// block calls it; thread 0 returns the value.
+__device__ float gen_tree(float* p, int n, float inv) {
+  while (n > 1 && n % 2 == 0) {
+    const int h = n / 2;
+    __syncthreads();
+    for (int i = threadIdx.x; i < h; i += GNT) p[i] = __fadd_rn(p[i], p[i + h]);
+    n = h;
+  }
+  __syncthreads();
+  float s = 0.f;
+  if (threadIdx.x == 0) {
+    s = p[0];
+    for (int i = 1; i < n; ++i) s = __fadd_rn(s, p[i]);
+    s = __fmul_rn(s, inv);
+  }
+  __syncthreads();                       // p may be written again
+  return s;
+}
+
+template <bool TM>
+__global__ void __launch_bounds__(GNT)
+frontend_general_kernel(const int16_t* __restrict__ pcm,
+                        const float* __restrict__ tail_re,
+                        const float* __restrict__ tail_im,
+                        const float* __restrict__ p0_re,
+                        const float* __restrict__ p0_im,
+                        const float* __restrict__ dd_re,
+                        const float* __restrict__ dd_im,
+                        float* __restrict__ zr, float* __restrict__ zi,
+                        int32_t* __restrict__ index,
+                        float* __restrict__ ndd_re, float* __restrict__ ndd_im,
+                        float* __restrict__ power, float* __restrict__ scratch,
+                        float* __restrict__ nph_re, float* __restrict__ nph_im,
+                        float* __restrict__ ntail_re,
+                        float* __restrict__ ntail_im, int C, int F, int fsz,
+                        int cyc, int H, const __grid_constant__ Taps taps,
+                        double omega, float gain, float inv_scale) {
+  __shared__ GenSmem sm;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c = (int)(blockIdx.x / F), f = (int)(blockIdx.x % F);
+  const int nsym = fsz / cyc;
+  const int ch = cyc * (GCH / cyc);      // outputs a chunk: whole symbols
+  const float p0r = p0_re[c], p0i = p0_im[c];
+  const bool pow_out = TM && power != nullptr;
+  const float inv = (float)(1.0 / (double)nsym);   // float32(1/nsym)
+  float* sq_row = pow_out ? scratch + ((long long)c * F + f) * nsym : nullptr;
+  for (int k = tid; k < KT; k += GNT) {
+    sm.tr[k] = taps.re[k];
+    sm.ti[k] = taps.im[k];
+  }
+  for (int p = tid; p < cyc; p += GNT) sm.esum[p] = 0.f;
+
+  if (TM && f == 0) {
+    // output frame 0: the carried delay, and its power
+    for (int i = tid; i < nsym; i += GNT) {
+      const float dr = dd_re[(long long)c * nsym + i];
+      const float di = dd_im[(long long)c * nsym + i];
+      zr[(long long)i * C + c] = dr;
+      zi[(long long)i * C + c] = di;
+      if (pow_out) sq_row[i] = sq(dr, di);
+    }
+    if (pow_out) {
+      const float v = gen_tree(sq_row, nsym, inv);
+      if (tid == 0) power[(long long)c * F] = v;
+    }
+  }
+  __syncthreads();
+
+  // pass 1: the phase energies, chunk by chunk in order
+  for (int s0 = 0; s0 < fsz; s0 += ch) {
+    const int len = min(ch, fsz - s0);
+    gen_window(sm.x, pcm, tail_re, tail_im, p0r, p0i, c, F, f, fsz, H, s0,
+               len, omega, inv_scale);
+    __syncthreads();
+    for (int s = tid; s < len; s += GNT) {
+      float yr, yi;
+      gen_fir(sm, s, gain, yr, yi);
+      sm.e[s] = sq(yr, yi);
+    }
+    __syncthreads();
+    for (int p = warp; p < cyc; p += GNW) {
+      float acc = 0.f;
+      for (int s = p + cyc * lane; s < len; s += 32 * cyc)
+        acc = __fadd_rn(acc, sm.e[s]);
+#pragma unroll
+      for (int o = 16; o >= 1; o >>= 1)
+        acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, o));
+      if (lane == 0) sm.esum[p] = __fadd_rn(sm.esum[p], acc);
+    }
+    __syncthreads();                     // the window and e are free again
+  }
+  if (tid == 0) {
+    int best = 0;
+    for (int p = 1; p < cyc; ++p)
+      if (sm.esum[p] > sm.esum[best]) best = p;
+    sm.phase = best;
+    index[(long long)c * F + f] = best;
+  }
+  __syncthreads();
+  const int p = sm.phase;
+
+  // pass 2: the picks, in chunks of whole symbols
+  const int sch = ch / cyc;              // symbols a chunk
+  for (int i0 = 0; i0 < nsym; i0 += sch) {
+    const int ns = min(sch, nsym - i0);
+    gen_window(sm.x, pcm, tail_re, tail_im, p0r, p0i, c, F, f, fsz, H,
+               cyc * i0, cyc * ns, omega, inv_scale);
+    __syncthreads();
+    for (int j = tid; j < ns; j += GNT) {
+      const int i = i0 + j;
+      float yr, yi, er, ei;
+      gen_fir(sm, cyc * j + p, gain, yr, yi);
+      phasor(omega * (double)((long long)f * fsz + (long long)cyc * i + p + 1),
+             er, ei);
+      const float fr = p0r * er - p0i * ei;
+      const float fi = p0r * ei + p0i * er;
+      const float outr = yr * fr - yi * fi;
+      const float outi = yr * fi + yi * fr;
+      if (TM) {
+        if (f + 1 < F) {
+          const long long o = ((long long)(f + 1) * nsym + i) * C + c;
+          zr[o] = outr;
+          zi[o] = outi;
+        } else {
+          ndd_re[(long long)c * nsym + i] = outr;
+          ndd_im[(long long)c * nsym + i] = outi;
+        }
+        if (pow_out) sq_row[i] = sq(outr, outi);
+      } else {
+        const long long o = ((long long)c * F + f) * nsym + i;
+        zr[o] = outr;
+        zi[o] = outi;
+      }
+    }
+    __syncthreads();
+  }
+  if (pow_out) {
+    const float v = gen_tree(sq_row, nsym, inv);
+    if (tid == 0 && f + 1 < F) power[(long long)c * F + f + 1] = v;
+  }
+
+  if (f != F - 1) return;
+  // the carried state after the call, from the last frame's block
+  const long long n = (long long)F * fsz;
+  const long long last = ((long long)c * F + f) * fsz;
+  for (int k = tid; k < H; k += GNT) {
+    float er, ei, pr, pi;
+    phasor(omega * (double)(n - H + k + 1), er, ei);
+    cmul_pinned(p0r, p0i, er, ei, pr, pi);
+    const float raw = (float)pcm[last + fsz - H + k] * inv_scale;
+    ntail_re[(long long)c * H + k] = __fmul_rn(raw, pr);
+    ntail_im[(long long)c * H + k] = __fmul_rn(raw, pi);
+  }
+  if (tid == 0) {
+    float er, ei, ar, ai;
+    phasor(omega * (double)n, er, ei);
+    cmul_pinned(p0r, p0i, er, ei, ar, ai);
+    const float iv = __fdiv_rn(1.f, __fsqrt_rn(sq(ar, ai)));
+    nph_re[c] = __fmul_rn(ar, iv);
+    nph_im[c] = __fmul_rn(ai, iv);
+  }
+}
+
 }  // namespace
 
 // Time-major launch; ``power`` may be null.  Reads the carried
@@ -635,4 +885,43 @@ extern "C" int qpsk_frontend_cm(const void* pcm, const void* tail_re,
              picks_im, index, nullptr, nullptr, nullptr, nph_re, nph_im,
              ntail_re, ntail_im, C, F, fsz, ntaps, taps_re, taps_im, omega,
              gain, inv_scale, stream);
+}
+
+// The general instance, both launches (``tm`` 1: time-major with the delay
+// and, if ``power`` is not null, the power output, whose tree runs in
+// ``scratch``, (C, F, fsz/cycles) float32; 0: channel-major, the picks in
+// zr/zi).  Takes any cycles in 1..256 dividing fsz, fsz a multiple of 128,
+// odd ntaps <= 129.
+extern "C" int qpsk_frontend_gen(const void* pcm, const void* tail_re,
+                                 const void* tail_im, const void* p0_re,
+                                 const void* p0_im, const void* dd_re,
+                                 const void* dd_im, void* zr, void* zi,
+                                 void* index, void* ndd_re, void* ndd_im,
+                                 void* power, void* scratch, void* nph_re,
+                                 void* nph_im, void* ntail_re, void* ntail_im,
+                                 int C, int F, int fsz, int cycles, int ntaps,
+                                 int tm, const void* taps_re,
+                                 const void* taps_im, double omega, float gain,
+                                 float inv_scale, void* stream) {
+  if (C < 1 || F < 1 || ntaps < 1 || ntaps > KT || ntaps % 2 == 0 ||
+      fsz < 128 || fsz % 128 != 0 || cycles < 1 || cycles > GMAXCYC ||
+      fsz % cycles != 0 || (long long)C * F > 0x7fffffffLL ||
+      (tm && power != nullptr && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Taps taps;
+  for (int k = 0; k < KT; ++k) {
+    const int j = k - (KT - ntaps);
+    taps.re[k] = j >= 0 ? static_cast<const float*>(taps_re)[j] : 0.f;
+    taps.im[k] = j >= 0 ? static_cast<const float*>(taps_im)[j] : 0.f;
+  }
+  const auto kernel = tm ? frontend_general_kernel<true>
+                         : frontend_general_kernel<false>;
+  kernel<<<(unsigned)((long long)C * F), GNT, 0, (cudaStream_t)stream>>>(
+      (const int16_t*)pcm, (const float*)tail_re, (const float*)tail_im,
+      (const float*)p0_re, (const float*)p0_im, (const float*)dd_re,
+      (const float*)dd_im, (float*)zr, (float*)zi, (int32_t*)index,
+      (float*)ndd_re, (float*)ndd_im, (float*)power, (float*)scratch,
+      (float*)nph_re, (float*)nph_im, (float*)ntail_re, (float*)ntail_im, C,
+      F, fsz, cycles, ntaps - 1, taps, omega, gain, inv_scale);
+  return (int)cudaGetLastError();
 }

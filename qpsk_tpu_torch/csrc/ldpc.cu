@@ -15,7 +15,7 @@
 //     (a block has at most 1024 threads) also checks i + T, .. (CPT = 2
 //     or 4 checks a thread, T threads).  Their <= DMAX var->check
 //     messages and the channel LLRs of their variables stay in registers
-//     across iterations (DMAX is a template parameter, 5 or 8, so the
+//     across iterations (DMAX is a template parameter, 5, 8 or 10, so the
 //     slice's degree-5 code carries no dead slots);
 //   - every index lives in registers, loaded once before the loop: for
 //     slot s of the check, the edge list of its variable v (the per-slot
@@ -58,6 +58,20 @@
 // registers with a spill), and unpacked offsets (three more registers, no
 // faster).  The 16-bit byte offsets bound dmax*m below 16384: m <= 3276
 // for the slice's degree-5 codes (PacketConfig payloads up to 407 bytes).
+//
+// The kernel is a template on the check degree DMAX, the variable degree
+// VMAX (an edge list of VMAX byte offsets, two a register) and the checks
+// a thread.  PacketConfig's codes (dv = 3: VMAX 3, check degree 5) run
+// ldpc_kernel<5 or 8, 3, CPT, false>.  Every other LdpcCode(k, dv) the TPU
+// kernel's gate admits (qpsk_tpu/packet/ldpc.py: dmax*m*n*4 <= 6 MiB, so
+// m <= 443 checks) runs the general instance <10, 8, 1, true> (launched as
+// ldpc_kernel_bounded, up to GEN_THREADS = 512 checks):
+// variable degree up to 8 and check degree up to 10 (the construction
+// gives dmax = dv + 2), the list length read from the launch, so a
+// variable of degree 2 sums two messages as the plain version does.  What
+// bounds it is what bounds the others, instruction issue and one packet's
+// latency; its register arrays are sized for the largest code (40 offset
+// registers a check), which is its cost at small dv.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,44 +79,69 @@
 namespace {
 
 constexpr float BIG = 1e30f;
-constexpr int VMAX = 3;  // the largest variable degree the kernel takes
+constexpr int GEN_THREADS = 512;  // the general instance's most checks
 
 // the message at a byte offset into a message array
 __device__ __forceinline__ float at(const float* base, unsigned byte_off) {
   return *(const float*)((const char*)base + byte_off);
 }
 
-// the sum of a variable's incoming messages in edge-list order; lo holds
-// the byte offsets of its first two edges, hi of its third
-__device__ __forceinline__ float incoming(const float* e, unsigned lo,
-                                          unsigned hi) {
-  const float sum = at(e, lo & 0xffffu) + at(e, lo >> 16);
-  return sum + at(e, hi);
+// the byte offset of edge j of a packed list of VMAX edges (two 16-bit
+// offsets a word); an odd list's last word holds its offset alone, so it
+// is read unmasked (a mask there would cost the dv = 3 instances an
+// instruction a slot an iteration on the serial message chain)
+template <int VMAX>
+__device__ __forceinline__ unsigned off_of(
+    const unsigned (&o)[(VMAX + 1) / 2], int j) {
+  if (j & 1) return o[j >> 1] >> 16;
+  return ((VMAX & 1) && j == VMAX - 1) ? o[j >> 1] : (o[j >> 1] & 0xffffu);
 }
 
-// the packed byte offsets {ed0 | ed1 << 16, ed2} of the VMAX edges at
-// list[0], list[stride], ...; a padded (-1) or dead entry reads zero_slot
+// the sum of a variable's incoming messages in edge-list order, over the
+// list's first ``vm`` edges (padding reads the zero slot)
+template <int VMAX>
+__device__ __forceinline__ float incoming(const float* e,
+                                          const unsigned (&o)[(VMAX + 1) / 2],
+                                          int vm) {
+  float sum = at(e, off_of<VMAX>(o, 0));
+#pragma unroll
+  for (int j = 1; j < VMAX; ++j)
+    if (j < vm) sum = sum + at(e, off_of<VMAX>(o, j));
+  return sum;
+}
+
+// the packed byte offsets of the VMAX edges at list[0], list[stride], ...
+// of a list of ``vm`` entries; a padded (-1), missing or dead entry reads
+// zero_slot.  The offsets are formed first and packed after: so packed,
+// the dv = 3 instances compile to the same machine code as the kernel
+// before it took other degrees (packing each offset into a cleared word
+// as it is read cost them 5 % at 156 packets on the H100)
+template <int VMAX>
 __device__ __forceinline__ void edge_offsets(const int32_t* list, int stride,
-                                             bool live, int zero_slot,
-                                             unsigned& lo, unsigned& hi) {
+                                             int vm, bool live, int zero_slot,
+                                             unsigned (&o)[(VMAX + 1) / 2]) {
   unsigned off[VMAX];
 #pragma unroll
   for (int j = 0; j < VMAX; ++j) {
-    const int ed = live ? list[j * stride] : -1;
+    const int ed = live && j < vm ? list[j * stride] : -1;
     off[j] = 4u * (unsigned)(ed >= 0 ? ed : zero_slot);
   }
-  lo = off[0] | (off[1] << 16);
-  hi = off[2];
+#pragma unroll
+  for (int w = 0; w < (VMAX + 1) / 2; ++w)
+    o[w] = 2 * w + 1 < VMAX ? off[2 * w] | (off[2 * w + 1] << 16) : off[2 * w];
 }
 
-template <int DMAX, int CPT>
-__global__ void ldpc_kernel(const float* __restrict__ llrs,
-                            const int32_t* __restrict__ check_var,
-                            const int32_t* __restrict__ slot_edges,
-                            const int32_t* __restrict__ var_edges,
-                            int32_t* __restrict__ bits, int m, int n, int k,
-                            int dmax, int estride, int iters, float alpha,
-                            int vec) {
+// DMAX slots a check and VMAX edges a variable at most; GEN: the list
+// length ``vmax`` from the launch (the general instance), else VMAX
+template <int DMAX, int VMAX, int CPT, bool GEN>
+__device__ __forceinline__ void ldpc_body(
+    const float* __restrict__ llrs, const int32_t* __restrict__ check_var,
+    const int32_t* __restrict__ slot_edges,
+    const int32_t* __restrict__ var_edges, int32_t* __restrict__ bits, int m,
+    int n, int k, int dmax, int vmax, int estride, int iters, float alpha,
+    int vec) {
+  constexpr int NW = (VMAX + 1) / 2;     // offset words an edge list
+  const int vm = GEN ? vmax : VMAX;
   extern __shared__ __align__(16) float shm[];
   // two (dmax*m + 1) message arrays, the last entry a zero that padded
   // edges read, then the n channel LLRs
@@ -133,7 +172,7 @@ __global__ void ldpc_kernel(const float* __restrict__ llrs,
 
   // checks i = tid + j*T, j < CPT: the edges of each slot's variable, and
   // of message variable i
-  unsigned edge_lo[CPT][DMAX], edge_hi[CPT][DMAX], post_lo[CPT], post_hi[CPT];
+  unsigned edge[CPT][DMAX][NW], post[CPT][NW];
   int cv[CPT][DMAX];
   unsigned real[CPT];  // bit s: slot s of the check is an edge
 #pragma unroll
@@ -144,11 +183,10 @@ __global__ void ldpc_kernel(const float* __restrict__ llrs,
     for (int s = 0; s < DMAX; ++s) {
       cv[j][s] = (i < m && s < dmax) ? check_var[s * m + i] : -1;
       real[j] |= (unsigned)(cv[j][s] >= 0) << s;
-      edge_offsets(slot_edges + s * VMAX * m + i, m, cv[j][s] >= 0, zero_slot,
-                   edge_lo[j][s], edge_hi[j][s]);
+      edge_offsets<VMAX>(slot_edges + (s * vm) * m + i, m, vm, cv[j][s] >= 0,
+                         zero_slot, edge[j][s]);
     }
-    edge_offsets(var_edges + i * VMAX, 1, i < k, zero_slot, post_lo[j],
-                 post_hi[j]);
+    edge_offsets<VMAX>(var_edges + i * vm, 1, vm, i < k, zero_slot, post[j]);
   }
   __syncthreads();
 
@@ -196,8 +234,7 @@ __global__ void ldpc_kernel(const float* __restrict__ llrs,
     for (int j = 0; j < CPT; ++j)
 #pragma unroll
       for (int s = 0; s < DMAX; ++s)
-        mm[j][s] = (lv[j][s] + incoming(cur, edge_lo[j][s], edge_hi[j][s])) -
-                   mm[j][s];
+        mm[j][s] = (lv[j][s] + incoming<VMAX>(cur, edge[j][s], vm)) - mm[j][s];
     float* t = cur;
     cur = oth;
     oth = t;
@@ -209,53 +246,94 @@ __global__ void ldpc_kernel(const float* __restrict__ llrs,
     const int i = tid + j * T;
     if (i < k)
       bits[b * k + i] =
-          (llr_sh[i] + incoming(cur, post_lo[j], post_hi[j])) < 0.f;
+          (llr_sh[i] + incoming<VMAX>(cur, post[j], vm)) < 0.f;
   }
 }
 
-template <int DMAX, int CPT>
+#define LDPC_PARAMS                                                      \
+  const float *__restrict__ llrs, const int32_t *__restrict__ check_var,  \
+      const int32_t *__restrict__ slot_edges,                             \
+      const int32_t *__restrict__ var_edges, int32_t *__restrict__ bits,  \
+      int m, int n, int k, int dmax, int vmax, int estride, int iters,    \
+      float alpha, int vec
+#define LDPC_ARGS                                                         \
+  llrs, check_var, slot_edges, var_edges, bits, m, n, k, dmax, vmax,      \
+      estride, iters, alpha, vec
+
+// The launch bounds are the most threads the launcher gives an instance,
+// so that ptxas keeps its registers within what such a block may hold
+// (without them, on the H100, the instances of more than one check a
+// thread failed to launch at 1456 checks and more, the general one at
+// 448 and more).  The slice's
+// instance, dv = 3 at check degree 5 and one check a thread, fits 1024
+// threads as it is and goes without: a bound changes its code and costs
+// it time.
+template <int DMAX, int VMAX, int CPT, bool GEN>
+__global__ void ldpc_kernel(LDPC_PARAMS) {
+  ldpc_body<DMAX, VMAX, CPT, GEN>(LDPC_ARGS);
+}
+
+template <int DMAX, int VMAX, int CPT, bool GEN>
+__global__ void __launch_bounds__(GEN ? GEN_THREADS : 1024)
+    ldpc_kernel_bounded(LDPC_PARAMS) {
+  ldpc_body<DMAX, VMAX, CPT, GEN>(LDPC_ARGS);
+}
+
+template <int DMAX, int VMAX, int CPT, bool GEN>
 int launch(const float* llrs, const int32_t* check_var,
            const int32_t* slot_edges, const int32_t* var_edges, int32_t* bits,
-           int B, int m, int n, int k, int dmax, int iters, float alpha,
-           cudaStream_t stream) {
+           int B, int m, int n, int k, int dmax, int vmax, int iters,
+           float alpha, cudaStream_t stream) {
   const int threads = ((m + CPT - 1) / CPT + 31) / 32 * 32;
   const int estride = ((dmax * m + 1 + 3) / 4) * 4;
   const size_t smem = sizeof(float) * (2 * (size_t)estride + n);
+  const auto kernel = [] {
+    if constexpr (DMAX == 5 && CPT == 1 && !GEN)
+      return ldpc_kernel<DMAX, VMAX, CPT, GEN>;
+    else
+      return ldpc_kernel_bounded<DMAX, VMAX, CPT, GEN>;
+  }();
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ldpc_kernel<DMAX, CPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int vec = n % 4 == 0 && (uintptr_t)llrs % 16 == 0;
-  ldpc_kernel<DMAX, CPT><<<B, threads, smem, stream>>>(
-      llrs, check_var, slot_edges, var_edges, bits, m, n, k, dmax, estride,
-      iters, alpha, vec);
+  kernel<<<B, threads, smem, stream>>>(
+      llrs, check_var, slot_edges, var_edges, bits, m, n, k, dmax, vmax,
+      estride, iters, alpha, vec);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// check_var (dmax, m), slot_edges (dmax, 3, m) and var_edges (n, 3) are the
-// int32 tables of packet/ldpc.py, -1 for padding.  Takes dmax <= 8,
-// k <= m <= 4096 with dmax*m < 16384 (message offsets of 16 bits, in
-// bytes) and 4*(2*dmax*m + n) + 16 bytes of shared memory at most 227 KB;
-// one check a thread up to m = 1024, two up to 2048, four beyond.
+// check_var (dmax, m), slot_edges (dmax, vmax, m) and var_edges (n, vmax)
+// are the int32 tables of packet/ldpc.py, -1 for padding.  Takes k <= m
+// with dmax*m < 16384 (message offsets of 16 bits, in bytes) and
+// 4*(2*dmax*m + n) + 16 bytes of shared memory at most 227 KB; vmax 3
+// (PacketConfig's codes, dv = 3): dmax <= 8, m <= 4096, one check a thread
+// up to m = 1024, two up to 2048, four beyond; any other vmax <= 8 (the
+// general instance, LdpcCode(k, dv) of another dv): dmax <= 10,
+// m <= GEN_THREADS.
 extern "C" int qpsk_ldpc(const void* llrs, const void* check_var,
                          const void* slot_edges, const void* var_edges,
                          void* bits, int B, int m, int n, int k, int dmax,
-                         int iters, float alpha, void* stream) {
+                         int vmax, int iters, float alpha, void* stream) {
   const long long smem = 4LL * (2 * ((dmax * (long long)m + 4) / 4 * 4) + n);
-  if (dmax > 8 || m > 4096 || k > m || dmax * (long long)m >= 16384 ||
+  const bool fast = vmax == 3 && dmax <= 8 && m <= 4096;
+  const bool gen = vmax >= 1 && vmax <= 8 && dmax <= 10 && m <= GEN_THREADS;
+  if (!(fast || gen) || k > m || dmax * (long long)m >= 16384 ||
       smem > 227 * 1024)
     return (int)cudaErrorInvalidValue;
   const int cpt = m <= 1024 ? 1 : m <= 2048 ? 2 : 4;
-  const auto run = dmax <= 5 ? (cpt == 1 ? launch<5, 1>
-                                : cpt == 2 ? launch<5, 2> : launch<5, 4>)
-                             : (cpt == 1 ? launch<8, 1>
-                                : cpt == 2 ? launch<8, 2> : launch<8, 4>);
+  const auto run =
+      !fast ? launch<10, 8, 1, true>
+      : dmax <= 5 ? (cpt == 1 ? launch<5, 3, 1, false>
+                     : cpt == 2 ? launch<5, 3, 2, false> : launch<5, 3, 4, false>)
+                  : (cpt == 1 ? launch<8, 3, 1, false>
+                     : cpt == 2 ? launch<8, 3, 2, false> : launch<8, 3, 4, false>);
   return run((const float*)llrs, (const int32_t*)check_var,
              (const int32_t*)slot_edges, (const int32_t*)var_edges,
-             (int32_t*)bits, B, m, n, k, dmax, iters, alpha,
+             (int32_t*)bits, B, m, n, k, dmax, vmax, iters, alpha,
              (cudaStream_t)stream);
 }

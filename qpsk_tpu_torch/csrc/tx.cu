@@ -2,7 +2,9 @@
 //
 // Replaces: qpsk_tpu/ops/pallas/tx_kernel.py, _kernel launched by _tx_2d
 // (entry tx_modulate_fused), at CYC = 2..8 samples per symbol and any odd
-// tap count up to 129.
+// tap count up to 129; the rest of the TPU kernel's gate (more samples per
+// symbol, taps up to a 128-symbol halo) runs tx_general_kernel, at the end
+// of this file.
 //
 // What it computes, per channel: symbols -> zero-stuff x CYC -> ntaps-tap
 // RRC -> x gain -> mix up by phase0 * e^{j*omega*(t+1)} -> Re * pcm_scale
@@ -63,6 +65,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -148,14 +152,14 @@ __device__ __forceinline__ short to_pcm(float yr, float yi, float fr, float fi,
 }
 
 // The carried state of channel c, written by the warp of its first work
-// item: the phase after n = S*CYC samples and the last ntaps-1 samples of
-// [old tail | zero-stuffed symbols].
+// item (lanes ``lane`` + ``step``*j): the phase after n = S*CYC samples and
+// the last ntaps-1 samples of [old tail | zero-stuffed symbols].
 __device__ void write_state(const float* sym_re, const float* sym_im,
                             const float* tail_re, const float* tail_im,
                             float p0r, float p0i, float* nph_re,
                             float* nph_im, float* ntail_re, float* ntail_im,
                             long long c, int S, int ntaps, int cyc,
-                            double omega, int lane) {
+                            double omega, int lane, int step) {
   const long long n = (long long)S * cyc;
   if (lane == 0) {
     float er, ei;
@@ -166,7 +170,7 @@ __device__ void write_state(const float* sym_re, const float* sym_im,
     nph_im[c] = ai * inv;
   }
   const int h = ntaps - 1;
-  for (int k = lane; k < h; k += 32) {
+  for (int k = lane; k < h; k += step) {
     float vr = 0.f, vi = 0.f;
     if (k + n < h) {                     // still the old tail
       vr = tail_re[c * h + k + n];
@@ -272,7 +276,7 @@ tx_kernel(const float* __restrict__ sym_re, const float* __restrict__ sym_im,
     tile_base(p0r, p0i, omega, CYC, m_first, TILE, lane, pbr, pbi);
   if (m_first == 0)
     write_state(sym_re, sym_im, tail_re, tail_im, p0r, p0i, nph_re, nph_im,
-                ntail_re, ntail_im, c, S, ntaps, CYC, omega, lane);
+                ntail_re, ntail_im, c, S, ntaps, CYC, omega, lane, 32);
   __syncwarp();                          // the window is in
 
   // this lane's A pairs: copy (g & 1) for R = 1, whose pairs start one
@@ -351,6 +355,66 @@ int launch(const void* sym_re, const void* sym_im,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The general instance, tx_general_kernel: the TPU kernel's whole gate
+// (qpsk_tpu/ops/pallas/tx_kernel.py, tx_supported: any samples per symbol
+// CYC >= 2 and a halo of at most 128 symbols, (ntaps - 1 + CYC - 1) / CYC
+// + 1 <= 128, so 255 taps at 8 samples per symbol or 16 samples per
+// symbol), where tx_kernel<CYC> above takes CYC 2..8 and 129 taps.  It
+// computes what tx_kernel computes (the header above has the formulas):
+// output t = CYC*m + q is the polyphase sum over d = 0..HS of h[ntaps-1 -
+// CYC*d - q] * sym[m - d], the symbols before the call read from the
+// carried tail's lanes in place, times gain, mixed by phase0 *
+// e^{j*omega*(t+1)} (the angle in float64, reduced mod 2*pi), Re *
+// pcm_scale, truncated and saturated to int16; the block of the call's
+// first sample of a channel writes its carried state (write_state).
+//
+// What bounds it on the H100: arithmetic on the CUDA cores and the float64
+// phasor of every sample.  The design is the plain one: one thread a
+// (channel, sample), the taps in device memory (any count; the wrapper
+// keeps them on the card), the symbols read through the L1 cache, a
+// grid-stride loop so any length runs.  A simple kernel that is right:
+// the tensor-core route of tx_kernel<CYC> is the one to widen if these
+// geometries become hot.
+__global__ void __launch_bounds__(256)
+tx_general_kernel(const float* __restrict__ sym_re,
+                  const float* __restrict__ sym_im,
+                  const float* __restrict__ tail_re,
+                  const float* __restrict__ tail_im,
+                  const float* __restrict__ p0_re,
+                  const float* __restrict__ p0_im,
+                  const float* __restrict__ taps, int16_t* __restrict__ pcm,
+                  float* __restrict__ nph_re, float* __restrict__ nph_im,
+                  float* __restrict__ ntail_re, float* __restrict__ ntail_im,
+                  int C, int S, int cyc, int ntaps, double omega, float gain,
+                  float pcm_scale) {
+  const long long n = (long long)S * cyc;
+  const int hs = (ntaps - 1) / cyc;
+  const long long total = (long long)C * n;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       e < total; e += (long long)gridDim.x * blockDim.x) {
+    const long long c = e / n, t = e - c * n;
+    const long long m = t / cyc;
+    const int q = (int)(t - m * cyc);
+    float yr = 0.f, yi = 0.f;
+    for (int d = 0; d <= hs; ++d) {
+      const int k = ntaps - 1 - cyc * d - q;
+      if (k < 0) break;
+      const float h = __ldg(taps + k);
+      yr = fmaf(h, symbol(sym_re, tail_re, c, S, ntaps, cyc, hs, m - d), yr);
+      yi = fmaf(h, symbol(sym_im, tail_im, c, S, ntaps, cyc, hs, m - d), yi);
+    }
+    const float p0r = p0_re[c], p0i = p0_im[c];
+    float er, ei;
+    phasor(omega * (double)(t + 1), er, ei);
+    const float fr = p0r * er - p0i * ei, fi = p0r * ei + p0i * er;
+    pcm[e] = to_pcm(yr, yi, fr, fi, gain, pcm_scale);
+    if (t == 0)
+      write_state(sym_re, sym_im, tail_re, tail_im, p0r, p0i, nph_re, nph_im,
+                  ntail_re, ntail_im, c, S, ntaps, cyc, omega, 0, 1);
+  }
+}
+
 }  // namespace
 
 // symbols (C, S), the carried zero-stuffed tail (C, ntaps-1) and phase
@@ -386,4 +450,28 @@ extern "C" int qpsk_tx(const void* sym_re, const void* sym_im,
 #undef QPSK_TX_CASE
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The general instance: symbols (C, S), the carried zero-stuffed tail
+// (C, ntaps-1) and phase (C,) in, PCM (C, S*cycles) int16 and the new
+// phase and tail out; ``taps`` the ntaps RRC taps in device memory.
+// Takes cycles >= 2, odd ntaps, C >= 1, S >= 1.
+extern "C" int qpsk_tx_gen(const void* sym_re, const void* sym_im,
+                           const void* tail_re, const void* tail_im,
+                           const void* p0_re, const void* p0_im,
+                           const void* taps, void* pcm, void* nph_re,
+                           void* nph_im, void* ntail_re, void* ntail_im,
+                           int C, int S, int cycles, int ntaps, double omega,
+                           float gain, float pcm_scale, void* stream) {
+  if (C < 1 || S < 1 || cycles < 2 || ntaps < 1 || ntaps % 2 == 0)
+    return (int)cudaErrorInvalidValue;
+  const long long total = (long long)C * S * cycles;
+  const long long blocks = std::min((total + 255) / 256, 132LL * 64);
+  tx_general_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
+      (const float*)sym_re, (const float*)sym_im, (const float*)tail_re,
+      (const float*)tail_im, (const float*)p0_re, (const float*)p0_im,
+      (const float*)taps, (int16_t*)pcm, (float*)nph_re, (float*)nph_im,
+      (float*)ntail_re, (float*)ntail_im, C, S, cycles, ntaps, omega, gain,
+      pcm_scale);
+  return (int)cudaGetLastError();
 }

@@ -1,7 +1,9 @@
 // Soft-decision Viterbi decoder for Hopper (sm_90a): any K=7 rate-1/2
 // code whose two generators tap the newest and the oldest bit (the
 // default (133, 171) and every other such pair), 64 states, a packet's
-// trellis in the registers of G lanes.
+// trellis in the registers of G lanes.  Every other code the TPU kernel's
+// gate takes (rate 1/1 to 1/8, K up to 15, any generators) runs
+// viterbi_general_kernel, at the end of this file.
 //
 // Replaces: qpsk_tpu/ops/pallas/viterbi_kernel.py, _fwd_kernel + _bwd_kernel
 // launched by _viterbi_2d (entry viterbi_decode_pallas).  The TPU layout
@@ -473,6 +475,103 @@ int launch(const float* llrs, void* dec, int32_t* bits, int B, int nsteps,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The general instance, viterbi_general_kernel: every code the TPU kernel's
+// gate takes (qpsk_tpu/packet/fec.py, viterbi_decode: 8 % rate_den == 0
+// and nstates % 16 == 0, any generators), i.e. rate 1/1, 1/2, 1/4 or 1/8
+// at K >= 5, here up to K = 15 (16 384 states), where the kernels above
+// take K = 7 rate 1/2 with the newest and oldest taps.
+//
+// What it computes is the plain version's scan (ops/cuda/viterbi_kernel.py,
+// viterbi_decode_plain), op for op: path metrics start at -1e9 with 0 in
+// state 0; a step's branch metric of new state s' from predecessor p is
+// bm = 0.5f * (((0 + g0*l0) + g1*l1) + ...), the signs g_j = +-1 from the
+// code's table (``signs``: bit j of signs[p*S + s'] is set where
+// _trellis's sgns[j, s', p] is -1); c_p = pm[p*S/2 + (s' >> 1)] + bm_p;
+// the decision is c1 > c0; pm' = max(c0, c1), then pm' - max over all
+// states; the traceback from state 0, s = (s >> 1) | (d << (K-2)).  Every
+// operation rounds once in both (the products by +-1 are exact), so the
+// bits are equal on every input.
+//
+// What bounds it on the H100: latency.  One block a packet and one thread
+// a state (up to 1024 threads, S/1024 states a thread beyond), the path
+// metrics in shared memory twice (ping-pong: 2 x 64 KB at K = 15), two
+// barriers a step (the block's maximum, then the normalised metrics); the
+// decisions packed as bits (a warp's ballot a word) into device memory,
+// (B, nsteps, max(S/32, 1)) words, and one thread a packet traces back
+// afterwards through them.  A simple kernel that is right: at K = 7 the
+// kernels above are an order of magnitude faster and stay for that code.
+constexpr int VG_MAXT = 1024;            // threads a block
+
+__global__ void __launch_bounds__(VG_MAXT)
+viterbi_general_kernel(const float* __restrict__ llrs,
+                       const unsigned char* __restrict__ signs,
+                       unsigned* __restrict__ dec, int32_t* __restrict__ bits,
+                       int K, int rd, int nsteps, int nbits) {
+  extern __shared__ float vg_sh[];
+  const int S = 1 << (K - 1), half = S >> 1;
+  const int W = S >= 32 ? S / 32 : 1;    // decision words a step
+  float* pm = vg_sh;                     // [2][S]
+  float* wmax = vg_sh + 2 * S;           // [32]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int T = blockDim.x, nw = T / 32;
+  const long long b = blockIdx.x;
+  const float* ll = llrs + b * (long long)rd * nsteps;
+  unsigned* db = dec + b * (long long)nsteps * W;
+  for (int s = tid; s < S; s += T) pm[s] = s == 0 ? 0.f : -1e9f;
+  __syncthreads();
+
+  float nm[16];                          // a thread's new metrics, S/T <= 16
+  int cur = 0;
+  for (int t = 0; t < nsteps; ++t) {
+    float l[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) l[j] = j < rd ? ll[(long long)t * rd + j] : 0.f;
+    const float* a = pm + cur * S;
+    float mx = __int_as_float(0xff800000);   // -inf
+    for (int r = 0, s = tid; s < ((S + T - 1) / T) * T; ++r, s += T) {
+      bool d = false;
+      if (s < S) {
+        const unsigned char m0 = signs[s], m1 = signs[S + s];
+        float b0 = 0.f, b1 = 0.f;
+        for (int j = 0; j < rd; ++j) {
+          b0 = __fadd_rn(b0, (m0 >> j & 1) ? -l[j] : l[j]);
+          b1 = __fadd_rn(b1, (m1 >> j & 1) ? -l[j] : l[j]);
+        }
+        const float c0 = __fadd_rn(a[s >> 1], __fmul_rn(0.5f, b0));
+        const float c1 = __fadd_rn(a[half + (s >> 1)], __fmul_rn(0.5f, b1));
+        d = c1 > c0;
+        nm[r] = fmaxf(c0, c1);
+        mx = fmaxf(mx, nm[r]);
+      }
+      const unsigned word = __ballot_sync(0xffffffffu, d);
+      if (lane == 0 && s - lane < S) db[(long long)t * W + (s >> 5)] = word;
+    }
+#pragma unroll
+    for (int o = 16; o >= 1; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    if (lane == 0) wmax[warp] = mx;
+    __syncthreads();
+    mx = wmax[0];
+    for (int w = 1; w < nw; ++w) mx = fmaxf(mx, wmax[w]);
+    float* nxt = pm + (cur ^ 1) * S;
+    for (int r = 0, s = tid; s < S; ++r, s += T) nxt[s] = __fsub_rn(nm[r], mx);
+    cur ^= 1;
+    __syncthreads();
+  }
+
+  if (tid != 0) return;
+  // the traceback, from state 0 (tail-terminated); the decisions were
+  // written by this block, visible after its barriers
+  int s = 0;
+  int32_t* out = bits + b * nbits;
+  for (int t = nsteps - 1; t >= 0; --t) {
+    if (t < nbits) out[t] = s & 1;
+    const unsigned w = db[(long long)t * W + (s >> 5)];
+    s = (s >> 1) | ((int)((w >> (s & 31)) & 1u) << (K - 2));
+  }
+}
+
 }  // namespace
 
 // lanes: how many lanes hold a packet's trellis (1 or 8; 32: the warp
@@ -498,4 +597,29 @@ extern "C" int qpsk_viterbi(const void* llrs, void* dec, void* bits, int B,
       return (int)cudaGetLastError();
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The general instance.  signs: (2, S) bytes, bit j of signs[p*S + s'] set
+// where output j of the branch from predecessor p into state s' is a one;
+// dec: scratch of 4 * B * nsteps * max(S/32, 1) bytes.  Takes K 2..15,
+// rate 1/rd with rd 1..8.
+extern "C" int qpsk_viterbi_gen(const void* llrs, const void* signs,
+                                void* dec, void* bits, int B, int K, int rd,
+                                int nsteps, int nbits, void* stream) {
+  if (B < 1 || K < 2 || K > 15 || rd < 1 || rd > 8 || nsteps < K ||
+      nbits > nsteps)
+    return (int)cudaErrorInvalidValue;
+  const int S = 1 << (K - 1);
+  const int threads = S < 32 ? 32 : (S < VG_MAXT ? S : VG_MAXT);
+  const size_t smem = sizeof(float) * (2 * (size_t)S + 32);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        viterbi_general_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  viterbi_general_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
+      (const float*)llrs, (const unsigned char*)signs, (unsigned*)dec,
+      (int32_t*)bits, K, rd, nsteps, nbits);
+  return (int)cudaGetLastError();
 }

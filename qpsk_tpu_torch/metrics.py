@@ -6,6 +6,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from qpsk_tpu_torch.ops.cplx import CF32
@@ -37,6 +38,18 @@ def snr_estimate_db(symbols: CF32) -> torch.Tensor:
     s = torch.sqrt(torch.clamp(2.0 * m2 * m2 - m4, min=1e-30))
     n = torch.maximum(m2 - s, 1e-30 * m2 + 1e-30)
     return 10.0 * torch.log10(s / n)
+
+
+def snr_estimate_db_host(re: np.ndarray, im: np.ndarray) -> float:
+    """The numpy twin of ``snr_estimate_db`` for the streaming runtime's
+    link counters: the M2M4 moments of one bucket's symbols, in float64 on
+    the host, which already holds them."""
+    p = np.asarray(re, np.float64) ** 2 + np.asarray(im, np.float64) ** 2
+    m2 = float(p.mean())
+    m4 = float((p * p).mean())
+    s = math.sqrt(max(2.0 * m2 * m2 - m4, 1e-30))
+    n = max(m2 - s, 1e-30 * m2 + 1e-30)
+    return 10.0 * math.log10(s / n)
 
 
 def evm(symbols: CF32, normalize: bool = True) -> LinkMetrics:

@@ -24,7 +24,10 @@ staged lowering, in the kernels' layouts), at any geometry the JAX package
 takes.  A CUDA tensor at a geometry or code a kernel does not cover (taps,
 samples per symbol, frame size, an LDPC or convolutional code) makes that
 kernel's wrapper raise ``NotImplementedError`` naming it before the launch,
-as do configurations off the port on either device.
+as do configurations off the port on either device.  The lowering
+switches ``costas_impl`` ("scan"), ``frontend_impl`` and ``tx_impl``
+("xla") run a kernel's plain version on whatever device the tensors are
+on, and "pallas" the kernel (a CPU tensor raises).
 
 The family's receive recipe: ``rx_acquire_hz`` on the first frames of
 PCM -> ``rx_init(acq_freq=acquire.hz_to_costas_freq(hz, cfg.rs))`` ->
@@ -57,9 +60,7 @@ from qpsk_tpu_torch.state import RxState, TxState
 _SLICE = (("modulation", ("qpsk", "bpsk", "8psk", "16qam")),
           ("differential", False),
           ("timing_mode", "power"), ("nco_mode", "fast"),
-          ("fir_precision", "fast"), ("slicer", "diagonal"),
-          ("costas_impl", "auto"), ("frontend_impl", "auto"),
-          ("tx_impl", "auto"))
+          ("fir_precision", "fast"), ("slicer", "diagonal"))
 
 
 def check_slice(cfg: ModemConfig) -> None:
@@ -167,7 +168,8 @@ def rx_stream(cfg: ModemConfig, state: RxState, pcm: torch.Tensor):
 def _rx_path(cfg: ModemConfig):
     """(chain, front-end, Costas) of ``rx_stream``: the time-major chain
     when there is no equalizer and a frame has 128 symbols, else the
-    composed chain, each with its kernel wrappers."""
+    composed chain, each with its wrappers (which follow the config's
+    lowering switches)."""
     if cfg.eq_taps == 0 and cfg.symbols_per_frame >= 128:
         return _rx_stream_tm, rx_frontend_tm, costas_run_tm
     return _rx_stream_composed, rx_frontend, costas_run_cm
@@ -188,8 +190,7 @@ def _rx_stream_tm(cfg: ModemConfig, state: RxState, pcm: torch.Tensor,
     """The time-major RX chain: ``frontend`` emits the delayed (T, C) picks
     (and with ``cfg.agc`` their per-frame powers) that ``costas`` consumes,
     scaled by the AGC gains in-register.  ``rx_stream`` passes the kernel
-    wrappers; the chip smoke test passes their plain versions to time that
-    path."""
+    wrappers, which follow ``cfg``'s lowering switches."""
     nframes = pcm.shape[1]
     zr, zi, index, nco_phase, fir_tail, decim_delay, powers = frontend(
         cfg, pcm, state.nco_phase, state.fir_tail, state.decim_delay)
@@ -201,7 +202,7 @@ def _rx_stream_tm(cfg: ModemConfig, state: RxState, pcm: torch.Tensor,
     params, gear, dd = _loop(cfg)
     cstate, derot_tm, freq_frames, bits = costas(
         state.costas, zr, zi, params, cfg.symbols_per_frame, gear=gear,
-        gains=gains, dd=dd)
+        gains=gains, dd=dd, impl=cfg.costas_impl)
     derot = CF32(derot_tm.re.T, derot_tm.im.T)
     return _emit(cfg, state._replace(
         fir_tail=fir_tail, nco_phase=nco_phase, costas=cstate,
@@ -232,7 +233,7 @@ def _rx_stream_composed(cfg: ModemConfig, state: RxState, pcm: torch.Tensor,
     params, gear, dd = _loop(cfg)
     cstate, derot, freq_frames, bits = costas(
         state.costas, cmap(lambda p: p.reshape(c, -1), delayed), params,
-        cfg.symbols_per_frame, gear=gear, dd=dd)
+        cfg.symbols_per_frame, gear=gear, dd=dd, impl=cfg.costas_impl)
     return _emit(cfg, state._replace(
         fir_tail=fir_tail, nco_phase=nco_phase, costas=cstate,
         decim_delay=decim_delay, agc=agc_state, eq=eq_state), derot, bits,

@@ -34,16 +34,22 @@ def agc_init(batch_shape=(), device="cuda") -> torch.Tensor:
 def _frame_power(re: torch.Tensor, im: torch.Tensor,
                  dim: int = -1) -> torch.Tensor:
     """Mean |z|^2 over ``dim``: squares, then halves pairing
-    ``p[:m/2] + p[m/2:m]`` down to one value, then ``* float32(1/n)``."""
+    ``p[:m/2] + p[m/2:m]`` while the count is even, then the odd residue
+    (3 of a 384-symbol frame) summed in order, then ``* float32(1/n)``:
+    the JAX package's tree, whose residue is a ``jnp.sum``."""
     p = re * re + im * im
     dim = dim % p.dim()
     n = p.shape[dim]
-    assert n > 0 and n & (n - 1) == 0, f"{n} symbols: not a power of two"
+    if n < 1:
+        raise ValueError("the frame power of an empty frame")
     inv = float(np.float32(1.0 / n))
-    while n > 1:
+    while n > 1 and n % 2 == 0:
         p = p.narrow(dim, 0, n // 2) + p.narrow(dim, n // 2, n // 2)
         n //= 2
-    return p.squeeze(dim) * inv
+    s = p.narrow(dim, 0, 1)
+    for k in range(1, n):
+        s = s + p.narrow(dim, k, 1)
+    return s.squeeze(dim) * inv
 
 
 def _est_update(rms_est: torch.Tensor, rms: torch.Tensor, mu: float):

@@ -33,11 +33,14 @@ _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
     "qpsk_frontend_tm": [_P] * 17 + [_I] * 5 + [_P, _P, _D, _F, _F, _P],
     "qpsk_frontend_cm": [_P] * 12 + [_I] * 5 + [_P, _P, _D, _F, _F, _P],
+    "qpsk_frontend_gen": [_P] * 18 + [_I] * 6 + [_P, _P, _D, _F, _F, _P],
     "qpsk_costas_tm": [_P] * 15 + [_I] * 5 + [_P, _P, _P],
     "qpsk_sincosf": [_P] * 3 + [ctypes.c_longlong, _P],
     "qpsk_tx": [_P] * 11 + [_I] * 4 + [_P, _D, _F, _F, _P],
+    "qpsk_tx_gen": [_P] * 12 + [_I] * 4 + [_D, _F, _F, _P],
     "qpsk_viterbi": [_P] * 3 + [_I] * 4 + [ctypes.c_uint] * 2 + [_P],
-    "qpsk_ldpc": [_P] * 5 + [_I] * 6 + [_F, _P],
+    "qpsk_viterbi_gen": [_P] * 4 + [_I] * 5 + [_P],
+    "qpsk_ldpc": [_P] * 5 + [_I] * 7 + [_F, _P],
 }
 
 
@@ -115,6 +118,24 @@ def check_geometry(off) -> None:
         raise NotImplementedError(
             f"{name}={value!r} is not ported to the CUDA kernel (it takes "
             f"{takes}); run it on CPU tensors")
+
+
+def use_kernel(impl: str, t: torch.Tensor, field: str) -> bool:
+    """Whether a wrapper launches its kernel on ``t`` under the lowering
+    switch ``field`` = ``impl``: "auto" on a CUDA tensor, "pallas" always
+    (on a CPU tensor it raises: the kernels run only on the card); the
+    plain lowerings ("scan", "xla") never, on whatever device ``t`` is."""
+    if impl == "auto":
+        return t.is_cuda
+    if impl == "pallas":
+        if not t.is_cuda:
+            raise RuntimeError(
+                f"{field}='pallas' runs the CUDA kernel, but the tensors lie "
+                f"on {t.device}; use 'auto' or the plain lowering there")
+        return True
+    if impl in ("scan", "xla"):
+        return False
+    raise ValueError(f"unknown {field} {impl!r}")
 
 
 def check(rc: int, name: str) -> None:

@@ -46,7 +46,8 @@ _DETECTOR = {"bpsk": 1, "8psk": 2, "16qam": 3}
 def costas_run_tm(state: CostasState, zr_tm: torch.Tensor,
                   zi_tm: torch.Tensor, params: CostasParams,
                   trace_every: int, gear: CostasGear | None = None,
-                  gains: torch.Tensor | None = None, dd=None):
+                  gains: torch.Tensor | None = None, dd=None,
+                  impl: str = "auto"):
     """Run the loop over (T, C) symbol planes.
 
     ``gear`` (with a state from ``costas_init(..., gear=True)``) runs the
@@ -58,11 +59,13 @@ def costas_run_tm(state: CostasState, zr_tm: torch.Tensor,
     // trace_every), bits (C, bps*T) int32)``: ``freq_frames[:, k]`` is the
     loop frequency after symbol ``(k+1)*trace_every - 1`` and ``bits`` is
     ``modmap.demod_bits`` (dd: ``modfam.demod_bits_cmp``) of the derotated
-    (C, T) symbols.
+    (C, T) symbols.  ``impl`` is ``ModemConfig.costas_impl``: "auto" (the
+    tensor's device picks), "scan" (the plain version on any device) or
+    "pallas" (the kernel; a CPU tensor raises).
     """
     if gear is not None and dd is not None:
         raise ValueError("the gear shift is QPSK-only: pass gear or dd")
-    if zr_tm.is_cuda:
+    if _lib.use_kernel(impl, zr_tm, "costas_impl"):
         return _launch(state, zr_tm, zi_tm, params, trace_every, gear, gains,
                        dd)
     return costas_run_tm_plain(state, zr_tm, zi_tm, params, trace_every,
@@ -93,13 +96,13 @@ def costas_run_tm_plain(state, zr_tm, zi_tm, params, trace_every, gear=None,
 
 def costas_run_cm(state: CostasState, symbols: CF32, params: CostasParams,
                   trace_every: int, gear: CostasGear | None = None, dd=None,
-                  run=None):
+                  impl: str = "auto"):
     """The channel-major entry: (C, T) symbols, transposed to (T, C) for
-    ``run`` (``costas_run_tm``, or its plain version).  Returns
-    ``(new_state, derot CF32 (C, T), freq_frames, bits (C, bps*T))``."""
-    new_state, derot, trace, bits = (run or costas_run_tm)(
+    ``costas_run_tm`` with ``impl``.  Returns ``(new_state, derot CF32
+    (C, T), freq_frames, bits (C, bps*T))``."""
+    new_state, derot, trace, bits = costas_run_tm(
         state, symbols.re.T.contiguous(), symbols.im.T.contiguous(), params,
-        trace_every, gear=gear, dd=dd)
+        trace_every, gear=gear, dd=dd, impl=impl)
     return new_state, CF32(derot.re.T, derot.im.T), trace, bits
 
 

@@ -17,13 +17,21 @@ version: ``frontend_xla``, the staged chain (``modem.frontend_xla`` in the
 JAX package), plus for the time-major one the delay concat and
 ``agc._frame_power``, in the same layouts.
 
-The kernel covers (``coverage``) 2, 4 or 8 samples per symbol in both
-launches, any odd ``ntaps`` up to 129 (the TPU kernel's ``ntaps - 1 <=
-128``) and any ``frame_size`` that is a multiple of 128 up to
-``_MAX_FRAME`` samples (its shared-memory budget); with the AGC power
-output the frame's symbols are a power of two, as ``agc._frame_power``
-requires.  A CUDA call off that raises ``NotImplementedError`` naming the
-field before any launch; a CPU call runs any geometry.
+The kernel covers (``coverage``) every geometry the TPU kernel's gate
+admits (``frontend_supported``): any samples per symbol up to 256 that
+divide the frame, any odd ``ntaps`` up to 129 (the TPU kernel's ``ntaps -
+1 <= 128``) and any ``frame_size`` that is a multiple of 128, in both
+launches, the AGC power output at any symbol count.  The wrapper picks the
+instance by geometry: the tensor-core instances (``frontend_kernel``) at 2,
+4 or 8 samples per symbol and frames up to ``_FAST_MAX_FRAME`` samples (their
+shared-memory budget), with the power output when a frame's symbols are a
+power of two; the general instance (``frontend_general_kernel``, the FIR
+on the CUDA cores, the frame streamed through shared memory in chunks)
+everywhere else.  A CUDA call off the coverage raises
+``NotImplementedError`` naming the field before any launch; a CPU call
+runs any geometry.  ``cfg.frontend_impl`` picks the lowering: "auto" (the
+tensor's device), "xla" (the plain version on any device) or "pallas"
+(the kernel; a CPU tensor raises).
 """
 
 from __future__ import annotations
@@ -45,39 +53,45 @@ from qpsk_tpu_torch.ops.cuda import _lib
 # Kernel launches since the last reset (set to 0 to start a count), and
 # the same launches by mode: "tm", "tm_power", "cm4", "cm8", and for a
 # geometry off the default config, e.g. "tm_cyc2", "cm4_fsz256",
-# "tm_ntaps63" (clear() it).
+# "tm_ntaps63"; the general instance's as "tm_gen_cyc3_fsz384",
+# "cm_gen_cyc16_fsz2048", "tm_power_gen_fsz1536" (clear() it).
 launches = 0
 by_mode = collections.Counter()
 
-# the samples per symbol the kernel is built for, its largest tap count
-# (a 128-sample halo) and its largest frame (csrc/frontend.cu, Layout:
-# 128 * frame_size + 8448 bytes of shared memory, at most 227 KB)
-_CYCLES, _MAX_TAPS, _MAX_FRAME = (2, 4, 8), 129, 1664
+# the samples per symbol the tensor-core instances are built for, their
+# largest frame (csrc/frontend.cu, Layout: 128 * frame_size + 8448 bytes of
+# shared memory, at most 227 KB), and the largest tap count (a 128-sample
+# halo) and samples per symbol (GMAXCYC) of every instance
+_FAST_CYCLES, _FAST_MAX_FRAME, _MAX_TAPS, _MAX_CYCLES = (2, 4, 8), 1664, 129, 256
 
 
-def coverage(cfg, power: bool = False):
+def coverage(cfg):
     """None if the kernel covers ``cfg``, else (field, value, what the
-    kernel takes) of the first field off it; ``power``: the time-major
-    launch with the AGC power output."""
-    nsym = cfg.symbols_per_frame
-    if cfg.cycles not in _CYCLES:
-        return "fs/rs", cfg.cycles, "2, 4 or 8 samples per symbol"
+    kernel takes) of the first field off it: either layout, with or
+    without the AGC power output."""
+    if cfg.cycles > _MAX_CYCLES:
+        return "fs/rs", cfg.cycles, f"up to {_MAX_CYCLES} samples per symbol"
     if cfg.ntaps > _MAX_TAPS:
         return "ntaps", cfg.ntaps, f"odd ntaps <= {_MAX_TAPS}"
-    if cfg.frame_size % 128 or cfg.frame_size > _MAX_FRAME:
-        return ("frame_size", cfg.frame_size,
-                f"a multiple of 128 up to {_MAX_FRAME} samples")
-    if power and nsym & (nsym - 1):
-        return ("frame_size", cfg.frame_size,
-                "a power of two of symbols a frame with the AGC power output")
+    if cfg.frame_size % 128:
+        return "frame_size", cfg.frame_size, "a multiple of 128 samples"
     return None
+
+
+def _fast(cfg, power: bool) -> bool:
+    """Whether a tensor-core instance takes ``cfg`` (else the general one
+    runs it)."""
+    nsym = cfg.symbols_per_frame
+    return (cfg.cycles in _FAST_CYCLES and cfg.frame_size <= _FAST_MAX_FRAME
+            and not (power and nsym & (nsym - 1)))
 
 
 def _mode(cfg, base: str) -> str:
     """``by_mode``'s key of a launch: ``base``, then each field off the
     default geometry."""
     extra = [f"{name}{value}" for name, value, default in (
-        ("cyc", cfg.cycles, 4 if base.startswith("tm") else cfg.cycles),
+        ("cyc", cfg.cycles, 4 if base.startswith(("tm", "cm_gen"))
+         else cfg.cycles),
         ("ntaps", cfg.ntaps, 127), ("fsz", cfg.frame_size, 512))
         if value != default]
     return "_".join([base] + extra)
@@ -93,9 +107,9 @@ def rx_frontend_tm(cfg, pcm: torch.Tensor, nco_phase: CF32, fir_tail: CF32,
     carried ``decim_delay``), ``index`` is the (C, nframes) int32
     decimation phase, ``powers`` the (C, nframes) mean |pick|^2 of each
     emitted frame, ``agc._frame_power`` bit for bit, or None unless
-    ``cfg.agc``.
+    ``cfg.agc``.  ``cfg.frontend_impl`` picks the lowering.
     """
-    if pcm.is_cuda:
+    if _lib.use_kernel(cfg.frontend_impl, pcm, "frontend_impl"):
         return _launch_tm(cfg, pcm, nco_phase, fir_tail, decim_delay)
     return rx_frontend_tm_plain(cfg, pcm, nco_phase, fir_tail, decim_delay)
 
@@ -104,8 +118,8 @@ def rx_frontend(cfg, pcm: torch.Tensor, nco_phase: CF32, fir_tail: CF32):
     """Channel-major front-end over ``(C, nframes, frame_size)`` int16 PCM,
     without the delay.  Returns (picks CF32 (C, nframes, nsym), index
     (C, nframes) int32, new_nco_phase, new_fir_tail); its plain version is
-    ``frontend_xla``."""
-    if pcm.is_cuda:
+    ``frontend_xla``; ``cfg.frontend_impl`` picks the lowering."""
+    if _lib.use_kernel(cfg.frontend_impl, pcm, "frontend_impl"):
         return _launch_cm(cfg, pcm, nco_phase, fir_tail)
     return frontend_xla(cfg, pcm, nco_phase, fir_tail)
 
@@ -162,10 +176,10 @@ def rx_frontend_tm_plain(cfg, pcm, nco_phase, fir_tail, decim_delay):
             powers)
 
 
-def _check_inputs(cfg, pcm, nco_phase, fir_tail, power=False):
+def _check_inputs(cfg, pcm, nco_phase, fir_tail):
     """Check the geometry, then validate what the kernel reads by pointer;
     return (C, nframes)."""
-    _lib.check_geometry(coverage(cfg, power))
+    _lib.check_geometry(coverage(cfg))
     c, nframes, _ = pcm.shape
     if nframes < 1 or c < 1:
         raise ValueError(f"the front-end kernel takes at least one frame and "
@@ -206,7 +220,7 @@ def _state_out(c, ntaps_m1, dev):
 def _launch_tm(cfg, pcm, nco_phase, fir_tail, decim_delay):
     global launches
     want_power = bool(cfg.agc)
-    c, nframes = _check_inputs(cfg, pcm, nco_phase, fir_tail, want_power)
+    c, nframes = _check_inputs(cfg, pcm, nco_phase, fir_tail)
     dev = pcm.device
     nsym = cfg.symbols_per_frame
     for part, plane in zip(("re", "im"), decim_delay):
@@ -221,6 +235,23 @@ def _launch_tm(cfg, pcm, nco_phase, fir_tail, decim_delay):
     ndd = CF32(empty((c, nsym)), empty((c, nsym)))
     powers = empty((c, nframes)) if want_power else None
     phase, tail = _state_out(c, cfg.ntaps - 1, dev)
+    if not _fast(cfg, want_power):
+        scratch = empty((c, nframes, nsym)) if want_power else None
+        rc = _lib.library().qpsk_frontend_gen(
+            pcm.data_ptr(), fir_tail.re.data_ptr(), fir_tail.im.data_ptr(),
+            nco_phase.re.data_ptr(), nco_phase.im.data_ptr(),
+            decim_delay.re.data_ptr(), decim_delay.im.data_ptr(),
+            zr.data_ptr(), zi.data_ptr(), index.data_ptr(), ndd.re.data_ptr(),
+            ndd.im.data_ptr(), powers.data_ptr() if want_power else None,
+            scratch.data_ptr() if want_power else None, phase.re.data_ptr(),
+            phase.im.data_ptr(), tail.re.data_ptr(), tail.im.data_ptr(), c,
+            nframes, cfg.frame_size, cfg.cycles, cfg.ntaps, 1,
+            hm[0].ctypes.data, hm[1].ctypes.data, omega, gain, inv_scale,
+            _lib.stream_ptr(dev))
+        _lib.check(rc, "qpsk_frontend_gen")
+        launches += 1
+        by_mode[_mode(cfg, "tm_power_gen" if want_power else "tm_gen")] += 1
+        return zr, zi, index, phase, tail, ndd, powers
     rc = _lib.library().qpsk_frontend_tm(
         pcm.data_ptr(), fir_tail.re.data_ptr(), fir_tail.im.data_ptr(),
         nco_phase.re.data_ptr(), nco_phase.im.data_ptr(),
@@ -246,6 +277,19 @@ def _launch_cm(cfg, pcm, nco_phase, fir_tail):
                                device=dev) for _ in range(2)))
     index = torch.empty((c, nframes), dtype=torch.int32, device=dev)
     phase, tail = _state_out(c, cfg.ntaps - 1, dev)
+    if not _fast(cfg, False):
+        rc = _lib.library().qpsk_frontend_gen(
+            pcm.data_ptr(), fir_tail.re.data_ptr(), fir_tail.im.data_ptr(),
+            nco_phase.re.data_ptr(), nco_phase.im.data_ptr(), None, None,
+            picks.re.data_ptr(), picks.im.data_ptr(), index.data_ptr(), None,
+            None, None, None, phase.re.data_ptr(), phase.im.data_ptr(),
+            tail.re.data_ptr(), tail.im.data_ptr(), c, nframes,
+            cfg.frame_size, cfg.cycles, cfg.ntaps, 0, hm[0].ctypes.data,
+            hm[1].ctypes.data, omega, gain, inv_scale, _lib.stream_ptr(dev))
+        _lib.check(rc, "qpsk_frontend_gen")
+        launches += 1
+        by_mode[_mode(cfg, "cm_gen")] += 1
+        return picks, index, phase, tail
     rc = _lib.library().qpsk_frontend_cm(
         pcm.data_ptr(), fir_tail.re.data_ptr(), fir_tail.im.data_ptr(),
         nco_phase.re.data_ptr(), nco_phase.im.data_ptr(), picks.re.data_ptr(),

@@ -4,13 +4,18 @@
 ``ldpc_decode`` decodes (..., n) LLRs to (..., k) bits with normalized
 min-sum over the code's compact index tables (``packet/ldpc.py``,
 ``_index_tables``).  On a CUDA tensor it launches ``csrc/ldpc.cu`` (one
-block per packet, one barrier an iteration, every index in registers,
-one check a thread up to 1024 checks and two or four beyond); it takes
-codes of check degree <= 8, variable degree 3 (``PacketConfig`` builds
-``dv=3`` only) and k <= m <= ``_KERNEL_M`` = 3276 checks
-(``PacketConfig(payload_bytes=407, fec="ldpc")``), and raises
-``NotImplementedError`` naming the field before any launch for anything
-else; on a CPU tensor it runs
+block per packet, one barrier an iteration, every index in registers):
+the instances for variable degree 3 (``PacketConfig`` builds ``dv=3``
+only), check degree <= 8 and k <= m <= ``_KERNEL_M`` = 3276 checks
+(``PacketConfig(payload_bytes=407, fec="ldpc")``), one check a thread up
+to 1024 checks and two or four beyond; and the general instance for
+every other ``LdpcCode(k, dv)`` of variable degree <= 8, check degree
+<= 10 and m <= 512 checks (the most threads its registers allow a
+block), which holds every code the TPU kernel's gate admits
+(``dmax*m*n*4 <= 6 MiB``, so m <= 443).  Past that it raises
+``NotImplementedError`` naming the field before any launch.
+``impl="xla"`` runs the plain version on any device, as the JAX package's
+``impl`` does.  On a CPU tensor it runs
 ``ldpc_decode_plain``, the JAX XLA lowering's semantics in PyTorch:
 ``code.iters`` flooding iterations, first-wins argmin, normalization
 ``code.alpha``, posterior ``total[:k] < 0``, float32 throughout.  Both sum
@@ -22,6 +27,7 @@ order to the BLAS; the contract against the JAX package is its own:
 
 from __future__ import annotations
 
+import collections
 import functools
 import math
 
@@ -31,15 +37,20 @@ from qpsk_tpu_torch.ops.cuda import _lib
 from qpsk_tpu_torch.packet.ldpc import (LdpcCode, _index_tables,
                                         _slot_edge_table)
 
-# Kernel launches since the last reset (set to 0 to start a count).
+# Kernel launches since the last reset (set to 0 to start a count), and
+# by instance: "dv3" and "general_dv5" (clear() it).
 launches = 0
+by_mode = collections.Counter()
 
 _BIG = 1e30
-# the kernel's register arrays hold this many slots of a check and this
-# many edges of a variable; 16-bit byte offsets of the messages bound
+# the dv = 3 instances' register arrays hold this many slots of a check and
+# this many edges of a variable; 16-bit byte offsets of the messages bound
 # dmax*m below 16384 (m <= 3276 at the codes' check degree 5), and with
 # four checks a thread a block of 1024 threads takes 4096 checks
 _KERNEL_DMAX, _KERNEL_VMAX, _KERNEL_M = 8, 3, 3276
+# the general instance's: check degree, variable degree, checks (one a
+# thread, GEN_THREADS of csrc/ldpc.cu)
+_GEN_DMAX, _GEN_VMAX, _GEN_M = 10, 8, 512
 
 
 def _iters(code: LdpcCode, llrs: torch.Tensor, iters) -> int:
@@ -68,9 +79,13 @@ def _kernel_tables(code: LdpcCode, device: torch.device):
 
 
 def ldpc_decode(code: LdpcCode, llrs: torch.Tensor,
-                iters: int | None = None) -> torch.Tensor:
-    """(..., n) LLRs (positive = bit 0) -> (..., k) int32 bits."""
-    if llrs.is_cuda:
+                iters: int | None = None, impl: str = "auto") -> torch.Tensor:
+    """(..., n) LLRs (positive = bit 0) -> (..., k) int32 bits; ``impl``
+    "auto" (the tensor's device) or "xla" (the plain version on any
+    device)."""
+    if impl not in ("auto", "xla"):
+        raise ValueError(f"unknown ldpc impl {impl!r}")
+    if impl == "auto" and llrs.is_cuda:
         return _launch(code, llrs, iters)
     return ldpc_decode_plain(code, llrs, iters)
 
@@ -132,14 +147,17 @@ def coverage(code: LdpcCode):
     """None if the kernel covers ``code``, else (field, value, what the
     kernel takes) of the first field off it; the check count is asked
     before the index tables of a large code are built."""
-    if code.m > _KERNEL_M:
-        return "m", code.m, f"m <= {_KERNEL_M} checks"
-    if code.dv != _KERNEL_VMAX:
-        return "dv", code.dv, f"variable degree {_KERNEL_VMAX}"
+    fast = code.dv == _KERNEL_VMAX
+    if code.m > (_KERNEL_M if fast else _GEN_M):
+        return ("m", code.m, f"m <= {_KERNEL_M} checks at dv={_KERNEL_VMAX}, "
+                f"m <= {_GEN_M} at other dv")
+    if code.dv > _GEN_VMAX:
+        return "dv", code.dv, f"variable degree <= {_GEN_VMAX}"
     check_var, _ = _index_tables(code.k, code.dv, code.seed)
     dmax, m = check_var.shape
-    if dmax > _KERNEL_DMAX:
-        return "dmax", dmax, f"check degrees <= {_KERNEL_DMAX}"
+    if dmax > (_KERNEL_DMAX if fast else _GEN_DMAX):
+        return ("dmax", dmax, f"check degrees <= {_KERNEL_DMAX} at dv=3, "
+                f"<= {_GEN_DMAX} at other dv")
     if dmax * m >= 16384:
         return "m", m, "dmax*m < 16384 (16-bit message offsets)"
     return None
@@ -152,6 +170,7 @@ def _launch(code: LdpcCode, llrs: torch.Tensor, iters) -> torch.Tensor:
     dev = llrs.device
     check_var, var_edges, slot_edges = _kernel_tables(code, dev)
     dmax, m = check_var.shape
+    vmax = var_edges.shape[1]
     batch = tuple(llrs.shape[:-1])
     b = math.prod(batch)
     flat = llrs.to(torch.float32).reshape(b, code.n).contiguous()
@@ -161,7 +180,8 @@ def _launch(code: LdpcCode, llrs: torch.Tensor, iters) -> torch.Tensor:
     rc = _lib.library().qpsk_ldpc(
         flat.data_ptr(), check_var.data_ptr(), slot_edges.data_ptr(),
         var_edges.data_ptr(), out.data_ptr(), b, m, code.n, code.k, dmax,
-        its, code.alpha, _lib.stream_ptr(dev))
+        vmax, its, code.alpha, _lib.stream_ptr(dev))
     _lib.check(rc, "qpsk_ldpc")
     launches += 1
+    by_mode["dv3" if vmax == _KERNEL_VMAX else f"general_dv{code.dv}"] += 1
     return out.reshape(batch + (code.k,))

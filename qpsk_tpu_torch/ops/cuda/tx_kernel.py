@@ -8,10 +8,17 @@ other.  On a CUDA tensor it is one launch of ``csrc/tx.cu``, which reads
 the carried tail's symbol lanes in place and writes the PCM, the new
 phase and the new tail, with no other device operation and no copy to the
 card; on a CPU tensor it runs ``tx_modulate_plain``: zero-stuff, block FIR,
-NCO mix, int16.  The kernel covers (``coverage``) 2 to 8 samples per
-symbol and any odd ``ntaps`` up to 129, any channel and symbol count; a
-CUDA call off that raises ``NotImplementedError`` naming the field before
-any launch; a CPU call runs any geometry.
+NCO mix, int16.  The kernel covers (``coverage``) the TPU kernel's gate
+(``tx_supported``): any samples per symbol from 2 and any odd ``ntaps``
+whose halo is at most 128 symbols, any channel and symbol count.  The
+wrapper picks the instance by geometry: ``tx_kernel<CYC>`` (the FIR on the
+tensor cores) at 2 to 8 samples per symbol and up to 129 taps, the general
+instance (``tx_general_kernel``, a polyphase sum on the CUDA cores, the
+taps in device memory) everywhere else.  A CUDA call off the coverage
+raises ``NotImplementedError`` naming the field before any launch; a CPU
+call runs any geometry.  ``cfg.tx_impl`` picks the lowering: "auto" (the
+tensor's device), "xla" (the plain version on any device) or "pallas"
+(the kernel; a CPU tensor raises).
 """
 
 from __future__ import annotations
@@ -32,31 +39,44 @@ from qpsk_tpu_torch.ops.modmap import upsample_zero_stuff
 
 # Kernel launches since the last reset (set to 0 to start a count), and
 # the same launches by mode: "cycles4", "cycles8", ..., with "_ntaps63"
-# for a tap count other than 127 (clear() it).
+# for a tap count other than 127, and "gen_cycles16", "gen_cycles8_ntaps255"
+# for the general instance (clear() it).
 launches = 0
 by_mode = collections.Counter()
 
-# the samples per symbol the kernel is built for (csrc/tx.cu, one template
-# instance each) and its largest tap count (a by-value parameter of 129
-# floats)
-_CYCLES, _MAX_TAPS = range(2, 9), 129
+# the samples per symbol tx_kernel<CYC> is built for (csrc/tx.cu, one
+# template instance each) and its largest tap count (a by-value parameter
+# of 129 floats); the halo of every instance (the TPU kernel's _BS)
+_FAST_CYCLES, _FAST_MAX_TAPS, _MAX_HALO = range(2, 9), 129, 128
+
+
+def _halo_syms(ntaps: int, cycles: int) -> int:
+    """The TPU kernel's symbol halo (``tx_kernel._halo_syms``)."""
+    return (ntaps - 1 + cycles - 1) // cycles + 1
 
 
 def coverage(cfg):
     """None if the kernel covers ``cfg``, else (field, value, what the
     kernel takes) of the first field off it."""
-    if cfg.cycles not in _CYCLES:
-        return "fs/rs", cfg.cycles, "2 to 8 samples per symbol"
-    if cfg.ntaps > _MAX_TAPS:
-        return "ntaps", cfg.ntaps, f"odd ntaps <= {_MAX_TAPS}"
+    if cfg.cycles < 2:
+        return "fs/rs", cfg.cycles, "at least 2 samples per symbol"
+    if _halo_syms(cfg.ntaps, cfg.cycles) > _MAX_HALO:
+        return ("ntaps", cfg.ntaps,
+                f"a halo of at most {_MAX_HALO} symbols, (ntaps - 1 + "
+                "cycles - 1) // cycles + 1")
     return None
+
+
+def _fast(cfg) -> bool:
+    """Whether ``tx_kernel<CYC>`` takes ``cfg`` (else the general one)."""
+    return cfg.cycles in _FAST_CYCLES and cfg.ntaps <= _FAST_MAX_TAPS
 
 
 def tx_modulate(cfg, symbols: CF32, nco_phase: CF32, fir_tail: CF32,
                 tx_offset_hz: float = 0.0):
     """Modulate (C, S) symbols.  Returns (pcm (C, S*cycles) int16,
-    new_nco_phase, new_fir_tail)."""
-    if symbols.re.is_cuda:
+    new_nco_phase, new_fir_tail); ``cfg.tx_impl`` picks the lowering."""
+    if _lib.use_kernel(cfg.tx_impl, symbols.re, "tx_impl"):
         return _launch(cfg, symbols, nco_phase, fir_tail, tx_offset_hz)
     return tx_modulate_plain(cfg, symbols, nco_phase, fir_tail, tx_offset_hz)
 
@@ -68,7 +88,7 @@ def _omega(cfg, tx_offset_hz: float) -> float:
 def tx_modulate_plain(cfg, symbols, nco_phase, fir_tail, tx_offset_hz=0.0):
     """The plain PyTorch version of ``tx_modulate``."""
     sig = upsample_zero_stuff(symbols, cfg.cycles)
-    block = rrc_ops.pick_block(sig.shape[-1])
+    block = rrc_ops.tile_block(sig.shape[-1])
     tmat = torch.from_numpy(rrc_ops.toeplitz_taps(rrc_ops.taps_for(cfg), block))
     sig, tail = rrc_ops.fir_block(sig, fir_tail, tmat.to(sig.re.device),
                                   cfg.gain, block)
@@ -92,6 +112,14 @@ def _launch_consts(cfg) -> tuple:
     return np.ascontiguousarray(taps * np.float32(scale)), float(cfg.gain) / scale
 
 
+@functools.lru_cache(maxsize=None)
+def _taps_on(cfg, device) -> torch.Tensor:
+    """The RRC taps (ntaps,) float32 on ``device``, for the general
+    instance, which reads them from device memory."""
+    return torch.from_numpy(np.asarray(rrc_ops.taps_for(cfg),
+                                       np.float32)).to(device)
+
+
 def _launch(cfg, symbols, nco_phase, fir_tail, tx_offset_hz):
     global launches
     _lib.check_geometry(coverage(cfg))
@@ -107,13 +135,26 @@ def _launch(cfg, symbols, nco_phase, fir_tail, tx_offset_hz):
         for part, plane in zip(("re", "im"), t):
             _lib.require(plane, f"{name}.{part}", torch.float32, shape, dev)
 
-    taps, gain = _launch_consts(cfg)
-
     def empty(shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=dev)
     pcm = empty((c, s * cfg.cycles), torch.int16)
     phase = CF32(empty((c,)), empty((c,)))
     tail = CF32(empty((c, ntaps_m1)), empty((c, ntaps_m1)))
+    if not _fast(cfg):
+        rc = _lib.library().qpsk_tx_gen(
+            symbols.re.data_ptr(), symbols.im.data_ptr(),
+            fir_tail.re.data_ptr(), fir_tail.im.data_ptr(),
+            nco_phase.re.data_ptr(), nco_phase.im.data_ptr(),
+            _taps_on(cfg, dev).data_ptr(), pcm.data_ptr(), phase.re.data_ptr(),
+            phase.im.data_ptr(), tail.re.data_ptr(), tail.im.data_ptr(), c, s,
+            cfg.cycles, cfg.ntaps, _omega(cfg, tx_offset_hz), float(cfg.gain),
+            float(cfg.pcm_scale), _lib.stream_ptr(dev))
+        _lib.check(rc, "qpsk_tx_gen")
+        launches += 1
+        by_mode[f"gen_cycles{cfg.cycles}"
+                + ("" if cfg.ntaps == 127 else f"_ntaps{cfg.ntaps}")] += 1
+        return pcm, phase, tail
+    taps, gain = _launch_consts(cfg)
     rc = _lib.library().qpsk_tx(
         symbols.re.data_ptr(), symbols.im.data_ptr(), fir_tail.re.data_ptr(),
         fir_tail.im.data_ptr(), nco_phase.re.data_ptr(),

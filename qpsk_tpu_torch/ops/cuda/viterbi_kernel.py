@@ -2,12 +2,18 @@
 ``qpsk_tpu/ops/pallas/viterbi_kernel.py``, ``viterbi_decode_pallas``).
 
 ``viterbi_decode`` decodes (..., rd*(nbits+K-1)) LLRs to (..., nbits)
-bits.  On a CUDA tensor it launches ``csrc/viterbi.cu`` (a K=7 rate-1/2
-code whose generators tap the newest and the oldest bit, handed to the
-kernel as the two bit masks of its sign table, ``code_masks``; a packet's
-trellis in the registers of 1, 8 or 32 lanes of a warp, by batch size),
-and raises ``NotImplementedError`` naming the code before any launch for
-any other; on a CPU tensor it runs
+bits.  On a CUDA tensor it launches ``csrc/viterbi.cu``: for a K=7
+rate-1/2 code whose generators tap the newest and the oldest bit (handed
+to the kernel as the two bit masks of its sign table, ``code_masks``) the
+fast kernels, a packet's trellis in the registers of 1, 8 or 32 lanes of a
+warp, by batch size; for every other code the TPU kernel's gate takes
+(rate 1/1, 1/2, 1/4 or 1/8, K >= 5, any generators) up to K = 15 the
+general instance (one block a packet, the path metrics in shared memory,
+the branch signs of ``_trellis`` as a table, the decisions packed as bits
+in device memory and traced back afterwards); past K = 15 it raises
+``NotImplementedError`` naming ``constraint`` before any launch.
+``impl="scan"`` runs the plain version on any device, as the JAX
+package's ``impl`` does.  On a CPU tensor it runs
 ``viterbi_decode_plain``, the JAX package's scan twin
 (``packet/fec.py``) in PyTorch with the same op order: path metrics start
 at -1e9 with 0 in state 0, ``bm = 0.5*(sgn0*l0 + sgn1*l1)``, gather-free
@@ -19,6 +25,8 @@ decode bit-identically, hard-LLR ties included.
 
 from __future__ import annotations
 
+import collections
+import functools
 import math
 
 import numpy as np
@@ -27,8 +35,14 @@ import torch
 from qpsk_tpu_torch.ops.cuda import _lib
 from qpsk_tpu_torch.packet.fec import ConvCode, _trellis
 
-# Kernel launches since the last reset (set to 0 to start a count).
+# Kernel launches since the last reset (set to 0 to start a count), and
+# by instance: "k7" (the fast kernels) and "general_k9_r2" (clear() it).
 launches = 0
+by_mode = collections.Counter()
+
+# the general instance's largest constraint length (16 384 states, two
+# 64 KB metric arrays in shared memory) and rate denominator
+_MAX_K, _MAX_RD = 15, 8
 
 
 def _nsteps(code: ConvCode, llrs: torch.Tensor, nbits: int) -> int:
@@ -40,11 +54,14 @@ def _nsteps(code: ConvCode, llrs: torch.Tensor, nbits: int) -> int:
     return nsteps
 
 
-def viterbi_decode(code: ConvCode, llrs: torch.Tensor,
-                   nbits: int) -> torch.Tensor:
+def viterbi_decode(code: ConvCode, llrs: torch.Tensor, nbits: int,
+                   impl: str = "auto") -> torch.Tensor:
     """(..., rd*(nbits+K-1)) LLRs (positive = bit 0) -> (..., nbits) int32
-    bits."""
-    if llrs.is_cuda:
+    bits; ``impl`` "auto" (the tensor's device) or "scan" (the plain
+    version on any device)."""
+    if impl not in ("auto", "scan"):
+        raise ValueError(f"unknown viterbi impl {impl!r}")
+    if impl == "auto" and llrs.is_cuda:
         return _launch(code, llrs, nbits)
     return viterbi_decode_plain(code, llrs, nbits)
 
@@ -112,11 +129,24 @@ def code_masks(code: ConvCode) -> tuple[int, int] | None:
 def coverage(code: ConvCode):
     """None if the kernel covers ``code``, else (field, value, what the
     kernel takes)."""
-    if code_masks(code) is None:
-        return ("polys", tuple(oct(g) for g in code.polys),
-                "K=7 rate-1/2 codes whose generators tap the newest and the "
-                "oldest bit")
+    if code.constraint > _MAX_K or code.constraint < 2:
+        return ("constraint", code.constraint,
+                f"constraint lengths 2..{_MAX_K} (up to 16 384 states)")
+    if code.rate_den > _MAX_RD:
+        return "polys", tuple(oct(g) for g in code.polys), \
+            f"rate 1/{_MAX_RD} or above"
     return None
+
+
+@functools.lru_cache(maxsize=None)
+def _sign_table(code: ConvCode, device) -> torch.Tensor:
+    """The general instance's branch signs: (2, S) uint8, bit j of [p, s']
+    set where ``_trellis``'s ``sgns[j, s', p]`` is -1."""
+    _, sgns = _trellis(code)                      # (rd, S, 2)
+    bits = (sgns < 0).astype(np.uint8) << np.arange(
+        code.rate_den, dtype=np.uint8)[:, None, None]
+    table = np.ascontiguousarray(bits.sum(0, dtype=np.uint8).T)
+    return torch.from_numpy(table).to(device)
 
 
 def _lanes(b: int) -> int:
@@ -141,9 +171,22 @@ def _launch(code: ConvCode, llrs: torch.Tensor, nbits: int,
     dev = llrs.device
     batch = tuple(llrs.shape[:-1])
     b = math.prod(batch)
-    flat = llrs.to(torch.float32).reshape(b, 2 * nsteps).contiguous()
+    rd = code.rate_den
+    flat = llrs.to(torch.float32).reshape(b, rd * nsteps).contiguous()
     out = torch.empty((b, nbits), dtype=torch.int32, device=dev)
     if b == 0:
+        return out.reshape(batch + (nbits,))
+    if code_masks(code) is None:
+        # a decision bit a state and step
+        dec = torch.empty((b, nsteps, max(code.nstates // 32, 1)),
+                          dtype=torch.int32, device=dev)
+        rc = _lib.library().qpsk_viterbi_gen(
+            flat.data_ptr(), _sign_table(code, dev).data_ptr(),
+            dec.data_ptr(), out.data_ptr(), b, code.constraint, rd, nsteps,
+            nbits, _lib.stream_ptr(dev))
+        _lib.check(rc, "qpsk_viterbi_gen")
+        launches += 1
+        by_mode[f"general_k{code.constraint}_r{rd}"] += 1
         return out.reshape(batch + (nbits,))
     # one 64-bit word of decisions per trellis step and packet
     dec = torch.empty((nsteps, b, 2), dtype=torch.int32, device=dev)
@@ -152,4 +195,5 @@ def _launch(code: ConvCode, llrs: torch.Tensor, nbits: int,
         lanes or _lanes(b), *code_masks(code), _lib.stream_ptr(dev))
     _lib.check(rc, "qpsk_viterbi")
     launches += 1
+    by_mode["k7"] += 1
     return out.reshape(batch + (nbits,))

@@ -68,6 +68,17 @@ def pick_block(n: int) -> int:
     return n
 
 
+def tile_block(n: int) -> int:
+    """``pick_block(n)``, or for a length no power-of-two tile divides,
+    the largest divisor of ``n`` up to 512, so that a long call's
+    Toeplitz tile stays small (a push of many 8PSK packets modulates
+    344 samples a row)."""
+    block = pick_block(n)
+    if block < n or n <= 512:
+        return block
+    return next(d for d in range(512, 0, -1) if n % d == 0)
+
+
 @functools.lru_cache(maxsize=None)
 def _toeplitz_np(taps_key: tuple, block: int) -> np.ndarray:
     taps = np.asarray(taps_key, dtype=np.float32)
@@ -93,12 +104,18 @@ def fir_init_tail(ntaps: int, batch_shape=(), device=None) -> CF32:
 def _split_matmul(x: torch.Tensor, tail: torch.Tensor, tmat: torch.Tensor,
                   block: int) -> torch.Tensor:
     """y = window @ tmat per tile, as tail_part @ T[:ntaps-1] +
-    block_part @ T[ntaps-1:] (the JAX DEFAULT-precision branch)."""
+    block_part @ T[ntaps-1:] (the JAX DEFAULT-precision branch); a tile
+    shorter than the tail (a call of fewer samples than ntaps-1) takes the
+    JAX package's windowed branch, one product over [tail | x] windows."""
     n = x.shape[-1]
     ntaps_m1 = tail.shape[-1]
-    if n % block or block < ntaps_m1:
-        raise ValueError(f"block FIR needs n % block == 0 and block >= "
-                         f"{ntaps_m1}, got n={n}, block={block}")
+    if n % block:
+        raise ValueError(f"block FIR needs n % block == 0, got n={n}, "
+                         f"block={block}")
+    if block < ntaps_m1:
+        ext = torch.cat([tail, x], dim=-1)
+        win = ext.unfold(-1, block + ntaps_m1, block)    # (..., nb, width)
+        return (win @ tmat).reshape(x.shape[:-1] + (n,))
     nb = n // block
     blocks = x.reshape(x.shape[:-1] + (nb, block))
     prev = torch.cat([tail.unsqueeze(-2),
@@ -116,8 +133,8 @@ def fir_block(x: CF32, tail: CF32, tmat: torch.Tensor, gain: float,
     ntaps_m1 = tail.shape[-1]
     y = CF32(_split_matmul(x.re, tail.re, tmat, block) * gain,
              _split_matmul(x.im, tail.im, tmat, block) * gain)
-    return y, CF32(x.re[..., n - ntaps_m1:].contiguous(),
-                   x.im[..., n - ntaps_m1:].contiguous())
+    return y, CF32(*(torch.cat([t, p], dim=-1)[..., n:].contiguous()
+                     for t, p in zip(tail, x)))
 
 
 def fir_block_modulated(x: torch.Tensor, tail: torch.Tensor,
@@ -128,4 +145,4 @@ def fir_block_modulated(x: torch.Tensor, tail: torch.Tensor,
     n = x.shape[-1]
     u = CF32(_split_matmul(x, tail, tmat_re, block) * gain,
              _split_matmul(x, tail, tmat_im, block) * gain)
-    return u, x[..., n - tail.shape[-1]:]
+    return u, torch.cat([tail, x], dim=-1)[..., n:]

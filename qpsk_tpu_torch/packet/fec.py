@@ -81,12 +81,14 @@ def conv_encode(code: ConvCode, bits: torch.Tensor) -> torch.Tensor:
     return torch.stack(outs, dim=-1).reshape(b.shape[:-1] + (code.rate_den * n,))
 
 
-def viterbi_decode(code: ConvCode, llrs: torch.Tensor,
-                   nbits: int) -> torch.Tensor:
+def viterbi_decode(code: ConvCode, llrs: torch.Tensor, nbits: int,
+                   impl: str = "auto") -> torch.Tensor:
     """Soft-decision Viterbi decode of (..., rate_den*(nbits+K-1)) LLRs to
-    (..., nbits) int32 bits.  The tensor's device picks the lowering."""
+    (..., nbits) int32 bits.  ``impl``: "auto", the tensor's device picks
+    the lowering (the kernel on CUDA); "scan", the plain version on any
+    device (the JAX package's ``impl``)."""
     from qpsk_tpu_torch.ops.cuda import viterbi_kernel
-    return viterbi_kernel.viterbi_decode(code, llrs, nbits)
+    return viterbi_kernel.viterbi_decode(code, llrs, nbits, impl)
 
 
 def hard_llrs(bits: torch.Tensor) -> torch.Tensor:

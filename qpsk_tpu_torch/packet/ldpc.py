@@ -153,9 +153,10 @@ def ldpc_syndrome_weight(code: LdpcCode, bits: torch.Tensor) -> torch.Tensor:
 
 
 def ldpc_decode(code: LdpcCode, llrs: torch.Tensor,
-                iters: int | None = None) -> torch.Tensor:
+                iters: int | None = None, impl: str = "auto") -> torch.Tensor:
     """Normalized min-sum decode of (..., n) LLRs to (..., k) int32 bits,
-    ``code.iters`` (or ``iters``) flooding iterations.  The tensor's
-    device picks the lowering."""
+    ``code.iters`` (or ``iters``) flooding iterations.  ``impl``: "auto",
+    the tensor's device picks the lowering (the kernel on CUDA); "xla",
+    the plain version on any device (the JAX package's ``impl``)."""
     from qpsk_tpu_torch.ops.cuda import ldpc_kernel
-    return ldpc_kernel.ldpc_decode(code, llrs, iters)
+    return ldpc_kernel.ldpc_decode(code, llrs, iters, impl)

@@ -92,6 +92,41 @@ def from_numpy(tree, device="cuda"):
     return cls(*[_leaf(getattr(tree, f, None), device) for f in cls._fields])
 
 
+def flatten(tree) -> list:
+    """The tensors of a state tuple in the JAX package's leaf order
+    (``jax.tree.leaves`` of the same state): fields in order, None fields
+    vanishing, CF32 as (re, im), ``CostasState`` as (phase, freq, lev,
+    locked), the equalizer's ``(w, hist)`` as w's then hist's."""
+    if tree is None:
+        return []
+    if isinstance(tree, tuple):
+        return [leaf for v in tree for leaf in flatten(v)]
+    return [tree]
+
+
+def unflatten(like, leaves):
+    """The state tuple of ``like``'s structure with ``leaves`` (in
+    ``flatten`` order) in place of its tensors, each a tensor on the
+    device and of the dtype of the leaf it replaces.  Raises ValueError
+    if the count differs."""
+    leaves = list(leaves)
+    n = len(flatten(like))
+    if len(leaves) != n:
+        raise ValueError(f"{len(leaves)} leaves for a state of {n}")
+    it = iter(leaves)
+
+    def build(t):
+        if t is None:
+            return None
+        if isinstance(t, tuple):
+            vals = [build(v) for v in t]
+            return type(t)(*vals) if hasattr(t, "_fields") else tuple(vals)
+        v = next(it)
+        v = v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
+        return v.to(device=t.device, dtype=t.dtype)
+    return build(like)
+
+
 def to_numpy(state):
     """The port's state -> the same tuples with numpy leaves, whose field
     names match the JAX package's state tuples."""

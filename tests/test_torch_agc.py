@@ -149,3 +149,27 @@ def test_tm_frontend_power_output_matches_jax(nframes):
     # without cfg.agc the front-end emits no powers
     assert rx_frontend_tm(ModemConfig(), torch.from_numpy(body), phase, tail,
                           delay)[6] is None
+
+
+@pytest.mark.parametrize("nsym", [384, 96, 3])
+def test_frame_power_odd_residue_matches_jax(nsym):
+    """A frame of symbols that is not a power of two (384 at a 1536-sample
+    frame): halves pairing while the count is even, then the odd residue
+    summed in order, times float32(1/nsym); within float32 rounding of
+    the JAX tree (whose residue is a ``jnp.sum``), and the numpy twin of
+    that order bit for bit (the front-end kernel's tree)."""
+    rng = np.random.default_rng(nsym)
+    re = rng.normal(size=(5, 3, nsym)).astype(np.float32)
+    im = rng.normal(size=(5, 3, nsym)).astype(np.float32)
+    got = agc._frame_power(torch.from_numpy(re), torch.from_numpy(im))
+    want = np.asarray(jagc._frame_power(jnp.asarray(re), jnp.asarray(im)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+    p = (re * re + im * im).astype(np.float32)
+    n = nsym
+    while n > 1 and n % 2 == 0:
+        p = p[..., :n // 2] + p[..., n // 2:n]
+        n //= 2
+    s = p[..., 0]
+    for k in range(1, n):
+        s = s + p[..., k]
+    np.testing.assert_array_equal(got.numpy(), s * np.float32(1.0 / nsym))

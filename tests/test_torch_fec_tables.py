@@ -16,12 +16,22 @@ operations in the same order, so messages and bits must be equal.  The
 Viterbi twin computes a butterfly's four candidates from one branch value
 and reads decisions off the sign of a difference; every operation rounds
 as the plain version's, so the bits must be equal, hard-LLR ties included.
+
+The general instances (codes the fast kernels do not take): the plain
+decoders against the JAX package at those codes (Viterbi bit-equal to
+the scan; LDPC >= 99.9 % and equal frame errors, the JAX package's own
+bound between its lowerings), and numpy twins of the general Viterbi
+kernel (sign table, block maximum, decisions packed 32 states a word,
+traceback through the words) and of the LDPC kernel at any variable
+degree, which must decode bit for bit as the plain versions.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+from qpsk_tpu.packet import fec as jfec, ldpc as jldpc
 from qpsk_tpu_torch.ops.cuda import ldpc_kernel, viterbi_kernel
 from qpsk_tpu_torch.packet import fec, ldpc
 
@@ -216,8 +226,12 @@ def test_ldpc_kernel_tables_at_1032_checks():
 
 
 def test_ldpc_kernel_refuses_what_it_does_not_take():
-    code = ldpc.LdpcCode(k=64, dv=4)     # variables of degree 4
-    with pytest.raises(NotImplementedError, match="dv=4"):
+    """Variables of degree 9, past the general instance's 8 (and past any
+    code the TPU kernel's gate admits at these sizes), raise before any
+    launch; degree 4 runs on the general instance."""
+    assert ldpc_kernel.coverage(ldpc.LdpcCode(k=64, dv=4)) is None
+    code = ldpc.LdpcCode(k=64, dv=9)
+    with pytest.raises(NotImplementedError, match="dv=9"):
         ldpc_kernel._launch(code, torch.zeros(2, 128), None)
 
 
@@ -385,7 +399,178 @@ def test_viterbi_kernel_schedule_equals_plain_other_code(polys, lanes):
 
 def test_viterbi_kernel_refuses_other_generators():
     """A generator without the oldest tap breaks the butterfly symmetry
-    the kernel runs on."""
+    the fast kernels run on: the general instance takes it (no sign
+    masks); a constraint length past 15 raises before any launch."""
     code = fec.ConvCode(polys=(0o132, 0o171))
-    with pytest.raises(NotImplementedError, match="polys"):
-        viterbi_kernel._launch(code, torch.zeros(2, 2 * 14), 8)
+    assert viterbi_kernel.code_masks(code) is None
+    assert viterbi_kernel.coverage(code) is None
+    code = fec.ConvCode(constraint=16, polys=(0o100003, 0o170001))
+    with pytest.raises(NotImplementedError, match="constraint=16"):
+        viterbi_kernel._launch(code, torch.zeros(2, 2 * 23), 8)
+
+
+# ------------------------------------------- the general instances ---
+
+# codes the TPU kernels' gates admit beyond the fast kernels: Viterbi
+# (K, generators), LDPC (k, dv)
+_GEN_CONV = [(5, (0o23, 0o35)), (9, (0o561, 0o753)),
+             (7, (0o117, 0o127, 0o155, 0o171)), (5, (0o31,)),
+             (7, (0o132, 0o171))]
+_GEN_LDPC = [(128, 2), (128, 5), (64, 8)]
+
+
+@pytest.mark.parametrize("k,polys", _GEN_CONV,
+                         ids=[f"K{k}-r{len(p)}" for k, p in _GEN_CONV])
+def test_plain_viterbi_matches_jax_at_new_codes(k, polys):
+    """The plain Viterbi (the general instance's reference) against the
+    JAX scan at the codes the widened kernel takes: bits equal."""
+    rng = np.random.default_rng(k * 10 + len(polys))
+    code, jcode = fec.ConvCode(k, polys), jfec.ConvCode(k, polys)
+    u = rng.integers(0, 2, (6, 40), dtype=np.int32)
+    c = fec.conv_encode(code, torch.from_numpy(u)).numpy()
+    llrs = ((1.0 - 2.0 * c) + rng.normal(0, 0.7, c.shape)).astype(F32)
+    got = viterbi_kernel.viterbi_decode_plain(code, torch.from_numpy(llrs), 40)
+    want = np.asarray(jfec.viterbi_decode(jcode, jnp.asarray(llrs), 40,
+                                          impl="scan"))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("k,dv", _GEN_LDPC,
+                         ids=[f"k{k}-dv{dv}" for k, dv in _GEN_LDPC])
+def test_plain_ldpc_matches_jax_at_new_codes(k, dv):
+    """The plain min-sum against the JAX XLA lowering at variable degrees
+    other than 3: >= 99.9 % bit agreement and equal frame errors."""
+    rng = np.random.default_rng(k + dv)
+    code, jcode = ldpc.LdpcCode(k, dv=dv), jldpc.LdpcCode(k, dv=dv)
+    u = rng.integers(0, 2, (8, k), dtype=np.int32)
+    c = ldpc.ldpc_encode(code, torch.from_numpy(u)).numpy()
+    np.testing.assert_array_equal(c, np.asarray(jldpc.ldpc_encode(jcode, u)))
+    llrs = ((1.0 - 2.0 * c) + rng.normal(0, 0.7, c.shape)).astype(F32)
+    got = ldpc_kernel.ldpc_decode_plain(code, torch.from_numpy(llrs)).numpy()
+    ref = np.asarray(jldpc.ldpc_decode(jcode, jnp.asarray(llrs), impl="xla"))
+    assert (got == ref).mean() >= 0.999
+    assert (got != u).any(-1).sum() == (ref != u).any(-1).sum()
+
+
+def _viterbi_general_twin(code, llrs, nbits):
+    """The schedule of ``viterbi_general_kernel`` in float32 numpy: the
+    branch signs from the wrapper's table (``_sign_table``), bm = 0.5 *
+    (((0 + s0*l0) + s1*l1) + ...), c_p = pm[p*S/2 + (s' >> 1)] + bm_p,
+    decision c1 > c0, max, the block maximum subtracted; the decisions
+    packed a word per 32 states (bit s & 31 of word s >> 5), then the
+    traceback through the words."""
+    k, s_count, rd = code.constraint, code.nstates, code.rate_den
+    nsteps = nbits + k - 1
+    table = viterbi_kernel._sign_table(code, torch.device("cpu")).numpy()
+    b = llrs.shape[0]
+    ll = llrs.reshape(b, nsteps, rd).astype(F32)
+    pm = np.full((b, s_count), F32(-1e9), F32)
+    pm[:, 0] = 0.0
+    sp = np.arange(s_count)
+    words = max(s_count // 32, 1)
+    dec = np.zeros((b, nsteps, words), np.uint32)
+    for t in range(nsteps):
+        cand = []
+        for p in range(2):
+            acc = np.zeros((b, s_count), F32)
+            for j in range(rd):
+                neg = (table[p] >> j) & 1
+                acc = (acc + np.where(neg, -ll[:, t, j:j + 1],
+                                      ll[:, t, j:j + 1])).astype(F32)
+            bm = (F32(0.5) * acc).astype(F32)
+            cand.append((pm[:, p * (s_count // 2) + (sp >> 1)] + bm)
+                        .astype(F32))
+        d = cand[1] > cand[0]
+        new = np.maximum(cand[0], cand[1])
+        pm = (new - new.max(-1, keepdims=True)).astype(F32)
+        bits = d.astype(np.uint32) << (sp & 31).astype(np.uint32)
+        for w in range(words):
+            dec[:, t, w] = np.bitwise_or.reduce(bits[:, 32 * w:32 * w + 32],
+                                                axis=-1)
+    out = np.zeros((b, nbits), np.int32)
+    for i in range(b):
+        s = 0
+        for t in range(nsteps - 1, -1, -1):
+            if t < nbits:
+                out[i, t] = s & 1
+            won = (int(dec[i, t, s >> 5]) >> (s & 31)) & 1
+            s = (s >> 1) | (won << (k - 2))
+    return out
+
+
+@pytest.mark.parametrize("k,polys", _GEN_CONV,
+                         ids=[f"K{k}-r{len(p)}" for k, p in _GEN_CONV])
+@pytest.mark.parametrize("hard", [False, True])
+def test_viterbi_general_schedule_equals_plain(k, polys, hard):
+    """The general instance's twin decodes as the plain version, hard-LLR
+    ties included (bit-equal)."""
+    rng = np.random.default_rng(k + 3 * len(polys) + hard)
+    code = fec.ConvCode(k, polys)
+    assert viterbi_kernel.code_masks(code) is None
+    u = rng.integers(0, 2, (5, 30), dtype=np.int32)
+    c = fec.conv_encode(code, torch.from_numpy(u)).numpy()
+    if hard:
+        llrs = (1.0 - 2.0 * (c ^ (rng.random(c.shape) < 0.05))).astype(F32)
+    else:
+        llrs = ((1.0 - 2.0 * c) + rng.normal(0, 0.8, c.shape)).astype(F32)
+    want = viterbi_kernel.viterbi_decode_plain(code, torch.from_numpy(llrs), 30)
+    np.testing.assert_array_equal(_viterbi_general_twin(code, llrs, 30),
+                                  want.numpy())
+
+
+def _ldpc_general_twin(code, llrs):
+    """``_ldpc_kernel_twin`` for any variable degree: each slot's next
+    message sums its variable's edge list over the table's vmax entries in
+    order (padding reads the zero slot), as the general instance does."""
+    check_var, var_edges = ldpc._index_tables(code.k, code.dv, code.seed)
+    table = ldpc._slot_edge_table(code.k, code.dv, code.seed)
+    dmax, m = check_var.shape
+    vmax = var_edges.shape[1]
+    real = check_var >= 0
+    big, alpha = F32(1e30), F32(code.alpha)
+    llrs = llrs.astype(F32) + F32(0.0)
+    lv = np.where(real, llrs[..., check_var.clip(min=0)], big).astype(F32)
+    mm = lv.copy()
+    idx = np.where(table >= 0, table, dmax * m)
+    post = np.where(var_edges[:code.k] >= 0, var_edges[:code.k], dmax * m)
+
+    def edge_sum(flat, cols):
+        s = flat[..., cols[0]]
+        for j in range(1, vmax):
+            s = s + flat[..., cols[j]]
+        return s
+    for it in range(code.iters):
+        m1 = np.full(mm.shape[:-2] + (m,), big)
+        m2 = m1.copy()
+        for s in range(dmax):
+            a = np.abs(mm[..., s, :])
+            m2 = np.minimum(m2, np.maximum(m1, a))
+            m1 = np.minimum(m1, a)
+        parity = np.bitwise_xor.reduce(mm.view(np.uint32), axis=-2)
+        mag = np.where(np.abs(mm) > m1[..., None, :], (alpha * m1)[..., None, :],
+                       (alpha * m2)[..., None, :]).astype(F32)
+        sign = (parity[..., None, :] ^ mm.view(np.uint32)) & np.uint32(1 << 31)
+        e = (mag.view(np.uint32) | sign).view(F32)
+        e_stored = np.where(real, e, F32(0.0))
+        flat = np.concatenate([e_stored.reshape(e.shape[:-2] + (dmax * m,)),
+                               np.zeros(e.shape[:-2] + (1,), F32)], axis=-1)
+        if it == code.iters - 1:
+            break
+        nxt = (lv + edge_sum(flat, [idx[:, j] for j in range(vmax)])) - e
+        mm = np.where(real, nxt, (lv + F32(0.0)) - e).astype(F32)
+    sums = edge_sum(flat, [post[:, j] for j in range(vmax)])
+    return ((llrs[..., :code.k] + sums) < 0).astype(np.int32)
+
+
+@pytest.mark.parametrize("k,dv", _GEN_LDPC + [(128, 3)],
+                         ids=[f"k{k}-dv{dv}" for k, dv in _GEN_LDPC + [(128, 3)]])
+def test_ldpc_general_schedule_equals_plain(k, dv):
+    """The general instance's twin (any vmax) decodes as the plain version;
+    at dv=3 it is the fast instances' schedule."""
+    rng = np.random.default_rng(7 * k + dv)
+    code = ldpc.LdpcCode(k, dv=dv)
+    u = torch.from_numpy(rng.integers(0, 2, (6, k), dtype=np.int32))
+    c = ldpc.ldpc_encode(code, u).numpy()
+    llrs = ((1.0 - 2.0 * c) + rng.normal(0, 0.75, c.shape)).astype(F32)
+    want = ldpc_kernel.ldpc_decode_plain(code, torch.from_numpy(llrs))
+    np.testing.assert_array_equal(_ldpc_general_twin(code, llrs), want.numpy())

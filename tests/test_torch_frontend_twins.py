@@ -173,3 +173,124 @@ def test_split_precision_fir_holds_frontend_xla(cfg):
     np.testing.assert_array_equal(index.numpy(), want_index.numpy())
     for a, b in ((got.re, want.re), (got.im, want.im)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=3e-4)
+
+
+def _general_twin(cfg, pcm, phase0, tail, delay):
+    """``frontend_general_kernel<TM>`` in numpy for one call: per channel
+    and frame, the window of the frame's outputs with its 128-sample halo
+    (the carried tail un-mixed in frame 0, the previous frame's PCM
+    after), the FIR as float32 sums over the 129 front-padded taps in
+    order, the phase energies summed per chunk of cycles * (1024 //
+    cycles) outputs (each phase's lane partial sums, the 32-lane xor
+    tree, then the chunks in order), the first maximum, the picks rotated
+    by phase0 (x) e^{j*omega*(pos+1)} (float64 angle); then the one-frame
+    delay into (T, C) planes and each output frame's power by the pairing
+    tree with its odd residue summed in order.  Returns (zr, zi, index,
+    powers)."""
+    c, nframes, fsz = pcm.shape
+    cyc, nsym, h = cfg.cycles, cfg.symbols_per_frame, cfg.ntaps - 1
+    hm, omega, gain, inv_scale = fk._launch_consts(cfg)
+    hm = np.concatenate([np.zeros((2, KT - cfg.ntaps), F32), hm], axis=1)
+    gain, inv_scale = F32(gain), F32(inv_scale)
+    x = pcm.astype(F32) * inv_scale                         # (C, F, fsz)
+    pr0, pi0 = phase0
+    er, ei = _phasor(omega * (np.arange(h, dtype=np.float64) - (h - 1)))
+    pr, pi = _cmul(pr0[:, None], pi0[:, None], er, ei)
+    raw = (tail[0] * pr + tail[1] * pi).astype(F32)
+    halo0 = np.concatenate([np.zeros((c, KT - 1 - h), F32), raw], axis=1)
+    ch = cyc * (1024 // cyc)
+    index = np.zeros((c, nframes), np.int32)
+    picks = np.zeros((2, c, nframes, nsym), F32)
+    for f in range(nframes):
+        halo = halo0 if f == 0 else x[:, f - 1, fsz - (KT - 1):]
+        win = np.concatenate([halo, x[:, f]], axis=1)       # (C, 128 + fsz)
+        y = []
+        for plane in hm:
+            acc = np.zeros((c, fsz), F32)
+            for k in range(KT):
+                acc = (acc + plane[k] * win[:, k:k + fsz]).astype(F32)
+            y.append((acc * gain).astype(F32))
+        e = (y[0] * y[0] + y[1] * y[1]).astype(F32)
+        esum = np.zeros((c, cyc), F32)
+        for s0 in range(0, fsz, ch):
+            chunk = e[:, s0:s0 + ch]
+            for p in range(cyc):
+                vals = chunk[:, p::cyc]
+                lanes = np.zeros((c, 32), F32)
+                for j in range(0, vals.shape[1], 32):
+                    part = vals[:, j:j + 32]
+                    lanes[:, :part.shape[1]] = (lanes[:, :part.shape[1]]
+                                                + part).astype(F32)
+                for o in (16, 8, 4, 2, 1):
+                    lanes = (lanes + lanes[:, np.arange(32) ^ o]).astype(F32)
+                esum[:, p] = (esum[:, p] + lanes[:, 0]).astype(F32)
+        p = np.argmax(esum, axis=1)                          # first max
+        index[:, f] = p
+        pos = f * fsz + cyc * np.arange(nsym)[None, :] + p[:, None] + 1
+        fr_, fi_ = _phasor(omega * pos.astype(np.float64))
+        fr = (pr0[:, None] * fr_ - pi0[:, None] * fi_).astype(F32)
+        fi = (pr0[:, None] * fi_ + pi0[:, None] * fr_).astype(F32)
+        at = cyc * np.arange(nsym)[None, :] + p[:, None]
+        ur = np.take_along_axis(y[0], at, 1)
+        ui = np.take_along_axis(y[1], at, 1)
+        picks[0, :, f] = ur * fr - ui * fi
+        picks[1, :, f] = ur * fi + ui * fr
+    frames = [np.concatenate([d[:, None], pk[:, :-1]], axis=1)
+              for d, pk in zip(delay, picks)]                # (C, F, nsym)
+
+    def tree(v):
+        n = v.shape[-1]
+        while n > 1 and n % 2 == 0:
+            v = (v[..., :n // 2] + v[..., n // 2:n]).astype(F32)
+            n //= 2
+        s = v[..., 0]
+        for i in range(1, n):
+            s = (s + v[..., i]).astype(F32)
+        return (s * F32(1.0 / nsym)).astype(F32)
+    powers = tree((frames[0] * frames[0] + frames[1] * frames[1]).astype(F32))
+    return (frames[0].reshape(c, -1).T, frames[1].reshape(c, -1).T, index,
+            powers)
+
+
+_GENERAL_CFGS = {"rs=3200,384": ModemConfig(rs=3200.0, frame_size=384),
+                 "rs=600,2048": ModemConfig(rs=600.0, frame_size=2048),
+                 "4096": ModemConfig(frame_size=4096),
+                 "1536,agc": ModemConfig(frame_size=1536, agc=True)}
+
+
+@pytest.mark.parametrize("cfg", list(_GENERAL_CFGS.values()),
+                         ids=list(_GENERAL_CFGS))
+def test_general_instance_twin_holds_the_plain_version(cfg):
+    """The general instance's schedule against ``rx_frontend_tm_plain`` on a
+    warm state: equal timing indices, picks within 3e-4, and its powers
+    the bits of ``agc._frame_power`` of its own picks (the odd residue of
+    384 symbols included) and within 1e-4 relative of the plain one's."""
+    from qpsk_tpu_torch.ops import agc
+    assert fk.coverage(cfg) is None
+    assert not fk._fast(cfg, cfg.agc)
+    c, nframes = 2, 2
+    gen = torch.Generator().manual_seed(9)
+    bits = torch.randint(0, 2, (c, nframes + 1, cfg.bits_per_frame),
+                         generator=gen, dtype=torch.int32)
+    _, clean = tx_stream(cfg, tx_init(cfg, (c,), device="cpu"), bits,
+                         tx_offset_hz=50.0)
+    power = float(((clean.to(torch.float32) / cfg.pcm_scale) ** 2).mean())
+    pcm = awgn_pcm(gen, clean, 10.0, power, cfg.pcm_scale)
+    st = rx_init(cfg, (c,), device="cpu")
+    p = fk.rx_frontend_tm_plain(cfg, pcm[:, :1].contiguous(), st.nco_phase,
+                                st.fir_tail, st.decim_delay)
+    body = pcm[:, 1:].contiguous()
+    want = fk.rx_frontend_tm_plain(cfg, body, p[3], p[4], p[5])
+    zr, zi, index, powers = _general_twin(
+        cfg, body.numpy(), (p[3].re.numpy(), p[3].im.numpy()),
+        (p[4].re.numpy(), p[4].im.numpy()),
+        (p[5].re.numpy(), p[5].im.numpy()))
+    np.testing.assert_array_equal(index, want[2].numpy())
+    np.testing.assert_allclose(zr, want[0].numpy(), rtol=0, atol=3e-4)
+    np.testing.assert_allclose(zi, want[1].numpy(), rtol=0, atol=3e-4)
+    own = agc.frame_powers_tm(torch.from_numpy(np.ascontiguousarray(zr)),
+                              torch.from_numpy(np.ascontiguousarray(zi)),
+                              nframes)
+    np.testing.assert_array_equal(powers, own.numpy())
+    if cfg.agc:
+        np.testing.assert_allclose(powers, want[6].numpy(), rtol=1e-4)

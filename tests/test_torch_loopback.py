@@ -8,10 +8,11 @@
 (c) the package imports no jax and nothing of the JAX package;
 (d) every configuration off the port raises ``NotImplementedError``, and
     the loop and channel options that were once off it run and match JAX;
-(e) the geometries the kernels were widened to (2 samples per symbol, 63
-    taps, 256- and 1024-sample frames) run their plain versions on CPU
-    tensors and match JAX, and the kernels' gates pass them; past the
-    kernels' coverage the gate names the field.
+(e) the geometries the kernels were widened to (2, 3 and 16 samples per
+    symbol, 63 taps, 256- to 4096-sample frames, the AGC power output at
+    384 symbols a frame) run their plain versions on CPU tensors and match
+    JAX, and the kernels' gates pass them; past the kernels' coverage the
+    gate names the field.
 """
 
 import dataclasses
@@ -125,10 +126,7 @@ def test_package_imports_no_jax():
 _OFF_SLICE = [{"differential": True},
               {"timing_mode": "histogram"}, {"timing_mode": "fractional"},
               {"timing_mode": "tracking"}, {"nco_mode": "exact"},
-              {"fir_precision": "exact"}, {"slicer": "reference"},
-              {"costas_impl": "scan"}, {"costas_impl": "pallas"},
-              {"frontend_impl": "xla"}, {"frontend_impl": "pallas"},
-              {"tx_impl": "xla"}, {"tx_impl": "pallas"}]
+              {"fir_precision": "exact"}, {"slicer": "reference"}]
 
 
 @pytest.mark.parametrize("kwargs", _OFF_SLICE,
@@ -198,7 +196,13 @@ def test_option_config_runs_and_matches_jax(kwargs):
 
 
 _GEOMETRIES = [{"rs": 4800.0}, {"ntaps": 63}, {"frame_size": 256},
-               {"frame_size": 1024}]
+               {"frame_size": 1024},
+               # the general front-end instance's: 3 and 16 samples per
+               # symbol, a 4096-sample frame, the AGC power output at 384
+               # symbols a frame (not a power of two)
+               {"rs": 3200.0, "frame_size": 384},
+               {"rs": 600.0, "frame_size": 2048}, {"frame_size": 4096},
+               {"frame_size": 1536, "agc": True}]
 
 
 @pytest.mark.parametrize("kwargs", _GEOMETRIES,
@@ -257,9 +261,7 @@ def _gate_cases():
 
     def modem(**kwargs):
         cfg = dataclasses.replace(CFG, **kwargs)
-        return [frontend_kernel.coverage(cfg),
-                frontend_kernel.coverage(cfg, power=True),
-                tx_kernel.coverage(cfg)]
+        return [frontend_kernel.coverage(cfg), tx_kernel.coverage(cfg)]
     cases = [(",".join(f"{k}={v}" for k, v in d.items()), d,
               lambda d=d: modem(**d), None) for d in _GEOMETRIES]
     return cases + [
@@ -269,7 +271,14 @@ def _gate_cases():
         ("conv_K=5", None,
          lambda: [viterbi_kernel.coverage(ConvCode(constraint=5,
                                                    polys=(0o23, 0o35)))],
-         "polys")]
+         None),
+        ("conv_K=16", None,
+         lambda: [viterbi_kernel.coverage(ConvCode(constraint=16,
+                                                   polys=(0o100003,
+                                                          0o170001)))],
+         "constraint"),
+        ("ldpc_dv=9", None,
+         lambda: [ldpc_kernel.coverage(LdpcCode(k=64, dv=9))], "dv")]
 
 
 @pytest.mark.parametrize("case", _gate_cases(), ids=lambda c: c[0])
@@ -277,10 +286,11 @@ def test_kernel_gate_names_the_geometry(case):
     """The check a wrapper makes before it launches on a CUDA tensor
     (``_lib.check_geometry`` of the kernel's ``coverage``) passes the four
     geometries the kernels were widened to, and ``check_slice`` (asked on
-    every call) lets them through; past a kernel's coverage (131 taps,
-    beyond the TPU front-end's gate; an LDPC code of more checks than the
-    kernel takes; a K=5 convolutional code) it raises
-    ``NotImplementedError`` naming the field."""
+    every call) lets them through, and a K=5 convolutional code; past a
+    kernel's coverage (131 taps, beyond the TPU front-end's gate; an LDPC
+    code of more checks or a higher variable degree than the kernels
+    take; a K=16 convolutional code) it raises ``NotImplementedError``
+    naming the field."""
     from qpsk_tpu_torch.modem import check_slice
     from qpsk_tpu_torch.ops.cuda import _lib
     _, fields, gates, field = case

@@ -232,11 +232,76 @@ def test_tx_twin_state_past_65535_blocks(cycles_rs):
 
 
 def test_tx_coverage_names_the_field():
-    """The kernel takes 2 to 8 samples per symbol and odd ntaps <= 129
-    (every geometry the TPU gate takes at those tap counts)."""
+    """The kernels take every geometry the TPU gate takes: from 2 samples
+    per symbol and a halo of at most 128 symbols (``tx_kernel<CYC>`` up to
+    8 samples per symbol and 129 taps, the general instance beyond); past
+    the halo the coverage names ``ntaps``, below 2 samples per symbol
+    ``fs/rs``."""
     base = ModemConfig()
     for fields in ({}, {"rs": 4800.0}, {"rs": 1200.0}, {"ntaps": 63},
-                   {"ntaps": 129}, {"rs": 3200.0, "frame_size": 384}):
+                   {"ntaps": 129}, {"rs": 3200.0, "frame_size": 384},
+                   {"ntaps": 131}, {"rs": 600.0}, {"rs": 1200.0, "ntaps": 255}):
         assert tk.coverage(dataclasses.replace(base, **fields)) is None
-    assert tk.coverage(dataclasses.replace(base, ntaps=131))[0] == "ntaps"
-    assert tk.coverage(dataclasses.replace(base, rs=600.0))[0] == "fs/rs"
+    assert tk._fast(base) and not tk._fast(dataclasses.replace(base, ntaps=131))
+    assert tk.coverage(dataclasses.replace(base, ntaps=1031))[0] == "ntaps"
+    assert tk.coverage(ModemConfig(rs=9600.0, frame_size=512))[0] == "fs/rs"
+
+
+def _tx_general_twin(cfg, sym, tail, p0, omega):
+    """``tx_general_kernel`` in numpy: output t = cycles*m + q is the sum
+    over d of taps[ntaps-1 - cycles*d - q] * sym[m - d] in order of d
+    (float32), the history from the carried tail's symbol lanes; times the
+    gain, mixed by phase0 (x) e^{j*omega*(t+1)} (float64 angle), Re *
+    pcm_scale truncated and saturated; the state of ``write_state``."""
+    taps = np.asarray(tk.rrc_ops.taps_for(cfg), F32)
+    ntaps, cyc = cfg.ntaps, cfg.cycles
+    hs = (ntaps - 1) // cyc
+    c, s = sym[0].shape
+    n = s * cyc
+    lanes = (ntaps - 1) + cyc * np.arange(-hs, 0)
+    ext = [np.concatenate([t[:, lanes], x], axis=1) for x, t in zip(sym, tail)]
+    t = np.arange(n)
+    m, q = t // cyc, t % cyc
+    yr, yi = np.zeros((c, n), F32), np.zeros((c, n), F32)
+    for d in range(hs + 1):
+        k = ntaps - 1 - cyc * d - q
+        live = k >= 0
+        h = np.where(live, taps[np.clip(k, 0, ntaps - 1)], F32(0.0))
+        yr = (yr + h * ext[0][:, m - d + hs]).astype(F32)
+        yi = (yi + h * ext[1][:, m - d + hs]).astype(F32)
+    er, ei = _phasor(np.float64(omega) * (t + 1))
+    fr = p0[0][:, None] * er - p0[1][:, None] * ei
+    fi = p0[0][:, None] * ei + p0[1][:, None] * er
+    gain = F32(cfg.gain)
+    re = ((yr * gain) * fr - (yi * gain) * fi).astype(F32)
+    pcm = np.clip(np.trunc(re * F32(cfg.pcm_scale)), -32768, 32767)
+    return (pcm.astype(np.int16),) + _new_state(cfg, sym, tail, p0, omega)
+
+
+@pytest.mark.parametrize("fields", [{"rs": 600.0, "frame_size": 2048},
+                                    {"rs": 1200.0, "ntaps": 255},
+                                    {"ntaps": 131}],
+                         ids=["cyc16", "cyc8-ntaps255", "ntaps131"])
+def test_tx_general_twin_holds_the_plain_version(fields):
+    """The general instance's arithmetic against ``tx_modulate_plain`` in
+    two chained calls: PCM within 2 LSB, phase within 1e-5, tail exact."""
+    cfg = ModemConfig(**fields)
+    assert not tk._fast(cfg) and tk.coverage(cfg) is None
+    rng = np.random.default_rng(cfg.cycles + cfg.ntaps)
+    c = 2
+    st = tx_init(cfg, (c,), device="cpu")
+    omega = tk._omega(cfg, OFFSET_HZ)
+    for s in (300, 200):
+        sym = _symbols("qpsk", c, s, rng)
+        pp, php, tlp = tk.tx_modulate_plain(cfg, sym, st.nco_phase,
+                                            st.fir_tail, OFFSET_HZ)
+        pcm, phase, tail = _tx_general_twin(
+            cfg, (sym.re.numpy(), sym.im.numpy()),
+            (st.fir_tail.re.numpy(), st.fir_tail.im.numpy()),
+            (st.nco_phase.re.numpy(), st.nco_phase.im.numpy()), omega)
+        worst = np.abs(pcm.astype(np.int32) - pp.numpy().astype(np.int32)).max()
+        assert worst <= 2, worst
+        np.testing.assert_allclose(phase[0], php.re.numpy(), rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(tail[0], tlp.re.numpy())
+        np.testing.assert_array_equal(tail[1], tlp.im.numpy())
+        st = st._replace(nco_phase=php, fir_tail=tlp)

@@ -146,6 +146,34 @@ Phases, each of which exits non-zero on failure:
    launches per bucket.  ``--runtime`` runs phase 8 alone; ``--profile``
    also traces one bucket of each phase-8d case.
 
+9. The rest of the modem's modes (``--modes`` runs phase 9 alone).  (a, b)
+   Loopbacks at full width, kernels only (``no_plain``: a kernel wrapper's
+   plain version may not run), every launch counter reset before each:
+   8192 channels of packets from TX at +50 Hz through AWGN 10 dB, DQPSK
+   (32 frames; the time-major front-end and Costas kernels, the
+   derotated symbols decoded differentially; every sampled channel must
+   sync at rotation 0), tracking timing through ``clock_offset_pcm(60e-6,
+   frac_offset=-0.5)`` (32 frames; the slip-tracked extractor, more than
+   80 % passing), fractional and histogram timing and the reference
+   slicer (8 frames; the histogram and the reference slicer carry no link
+   at 10 dB in either package, so only sync and CRC agreement are held);
+   the timing modes run the plain full-rate front-end, so there the
+   front-end kernel must not launch.  Each through ``check_path``, the
+   Costas kernel on the symbols each chain handed it.  DQPSK +
+   ``fec="conv"`` at 8 dB, 1024 channels x 48 packets, decoded from hard
+   bits (the runtime's DQPSK rule) through the Viterbi kernel, against
+   the plain decoder and the plain modem path.  (c) ``config_parity()``
+   on the card against ``tests/golden/reference_vectors.npz`` at
+   ``tests/test_golden_parity.py``'s tolerances, the Costas kernel given
+   the reference input through the ``CostasLoop`` facade, the scan's
+   Costas launches (one a frame) held against the plain version.  (d)
+   ``tx_stream(doppler_hz_per_s=25)`` on the card within 2 LSB of the CPU.
+   (e) RX samples/s at 8192 x 8 for DQPSK and tracking (CUDA events) and
+   of the parity scan at 8192 x 4 (host clock), with launches a call.
+   (f) ``frontend_impl="pallas"`` with tracking raises ``ValueError``
+   before any launch.  Phase 9's launches join the ``kernels`` line's
+   front-end, Costas, TX and Viterbi rows.
+
 The Costas kernel is also held at a chain of 1000 symbols, not a multiple
 of 16, in every mode (phases 2, 6a and 7a).  Beside each Costas, front-end
 and TX wrapper time, the kernel alone in a CUDA graph (``fec_times.graph_ms``),
@@ -321,6 +349,32 @@ RUNTIME_CASES = {
     "ldpc": (dict(), dict(fec="ldpc"), 6.0, 50.0, 512),
     "8psk_spur": (dict(modulation="8psk"), dict(), 20.0, 250.0, 200)}
 RUNTIME_CHUNK, RUNTIME_GAP_S, RUNTIME_SQUELCH_DB = 9600, 3.0, 6.0
+# phase 9: the rest of the modem's modes, each a loopback through the
+# kernels at full width: name -> (config fields, SNR dB, frames, packets
+# skipped before the sync, whether the link carries packets there: the
+# reference slicer leaves one bit a symbol to the noise (qpsk.c:74-79) and
+# the reference's histogram timing, which its README calls unreliable,
+# mistimes most frames at 10 dB, in both packages, whose bits are equal
+# on the same PCM (tests/test_torch_timing_modes.py)); tracking runs
+# through a sample-clock offset MODE_CLOCK (ppm, fractional start,
+# clock_offset_pcm) and decodes with the slip-tracked extractor, more than
+# MODE_TRACK_PASS of its packets passing (tests/test_channel_impairments.py);
+# DQPSK must sync at rotation 0
+MODE_PATHS = {
+    "dqpsk": (dict(differential=True), 10.0, 32, 8, True),
+    "tracking": (dict(timing_mode="tracking"), 10.0, 32, 14, True),
+    "fractional": (dict(timing_mode="fractional"), 10.0, 8, 2, True),
+    "histogram": (dict(timing_mode="histogram"), 10.0, 8, 2, False),
+    "reference": (dict(slicer="reference"), 10.0, 8, 2, False),
+}
+MODE_CLOCK, MODE_TRACK_PASS = (60e-6, -0.5), 0.8
+# DQPSK + conv, decoded from hard bits: (channels, packets), SNR dB (hard
+# input runs about 2 dB behind the soft decoder, cli.py:220-222)
+MODE_CODED, MODE_CODED_SNR_DB = (1024, 48), 8.0
+# the chirped TX against the CPU: (channels, frames, Hz/s); parity's rate
+# point (channels, frames: the frame scan runs the exact NCO a sample at a
+# time)
+MODE_CHIRP, PARITY_RATE = (256, 16, 25.0), (8192, 4)
 # the H100 SXM's published peaks: HBM bytes/s, float32 (non-tensor) FLOP/s
 # and dense float16 tensor-core FLOP/s
 PEAK_BYTES_S, PEAK_FLOP_S, PEAK_F16_S = 3.35e12, 67e12, 989e12
@@ -638,12 +692,18 @@ def path_cfg(cfg, kind: str):
 
 
 def tx_symbols(cfg, bits):
-    """The (C, S) symbols ``tx_stream`` sends for (C, bps*S) channel bits."""
-    from qpsk_tpu_torch.ops import modfam
+    """The (C, S) symbols ``tx_stream`` sends for (C, bps*S) channel bits
+    (DQPSK: from a cold phase index)."""
+    from qpsk_tpu_torch.ops import differential, modfam
     from qpsk_tpu_torch.ops.cplx import CF32
     from qpsk_tpu_torch.ops.modmap import bits_to_symbols
-    sym = (bits_to_symbols(bits) if cfg.modulation == "qpsk" else
-           modfam.bits_to_symbols_mod(bits, modfam.get(cfg.modulation)))
+    if cfg.differential:
+        sym, _ = differential.diff_encode_bits(
+            bits, differential.diff_tx_init(bits.shape[:-1], bits.device))
+    elif cfg.modulation == "qpsk":
+        sym = bits_to_symbols(bits)
+    else:
+        sym = modfam.bits_to_symbols_mod(bits, modfam.get(cfg.modulation))
     return CF32(sym.re.contiguous(), sym.im.contiguous())
 
 
@@ -665,6 +725,29 @@ def boundary_distance(cfg, sym):
     return d
 
 
+def bit_ties(cfg, sym, shape):
+    """Which bits of ``shape`` lie within NEAR_TIE of their slicer's
+    decision boundary, from the derotated symbols (C, F, nsym): QPSK's
+    diagonal slicer per bit on the bit's own axis; the reference slicer
+    on the diagonals; DQPSK on an axis of the symbol or of the one before
+    it (a dibit is the difference of two slices); the family at
+    ``boundary_distance``."""
+    import torch
+    if cfg.modulation != "qpsk":
+        return (boundary_distance(cfg, sym) < NEAR_TIE).repeat_interleave(
+            cfg.bits_per_symbol, dim=-1)
+    if cfg.differential:
+        c = sym.re.shape[0]
+        t = (torch.minimum(sym.re.abs(), sym.im.abs()) < NEAR_TIE).reshape(c, -1)
+        t = t | torch.cat([torch.zeros_like(t[:, :1]), t[:, :-1]], dim=1)
+        return t.repeat_interleave(2, dim=-1).reshape(shape)
+    if cfg.slicer == "reference":
+        return ((sym.re.abs() - sym.im.abs()).abs() < NEAR_TIE
+                ).repeat_interleave(2, dim=-1).reshape(shape)
+    return torch.stack([sym.im.abs() < NEAR_TIE, sym.re.abs() < NEAR_TIE],
+                       dim=-1).reshape(shape)
+
+
 def check_path(cfg, bits, clean, pcm, out, dev, label: str, errs: dict,
                tx_key: str = "tx", fe_key: str = "frontend", st0=None,
                tm_key: str = "frontend", pow_key: str = "frontend_tm_power"):
@@ -674,8 +757,9 @@ def check_path(cfg, bits, clean, pcm, out, dev, label: str, errs: dict,
     path's initial state ``st0`` (default ``rx_init``) against the path's
     outputs ``out``; then the plain path (plain front-end -> plain AGC /
     equalizer -> plain Costas) on the same PCM, whose bits may differ from
-    the kernel path's only within NEAR_TIE of a decision boundary (for
-    QPSK, of the bit's own axis).  Returns the plain path's derotated
+    the kernel path's only within NEAR_TIE of a decision boundary
+    (``bit_ties``).  The plain full-rate front-end of the fractional,
+    tracking and histogram timing has no kernel to check.  Returns the plain path's derotated
     symbols (C, F, nsym), its bits (C, F, bps nsym) and the mask of bits
     that differ."""
     import torch
@@ -694,9 +778,11 @@ def check_path(cfg, bits, clean, pcm, out, dev, label: str, errs: dict,
         kf, _ = check_frontend(cfg, pcm, st, True, label, errs, tm_key,
                                pow_key)
         index = kf[2]
-    else:
+    elif chain is modem._rx_stream_composed:
         kf, _ = check_frontend_cm(cfg, pcm, st, True, label, errs, fe_key)
         index = kf[1]
+    else:                    # the plain full-rate front-end: no kernel
+        index = frontend(cfg, pcm, st)[1]
     need(torch.equal(index, out.timing_index),
          f"the front-end's re-run differs ({label})")
 
@@ -717,12 +803,7 @@ def check_path(cfg, bits, clean, pcm, out, dev, label: str, errs: dict,
 
     _, plain = chain(path_cfg(cfg, "plain"), st, pcm, frontend, costas)
     d = out.symbols
-    if cfg.modulation == "qpsk":
-        tie = torch.stack([d.im.abs() < NEAR_TIE, d.re.abs() < NEAR_TIE],
-                          dim=-1).reshape(out.bits.shape)
-    else:
-        tie = (boundary_distance(cfg, d) < NEAR_TIE).repeat_interleave(
-            cfg.bits_per_symbol, dim=-1)
+    tie = bit_ties(cfg, d, out.bits.shape)
     flips = plain.bits != out.bits
     parted = parted_at_a_tie(cfg, out.symbols, plain.symbols,
                              flips & ~tie, label)
@@ -789,7 +870,9 @@ def parted_at_a_tie(cfg, sym_k, sym_p, away, label: str) -> list:
 
 
 def compare_decodes(pcfg, out, plain_bits, flips, payload, label: str,
-                    modulation: str = "qpsk", spur=None, link: bool = True):
+                    modulation: str = "qpsk", spur=None, link: bool = True,
+                    skip_packets: int = 8, tracked: bool = False,
+                    rotation=None):
     """``find_sync`` / ``extract_packets`` on 64 sampled channels of the
     kernel path's and the plain path's bits, 8 packets skipped: both must
     sync alike and pass the same packets (a packet holding a flipped bit
@@ -802,22 +885,29 @@ def compare_decodes(pcfg, out, plain_bits, flips, payload, label: str,
     the loops' mean readback lie within 2 Hz of the offset sent (each
     channel's within 5 Hz); without, only the two paths' agreement is
     held, as a packet passing CRC on garbage bits is a CRC-16 false
-    positive.  Prints the loss; returns (packets, packets passing CRC,
-    mean offset Hz)."""
+    positive.  ``skip_packets`` packets are skipped (8, the CLI's
+    transient); ``tracked`` extracts with the slip-tracked extractor;
+    ``rotation`` is the sync rotation every channel must find (DQPSK's 0).
+    Prints the loss; returns (packets, packets passing CRC, mean offset
+    Hz)."""
     import torch
 
     c, nframes = out.bits.shape[:2]
-    fb, skip = pcfg.frame_bits, 8 * pcfg.frame_bits
+    fb, skip = pcfg.frame_bits, skip_packets * pcfg.frame_bits
     skip -= skip % (out.bits.shape[2] // out.symbols.re.shape[2])  # cli.py
     channels = sorted({round(i * (c - 1) / 63) for i in range(64)})
     spurs = [] if spur is None else [ch for ch in channels if bool(spur[ch])]
     npk = nok = full = 0
     offsets = []
     for ch in channels:
-        ks, krx = decode(pcfg, out.bits[ch].reshape(-1)[skip:], modulation)
-        ps, prx = decode(pcfg, plain_bits[ch].reshape(-1)[skip:], modulation)
+        ks, krx = decode(pcfg, out.bits[ch].reshape(-1)[skip:], modulation,
+                         tracked)
+        ps, prx = decode(pcfg, plain_bits[ch].reshape(-1)[skip:], modulation,
+                         tracked)
         need((int(ks.rotation), int(ks.bit_lag)) == (int(ps.rotation), int(ps.bit_lag)),
              f"channel {ch}: the kernel and plain paths sync differently ({label})")
+        need(rotation is None or int(ks.rotation) == rotation,
+             f"channel {ch}: synced at rotation {int(ks.rotation)} ({label})")
         navail = krx.crc_ok.shape[0]
         touched = torch.zeros(navail, dtype=torch.bool, device=out.bits.device)
         at = (torch.nonzero(flips[ch].reshape(-1)[skip:]).flatten()
@@ -853,14 +943,17 @@ def compare_decodes(pcfg, out, plain_bits, flips, payload, label: str,
     return npk, nok, mean_offset
 
 
-def decode(pcfg, bits, modulation: str = "qpsk"):
+def decode(pcfg, bits, modulation: str = "qpsk", tracked: bool = False):
     """(sync, packets) of a 1-D symbol-aligned bit stream: 4 probe
-    packets, lags < 600."""
-    from qpsk_tpu_torch.sync import extract_packets, find_sync
+    packets, lags < 600; ``tracked``: the slip-tracked extractor."""
+    from qpsk_tpu_torch.sync import (extract_packets, extract_packets_tracked,
+                                     find_sync)
 
     sync = find_sync(pcfg, bits, max_lag=600, probe_frames=4,
                      modulation=modulation)
     navail = (bits.numel() - int(sync.bit_lag)) // pcfg.frame_bits
+    if tracked:
+        return sync, extract_packets_tracked(pcfg, bits, sync, max(navail, 1))
     return sync, extract_packets(pcfg, bits, sync, navail, modulation)
 
 
@@ -2308,15 +2401,18 @@ def report_trace(label: str, ops, htod, syncs, wall_us, steps: int) -> None:
 def profile(cfg, dev, steps: int = 5) -> None:
     """``--profile``: a ``torch.profiler`` trace of ``steps`` kernel-path
     receive calls after 3 warm-up calls, uncoded at the rate point, coded
-    at the composed coded point and each phase-6 and phase-7 configuration
-    at the rate point: per call, the device operations launched, the device's busy
-    time (the union of their intervals) beside the host's wall time under
-    the profiler, and the operations that take the most device time.  Then
-    the same for one ``tx_modulate`` call (which must be one kernel launch,
-    no other device operation, no copy to the card and no wait) and one
-    ``tx_stream`` call at the rate point."""
+    at the composed coded point and each phase-6, phase-7 and phase-9
+    configuration at the rate point (parity's frame scan a frame at
+    PARITY_RATE's channel count): per call, the device operations
+    launched, the device's busy time (the union of their intervals) beside
+    the host's wall time under the profiler, and the operations that take
+    the most device time.  Then the same for one ``tx_modulate`` call
+    (which must be one kernel launch, no other device operation, no copy
+    to the card and no wait) and one ``tx_stream`` call at the rate
+    point."""
     import torch
-    from qpsk_tpu_torch import tx_init, tx_stream
+    from qpsk_tpu_torch import (ModemConfig, config_parity, rx_init, rx_stream,
+                                tx_init, tx_stream)
     from qpsk_tpu_torch.ops.cuda import tx_kernel as tk
 
     for label, rcfg, kind, (c, nframes) in (
@@ -2356,6 +2452,24 @@ def profile(cfg, dev, steps: int = 5) -> None:
             need(len(ops) == steps and all("tx_kernel" in n for *_, n in ops)
                  and htod == 0 and syncs <= 0,
                  "a tx_modulate call is not one kernel launch alone")
+
+    # last, after the one-launch check above: the phase-9 configurations,
+    # whose traces of thousands of operations a call made the next trace
+    # miss a launch (seen twice on the H100 with these traces before it)
+    for name in MODE_PATHS:
+        mcfg = ModemConfig(**MODE_PATHS[name][0])
+        step, _ = rx_step(mcfg, dev, noise_pcm(mcfg, c, nframes, 13, dev),
+                          "kernel")
+        ops, htod, syncs, wall_us = traced(step, steps)
+        report_trace(f"{name} RX at {c} x {nframes}", ops, htod, syncs,
+                     wall_us, steps)
+    parity, c = config_parity(), PARITY_RATE[0]
+    pcm, pst = noise_pcm(parity, c, 1, 13, dev), [rx_init(parity, (c,), device=dev)]
+
+    def scan():
+        pst[0], _ = rx_stream(parity, pst[0], pcm)
+    ops, htod, syncs, wall_us = traced(scan, 2)
+    report_trace(f"parity RX at {c} x 1", ops, htod, syncs, wall_us, 2)
 
 
 def lowering_switches(pcfg, dev) -> None:
@@ -2887,6 +3001,435 @@ def runtime_phase(pcfg, dev, errs: dict, counts: dict, times: dict) -> None:
           f"{time.perf_counter() - t0:.1f} s")
 
 
+@contextlib.contextmanager
+def no_plain():
+    """Inside, a call of a kernel wrapper's plain version (Costas, either
+    front-end, TX, Viterbi, LDPC) raises: a path run in it reaches the
+    kernels only."""
+    mods = kernel_modules()
+    names = {"costas": ("costas_run_tm_plain",),
+             "frontend": ("rx_frontend_tm_plain", "frontend_xla"),
+             "tx": ("tx_modulate_plain",), "viterbi": ("viterbi_decode_plain",),
+             "ldpc": ("ldpc_decode_plain",)}
+    saved = {(k, n): getattr(mods[k], n) for k, ns in names.items() for n in ns}
+
+    def refuse(key):
+        def call(*args, **kw):
+            raise SmokeFailure(f"{key[0]}.{key[1]} ran on a kernel path")
+        return call
+    for (k, n) in saved:
+        setattr(mods[k], n, refuse((k, n)))
+    try:
+        yield
+    finally:
+        for (k, n), fn in saved.items():
+            setattr(mods[k], n, fn)
+
+
+@contextlib.contextmanager
+def recorded_costas(seen: list):
+    """Inside, every ``costas_run_cm`` call of the modem (the composed
+    chains and ``rx_frame``) is recorded in ``seen`` as (args, kwargs)."""
+    from qpsk_tpu_torch import modem
+    saved = modem.costas_run_cm
+
+    def call(*args, **kw):
+        seen.append((args, kw))
+        return saved(*args, **kw)
+    modem.costas_run_cm = call
+    try:
+        yield
+    finally:
+        modem.costas_run_cm = saved
+
+
+def check_costas_cm(seen: list, label: str, errs: dict, every: int = 1,
+                    key: str = "costas") -> None:
+    """The Costas kernel against its plain version on the (C, T) symbols
+    and state of every ``every``-th recorded ``costas_run_cm`` call."""
+    for i, ((cs, sym, params, trace), kw) in enumerate(seen):
+        if i % every:
+            continue
+        check_costas(cs, sym.re.T.contiguous(), sym.im.T.contiguous(), params,
+                     trace, True, f"{label} call {i}", errs,
+                     gear=kw.get("gear"), dd=kw.get("dd"))
+
+
+def mode_loopback(name: str, pcfg, dev, errs: dict) -> dict:
+    """Phase 9b: one mode's loopback at full width through the kernels,
+    every launch counter reset before and read after, no plain version
+    allowed on the way; then each kernel against its plain version on the
+    path's own inputs and the plain path on the same PCM (``check_path``),
+    and the decodes of 64 sampled channels.  Returns the launches by
+    kernel: TX and Costas, and the time-major front-end for DQPSK and the
+    reference slicer (the timing modes run the plain full-rate front-end,
+    so the front-end kernel must not launch there)."""
+    import torch
+    from qpsk_tpu_torch import ModemConfig, rx_init, rx_stream, tx_init, tx_stream
+    from qpsk_tpu_torch.channel import awgn_pcm, clock_offset_pcm
+    from qpsk_tpu_torch.packet import assemble_packet
+
+    fields, snr_db, nframes, skip, link = MODE_PATHS[name]
+    cfg, c = ModemConfig(**fields), MAIN_PATH[0]
+    mods = kernel_modules()
+    reset_launches()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(2031)
+    npk = nframes * cfg.bits_per_frame // pcfg.frame_bits
+    payload = torch.randint(0, 2, (c, npk, 8 * pcfg.payload_bytes),
+                            generator=gen, device=dev, dtype=torch.int32)
+    chan = assemble_packet(pcfg, payload).reshape(c, nframes, -1)
+    with no_plain():
+        _, clean = tx_stream(cfg, tx_init(cfg, (c,), device=dev), chan,
+                             tx_offset_hz=TX_OFFSET_HZ)
+    sent = clean
+    if name == "tracking":
+        warped = clock_offset_pcm(clean.reshape(c, -1), *MODE_CLOCK)
+        nf = warped.shape[1] // cfg.frame_size
+        sent = warped[:, :nf * cfg.frame_size].reshape(c, nf, cfg.frame_size)
+    power = float(((sent.to(torch.float32) / cfg.pcm_scale) ** 2).mean())
+    pcm = awgn_pcm(gen, sent, snr_db, power, cfg.pcm_scale)
+    with no_plain():
+        _, out = rx_stream(cfg, rx_init(cfg, (c,), device=dev), pcm)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {n: mods[n].launches for n in ("tx", "frontend", "costas")}
+    print(f"  {name}: {c} channels x {pcm.shape[1]} frames, TX -> "
+          + (f"clock offset {MODE_CLOCK} -> " if name == "tracking" else "")
+          + f"AWGN {snr_db} dB -> RX in {seconds:.3f} s (host clock, first "
+          f"call); launches {counts}, Costas modes {dict(mods['costas'].by_mode)}")
+    fe_kernel = cfg.timing_mode == "power"
+    for kernel, n in counts.items():
+        need((n > 0) == (kernel != "frontend" or fe_kernel),
+             f"the {name} path launched the {kernel} kernel {n} times")
+    need(out.bits.device == pcm.device == out.symbols.re.device,
+         f"{name} left the card")
+    need(bool(torch.isfinite(out.symbols.re).all()
+              and torch.isfinite(out.symbols.im).all()), "non-finite symbols")
+    need(tuple(out.bits.shape) == (c, pcm.shape[1], cfg.bits_per_frame),
+         f"bits of shape {tuple(out.bits.shape)}")
+    _, plain_bits, flips = check_path(cfg, chan, clean, pcm, out, dev,
+                                      f"C={c} {name}", errs)
+    npk, nok, _ = compare_decodes(
+        pcfg, out, plain_bits, flips, payload, name, link=link,
+        skip_packets=skip, tracked=name == "tracking",
+        rotation=0 if cfg.differential else None)
+    if name == "tracking":
+        need(nok > MODE_TRACK_PASS * npk,
+             f"only {nok} of {npk} packets pass CRC ({name})")
+    return counts
+
+
+def mode_coded(dev, errs: dict) -> int:
+    """Phase 9b: DQPSK + ``fec="conv"`` at full coded width, decoded from
+    hard bits as the runtime decodes DQPSK (``_use_soft`` off): 64 sampled
+    channels' four rotations into ``find_sync_streams(soft=False,
+    probe_frames=8)`` and the slip-tracked hard extractor, through the
+    Viterbi kernel; the same bits through the plain decoder (the same
+    packets), and the plain modem path's bits (the same sync, CRC
+    verdicts differing on <= 0.1 % of packets).  Every channel syncs at
+    rotation 0.  Returns the Viterbi kernel's launches."""
+    import torch
+    from qpsk_tpu_torch import ModemConfig, rx_init, rx_stream, tx_init, tx_stream
+    from qpsk_tpu_torch.channel import awgn_pcm
+    from qpsk_tpu_torch.packet import PacketConfig, assemble_packet
+    from qpsk_tpu_torch.sync import (default_max_lag, extract_packets_tracked,
+                                     find_sync_streams, rotated_streams)
+
+    cfg = ModemConfig(differential=True)
+    pcfg = PacketConfig(payload_bytes=30, fec="conv")
+    (c, npkt), fb, mfb = MODE_CODED, pcfg.frame_bits, cfg.bits_per_frame
+    skip = 8 * fb
+    channels = sorted({round(i * (c - 1) / 63) for i in range(64)})
+    mods = kernel_modules()
+
+    def decode(bits):
+        sync = find_sync_streams(pcfg, rotated_streams(bits),
+                                 max_lag=default_max_lag(pcfg), probe_frames=8,
+                                 soft=False)
+        navail = (bits.numel() - int(sync.bit_lag)) // fb
+        return sync, extract_packets_tracked(pcfg, bits, sync, max(navail, 1))
+
+    reset_launches()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(2032)
+    payload = torch.randint(0, 2, (c, npkt, 8 * pcfg.payload_bytes),
+                            generator=gen, device=dev, dtype=torch.int32)
+    chan = assemble_packet(pcfg, payload).reshape(c, -1)
+    nframes = -(-chan.shape[1] // mfb)
+    filler = torch.randint(0, 2, (c, nframes * mfb - chan.shape[1]),
+                           generator=gen, device=dev, dtype=torch.int32)
+    frames = torch.cat([chan, filler], dim=1).reshape(c, nframes, mfb)
+    with no_plain():
+        _, clean = tx_stream(cfg, tx_init(cfg, (c,), device=dev), frames,
+                             tx_offset_hz=TX_OFFSET_HZ)
+        power = float(((clean.to(torch.float32) / cfg.pcm_scale) ** 2).mean())
+        pcm = awgn_pcm(gen, clean, MODE_CODED_SNR_DB, power, cfg.pcm_scale)
+        _, out = rx_stream(cfg, rx_init(cfg, (c,), device=dev), pcm)
+        results = [decode(out.bits[ch].reshape(-1)[skip:]) for ch in channels]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {name: mod.launches for name, mod in mods.items()}
+    print(f"  dqpsk+conv: {c} channels x {npkt} packets = {nframes} frames, "
+          f"TX -> AWGN {MODE_CODED_SNR_DB} dB -> RX -> hard sync and tracked "
+          f"extraction on {len(channels)} channels in {seconds:.3f} s (host "
+          f"clock, first call); launches {counts}")
+    for name in ("frontend", "costas", "tx", "viterbi"):
+        need(counts[name] > 0, f"the DQPSK + conv path never launched {name}")
+    with plain_decoders():
+        plain = [decode(out.bits[ch].reshape(-1)[skip:]) for ch in channels]
+    _, plain_bits, _ = check_path(cfg, frames, clean, pcm, out, dev,
+                                  f"C={c} dqpsk+conv", errs)
+    plain_path = [decode(plain_bits[ch].reshape(-1)[skip:]) for ch in channels]
+    nok = npk = 0
+    path_diffs = []
+    for ch, (ks, krx), (ps, prx), (qs, qrx) in zip(channels, results, plain,
+                                                   plain_path):
+        key = (int(ks.rotation), int(ks.bit_lag), int(ks.score))
+        need(key == (int(ps.rotation), int(ps.bit_lag), int(ps.score))
+             and all(torch.equal(a, b) for a, b in zip(krx, prx)),
+             f"channel {ch}: the kernel and plain Viterbi differ")
+        need(key[:2] == (int(qs.rotation), int(qs.bit_lag)),
+             f"channel {ch}: the kernel and plain modem paths sync differently")
+        need(key[0] == 0, f"channel {ch}: DQPSK synced at rotation {key[0]}")
+        path_diffs += [(ch, i) for i in torch.nonzero(
+            krx.crc_ok != qrx.crc_ok).flatten().tolist()]
+        nok += check_payloads(krx, payload[ch], ch)
+        npk += krx.crc_ok.numel()
+    need(len(path_diffs) <= 0.001 * npk, f"the kernel and plain modem paths "
+         f"differ on {len(path_diffs)} of {npk} packets: {path_diffs[:8]}")
+    print(f"  dqpsk+conv: every sampled channel synced at rotation 0; "
+          f"{nok}/{npk} packets pass CRC (PER {1 - nok / npk:.5f}), all "
+          f"bit-exact; the kernel and plain decoders agree, the kernel and "
+          f"plain modem paths differ on {len(path_diffs)} CRC verdicts")
+    need(nok >= npk // 2, f"only {nok} of {npk} coded packets pass CRC")
+    return counts["viterbi"]
+
+
+def parity_on_card(dev, errs: dict) -> int:
+    """Phase 9c: ``config_parity()`` on the card against the C reference's
+    golden vectors (``tests/golden/reference_vectors.npz``) at
+    ``tests/test_golden_parity.py``'s tolerances: the RRC impulse response
+    (1e-6), the TX PCM of the golden bits through ``tx_bits_frame`` (2
+    counts on frame 0, 32 overall), the exact mix-down and matched filter
+    a frame at a time (1e-3), the decimated symbols of ``rx_stream`` (the
+    frame scan; 1e-3), the Costas kernel given the reference's decimated
+    input through the ``CostasLoop`` facade (1e-5), and the frequency lock (within 5 Hz of the C trajectory
+    and 3 Hz of +50).  Then the Costas kernel against its plain version
+    on the symbols the scan handed it.  Returns the Costas launches of the
+    ``rx_stream`` call."""
+    import numpy as np
+    import torch
+    from qpsk_tpu_torch import config_parity, rx_init, rx_stream, tx_bits_frame, tx_init
+    from qpsk_tpu_torch.modem import _tmat
+    from qpsk_tpu_torch.ops import nco, rrc
+    from qpsk_tpu_torch.ops.costas import CostasLoop
+    from qpsk_tpu_torch.ops.cplx import CF32
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    golden = np.load(os.path.join(here, "tests", "golden",
+                                  "reference_vectors.npz"))
+    cfg = config_parity()
+    fsz, nf = cfg.frame_size, golden["filt"].shape[0]      # 40 RX frames
+    imp = torch.zeros(2 * cfg.ntaps, device=dev)
+    imp[0] = 1.0
+    y, _ = rrc.fir_block(CF32(imp, torch.zeros_like(imp)),
+                         rrc.fir_init_tail(cfg.ntaps, device=dev),
+                         _tmat(cfg, 2 * cfg.ntaps, dev), cfg.gain,
+                         2 * cfg.ntaps, exact=True)
+    e_imp = max(float(np.abs(y.re.cpu().numpy() - golden["impulse"][:, 0]).max()),
+                float(np.abs(y.im.cpu().numpy() - golden["impulse"][:, 1]).max()))
+    need(e_imp <= 1e-6, f"parity impulse response off by {e_imp}")
+
+    reset_launches()
+    with no_plain():
+        st, pcms = tx_init(cfg, device=dev), []
+        bits = torch.from_numpy(golden["bits"].astype(np.int32)).to(dev)
+        for k in range(bits.shape[0]):
+            st, p = tx_bits_frame(cfg, st, bits[k], tx_offset_hz=TX_OFFSET_HZ)
+            pcms.append(p)
+    d = (torch.stack(pcms).to(torch.int32).cpu().numpy()
+         - golden["pcm"].astype(np.int32))
+    d = np.abs(d)
+    need(d[0].max() <= 2 and d.max() <= 32,
+         f"parity TX PCM off by {d[0].max()} on frame 0, {d.max()} overall")
+
+    x = torch.from_numpy(golden["pcm"].reshape(-1).astype(np.float32)
+                         / cfg.pcm_scale).to(dev)
+    ph, tail, filt = nco.nco_init(device=dev), rrc.fir_init_tail(cfg.ntaps, device=dev), []
+    for k in range(nf):
+        seg = CF32(x[k * fsz:(k + 1) * fsz], torch.zeros(fsz, device=dev))
+        seg, ph = nco.mix(seg, ph, -cfg.omega_center, "exact")
+        seg, tail = rrc.fir_block(seg, tail, _tmat(cfg, fsz, dev), cfg.gain,
+                                  fsz, exact=True)
+        filt.append(torch.stack([seg.re, seg.im], -1))
+    filt = torch.stack(filt).cpu().numpy()
+    e_filt = float(np.abs(filt - golden["filt"]).max())
+    need(e_filt <= 1e-3, f"parity front-end off by {e_filt}")
+
+    seen = []
+    t0 = time.perf_counter()
+    with no_plain(), recorded_costas(seen):
+        _, out = rx_stream(cfg, rx_init(cfg, device=dev),
+                           torch.from_numpy(golden["pcm"].reshape(nf, fsz)).to(dev))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernel_modules()["costas"].launches
+    need(launches == nf, f"the parity scan launched the Costas kernel "
+         f"{launches} times for {nf} frames")
+    ti = out.timing_index.cpu().numpy()
+    prev, mine = np.zeros((128, 2), np.float32), []
+    for k in range(nf):
+        mine.append(prev)
+        prev = filt[k][np.clip(np.arange(128) * cfg.cycles + int(ti[k]), 0,
+                               fsz - 1)]
+    e_dec = float(np.abs(np.stack(mine)[:, :126] - golden["decim"][:, :126]).max())
+    need(e_dec <= 1e-3, f"parity decimation off by {e_dec}")
+
+    # the reference's object API (CostasLoop) over the kernel, a frame a call
+    loop = CostasLoop(cfg.loop_bw, cfg.min_freq, cfg.max_freq, cfg.damping,
+                      device=dev)
+    dec = torch.from_numpy(golden["decim"]).to(dev)
+    before = kernel_modules()["costas"].launches
+    costas = [loop(CF32(dec[k, :, 0], dec[k, :, 1])) for k in range(nf)]
+    need(kernel_modules()["costas"].launches - before == nf,
+         "CostasLoop did not launch the Costas kernel a call")
+    costas = torch.stack([torch.stack([z.re, z.im], -1) for z in costas])
+    e_cos = float(np.abs(costas.cpu().numpy() - golden["costas"]).max())
+    need(e_cos <= 1e-5, f"the Costas kernel given the reference input is off by {e_cos}")
+    mine_hz = float(out.freq_hz[-10:].mean())
+    ref_hz = float(golden["freq"][-10:, 0].mean())
+    need(abs(mine_hz - ref_hz) < 5.0 and abs(mine_hz - TX_OFFSET_HZ) < 3.0,
+         f"parity lock at {mine_hz} Hz, the C trajectory's {ref_hz} Hz")
+    print(f"  parity against the golden vectors: impulse {e_imp:.3g}, TX PCM "
+          f"{d[0].max()} LSB on frame 0 and {d.max()} overall, front-end "
+          f"{e_filt:.3g}, decimation {e_dec:.3g}, Costas kernel on the "
+          f"reference input {e_cos:.3g}, lock {mine_hz:.4f} Hz (C "
+          f"{ref_hz:.4f}); rx_stream of {nf} frames in {seconds:.3f} s, "
+          f"{launches} Costas launches")
+    check_costas_cm(seen, "parity scan", errs, every=8)
+    return launches
+
+
+def chirp_tx(dev) -> None:
+    """Phase 9d: ``tx_stream(doppler_hz_per_s=...)`` on the card (the plain
+    chirp chain, as in the JAX package) against the same call on CPU
+    tensors: PCM within 2 LSB."""
+    import torch
+    from qpsk_tpu_torch import ModemConfig, tx_init, tx_stream
+
+    cfg = ModemConfig()
+    c, nframes, rate = MODE_CHIRP
+    gen = torch.Generator(device="cpu").manual_seed(2033)
+    bits = torch.randint(0, 2, (c, nframes, cfg.bits_per_frame), generator=gen,
+                         dtype=torch.int32)
+    reset_launches()
+    with no_plain():
+        _, card = tx_stream(cfg, tx_init(cfg, (c,), device=dev), bits.to(dev),
+                            TX_OFFSET_HZ, doppler_hz_per_s=rate)
+    _, host = tx_stream(cfg, tx_init(cfg, (c,), device="cpu"), bits,
+                        TX_OFFSET_HZ, doppler_hz_per_s=rate)
+    worst = int((card.cpu().to(torch.int32) - host.to(torch.int32)).abs().max())
+    need(worst <= 2, f"the chirped TX on the card is {worst} LSB off the CPU's")
+    need(kernel_modules()["tx"].launches == 0, "the chirp launched the TX kernel")
+    print(f"  chirp TX ({rate} Hz/s from +{TX_OFFSET_HZ} Hz, {c} channels x "
+          f"{nframes} frames): within {worst} LSB of the same call on the CPU")
+
+
+def mode_rates(dev, errs: dict) -> None:
+    """Phase 9e: RX samples/s of the kernel path at the rate point for
+    DQPSK and tracking (CUDA events), and of ``config_parity()``'s frame
+    scan at PARITY_RATE (host clock around a synchronised call), with the
+    launches of one call; the Costas kernel against its plain version on
+    the symbols the tracking chain and the parity scan hand it there."""
+    import torch
+    from qpsk_tpu_torch import ModemConfig, config_parity, rx_init, rx_stream
+
+    (c, nframes), iters = RATE_POINT, 10
+    mods = kernel_modules()
+    for name in ("dqpsk", "tracking"):
+        cfg = ModemConfig(**MODE_PATHS[name][0])
+        pcm = noise_pcm(cfg, c, nframes, 7, dev)
+        seen = []
+        with recorded_costas(seen):
+            rx_stream(cfg, rx_init(cfg, (c,), device=dev), pcm)
+        check_costas_cm(seen, f"{name} C={c} F={nframes} noise", errs)
+        step = rx_step(cfg, dev, pcm, "kernel")[0]
+        ms = cuda_time_ms(step, iters)
+        reset_launches()
+        step()
+        torch.cuda.synchronize()
+        print(f"  rx_stream {name:8s} kernel path: {ms:.4f} ms/call, "
+              f"{c * nframes * cfg.frame_size / ms * 1e3:.6g} samples/s; "
+              f"launches a call {[(n, m.launches) for n, m in mods.items()]}")
+    cfg = config_parity()
+    c, nframes = PARITY_RATE
+    pcm = noise_pcm(cfg, c, nframes, 8, dev)
+    st = rx_init(cfg, (c,), device=dev)
+    rx_stream(cfg, st, pcm[:, :1])                        # warm-up
+    seen = []
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recorded_costas(seen):
+        rx_stream(cfg, st, pcm)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = mods["costas"].launches
+    print(f"  rx_stream parity   kernel path: {ms:.3f} ms/call of {nframes} "
+          f"frames, {c * nframes * cfg.frame_size / ms * 1e3:.6g} samples/s, "
+          f"{ms / nframes:.3f} ms a frame (host clock); Costas launches "
+          f"{launches}")
+    need(launches == nframes, f"parity launched Costas {launches} times")
+    check_costas_cm(seen, f"parity C={c}", errs)
+
+
+def forced_kernel_refusal(dev) -> None:
+    """Phase 9f: ``frontend_impl="pallas"`` with tracking timing raises
+    ``ValueError`` before any launch (the kernel computes power timing
+    only)."""
+    import torch
+    from qpsk_tpu_torch import ModemConfig, rx_init, rx_stream
+
+    cfg = ModemConfig(timing_mode="tracking", frontend_impl="pallas")
+    reset_launches()
+    try:
+        rx_stream(cfg, rx_init(cfg, (256,), device=dev),
+                  torch.zeros((256, 2, cfg.frame_size), dtype=torch.int16,
+                              device=dev))
+        raise SmokeFailure("frontend_impl='pallas' with tracking ran")
+    except ValueError as e:
+        need("frontend_impl" in str(e), f"the refusal does not name the field: {e}")
+    n = sum(m.launches for m in kernel_modules().values())
+    need(n == 0, f"{n} launches before the refusal")
+    print("  frontend_impl='pallas' with timing_mode='tracking': ValueError "
+          "before any launch")
+
+
+def modes_phase(pcfg, dev, errs: dict, counts: dict) -> None:
+    """Phase 9: the rest of the modem's modes (``--modes`` runs it alone);
+    adds each loopback's launches to ``counts``."""
+    t0 = time.perf_counter()
+    print("phase 9a/b: DQPSK, the timing modes and the reference slicer, "
+          "kernels against their plain versions on each path")
+    for name in MODE_PATHS:
+        got = mode_loopback(name, pcfg, dev, errs)
+        for kernel, n in got.items():
+            counts[kernel] = counts.get(kernel, 0) + n
+    counts["viterbi"] = counts.get("viterbi", 0) + mode_coded(dev, errs)
+    print("phase 9c: parity with the C reference on the card")
+    counts["costas"] = counts.get("costas", 0) + parity_on_card(dev, errs)
+    print("phase 9d: the chirped TX")
+    chirp_tx(dev)
+    print("phase 9e: rates")
+    print(f"  before: {CLOCKS} = {nvidia_smi_line(CLOCKS)}")
+    mode_rates(dev, errs)
+    print(f"  after:  {CLOCKS} = {nvidia_smi_line(CLOCKS)}")
+    print("phase 9f: the forced front-end kernel")
+    forced_kernel_refusal(dev)
+    print(f"phase 9 took {time.perf_counter() - t0:.1f} s ({nvidia_smi_line()})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2935,6 +3478,10 @@ def main() -> int:
         runtime_phase(pcfg, dev, errs, {}, {})
         print(smi)
         return 0
+    if "--modes" in sys.argv[1:]:
+        modes_phase(pcfg, dev, errs, {})
+        print(smi)
+        return 0
     print("phase 2: kernels against their plain versions")
     check_sincosf(dev)
     compare_kernels(cfg, pcfg, dev, errs)
@@ -2976,6 +3523,7 @@ def main() -> int:
     times.update(family_rates(dev, errs))
     print(f"  after:  {CLOCKS} = {nvidia_smi_line(CLOCKS)}")
     runtime_phase(pcfg, dev, errs, counts, times)
+    modes_phase(pcfg, dev, errs, counts)
 
     for name in KERNELS:
         if name.startswith(("frontend", "tx")):

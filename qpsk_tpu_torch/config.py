@@ -5,13 +5,7 @@ jax, so the port keeps its own copy of the dataclass.  A test pins the two
 to equal fields, defaults and validation; ``from_dict`` builds this config
 from ``dataclasses.asdict`` of the JAX one.
 
-Every field is accepted here so that configs convert both ways.  The port
-implements coherent QPSK at 2400 and 1200 baud with the AGC, the CMA
-equalizer and the gear-shift loop, and the generic modulation family
-(``modulation="bpsk" | "8psk" | "16qam"``, 16QAM with ``agc=True``) with
-FFT carrier acquisition; ``modem.check_slice`` names the first field a
-config sets off the ported modes, and the modem's entry points raise
-``NotImplementedError`` for it.
+The port runs every config this class accepts.
 """
 
 from __future__ import annotations
@@ -170,7 +164,9 @@ def config_1200() -> ModemConfig:
 
 
 def config_parity() -> ModemConfig:
-    """Bit/behaviour parity with the C reference (off the port's slice)."""
+    """Bit/behaviour parity with the C reference: histogram timing, the
+    sequential NCO, the exact FIR, cold-start Costas, the rotate-45
+    slicer."""
     return ModemConfig(timing_mode="histogram", nco_mode="exact",
                        acquisition="none", slicer="reference",
                        fir_precision="exact")

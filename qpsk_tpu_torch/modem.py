@@ -1,30 +1,38 @@
-"""Frame-level modem pipeline: TX and RX streams (port of ``qpsk_tpu.modem``
-for coherent QPSK with its loop and channel options, and the generic
-modulation family BPSK / 8PSK / 16QAM with FFT carrier acquisition).
+"""Frame-level modem pipeline: TX and RX (port of ``qpsk_tpu.modem``, every
+mode of ``ModemConfig``: QPSK and DQPSK, the generic family BPSK / 8PSK /
+16QAM with FFT carrier acquisition, the four timing modes, the AGC, the
+CMA equalizer, the gear-shift loop, parity mode).
 
-TX:  bits -> QPSK or family symbols -> zero-stuff x cycles -> RRC shape ->
-     NCO mix up -> Re * pcm_scale -> int16 PCM (``ops/cuda/tx_kernel.py``)
-RX, time-major path (no equalizer, 128 symbols per frame):
-     int16 PCM -> matched filter with modulated taps -> power timing ->
-     decimate -> carrier phasor -> one-frame delay, time-major, with the
-     per-frame pick power when ``cfg.agc``      (``ops/cuda/frontend_kernel.py``)
-     -> AGC gains on the (F, C) powers          (``ops/agc.py``)
+TX:  bits -> QPSK, DQPSK (``ops/differential.py``) or family symbols ->
+     zero-stuff x cycles -> RRC shape -> NCO mix up -> Re * pcm_scale ->
+     int16 PCM (``ops/cuda/tx_kernel.py``); a Doppler chirp, the exact NCO
+     or the exact FIR take the plain chain, as in the JAX package.
+RX, time-major path (power timing, fast FIR, no equalizer, 128 symbols
+     per frame): int16 PCM -> matched filter with modulated taps -> power
+     timing -> decimate -> carrier phasor -> one-frame delay, time-major,
+     with the per-frame pick power when ``cfg.agc``
+                                         (``ops/cuda/frontend_kernel.py``)
+     -> AGC gains on the (F, C) powers   (``ops/agc.py``)
      -> Costas (gear shift, AGC gains in-register) + diagonal slicer, or
      for the family the decision-directed detector + its Gray labels
-                                               (``ops/cuda/costas_kernel.py``)
-RX, composed path (1200 baud, the CMA equalizer): the channel-major
-     front-end -> the one-frame delay -> ``agc_stream`` -> ``equalize_stream``
-     (``ops/equalizer.py``) -> Costas on the (C, T) symbols.
+                                         (``ops/cuda/costas_kernel.py``)
+     -> DQPSK decode or the reference slicer on the derotated symbols.
+RX, composed path: the channel-major front-end (1200 baud, the CMA
+     equalizer), or the plain full-rate front-end (mix, block FIR, the
+     fractional / tracking / histogram timing, the exact FIR) -> the
+     one-frame delay -> ``agc_stream`` -> ``equalize_stream`` -> Costas on
+     the (C, T) symbols (``costas_run_cm``) -> slicer or DQPSK decode.
+RX, parity mode (``nco_mode="exact"``): ``rx_frame`` a frame at a time.
 
-Every function takes ``cfg`` and explicit state and works on a channel
-batch ``(C, ...)`` or a single stream.  The device of the input tensors
-picks the lowering: CUDA tensors go through the hand-written kernels, CPU
-tensors through each kernel's plain PyTorch version (the JAX package's
-staged lowering, in the kernels' layouts), at any geometry the JAX package
-takes.  A CUDA tensor at a geometry or code a kernel does not cover (taps,
-samples per symbol, frame size, an LDPC or convolutional code) makes that
-kernel's wrapper raise ``NotImplementedError`` naming it before the launch,
-as do configurations off the port on either device.  The lowering
+Every entry point takes ``cfg`` and explicit state and works on any
+leading batch (folded into the kernels' channel axis) or a single stream.
+The device of the input tensors picks the lowering: CUDA tensors go
+through the hand-written kernels, CPU tensors through each kernel's plain
+PyTorch version (the JAX package's staged lowering, in the kernels'
+layouts), at any geometry the JAX package takes.  A CUDA tensor at a
+geometry or code a kernel does not cover (taps, samples per symbol, frame
+size, an LDPC or convolutional code) makes that kernel's wrapper raise
+``NotImplementedError`` naming it before the launch.  The lowering
 switches ``costas_impl`` ("scan"), ``frontend_impl`` and ``tx_impl``
 ("xla") run a kernel's plain version on whatever device the tensors are
 on, and "pallas" the kernel (a CPU tensor raises).
@@ -36,13 +44,16 @@ PCM -> ``rx_init(acq_freq=acquire.hz_to_costas_freq(hz, cfg.rs))`` ->
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import NamedTuple
 
 import torch
 
-from qpsk_tpu_torch.config import ModemConfig
+from qpsk_tpu_torch.config import TAU, ModemConfig
 from qpsk_tpu_torch.ops import acquire, modfam, nco
 from qpsk_tpu_torch.ops import rrc as rrc_ops
+from qpsk_tpu_torch.ops import timing as timing_ops
 from qpsk_tpu_torch.ops.agc import agc_gains, agc_stream
 from qpsk_tpu_torch.ops.costas import costas_params, freq_to_hz, gear_for
 from qpsk_tpu_torch.ops.cplx import CF32, cmap
@@ -51,31 +62,13 @@ from qpsk_tpu_torch.ops.cuda.costas_kernel import costas_run_cm, costas_run_tm
 from qpsk_tpu_torch.ops.cuda.frontend_kernel import (  # noqa: F401
     frontend_xla, rx_frontend, rx_frontend_tm)
 from qpsk_tpu_torch.ops.cuda.tx_kernel import tx_modulate
+from qpsk_tpu_torch.ops.differential import (diff_decode_symbols,
+                                             diff_encode_bits)
 from qpsk_tpu_torch.ops.equalizer import equalize_stream
-from qpsk_tpu_torch.ops.modmap import bits_to_symbols
+from qpsk_tpu_torch.ops.modmap import (bits_to_symbols, demod_bits_reference,
+                                       upsample_zero_stuff)
 from qpsk_tpu_torch.ops.rrc import taps_for  # noqa: F401
 from qpsk_tpu_torch.state import RxState, TxState
-
-# (field, values the port implements) — every other value raises
-_SLICE = (("modulation", ("qpsk", "bpsk", "8psk", "16qam")),
-          ("differential", False),
-          ("timing_mode", "power"), ("nco_mode", "fast"),
-          ("fir_precision", "fast"), ("slicer", "diagonal"))
-
-
-def check_slice(cfg: ModemConfig) -> None:
-    """Raise ``NotImplementedError`` naming the first field that sets
-    ``cfg`` off the ported modes: coherent QPSK, BPSK, 8PSK or 16QAM,
-    power timing, fast NCO and FIR, diagonal slicer.  The AGC, the CMA
-    equalizer and the gear-shift loop are ported.  The geometry is not
-    checked here: CPU tensors run any geometry the JAX package takes, and
-    each kernel wrapper checks its own before it launches."""
-    for field, want in _SLICE:
-        if getattr(cfg, field) not in (want if isinstance(want, tuple)
-                                       else (want,)):
-            raise NotImplementedError(
-                f"{field}={getattr(cfg, field)!r} is not ported "
-                f"(the torch port implements {field}={want!r})")
 
 
 def _mod_for(cfg: ModemConfig):
@@ -101,78 +94,120 @@ def _tree(x, leaf):
     return leaf(x)
 
 
-def _with_channel_axis(state, squeeze: bool, fn):
-    """Run ``fn(state)`` on a channel batch; a single stream's state gets
-    a channel axis of one first and loses it after."""
-    if not squeeze:
-        return fn(state)
-    new_state, out = fn(_tree(state, lambda v: v[None]))
-    return _tree(new_state, lambda v: v[0]), _tree(out, lambda v: v[0])
+def _batched(state, batch: tuple, fn):
+    """Run ``fn`` on one channel axis: every state leaf's leading ``batch``
+    axes (none for a single stream) fold into ``prod(batch)`` channels
+    before, and the state's and outputs' unfold after."""
+    batch, c = tuple(batch), math.prod(batch)
+
+    def fold(v):
+        if tuple(v.shape[:len(batch)]) != batch:
+            raise ValueError(f"a state leaf of shape {tuple(v.shape)} for "
+                             f"the batch {batch}")
+        return v.reshape((c,) + tuple(v.shape[len(batch):]))
+    new_state, out = fn(_tree(state, fold))
+    unfold = lambda v: v.reshape(batch + tuple(v.shape[1:]))  # noqa: E731
+    return _tree(new_state, unfold), _tree(out, unfold)
+
+
+@functools.lru_cache(maxsize=None)
+def _tmat(cfg: ModemConfig, block: int, device) -> torch.Tensor:
+    """The RRC Toeplitz tile of ``cfg`` on ``device``."""
+    return torch.from_numpy(rrc_ops.toeplitz_taps(taps_for(cfg),
+                                                  block)).to(device)
+
+
+def _modulate(cfg: ModemConfig, st: TxState, sym: CF32, tx_offset_hz: float,
+              block: int, doppler_hz_per_s: float = 0.0):
+    """(C, S) symbols -> (pcm (C, S*cycles) int16, new_nco_phase,
+    new_fir_tail): the TX kernel's wrapper (``cfg.tx_impl`` picks its
+    lowering), or, as the JAX package's TX kernel gate does for a chirp,
+    the exact NCO or the exact FIR, the plain chain: zero-stuff, block FIR
+    in tiles of ``block`` samples, NCO mix or chirp, int16."""
+    if not (doppler_hz_per_s or cfg.fir_precision != "fast"
+            or cfg.nco_mode != "fast"):
+        return tx_modulate(cfg, sym, st.nco_phase, st.fir_tail, tx_offset_hz)
+    sig = upsample_zero_stuff(sym, cfg.cycles)
+    sig, tail = rrc_ops.fir_block(sig, st.fir_tail,
+                                  _tmat(cfg, block, sig.re.device), cfg.gain,
+                                  block, exact=cfg.fir_precision == "exact")
+    omega = TAU * (cfg.center + tx_offset_hz) / cfg.fs
+    if doppler_hz_per_s:
+        sig, phase = nco.mix_chirp(sig, st.nco_phase, omega, TAU
+                                   * doppler_hz_per_s / (cfg.fs * cfg.fs))
+    else:
+        sig, phase = nco.mix(sig, st.nco_phase, omega, cfg.nco_mode)
+    # truncation toward zero, saturating as the JAX package's astype does
+    pcm = torch.clamp(sig.re * cfg.pcm_scale, -32768.0, 32767.0)
+    return pcm.to(torch.int16), phase, tail
+
+
+def _symbols(cfg: ModemConfig, bits: torch.Tensor) -> CF32:
+    """Coherent symbols of (..., bps*n) bits: QPSK or the family's Gray
+    map."""
+    mod = _mod_for(cfg)
+    return (bits_to_symbols(bits) if mod is None
+            else modfam.bits_to_symbols_mod(bits, mod))
+
+
+def tx_frame(cfg: ModemConfig, state: TxState, symbols: CF32,
+             tx_offset_hz: float = 0.0):
+    """Modulate one frame of ``(..., n)`` symbols to ``(..., n*cycles)``
+    int16 PCM; ``tx_offset_hz`` is added to the carrier.  Chained calls
+    equal one ``tx_stream`` call within the PCM bounds."""
+    batch, n = tuple(symbols.shape[:-1]), symbols.shape[-1]
+
+    def run(st):
+        sym = cmap(lambda p: p.reshape(-1, n).contiguous(), symbols)
+        pcm, phase, tail = _modulate(cfg, st, sym, tx_offset_hz,
+                                     rrc_ops.tile_block(n * cfg.cycles))
+        return st._replace(fir_tail=tail, nco_phase=phase), pcm
+    return _batched(state, batch, run)
+
+
+def tx_bits_frame(cfg: ModemConfig, state: TxState, bits: torch.Tensor,
+                  tx_offset_hz: float = 0.0):
+    """Bits ``(..., bps*n)`` -> PCM, with the reference dibit packing; in
+    differential mode the dibits are phase changes (``ops/differential``),
+    the family maps through its Gray tables."""
+    if not cfg.differential:
+        return tx_frame(cfg, state, _symbols(cfg, bits), tx_offset_hz)
+    sym, diff_phase = diff_encode_bits(bits, state.diff_phase)
+    state, pcm = tx_frame(cfg, state, sym, tx_offset_hz)
+    return state._replace(diff_phase=diff_phase), pcm
 
 
 def tx_stream(cfg: ModemConfig, state: TxState, bits: torch.Tensor,
               tx_offset_hz: float = 0.0, doppler_hz_per_s: float = 0.0):
-    """Modulate ``(C, nframes, bits_per_frame)`` (or ``(nframes,
-    bits_per_frame)``) bits to int16 PCM of the same leading shape and
-    ``bits_per_frame // bps * cycles`` samples per frame, ``bps`` the
-    modulation's bits per symbol.  ``tx_offset_hz`` is added to the
-    carrier."""
-    check_slice(cfg)
-    if doppler_hz_per_s:
-        raise NotImplementedError(
-            f"doppler_hz_per_s={doppler_hz_per_s!r}: the chirped TX carrier "
-            "is not ported")
-    bps, mod = cfg.bits_per_symbol, _mod_for(cfg)
-    if bits.dim() not in (2, 3) or bits.shape[-1] % bps:
+    """Modulate ``(..., nframes, bits_per_frame)`` bits to int16 PCM of the
+    same leading shape and ``bits_per_frame // bps * cycles`` samples per
+    frame, ``bps`` the modulation's bits per symbol.  ``tx_offset_hz`` is
+    added to the carrier; ``doppler_hz_per_s`` chirps it (``nco.mix_chirp``,
+    the carried phase exact only within one call).  Without a chirp the
+    output chains with repeated ``tx_bits_frame`` calls."""
+    bps = cfg.bits_per_symbol
+    if bits.dim() < 2 or bits.shape[-1] % bps:
         raise NotImplementedError(
             f"bits of shape {tuple(bits.shape)}: the torch port takes "
-            "(C, nframes, bits_per_frame) or (nframes, bits_per_frame) "
-            f"with bits_per_frame a multiple of {bps}")
+            f"(..., nframes, bits_per_frame) with bits_per_frame a multiple "
+            f"of {bps}")
+    batch, (nframes, nbits) = tuple(bits.shape[:-2]), tuple(bits.shape[-2:])
+    spf = nbits // bps * cfg.cycles
 
     def run(st):
-        frames = bits if bits.dim() == 3 else bits[None]
-        c, nframes, nbits = frames.shape
-        sym = (bits_to_symbols(frames) if mod is None
-               else modfam.bits_to_symbols_mod(frames, mod))
-        sym = cmap(lambda p: p.reshape(c, -1), sym)
-        pcm, phase, tail = tx_modulate(cfg, sym, st.nco_phase, st.fir_tail,
-                                       tx_offset_hz)
-        return (TxState(fir_tail=tail, nco_phase=phase),
-                pcm.reshape(c, nframes, nbits // bps * cfg.cycles))
-    return _with_channel_axis(state, bits.dim() == 2, run)
-
-
-def rx_stream(cfg: ModemConfig, state: RxState, pcm: torch.Tensor):
-    """Demodulate ``(C, nframes, frame_size)`` (or ``(nframes,
-    frame_size)``) int16 PCM.  Returns (new_state, RxOut).
-
-    The symbols and bits of frame f belong to the samples of frame f-1
-    (the reference's one-frame decimation delay); ``freq_hz`` is the loop
-    frequency after each frame.  Without the equalizer and at 128 symbols
-    per frame the receive runs the time-major path, otherwise the composed
-    one; both give the same decisions."""
-    check_slice(cfg)
-    if (pcm.dim() not in (2, 3) or pcm.shape[-1] != cfg.frame_size
-            or pcm.shape[-2] < 1):
-        raise NotImplementedError(
-            f"PCM of shape {tuple(pcm.shape)}: the torch port takes "
-            f"(C, nframes, {cfg.frame_size}) or (nframes, {cfg.frame_size})")
-
-    def run(st):
-        frames = (pcm if pcm.dim() == 3 else pcm[None]).contiguous()
-        chain, frontend, costas = _rx_path(cfg)
-        return chain(cfg, st, frames, frontend, costas)
-    return _with_channel_axis(state, pcm.dim() == 2, run)
-
-
-def _rx_path(cfg: ModemConfig):
-    """(chain, front-end, Costas) of ``rx_stream``: the time-major chain
-    when there is no equalizer and a frame has 128 symbols, else the
-    composed chain, each with its wrappers (which follow the config's
-    lowering switches)."""
-    if cfg.eq_taps == 0 and cfg.symbols_per_frame >= 128:
-        return _rx_stream_tm, rx_frontend_tm, costas_run_tm
-    return _rx_stream_composed, rx_frontend, costas_run_cm
+        flat = bits.reshape(-1, nframes * nbits)
+        diff_phase = st.diff_phase
+        if cfg.differential:
+            sym, diff_phase = diff_encode_bits(flat, diff_phase)
+        else:
+            sym = cmap(lambda p: p.contiguous(), _symbols(cfg, flat))
+        pcm, phase, tail = _modulate(cfg, st, sym, tx_offset_hz,
+                                     rrc_ops.tile_block(spf),
+                                     doppler_hz_per_s)
+        return (st._replace(fir_tail=tail, nco_phase=phase,
+                            diff_phase=diff_phase),
+                pcm.reshape(-1, nframes, spf))
+    return _batched(state, batch, run)
 
 
 def _loop(cfg: ModemConfig):
@@ -183,6 +218,110 @@ def _loop(cfg: ModemConfig):
     return (costas_params(cfg.loop_bw, cfg.damping, cfg.min_freq,
                           cfg.max_freq),
             gear_for(cfg.loop_bw_track, cfg.damping), dd)
+
+
+def _slice(cfg: ModemConfig, state: RxState, derot: CF32,
+           bits: torch.Tensor):
+    """(bits, state) of (C, T) derotated symbols whose Costas call sliced
+    ``bits`` (QPSK's diagonal slicer or the family's labels): DQPSK
+    decodes the symbols instead, carrying ``diff_prev``, and the reference
+    slicer re-slices them."""
+    if cfg.differential:
+        bits, diff_prev = diff_decode_symbols(derot, state.diff_prev)
+        return bits, state._replace(diff_prev=diff_prev)
+    if cfg.slicer == "reference":
+        return demod_bits_reference(derot), state
+    return bits, state
+
+
+def rx_frame(cfg: ModemConfig, state: RxState, pcm: torch.Tensor):
+    """Demodulate one ``(..., n)`` block of int16 PCM, the C loop's frame
+    (qpsk.c:88-218): the composed chain on one frame with the plain
+    full-rate front-end (mix-down at ``cfg.nco_mode``, matched filter,
+    timing), the one-frame delay (the symbols returned belong to the
+    previous frame), AGC, equalizer and the Costas kernel
+    (``costas_run_cm``, ``cfg.costas_impl`` picks its lowering).  Returns
+    (new_state, RxOut) with per-frame ``symbols`` (..., n // cycles) and
+    ``freq_hz`` / ``timing_index`` (...,)."""
+    batch, n = tuple(pcm.shape[:-1]), pcm.shape[-1]
+
+    def run(st):
+        st, out = _rx_stream_full_rate(cfg, st, pcm.reshape(-1, 1, n),
+                                       _frontend_full_rate, costas_run_cm)
+        return st, _tree(out, lambda v: v[:, 0])
+    return _batched(state, batch, run)
+
+
+def rx_stream(cfg: ModemConfig, state: RxState, pcm: torch.Tensor):
+    """Demodulate ``(..., nframes, frame_size)`` int16 PCM, any leading
+    batch (folded into one channel axis for the kernels).  Returns
+    (new_state, RxOut).
+
+    The symbols and bits of frame f belong to the samples of frame f-1
+    (the reference's one-frame decimation delay); ``freq_hz`` is the loop
+    frequency after each frame.  ``nco_mode="exact"`` (parity mode) scans
+    ``rx_frame`` a frame at a time, renormalizing the NCO per frame as the
+    C loop does; every other config runs a chain over the whole stream
+    (``_rx_path``)."""
+    if (pcm.dim() < 2 or pcm.shape[-1] != cfg.frame_size
+            or pcm.shape[-2] < 1):
+        raise NotImplementedError(
+            f"PCM of shape {tuple(pcm.shape)}: the torch port takes "
+            f"(..., nframes, {cfg.frame_size})")
+    batch = tuple(pcm.shape[:-2])
+
+    def run(st):
+        frames = pcm.reshape((-1,) + tuple(pcm.shape[-2:])).contiguous()
+        if cfg.nco_mode == "exact":
+            return _rx_stream_scan(cfg, st, frames)
+        chain, frontend, costas = _rx_path(cfg)
+        return chain(cfg, st, frames, frontend, costas)
+    return _batched(state, batch, run)
+
+
+def _rx_stream_scan(cfg: ModemConfig, state: RxState, pcm: torch.Tensor):
+    """``rx_frame`` over the frames of (C, nframes, n) PCM, the outputs
+    joined on the frame axis."""
+    outs = []
+    for f in range(pcm.shape[1]):
+        state, out = _rx_stream_full_rate(cfg, state, pcm[:, f:f + 1],
+                                          _frontend_full_rate, costas_run_cm)
+        outs.append(out)
+
+    def cat(get):
+        return torch.cat([get(o) for o in outs], dim=1)
+    return state, RxOut(
+        symbols=CF32(cat(lambda o: o.symbols.re), cat(lambda o: o.symbols.im)),
+        bits=cat(lambda o: o.bits), freq_hz=cat(lambda o: o.freq_hz),
+        timing_index=cat(lambda o: o.timing_index))
+
+
+def _kernel_frontend(cfg: ModemConfig) -> bool:
+    """Whether the front-end kernel computes ``cfg``'s front-end: power
+    timing with the fast FIR, as the JAX package's kernel gates require."""
+    return cfg.timing_mode == "power" and cfg.fir_precision == "fast"
+
+
+def _rx_path(cfg: ModemConfig):
+    """(chain, front-end, Costas) of ``rx_stream``: the time-major chain
+    when the front-end kernel computes the config, there is no equalizer
+    and a frame has 128 symbols; else the composed chain, on the
+    channel-major front-end kernel or, for the fractional, tracking and
+    histogram timing and the exact FIR, on the plain full-rate front-end
+    (mix, block FIR, timing).  The wrappers follow the config's lowering
+    switches; ``frontend_impl="pallas"`` with a front-end the kernel does
+    not compute raises ``ValueError``, as in the JAX package."""
+    if not _kernel_frontend(cfg):
+        if cfg.frontend_impl == "pallas":
+            raise ValueError(
+                "frontend_impl='pallas' forced but the front-end kernel only "
+                "implements timing_mode='power' with fir_precision='fast' "
+                f"(got timing_mode={cfg.timing_mode!r}, fir_precision="
+                f"{cfg.fir_precision!r}); use frontend_impl='auto'")
+        return _rx_stream_full_rate, _frontend_full_rate, costas_run_cm
+    if cfg.eq_taps == 0 and cfg.symbols_per_frame >= 128:
+        return _rx_stream_tm, rx_frontend_tm, costas_run_tm
+    return _rx_stream_composed, rx_frontend, costas_run_cm
 
 
 def _rx_stream_tm(cfg: ModemConfig, state: RxState, pcm: torch.Tensor,
@@ -212,14 +351,60 @@ def _rx_stream_tm(cfg: ModemConfig, state: RxState, pcm: torch.Tensor,
 
 def _rx_stream_composed(cfg: ModemConfig, state: RxState, pcm: torch.Tensor,
                         frontend, costas):
-    """The composed RX chain (``qpsk_tpu.modem._rx_stream_fused`` past its
-    time-major branch): ``frontend`` emits channel-major picks, then the
-    one-frame delay, the AGC and the CMA equalizer run on (C, F, nsym)
-    symbols, and ``costas`` (``costas_run_cm`` or its plain twin) tracks
-    the (C, T) stream.  ``rx_stream`` passes the kernel wrappers."""
-    c, nframes, _ = pcm.shape
+    """The composed RX chain on a channel-major front-end (``rx_frontend``
+    or its plain twin): its picks, then ``_back_half``."""
     picks, index, nco_phase, fir_tail = frontend(cfg, pcm, state.nco_phase,
                                                  state.fir_tail)
+    return _back_half(cfg, state._replace(nco_phase=nco_phase,
+                                          fir_tail=fir_tail),
+                      picks, index, costas)
+
+
+def _rx_stream_full_rate(cfg: ModemConfig, state: RxState,
+                         pcm: torch.Tensor, frontend, costas):
+    """The composed RX chain on the plain full-rate front-end
+    (``_frontend_full_rate``, which also carries the timing PLL), then
+    ``_back_half``."""
+    picks, index, state = frontend(cfg, pcm, state)
+    return _back_half(cfg, state, picks, index, costas)
+
+
+def _frontend_full_rate(cfg: ModemConfig, pcm: torch.Tensor, state: RxState):
+    """The plain front-end of the timing modes, the exact FIR and
+    ``rx_frame`` (``qpsk_tpu.modem._rx_stream_fused``'s full-rate staging
+    and ``rx_frame``'s): mix-down (``cfg.nco_mode``), block FIR
+    (``cfg.fir_precision``), then the configured timing over (C, nframes,
+    n) PCM.  Returns (picks (C, F, n // cycles), index (C, F) int32,
+    state with the new NCO phase, FIR tail and timing PLL)."""
+    c, nframes, fsz = pcm.shape
+    flat = pcm.reshape(c, nframes * fsz).to(torch.float32) / cfg.pcm_scale
+    x, nco_phase = nco.mix(CF32(flat, torch.zeros_like(flat)),
+                           state.nco_phase, -cfg.omega_center, cfg.nco_mode)
+    block = rrc_ops.pick_block(fsz)
+    x, fir_tail = rrc_ops.fir_block(x, state.fir_tail,
+                                    _tmat(cfg, block, pcm.device), cfg.gain,
+                                    block, exact=cfg.fir_precision == "exact")
+    frames = cmap(lambda p: p.reshape(c, nframes, fsz), x)
+    timing = state.timing
+    if cfg.timing_mode == "tracking":
+        tau, timing = timing_ops.timing_track(frames, cfg.cycles, timing)
+        picks = timing_ops.decimate_fractional(frames, tau, cfg.cycles)
+        index = torch.round(tau).to(torch.int32)
+    else:
+        picks, index = timing_ops.estimate_and_decimate(frames, cfg.cycles,
+                                                        cfg.timing_mode)
+    return picks, index, state._replace(nco_phase=nco_phase,
+                                        fir_tail=fir_tail, timing=timing)
+
+
+def _back_half(cfg: ModemConfig, state: RxState, picks: CF32,
+               index: torch.Tensor, costas):
+    """The composed chain past its front-end
+    (``qpsk_tpu.modem._rx_stream_fused`` past its time-major branch): the
+    one-frame delay, the AGC and the CMA equalizer on (C, F, nsym) picks,
+    then ``costas`` (``costas_run_cm`` or its plain twin) on the (C, T)
+    stream."""
+    c, nframes, nsym = picks.re.shape
     delayed = CF32(*(torch.cat([dd[:, None], p[:, :-1]], dim=1)
                      for dd, p in zip(state.decim_delay, picks)))
     decim_delay = cmap(lambda p: p[:, -1].contiguous(), picks)
@@ -233,18 +418,20 @@ def _rx_stream_composed(cfg: ModemConfig, state: RxState, pcm: torch.Tensor,
     params, gear, dd = _loop(cfg)
     cstate, derot, freq_frames, bits = costas(
         state.costas, cmap(lambda p: p.reshape(c, -1), delayed), params,
-        cfg.symbols_per_frame, gear=gear, dd=dd, impl=cfg.costas_impl)
+        nsym, gear=gear, dd=dd, impl=cfg.costas_impl)
     return _emit(cfg, state._replace(
-        fir_tail=fir_tail, nco_phase=nco_phase, costas=cstate,
-        decim_delay=decim_delay, agc=agc_state, eq=eq_state), derot, bits,
-        freq_frames, index, nframes)
+        costas=cstate, decim_delay=decim_delay, agc=agc_state, eq=eq_state),
+        derot, bits, freq_frames, index, nframes)
 
 
 def _emit(cfg: ModemConfig, new_state: RxState, derot: CF32,
           bits: torch.Tensor, freq_frames: torch.Tensor,
           index: torch.Tensor, nframes: int):
-    """Assemble RxOut from (C, T) derotated symbols and (C, bps*T) bits."""
-    c, nsf = derot.re.shape[0], cfg.symbols_per_frame
+    """Assemble RxOut from (C, T) derotated symbols and the (C, bps*T)
+    bits the Costas call sliced (``_slice`` re-slices them for DQPSK and
+    the reference slicer)."""
+    c, nsf = derot.re.shape[0], derot.re.shape[1] // nframes
+    bits, new_state = _slice(cfg, new_state, derot, bits)
     out = RxOut(symbols=cmap(lambda p: p.reshape(c, nframes, nsf), derot),
                 bits=bits.reshape(c, nframes, cfg.bits_per_symbol * nsf),
                 freq_hz=freq_to_hz(freq_frames, cfg.rs),
@@ -280,11 +467,9 @@ def rx_acquire_hz(cfg: ModemConfig, pcm: torch.Tensor,
     dev = xr.device
     x, _ = nco.mix(CF32(xr, torch.zeros_like(xr)),
                    nco.nco_init(xr.shape[:-1], dev), -cfg.omega_center)
-    tmat = torch.from_numpy(rrc_ops.toeplitz_taps(rrc_ops.taps_for(cfg),
-                                                  block)).to(dev)
     x, _ = rrc_ops.fir_block(x, rrc_ops.fir_init_tail(cfg.ntaps, xr.shape[:-1],
                                                       dev),
-                             tmat, cfg.gain, block)
+                             _tmat(cfg, block, dev), cfg.gain, block)
     nfft = min(nfft_want, n)
     # skip the filter's fill-in, then as many whole blocks as there are
     start = min(cfg.ntaps, max(0, n - nfft))

@@ -63,6 +63,16 @@ def _gain(est: torch.Tensor, target: float) -> torch.Tensor:
     return torch.full_like(est, target) / torch.clamp(est, min=1e-6)
 
 
+def agc_frame(rms_est: torch.Tensor, frame: CF32, target: float, mu: float):
+    """Scale one ``(..., nsym)`` frame by the estimate updated with its own
+    power (the per-frame form of ``agc_stream``).  Returns (new_rms_est,
+    scaled frame)."""
+    rms = torch.sqrt(_frame_power(frame.re, frame.im) + 1e-12)
+    est = _est_update(rms_est, rms, mu)
+    gx = _gain(est, target)[..., None]
+    return est, CF32(frame.re * gx, frame.im * gx)
+
+
 def agc_gains(rms_est: torch.Tensor, power: torch.Tensor, target: float,
               mu: float):
     """The gain recursion over per-frame powers ``(..., nframes)``.

@@ -11,7 +11,8 @@ Semantics of the reference's GNU Radio loop (costas_loop.c):
 * wrap the phase to +-TAU by two conditional subtractions each way;
 * clamp ``freq`` to [min_freq, max_freq].
 
-The gear shift (``CostasGear``) runs the loop at the acquisition gains until
+``CostasLoop`` is the reference's object-style API over one loop.  The
+gear shift (``CostasGear``) runs the loop at the acquisition gains until
 a lock detector, a leaky average ``lev`` of the normalized error
 ``|err| / ((|Re| + |Im|) + 1e-9)``, falls below ``enter``, then at the
 tracking gains until ``lev`` rises past ``exit``.
@@ -113,6 +114,15 @@ def costas_init(batch_shape=(), phase=0.0, freq=0.0, gear: bool = False,
                        locked=full(0.0) if gear else None)
 
 
+def costas_init_from_freq(freq0: torch.Tensor, gear: bool) -> CostasState:
+    """A warm-started state at per-channel ``freq0`` with zero phase, every
+    plane derived from ``freq0``; with ``gear`` the lock detector starts
+    unlocked (lev 1, locked 0)."""
+    return CostasState(phase=freq0 * 0.0, freq=freq0,
+                       lev=freq0 * 0.0 + 1.0 if gear else None,
+                       locked=freq0 * 0.0 if gear else None)
+
+
 def phase_detector(z: CF32) -> torch.Tensor:
     """QPSK decision-directed error (costas_loop.c:44-47)."""
     sr = torch.where(z.re > 0.0, 1.0, -1.0)
@@ -178,6 +188,20 @@ def costas_run_gear_traced(state: CostasState, symbols: CF32,
                 symbols)
 
 
+def costas_run(state: CostasState, symbols: CF32, params: CostasParams,
+               detector=phase_detector):
+    """Track ``(..., T)`` symbols.  Returns (new_state, derotated)."""
+    new_state, derot, _ = costas_run_traced(state, symbols, params, detector)
+    return new_state, derot
+
+
+def costas_run_gear(state: CostasState, symbols: CF32, params: CostasParams,
+                    gear: CostasGear):
+    """Gear-shift twin of ``costas_run``."""
+    new_state, derot, _ = costas_run_gear_traced(state, symbols, params, gear)
+    return new_state, derot
+
+
 def _run(step, state: CostasState, symbols: CF32):
     outs_r, outs_i, freqs = [], [], []
     for t in range(symbols.shape[-1]):
@@ -192,3 +216,101 @@ def _run(step, state: CostasState, symbols: CF32):
 def freq_to_hz(freq_rad_per_symbol: torch.Tensor, rs: float) -> torch.Tensor:
     """Detected offset in Hz at the symbol rate."""
     return freq_rad_per_symbol * float(np.float32(rs / TAU))
+
+
+class CostasLoop:
+    """The reference's object-style control-loop API (costas_loop.h:16-43:
+    eight setters and eight getters) over one (params, state) pair, for
+    code ported from the C modem.  Changing the bandwidth or damping
+    re-derives both gains (costas_loop.c:49-54) and drops explicit
+    ``set_alpha`` / ``set_beta`` overrides."""
+
+    def __init__(self, loop_bw: float, min_freq: float = -1.0,
+                 max_freq: float = 1.0,
+                 damping: float = math.sqrt(2.0) / 2.0, batch_shape=(),
+                 device="cuda"):
+        self._bw = float(loop_bw)
+        self._damping = float(damping)
+        self._min = float(min_freq)
+        self._max = float(max_freq)
+        self._alpha = None
+        self._beta = None
+        self.state = costas_init(batch_shape, device=device)
+
+    def _params(self) -> CostasParams:
+        p = costas_params(self._bw, self._damping, self._min, self._max)
+        if self._alpha is not None:
+            p = p._replace(alpha=_f32(self._alpha))
+        if self._beta is not None:
+            p = p._replace(beta=_f32(self._beta))
+        return p
+
+    def set_loop_bandwidth(self, bw: float):
+        self._bw = float(bw)
+        self._alpha = self._beta = None
+
+    def set_damping_factor(self, d: float):
+        self._damping = float(d)
+        self._alpha = self._beta = None
+
+    def set_alpha(self, a: float):
+        self._alpha = float(a)
+
+    def set_beta(self, b: float):
+        self._beta = float(b)
+
+    def set_frequency(self, f):
+        p = self._params()
+        freq = torch.full_like(self.state.freq, _f32(f))
+        self.state = self.state._replace(
+            freq=torch.clamp(freq, p.min_freq, p.max_freq))
+
+    def set_phase(self, ph):
+        self.state = self.state._replace(
+            phase=_wrap_phase(torch.full_like(self.state.phase, _f32(ph))))
+
+    def set_max_freq(self, f: float):
+        self._max = float(f)
+
+    def set_min_freq(self, f: float):
+        self._min = float(f)
+
+    def get_loop_bandwidth(self) -> float:
+        return self._bw
+
+    def get_damping_factor(self) -> float:
+        return self._damping
+
+    def get_alpha(self) -> float:
+        return self._params().alpha
+
+    def get_beta(self) -> float:
+        return self._params().beta
+
+    def get_frequency(self) -> torch.Tensor:
+        return self.state.freq
+
+    def get_phase(self) -> torch.Tensor:
+        return self.state.phase
+
+    def get_max_freq(self) -> float:
+        return self._max
+
+    def get_min_freq(self) -> float:
+        return self._min
+
+    def __call__(self, symbols: CF32) -> CF32:
+        """Track a block of ``batch_shape + (T,)`` symbols, advancing the
+        owned state: through ``costas_run_cm``, so a CUDA tensor runs the
+        Costas kernel and a CPU tensor its plain version."""
+        from qpsk_tpu_torch.ops.cuda.costas_kernel import costas_run_cm
+        shape, t = self.state.phase.shape, symbols.re.shape[-1]
+        state = CostasState(self.state.phase.reshape(-1).contiguous(),
+                            self.state.freq.reshape(-1).contiguous())
+        state, out, _, _ = costas_run_cm(
+            state, CF32(symbols.re.reshape(-1, t), symbols.im.reshape(-1, t)),
+            self._params(), t)
+        self.state = CostasState(state.phase.reshape(shape),
+                                 state.freq.reshape(shape))
+        return CF32(out.re.reshape(symbols.re.shape),
+                    out.im.reshape(symbols.im.shape))

@@ -3,14 +3,22 @@
 Constellation {1, +j, -j, -1} indexed by ``(bits[2i] << 1) | bits[2i+1]``;
 the diagonal slicer ``b1 = Im < 0, b0 = Re < 0`` inverts it under the
 Costas loop's diagonal lock (the 4-fold ambiguity is resolved by
-``qpsk_tpu_torch.sync``).
+``qpsk_tpu_torch.sync``); ``demod_bits_reference`` is the C reference's
+rotate-45 slicer.
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
-from qpsk_tpu_torch.ops.cplx import CF32
+from qpsk_tpu_torch.ops.cplx import CF32, cmul
+
+# e^{j pi/4} as float32 values (the reference's ROTATE45)
+ROT45_RE = float(np.float32(math.cos(math.pi / 4.0)))
+ROT45_IM = float(np.float32(math.sin(math.pi / 4.0)))
 
 
 def bits_to_symbols(bits: torch.Tensor) -> CF32:
@@ -36,6 +44,17 @@ def demod_soft(symbols: CF32, scale: float = 1.0) -> torch.Tensor:
     scale*re``.  Max-sum decoding is invariant to positive scaling."""
     llr = torch.stack([symbols.im, symbols.re], dim=-1) * scale
     return llr.reshape(symbols.shape[:-1] + (-1,))
+
+
+def demod_bits_reference(symbols: CF32) -> torch.Tensor:
+    """The C reference's slicer, defect included (qpsk.c:74-79): rotate by
+    +45 degrees, then ``b0 = Re < 0``, ``b1 = Im < 0``, stream order
+    [b1, b0].  Under the diagonal lock this puts the symbols on the axes,
+    where one of the two sign tests is decided by noise; it is kept for
+    parity with the C modem (``config_parity()``)."""
+    rot = cmul(symbols, CF32(ROT45_RE, ROT45_IM))
+    bits = torch.stack([rot.im < 0.0, rot.re < 0.0], dim=-1)
+    return bits.to(torch.int32).reshape(symbols.shape[:-1] + (-1,))
 
 
 def upsample_zero_stuff(symbols: CF32, cycles: int) -> CF32:

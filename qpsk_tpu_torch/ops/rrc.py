@@ -5,12 +5,16 @@ reference's rrc_fir.c:32-76, quirks included: GAIN baked into the taps on
 top of a second per-output GAIN multiply).  ``fir_block`` and
 ``fir_block_modulated`` are the plain PyTorch block FIRs: one banded
 Toeplitz matmul per tile, split at the tail/block seam so the block operand
-is a free reshape of the input.  They run in full float32 (no TF32, no
-bf16), the precision of the JAX package's CPU lowering.
+is a free reshape of the input.  They run in float32, the precision of the
+JAX package's CPU lowering; ``fir_block(exact=True)`` (``fir_precision=
+"exact"``) takes one full-float32 product over each tile's window, with
+TF32 off on the card.  ``fir_reference_order`` is the C loop's order, a
+sample at a time.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -101,21 +105,45 @@ def fir_init_tail(ntaps: int, batch_shape=(), device=None) -> CF32:
                 torch.zeros(shape, dtype=torch.float32, device=device))
 
 
+@contextlib.contextmanager
+def _full_f32():
+    """Float32 matmuls at full precision (no TF32) on the card while the
+    block runs; the setting is restored after."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def _windowed_matmul(x: torch.Tensor, tail: torch.Tensor, tmat: torch.Tensor,
+                     block: int) -> torch.Tensor:
+    """y = window @ tmat per tile, one product over the [tail | x] window
+    of ``block + ntaps - 1`` samples (the JAX package's HIGHEST-precision
+    branch, one accumulation a tile)."""
+    n = x.shape[-1]
+    ext = torch.cat([tail, x], dim=-1)
+    win = ext.unfold(-1, block + tail.shape[-1], block)    # (..., nb, width)
+    return (win @ tmat).reshape(x.shape[:-1] + (n,))
+
+
 def _split_matmul(x: torch.Tensor, tail: torch.Tensor, tmat: torch.Tensor,
-                  block: int) -> torch.Tensor:
+                  block: int, exact: bool = False) -> torch.Tensor:
     """y = window @ tmat per tile, as tail_part @ T[:ntaps-1] +
     block_part @ T[ntaps-1:] (the JAX DEFAULT-precision branch); a tile
-    shorter than the tail (a call of fewer samples than ntaps-1) takes the
-    JAX package's windowed branch, one product over [tail | x] windows."""
+    shorter than the tail (a call of fewer samples than ntaps-1), or
+    ``exact``, takes the windowed branch."""
     n = x.shape[-1]
     ntaps_m1 = tail.shape[-1]
     if n % block:
         raise ValueError(f"block FIR needs n % block == 0, got n={n}, "
                          f"block={block}")
+    if exact:
+        with _full_f32():
+            return _windowed_matmul(x, tail, tmat, block)
     if block < ntaps_m1:
-        ext = torch.cat([tail, x], dim=-1)
-        win = ext.unfold(-1, block + ntaps_m1, block)    # (..., nb, width)
-        return (win @ tmat).reshape(x.shape[:-1] + (n,))
+        return _windowed_matmul(x, tail, tmat, block)
     nb = n // block
     blocks = x.reshape(x.shape[:-1] + (nb, block))
     prev = torch.cat([tail.unsqueeze(-2),
@@ -125,14 +153,14 @@ def _split_matmul(x: torch.Tensor, tail: torch.Tensor, tmat: torch.Tensor,
 
 
 def fir_block(x: CF32, tail: CF32, tmat: torch.Tensor, gain: float,
-              block: int):
+              block: int, exact: bool = False):
     """Streaming RRC FIR over ``(..., n)`` CF32 samples with the carried
     ``(..., ntaps-1)`` tail; ``gain`` is the per-output GAIN multiply.
-    Returns (y, new_tail)."""
+    ``exact`` (``fir_precision="exact"``) sums each output tile in one
+    full-float32 product over its window.  Returns (y, new_tail)."""
     n = x.shape[-1]
-    ntaps_m1 = tail.shape[-1]
-    y = CF32(_split_matmul(x.re, tail.re, tmat, block) * gain,
-             _split_matmul(x.im, tail.im, tmat, block) * gain)
+    y = CF32(_split_matmul(x.re, tail.re, tmat, block, exact) * gain,
+             _split_matmul(x.im, tail.im, tmat, block, exact) * gain)
     return y, CF32(*(torch.cat([t, p], dim=-1)[..., n:].contiguous()
                      for t, p in zip(tail, x)))
 
@@ -146,3 +174,22 @@ def fir_block_modulated(x: torch.Tensor, tail: torch.Tensor,
     u = CF32(_split_matmul(x, tail, tmat_re, block) * gain,
              _split_matmul(x, tail, tmat_im, block) * gain)
     return u, torch.cat([tail, x], dim=-1)[..., n:]
+
+
+def fir_reference_order(x: CF32, tail: CF32, taps, gain: float) -> CF32:
+    """The FIR with the C MAC loop's ascending tap order (rrc_fir.c:24-26),
+    a sample at a time over a 1-D stream ``x`` (n,) and its ``tail``
+    (ntaps-1,): slow, for parity checks of ``fir_block``.  Each output is
+    ``sum(mem * taps) * gain`` over the delay line ``mem``, whose oldest
+    slot (shifted out before it is read) starts at zero."""
+    taps = torch.as_tensor(np.asarray(taps, np.float32), device=x.re.device)
+    mem_re = torch.cat([torch.zeros(1, device=x.re.device), tail.re])
+    mem_im = torch.cat([torch.zeros(1, device=x.re.device), tail.im])
+    yr = torch.empty_like(x.re)
+    yi = torch.empty_like(x.im)
+    for j in range(x.re.shape[-1]):
+        mem_re = torch.cat([mem_re[1:], x.re[j:j + 1]])
+        mem_im = torch.cat([mem_im[1:], x.im[j:j + 1]])
+        yr[j] = torch.sum(mem_re * taps) * gain
+        yi[j] = torch.sum(mem_im * taps) * gain
+    return CF32(yr, yi)

@@ -163,7 +163,7 @@ class StreamModulator:
 
     def save(self, path) -> None:
         """Checkpoint the transmitter: the carried TX state (filter tail,
-        NCO phasor) and the pending sub-symbol bits.  Resume with ``load``
+        NCO phasor, DQPSK phase index) and the pending sub-symbol bits.  Resume with ``load``
         on a StreamModulator built with the same cfg / pcfg / offset."""
         arrays = {"pend": self._pend}
         for i, leaf in enumerate(flatten(self._state)):
@@ -229,9 +229,10 @@ class StreamDemodulator:
 
         self._pcm_buf = np.zeros(0, np.int16)
         self._bit_buf = np.zeros((self._nrot, 0), np.int32)
-        # with FEC a parallel LLR buffer feeds the soft hunt and drain
-        # (differential, whose bits have no per-bit LLRs, is not ported)
-        self._use_soft = bool(pcfg.fec)
+        # with FEC a parallel LLR buffer feeds the soft hunt and drain;
+        # DQPSK's bits have no per-bit LLRs, so it decodes hard input
+        # (unit LLRs, about 2 dB behind the soft decoder)
+        self._use_soft = bool(pcfg.fec) and not cfg.differential
         self._llr_buf = np.zeros((self._nrot, 0), np.float32)
         self._state = None
         self._sync: SyncResult | None = None

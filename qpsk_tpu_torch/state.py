@@ -20,14 +20,17 @@ from qpsk_tpu_torch.config import ModemConfig
 from qpsk_tpu_torch.ops.agc import agc_init
 from qpsk_tpu_torch.ops.costas import CostasState, costas_init
 from qpsk_tpu_torch.ops.cplx import CF32, czeros
+from qpsk_tpu_torch.ops.differential import diff_rx_init, diff_tx_init
 from qpsk_tpu_torch.ops.equalizer import eq_init
 from qpsk_tpu_torch.ops.nco import nco_init
 from qpsk_tpu_torch.ops.rrc import fir_init_tail
+from qpsk_tpu_torch.ops.timing import timing_track_init
 
 
 class TxState(NamedTuple):
     fir_tail: CF32    # (..., ntaps-1) zero-stuffed TX delay line
     nco_phase: CF32   # (...,) unit phasor
+    diff_phase: Any = None  # (...,) int32 DQPSK phase index (differential)
 
 
 class RxState(NamedTuple):
@@ -35,13 +38,18 @@ class RxState(NamedTuple):
     nco_phase: CF32        # (...,) unit phasor
     costas: CostasState    # (...,) phase/freq[/lev/locked]
     decim_delay: CF32      # (..., nsym) previous frame's picks
+    diff_prev: Any = None  # (...,) CF32 previous DQPSK symbol (differential)
+    timing: Any = None     # (tau, dtau) timing PLL (timing_mode="tracking")
     eq: Any = None         # (w, hist) CMA equalizer taps (cfg.eq_taps > 0)
     agc: Any = None        # (...,) smoothed symbol RMS (cfg.agc)
 
 
 def tx_init(cfg: ModemConfig, batch_shape=(), device="cuda") -> TxState:
+    batch_shape = tuple(batch_shape)
     return TxState(fir_tail=fir_init_tail(cfg.ntaps, batch_shape, device),
-                   nco_phase=nco_init(batch_shape, device))
+                   nco_phase=nco_init(batch_shape, device),
+                   diff_phase=(diff_tx_init(batch_shape, device)
+                               if cfg.differential else None))
 
 
 def rx_init(cfg: ModemConfig, batch_shape=(), acq_freq=0.0,
@@ -53,6 +61,10 @@ def rx_init(cfg: ModemConfig, batch_shape=(), acq_freq=0.0,
         costas=costas_init(batch_shape, freq=acq_freq,
                            gear=cfg.loop_bw_track > 0, device=device),
         decim_delay=czeros(batch_shape + (cfg.symbols_per_frame,), device),
+        diff_prev=(diff_rx_init(batch_shape, device) if cfg.differential
+                   else None),
+        timing=(timing_track_init(batch_shape, device)
+                if cfg.timing_mode == "tracking" else None),
         eq=(eq_init(cfg.eq_taps, batch_shape, device) if cfg.eq_taps > 0
             else None),
         agc=agc_init(batch_shape, device) if cfg.agc else None)
@@ -62,33 +74,26 @@ _TUPLES = {cls.__name__: cls for cls in (TxState, RxState, CostasState, CF32)}
 
 
 def _leaf(v, device):
-    """A numpy leaf, a plain tuple of them (the equalizer's ``(w, hist)``)
-    or None -> the same on ``device``."""
+    """A numpy leaf, a plain tuple of them (the equalizer's ``(w, hist)``,
+    the timing PLL's ``(tau, dtau)``) or None -> the same on ``device``;
+    an integer leaf (DQPSK's phase index) stays int32, every other one is
+    float32."""
     if v is None:
         return None
     if hasattr(v, "_fields"):
         return from_numpy(v, device)
     if isinstance(v, tuple):
         return tuple(_leaf(x, device) for x in v)
-    return torch.from_numpy(np.array(v, np.float32)).to(device)
+    a = np.asarray(v)
+    dtype = np.int32 if a.dtype.kind in "iu" else np.float32
+    return torch.from_numpy(np.array(a, dtype)).to(device)
 
 
 def from_numpy(tree, device="cuda"):
     """A JAX ``RxState`` / ``TxState`` whose leaves are numpy arrays
-    (``jax.tree.map(np.asarray, st)``) -> the port's state on ``device``.
-
-    Fields are matched by name.  A field the port does not carry (the
-    differential or tracking-timing state) must be None, or the state
-    belongs to a configuration off the port's slice and
-    ``NotImplementedError`` is raised.
-    """
+    (``jax.tree.map(np.asarray, st)``) -> the port's state on ``device``,
+    fields matched by name."""
     cls = _TUPLES[type(tree).__name__]
-    extra = [f for f in tree._fields
-             if f not in cls._fields and getattr(tree, f) is not None]
-    if extra:
-        raise NotImplementedError(
-            f"{type(tree).__name__} fields {extra} belong to modes the "
-            "port does not implement")
     return cls(*[_leaf(getattr(tree, f, None), device) for f in cls._fields])
 
 
@@ -96,7 +101,8 @@ def flatten(tree) -> list:
     """The tensors of a state tuple in the JAX package's leaf order
     (``jax.tree.leaves`` of the same state): fields in order, None fields
     vanishing, CF32 as (re, im), ``CostasState`` as (phase, freq, lev,
-    locked), the equalizer's ``(w, hist)`` as w's then hist's."""
+    locked), the timing PLL's ``(tau, dtau)`` as tau then dtau, the
+    equalizer's ``(w, hist)`` as w's then hist's."""
     if tree is None:
         return []
     if isinstance(tree, tuple):

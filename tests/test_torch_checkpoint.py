@@ -72,6 +72,49 @@ def test_state_checkpoint_cross_loads(tmp_path, fields):
     assert tx.nco_phase.re.shape == (3,) and float(tx.nco_phase.re[0]) == 1.0
 
 
+@pytest.mark.parametrize("fields", [{"differential": True},
+                                    {"timing_mode": "tracking"}],
+                         ids=["dqpsk", "tracking"])
+def test_dqpsk_and_tracking_checkpoints_cross_load(tmp_path, fields):
+    """A DQPSK or tracking state, RX after 4 frames and TX after 2, saved
+    by either package loads into the other leaf for leaf, DQPSK's TX
+    phase index as int32 (``TxState.diff_phase``), the RX carries
+    (``diff_prev``, the timing PLL's ``(tau, dtau)``) as float32."""
+    cfg, jc = ModemConfig(**fields), JCfg(**fields)
+    jst = _jax_state(fields)
+    bits = np.random.default_rng(6).integers(0, 2, (2, 2, 256),
+                                             dtype=np.int32)
+    from qpsk_tpu.modem import tx_stream as j_tx_stream
+    jtx, _ = j_tx_stream(jc, j_tx_init(jc, batch_shape=(2,)), bits)
+    for st, like, jlike in ((jst, rx_init(cfg, (2,), device="cpu"),
+                             j_rx_init(jc, batch_shape=(2,))),
+                            (jtx, tx_init(cfg, (2,), device="cpu"),
+                             j_tx_init(jc, batch_shape=(2,)))):
+        jleaves = [np.asarray(x) for x in jax.tree.leaves(st)]
+        path = str(tmp_path / "jax.state")
+        jck.save_state(path, st)
+        got = tck.load_state(path, like)
+        tleaves = flatten(got)
+        assert len(tleaves) == len(jleaves) == len(flatten(like))
+        for a, b in zip(tleaves, jleaves):
+            assert a.dtype == (torch.int32 if b.dtype == np.int32
+                               else torch.float32)
+            np.testing.assert_array_equal(a.numpy(), b)
+        path = str(tmp_path / "torch.state")
+        tck.save_state(path, got)
+        back = jck.load_state(path, jlike)
+        for a, b in zip(jax.tree.leaves(back), jleaves, strict=True):
+            assert np.asarray(a).dtype == b.dtype
+            np.testing.assert_array_equal(np.asarray(a), b)
+    if fields.get("differential"):
+        dp = tck.load_state(str(tmp_path / "jax.state"),
+                            tx_init(cfg, (2,), device="cpu")).diff_phase
+        assert dp.dtype == torch.int32
+        np.testing.assert_array_equal(dp.numpy(), np.asarray(jtx.diff_phase))
+        assert from_numpy(jax.tree.map(np.asarray, jtx),
+                          "cpu").diff_phase.dtype == torch.int32
+
+
 def test_load_state_checks_the_structure(tmp_path):
     path = str(tmp_path / "s.npz")
     tck.save_state(path, rx_init(ModemConfig(), (2,), device="cpu"))

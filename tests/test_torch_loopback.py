@@ -6,8 +6,8 @@
 (b) a torch-only loopback: packets -> ``tx_stream`` at +50 Hz -> ``awgn_pcm``
     at 10 dB -> ``rx_stream`` -> ``find_sync`` -> ``extract_packets``;
 (c) the package imports no jax and nothing of the JAX package;
-(d) every configuration off the port raises ``NotImplementedError``, and
-    the loop and channel options that were once off it run and match JAX;
+(d) the modes and options that were once off the port run and match JAX
+    on the same PCM, and inputs of the wrong shape raise;
 (e) the geometries the kernels were widened to (2, 3 and 16 samples per
     symbol, 63 taps, 256- to 4096-sample frames, the AGC power output at
     384 symbols a frame) run their plain versions on CPU tensors and match
@@ -132,20 +132,39 @@ _OFF_SLICE = [{"differential": True},
 @pytest.mark.parametrize("kwargs", _OFF_SLICE,
                          ids=[",".join(f"{k}={v}" for k, v in d.items())
                               for d in _OFF_SLICE])
-def test_off_slice_config_raises(kwargs):
-    cfg = dataclasses.replace(CFG, **kwargs)
-    field = next(iter(kwargs))
-    with pytest.raises(NotImplementedError, match=field):
-        tx_stream(cfg, tx_init(CFG, (1,), device="cpu"), torch.zeros((1, 1, 256), dtype=torch.int32))
-    with pytest.raises(NotImplementedError):
-        rx_stream(cfg, rx_init(CFG, (1,), device="cpu"), torch.zeros((1, 1, 512), dtype=torch.int16))
+def test_former_off_slice_config_matches_jax(kwargs):
+    """Each mode the port once refused runs: ``tx_stream`` within 2 LSB of
+    JAX on the same bits, then ``rx_stream`` on the same PCM (numpy AWGN
+    at 10 dB) with equal timing decisions and bits, derotated symbols
+    within 1e-4 and the loop frequency within 0.05 Hz."""
+    cfg, jc = dataclasses.replace(CFG, **kwargs), JCfg(**kwargs)
+    rng = np.random.default_rng(17)
+    nframes = 3 if cfg.nco_mode == "exact" else 6
+    bits = rng.integers(0, 2, (C, nframes, 256), dtype=np.int32)
+    _, jpcm = j_tx_stream(jc, j_tx_init(jc, batch_shape=(C,)), bits,
+                          tx_offset_hz=50.0)
+    _, tpcm = tx_stream(cfg, tx_init(cfg, (C,), device="cpu"),
+                        torch.from_numpy(bits), tx_offset_hz=50.0)
+    x = np.asarray(jpcm).astype(np.int32)
+    assert np.abs(tpcm.numpy().astype(np.int32) - x).max() <= 2
+    pcm = np.clip(np.round(x + rng.normal(size=x.shape)
+                           * np.sqrt((x.astype(np.float64) ** 2).mean()
+                                     / 10.0)),
+                  -32768, 32767).astype(np.int16)
+    _, jout = j_rx_stream(jc, j_rx_init(jc, batch_shape=(C,)), pcm)
+    _, out = rx_stream(cfg, rx_init(cfg, (C,), device="cpu"),
+                       torch.from_numpy(pcm))
+    np.testing.assert_array_equal(out.timing_index.numpy(),
+                                  np.asarray(jout.timing_index))
+    np.testing.assert_array_equal(out.bits.numpy(), np.asarray(jout.bits))
+    np.testing.assert_allclose(out.symbols.re.numpy(),
+                               np.asarray(jout.symbols.re), atol=1e-4)
+    np.testing.assert_allclose(out.freq_hz.numpy(), np.asarray(jout.freq_hz),
+                               atol=0.05)
 
 
 def test_off_slice_inputs_raise():
-    with pytest.raises(NotImplementedError, match="doppler"):
-        tx_stream(CFG, tx_init(CFG, device="cpu"), torch.zeros((1, 256), dtype=torch.int32),
-                  doppler_hz_per_s=5.0)
-    for shape in ((512,), (2, 1, 1, 512), (1, 2, 500)):
+    for shape in ((512,), (1, 2, 500)):
         with pytest.raises(NotImplementedError):
             rx_stream(CFG, rx_init(CFG, device="cpu"), torch.zeros(shape, dtype=torch.int16))
     assert PacketConfig(fec="ldpc").fec_kind == "ldpc"
@@ -284,17 +303,16 @@ def _gate_cases():
 @pytest.mark.parametrize("case", _gate_cases(), ids=lambda c: c[0])
 def test_kernel_gate_names_the_geometry(case):
     """The check a wrapper makes before it launches on a CUDA tensor
-    (``_lib.check_geometry`` of the kernel's ``coverage``) passes the four
-    geometries the kernels were widened to, and ``check_slice`` (asked on
-    every call) lets them through, and a K=5 convolutional code; past a
+    (``_lib.check_geometry`` of the kernel's ``coverage``) passes the
+    geometries the kernels were widened to (each a valid config) and a K=5
+    convolutional code; past a
     kernel's coverage (131 taps, beyond the TPU front-end's gate; an LDPC
     code of more checks or a higher variable degree than the kernels
     take; a K=16 convolutional code) it raises ``NotImplementedError``
     naming the field."""
-    from qpsk_tpu_torch.modem import check_slice
     from qpsk_tpu_torch.ops.cuda import _lib
     _, fields, gates, field = case
-    check_slice(dataclasses.replace(CFG, **(fields or {})))
+    dataclasses.replace(CFG, **(fields or {}))
     if field is None:
         for off in gates():
             _lib.check_geometry(off)

@@ -1,6 +1,7 @@
 """The port's streaming runtime against the JAX package's on coded links
 (``tests/test_runtime.py``'s FEC at low SNR for the convolutional code and
-LDPC, ``tests/test_modfam_stream.py``'s 8PSK with soft FEC): the same
+LDPC, ``tests/test_modfam_stream.py``'s 8PSK with soft FEC, DQPSK with hard
+FEC): the same
 numpy-seeded PCM in the same chunk sizes through both receivers on CPU
 tensors must give the same packets, equal integer counters,
 ``detected_offset_hz`` within 0.05 Hz and ``carrier_snr_db`` within
@@ -38,3 +39,16 @@ def test_8psk_soft_fec_matches_jax():
     jd, jp, td, tp = run_both(fields, dict(payload_bytes=30, fec="conv"), pcm)
     assert_same(jd, jp, td, tp)
     assert ok_count(tp) >= 6
+
+
+def test_dqpsk_conv_hard_input_matches_jax():
+    """DQPSK + ``fec="conv"`` at 8 dB: both receivers decode hard input
+    (DQPSK's bits have no per-bit LLRs, ``runtime.py``'s ``_use_soft``),
+    the port's keeps no LLR buffer, and the two give the same packets."""
+    fields, pf = {"differential": True}, {"payload_bytes": 30, "fec": "conv"}
+    _, pcm = make_pcm(fields, 14, seed=8, snr=8.0, fec="conv")
+    jd, jp, td, tp = run_both(fields, pf, pcm)
+    assert not jd._use_soft and not td._use_soft
+    assert td._llr_buf.shape[1] == 0
+    assert_same(jd, jp, td, tp)
+    assert ok_count(tp) >= 0.8 * len(tp) > 0

@@ -168,7 +168,18 @@ def test_state_round_trip_from_jax():
                         np.asarray, qpsk_tpu.rx_init(opts, batch_shape=(c,)))),
                     strict=True):
         np.testing.assert_array_equal(a, b)
+    # the DQPSK and tracking states after a call round-trip too, DQPSK's
+    # TX phase index as int32
+    for fields in ({"differential": True}, {"timing_mode": "tracking"}):
+        jcfg = jconfig.ModemConfig(**fields)
+        jst, _ = j_rx_stream(jcfg, qpsk_tpu.rx_init(jcfg, batch_shape=(c,)),
+                             pcm)
+        st = _round_trip(jst)
+        assert (st.diff_prev is None) != (st.timing is None)
     diff = jconfig.ModemConfig(differential=True)
-    with pytest.raises(NotImplementedError):
-        tstate.from_numpy(jax.tree.map(np.asarray, qpsk_tpu.rx_init(diff)),
-                          device="cpu")
+    jtx, _ = qpsk_tpu.tx_stream(diff, qpsk_tpu.tx_init(diff, (c,)),
+                                np.ones((c, 2, 256), np.int32))
+    tx = tstate.from_numpy(jax.tree.map(np.asarray, jtx), device="cpu")
+    assert tx.diff_phase.dtype == torch.int32
+    np.testing.assert_array_equal(tstate.to_numpy(tx).diff_phase,
+                                  np.asarray(jtx.diff_phase))

@@ -173,6 +173,35 @@ Phases, each of which exits non-zero on failure:
    (f) ``frontend_impl="pallas"`` with tracking raises ``ValueError``
    before any launch.  Phase 9's launches join the ``kernels`` line's
    front-end, Costas, TX and Viterbi rows.
+10. The IO edge and the command line (``--cli`` runs phase 10 alone).
+   (a) The FDM bank at 2048 slots x 32 frames (mux of 1023 channels, demux
+   of the noisy wideband) and the resampler on 10 minutes of one stream
+   (9600 -> 48 000, 44 100 -> 9600), on the card against the same calls
+   on CPU tensors and chained calls (4 chunks; 1 s calls) against one
+   call: int16 within 1 LSB, the largest difference and the share of
+   samples that differ printed.  (b) The Quickstart's command lines
+   through ``cli.main`` on the card, every launch counter reset before
+   each: ``loopback`` at its defaults at 10 dB, with ``--fec conv`` at 6
+   dB x 40 frames and ``--fec ldpc`` at 5 dB; ``tx --io-rate 48000`` to a
+   WAV then ``rx`` of it; ``tx --stream-in`` of 48 hex lines then ``rx -
+   --stream --state-file`` on the spool cut in two and resumed; ``sweep``
+   at its defaults; ``fdm --nslots 2048 --frames 32 --snr-db 18``.  Each
+   runs kernels only (``no_plain``) and must launch TX, the front-end and
+   Costas (Viterbi, LDPC on the coded ones), then again with every plain
+   version (the ``*_impl`` switches and the decoders' ``impl``) on the
+   same seeds, launching nothing: equal return codes, JSON decisions and
+   hex payload lines (a decision may differ only where the receive bits
+   parted at a tie, ``parted_at_a_tie``), the TX files within 4 LSB, PER 0
+   where the JAX CLI's tests hold it, all 1023 ``fdm`` channels synced
+   with PER 0 and 64 of them bit-exact against the payloads sent.
+   ``FdmReceiver`` at 16 slots, a 24-packet stream in seeded chunks,
+   kernel side against plain side: the same packets.  (c) By CUDA events
+   at 2048 slots x 8 frames: the FDM receive's wideband samples/s
+   (demux + ``rx_stream`` over 1023 channels), the filterbank alone and
+   the modem alone, the filterbank's share; the resampler's input
+   samples/s in one call and in chained 1 s calls; each command's wall
+   seconds on both sides.  Phase 10's launches join the ``kernels``
+   line's front-end, Costas, TX, Viterbi and LDPC rows.
 
 The Costas kernel is also held at a chain of 1000 symbols, not a multiple
 of 16, in every mode (phases 2, 6a and 7a).  Beside each Costas, front-end
@@ -375,6 +404,15 @@ MODE_CODED, MODE_CODED_SNR_DB = (1024, 48), 8.0
 # point (channels, frames: the frame scan runs the exact NCO a sample at a
 # time)
 MODE_CHIRP, PARITY_RATE = (256, 16, 25.0), (8192, 4)
+# phase 10: the FDM bank at its operating point (benchmarks.fdm_throughput:
+# 2048 slots, 1023 subchannels, 19.66 MS/s wideband), frames of its
+# card-against-CPU check and loopback, and of its rate; the resampler's
+# stream, 10 minutes at each (input, output) rate; FdmReceiver's run
+# (slots, frames); the payload lines of the streamed CLI pair; the CLI's
+# channels whose payloads are held bit-exact
+FDM_SLOTS, FDM_FRAMES, FDM_RATE_FRAMES = 2048, 32, 8
+RESAMPLE_SECONDS, RESAMPLE_RATES = 600, ((9600, 48000), (44100, 9600))
+FDM_RX, CLI_STREAM_LINES, CLI_SAMPLED = (16, 24), 48, 64
 # the H100 SXM's published peaks: HBM bytes/s, float32 (non-tensor) FLOP/s
 # and dense float16 tensor-core FLOP/s
 PEAK_BYTES_S, PEAK_FLOP_S, PEAK_F16_S = 3.35e12, 67e12, 989e12
@@ -825,7 +863,8 @@ def check_path(cfg, bits, clean, pcm, out, dev, label: str, errs: dict,
     return plain.symbols, plain.bits, flips
 
 
-def parted_at_a_tie(cfg, sym_k, sym_p, away, label: str) -> list:
+def parted_at_a_tie(cfg, sym_k, sym_p, away, label: str,
+                    most: float | None = None) -> list:
     """The channels whose kernel-path and plain-path loops part at a tie
     of the loop's own decision, as [(channel, symbol of the tie)]: the
     Costas detector slices every symbol, so a symbol within NEAR_TIE of a
@@ -836,7 +875,8 @@ def parted_at_a_tie(cfg, sym_k, sym_p, away, label: str) -> list:
     bound of the kernel comparisons) on every symbol up to and including a
     symbol t that lies within NEAR_TIE of a boundary on one of the two
     paths, and part (by more than NEAR_TIE) after t, before the first such
-    bit; and at most 0.1 % of the channels may part."""
+    bit; and at most 0.1 % of the channels may part (``most`` of them, if
+    given)."""
     import torch
 
     if not bool(away.any()):
@@ -864,7 +904,8 @@ def parted_at_a_tie(cfg, sym_k, sym_p, away, label: str) -> list:
              f"paths agree within 1e-4 ({label})")
         if ok:
             parted.append((ch, t))
-    need(len(parted) <= 0.001 * c, f"{len(parted)} of {c} channels' loops "
+    most = 0.001 * c if most is None else most
+    need(len(parted) <= most, f"{len(parted)} of {c} channels' loops "
          f"parted ({label})")
     return parted
 
@@ -3430,6 +3471,533 @@ def modes_phase(pcfg, dev, errs: dict, counts: dict) -> None:
     print(f"phase 9 took {time.perf_counter() - t0:.1f} s ({nvidia_smi_line()})")
 
 
+def int16_close(label: str, got, want, lsb: int = 1) -> int:
+    """Two int16 tensors of one shape within ``lsb``: prints the largest
+    difference and the share of samples that differ; returns the former."""
+    import torch
+    need(tuple(got.shape) == tuple(want.shape),
+         f"{label}: shapes {tuple(got.shape)} and {tuple(want.shape)}")
+    d = (got.cpu().to(torch.int32) - want.cpu().to(torch.int32)).abs()
+    worst = int(d.max()) if d.numel() else 0
+    print(f"  {label}: largest difference {worst} LSB, "
+          f"{float((d != 0).to(torch.float64).mean()):.3g} of {d.numel()} "
+          f"samples differ")
+    need(worst <= lsb, f"{label}: {worst} LSB apart (bound {lsb})")
+    return worst
+
+
+def bank_on_card(dev) -> None:
+    """Phase 10a: the FDM bank at 2048 slots x 32 frames and the resampler
+    on 10 minutes of one stream at 9600 -> 48 000 and 44 100 -> 9600, on
+    the card against the same functions on CPU tensors, and chained calls
+    against one call: the int16 outputs within 1 LSB."""
+    import torch
+    from qpsk_tpu_torch import fdm
+    from qpsk_tpu_torch.ops import resample as rs
+
+    t0 = time.perf_counter()
+    fcfg = fdm.FdmConfig(nslots=FDM_SLOTS)
+    gen = torch.Generator().manual_seed(2050)
+
+    def pcm16(shape, rms):
+        return torch.clamp(torch.round(torch.randn(shape, generator=gen)
+                                       * rms), -32768, 32767).to(torch.int16)
+    n = FDM_FRAMES * 512
+    pcm = pcm16((fcfg.nchan, n), 6000.0)
+    wide = fdm.fdm_mux(fcfg, pcm.to(dev))
+    int16_close(f"fdm_mux of {fcfg.nchan} x {n} samples, card vs CPU", wide,
+                fdm.fdm_mux(fcfg, pcm))
+    st, parts, step = fdm.fdm_init(fcfg, dev), [], n // 4
+    for i in range(4):
+        w, st = fdm.fdm_mux_stream(fcfg, pcm[:, i * step:(i + 1) * step]
+                                   .to(dev), st)
+        parts.append(w)
+    int16_close("fdm_mux in 4 chained calls vs one call, on the card",
+                torch.cat(parts), wide)
+    noisy = torch.clamp(wide.cpu().to(torch.float32) + pcm16(wide.shape, 300.0),
+                        -32768, 32767).to(torch.int16)
+    back = fdm.fdm_demux(fcfg, noisy.to(dev))
+    int16_close(f"fdm_demux of {noisy.numel()} wideband samples, card vs CPU",
+                back, fdm.fdm_demux(fcfg, noisy))
+    st, parts, wstep = fdm.fdm_init(fcfg, dev), [], step * FDM_SLOTS
+    for i in range(4):
+        p, st = fdm.fdm_demux_stream(fcfg, noisy[i * wstep:(i + 1) * wstep]
+                                     .to(dev), st)
+        parts.append(p)
+    int16_close("fdm_demux in 4 chained calls vs one call, on the card",
+                torch.cat(parts, dim=1), back)
+    for fs_in, fs_out in RESAMPLE_RATES:
+        l, m = rs.rational_ratio(fs_in, fs_out)
+        x = pcm16((fs_in * RESAMPLE_SECONDS,), 6000.0)
+        y = rs.resample_pcm(x.to(dev), fs_in, fs_out)
+        int16_close(f"resample_pcm {fs_in} -> {fs_out} of {x.numel()} "
+                    f"samples, card vs CPU", y, rs.resample_pcm(x, fs_in, fs_out))
+        st, parts, xf = rs.resample_init(l, m, device=dev), [], x.to(dev)
+        for i in range(RESAMPLE_SECONDS):
+            yy, st = rs.resample_stream(
+                xf[i * fs_in:(i + 1) * fs_in].to(torch.float32), st, l, m)
+            parts.append(yy)
+        chained = torch.clamp(torch.round(torch.cat(parts)), -32768,
+                              32767).to(torch.int16)
+        int16_close(f"resample_stream {fs_in} -> {fs_out} in "
+                    f"{RESAMPLE_SECONDS} chained 1 s calls vs one call, on "
+                    f"the card", chained, y)
+    print(f"  phase 10a took {time.perf_counter() - t0:.1f} s")
+
+
+@contextlib.contextmanager
+def plain_cli():
+    """Inside, the CLI runs every kernel's plain version: its configs carry
+    ``costas_impl="scan"``, ``frontend_impl="xla"`` and ``tx_impl="xla"``,
+    and the packet layer decodes with ``impl`` "scan" (Viterbi) and "xla"
+    (LDPC)."""
+    from qpsk_tpu_torch import cli
+    from qpsk_tpu_torch.packet import frame
+    saved = (cli._cfg, frame.viterbi_decode, frame.ldpc_decode)
+    cli._cfg = lambda args: dataclasses.replace(
+        saved[0](args), costas_impl="scan", frontend_impl="xla",
+        tx_impl="xla")
+    frame.viterbi_decode = functools.partial(saved[1], impl="scan")
+    frame.ldpc_decode = functools.partial(saved[2], impl="xla")
+    try:
+        yield
+    finally:
+        cli._cfg, frame.viterbi_decode, frame.ldpc_decode = saved
+
+
+@contextlib.contextmanager
+def recorded_cli(rec: dict):
+    """Inside, the CLI's receive outputs (``rx_stream`` of the one-shot
+    commands and of the sweep) go to ``rec["rx"]`` and its tracked
+    extractions to ``rec["packets"]``, in call order."""
+    from qpsk_tpu_torch import cli
+    from qpsk_tpu_torch import eval as ev
+    rec.update(rx=[], packets=[])
+    saved = {(cli, "rx_stream"): cli.rx_stream, (ev, "rx_stream"): ev.rx_stream,
+             (cli, "extract_packets_tracked"): cli.extract_packets_tracked}
+
+    def rx(fn):
+        def call(*args, **kw):
+            st, out = fn(*args, **kw)
+            rec["rx"].append(out)
+            return st, out
+        return call
+
+    def extract(*args, **kw):
+        got = saved[(cli, "extract_packets_tracked")](*args, **kw)
+        rec["packets"].append(got)
+        return got
+    cli.rx_stream, ev.rx_stream = rx(cli.rx_stream), rx(ev.rx_stream)
+    cli.extract_packets_tracked = extract
+    try:
+        yield
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def cli_call(argv: list, stdin: bytes | None = None) -> tuple:
+    """(rc, stdout lines, stderr lines, wall s) of one in-process
+    ``cli.main(argv)`` call, ``stdin`` its standard input."""
+    import io
+
+    import torch
+    from qpsk_tpu_torch import cli
+    # text streams over bytes: the CLI writes raw PCM to ``.buffer``
+    out, err = (io.TextIOWrapper(io.BytesIO()) for _ in range(2))
+    saved = sys.stdin
+    if stdin is not None:
+        sys.stdin = io.TextIOWrapper(io.BytesIO(stdin))
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        sys.stdin = saved
+    seconds = time.perf_counter() - t0
+    text = []
+    for f in (out, err):
+        f.flush()
+        text.append(f.buffer.getvalue().decode().splitlines())
+    return rc, text[0], text[1], seconds
+
+
+# phase 10b: the Quickstart's command lines, each a list of steps: argv
+# ("{d}" the side's scratch directory) and which half of the streamed
+# spool is the step's standard input (None: none); the kernels each must
+# launch
+CLI_COMMANDS = {
+    "loopback": ([(["loopback", "--snr-db", "10"], None)],
+                 ("tx", "frontend", "costas")),
+    "loopback_conv": ([(["loopback", "--fec", "conv", "--snr-db", "6",
+                         "--frames", "40"], None)],
+                      ("tx", "frontend", "costas", "viterbi")),
+    "loopback_ldpc": ([(["loopback", "--fec", "ldpc", "--snr-db", "5"], None)],
+                      ("tx", "frontend", "costas", "ldpc")),
+    "tx_rx_wav": ([(["tx", "--io-rate", "48000", "--out", "{d}/x.wav"], None),
+                   (["rx", "{d}/x.wav"], None)],
+                  ("tx", "frontend", "costas")),
+    "stream": ([(["tx", "--stream-in", "{d}/p.hex", "--out", "{d}/s.raw"],
+                 None),
+                (["rx", "-", "--stream", "--state-file", "{d}/rx.npz"], 0),
+                (["rx", "-", "--stream", "--state-file", "{d}/rx.npz"], 1)],
+               ("tx", "frontend", "costas")),
+    "sweep": ([(["sweep"], None)], ("tx", "frontend", "costas")),
+    "fdm": ([(["fdm", "--nslots", str(FDM_SLOTS), "--frames",
+                str(FDM_FRAMES), "--snr-db", "18"], None)],
+            ("tx", "frontend", "costas")),
+}
+# the JSON keys that are decisions (equal on the kernel and plain sides)
+# and estimates (close), per record kind
+_DECIDED = ("frames", "per", "ber", "sync_score", "packets",
+            "sync_rotation_deg", "samples", "sample_rate", "snr_db", "nslots",
+            "nchan", "wide_fs", "crc_ok", "crc_failures", "resyncs", "synced",
+            "carrier_detect", "chan", "carrier_hz", "offset_hz")
+_CLOSE = {"detected_offset_hz": 0.05, "detected_hz": 0.05, "evm_rms": 1e-3,
+          "est_snr_db": 0.1, "carrier_snr_db": 0.05}
+
+
+def cli_side(name: str, d: str, plain: bool) -> dict:
+    """One side of a phase-10b command: its steps through ``cli.main`` in
+    the scratch directory ``d``, the kernels only (``no_plain``) or every
+    plain version (``plain_cli``), the launch counters reset before.
+    Returns the steps' outputs, the recorded receive outputs and packets,
+    the launches and the wall seconds."""
+    import numpy as np
+    steps, _ = CLI_COMMANDS[name]
+    rng = np.random.default_rng(2052)
+    with open(os.path.join(d, "p.hex"), "w") as fh:
+        fh.write("\n".join(rng.integers(0, 256, 30, dtype=np.uint8).tobytes()
+                           .hex() for _ in range(CLI_STREAM_LINES)) + "\n")
+    mods = kernel_modules()
+    reset_launches()
+    rec, outs, wall = {}, [], 0.0
+    with (plain_cli() if plain else no_plain()), recorded_cli(rec):
+        for argv, half in steps:
+            stdin = None
+            if half is not None:
+                raw = open(os.path.join(d, "s.raw"), "rb").read()
+                cut = 2 * (len(raw) // 4 + 777)
+                stdin = raw[:cut] if half == 0 else raw[cut:]
+            rc, out, err, sec = cli_call([a.format(d=d) for a in argv], stdin)
+            need(rc == 0, f"{name}: {' '.join(argv)} exited {rc}: "
+                 f"{err[-3:]}")
+            outs.append((out, err))
+            wall += sec
+    return dict(outs=outs, rec=rec, wall=wall,
+                launches={k: mods[k].launches for k in mods})
+
+
+def same_records(a: dict, b: dict, label: str, diffs: list) -> None:
+    """Two JSON records of one kind: every decision equal (a difference is
+    appended to ``diffs``), every estimate within its bound."""
+    need(set(a) == set(b), f"{label}: keys {sorted(a)} vs {sorted(b)}")
+    for key, va in a.items():
+        vb = b[key]
+        if key == "channels":
+            for ca, cb in zip(va, vb):
+                same_records(ca, cb, f"{label} channel {ca['chan']}", diffs)
+        elif key in _CLOSE:
+            need(abs(va - vb) <= _CLOSE[key], f"{label}: {key} {va} vs {vb}")
+        elif key in _DECIDED and va != vb:
+            diffs.append(f"{label}: {key} {va} vs {vb}")
+
+
+def ties_explain(cfg, k_rx: list, p_rx: list, label: str) -> bool:
+    """Whether the kernel and plain sides' receive outputs differ in some
+    bits, each within NEAR_TIE of a decision boundary or on a channel
+    whose loops parted at such a tie (``parted_at_a_tie``, at most one
+    channel in a thousand, or one)."""
+    import torch
+    need(len(k_rx) == len(p_rx), f"{label}: {len(k_rx)} vs {len(p_rx)} calls")
+    any_flip = False
+    for i, (ko, po) in enumerate(zip(k_rx, p_rx)):
+        def lead(x):
+            return x if x.dim() == 3 else x[None]
+        ks = type(ko.symbols)(lead(ko.symbols.re), lead(ko.symbols.im))
+        ps = type(po.symbols)(lead(po.symbols.re), lead(po.symbols.im))
+        kb, pb = lead(ko.bits), lead(po.bits)
+        flips = kb != pb
+        if not bool(flips.any()):
+            continue
+        any_flip = True
+        away = flips & ~bit_ties(cfg, ks, kb.shape)
+        parted = parted_at_a_tie(cfg, ks, ps, away, f"{label} call {i}",
+                                 most=max(1.0, 0.001 * kb.shape[0]))
+        print(f"  {label} call {i}: {int(flips.sum())} of {flips.numel()} "
+              f"bits differ between the sides, each at a tie"
+              + (f" or on a channel whose loops parted at one {parted}"
+                 if parted else ""))
+    return any_flip
+
+
+def cli_command(name: str, root: str, counts: dict, walls: dict) -> None:
+    """Phase 10b: one Quickstart command on the card through ``cli.main``,
+    first through the kernels, then through every plain version on the
+    same seeds: the kernels it must launch moved, none on the plain side;
+    equal return codes, JSON decisions and payload lines (a decision may
+    differ only where the receive bits parted at a tie, ``ties_explain``);
+    the TX files within 4 LSB (2 of the TX kernel's bound through the
+    resampler); the CLI's own gates (``per`` 0 where the JAX CLI's tests
+    hold it so)."""
+    import numpy as np
+    from qpsk_tpu_torch import ModemConfig
+
+    _, want = CLI_COMMANDS[name]
+    sides = {}
+    for side in ("kernel", "plain"):
+        d = os.path.join(root, name, side)
+        os.makedirs(d, exist_ok=True)
+        sides[side] = cli_side(name, d, side == "plain")
+    k, p = sides["kernel"], sides["plain"]
+    walls[name] = (k["wall"], p["wall"])
+    moved = {n: k["launches"][n] for n in want}
+    need(all(moved.values()), f"{name}: a kernel never launched: {moved}")
+    need(not any(p["launches"].values()),
+         f"{name}: the plain side launched {p['launches']}")
+    for n, v in moved.items():
+        counts[n] = counts.get(n, 0) + v
+    diffs = []
+    for i, ((ko, ke), (po, pe)) in enumerate(zip(k["outs"], p["outs"])):
+        label = f"{name} step {i}"
+        if ko and ko[0].startswith("{"):
+            for a, b in zip(map(json.loads, ko), map(json.loads, po)):
+                a.pop("file", None), b.pop("file", None)
+                same_records(a, b, label, diffs)
+            need(len(ko) == len(po), f"{label}: {len(ko)} vs {len(po)} lines")
+        else:
+            need(ko == po, f"{label}: the payload lines differ: "
+                 f"{len(ko)} vs {len(po)}")
+        if ke and ke[-1].startswith("{"):
+            same_records(json.loads(ke[-1]), json.loads(pe[-1]), label, diffs)
+    if diffs:
+        print(f"  {name}: decisions differ: {diffs[:6]}")
+        need(ties_explain(ModemConfig(), k["rec"]["rx"], p["rec"]["rx"], name),
+             f"{name}: decisions differ with equal receive bits: {diffs[:6]}")
+    for f in ("x.wav", "s.raw"):
+        kf = os.path.join(root, name, "kernel", f)
+        if os.path.exists(kf):
+            a = np.fromfile(kf, np.int16)
+            b = np.fromfile(os.path.join(root, name, "plain", f), np.int16)
+            need(a.size == b.size, f"{name}: {f} of {a.size} vs {b.size}")
+            worst = int(np.abs(a.astype(np.int32) - b).max())
+            need(worst <= 4, f"{name}: {f} {worst} LSB apart")
+            print(f"  {name}: {f}, {a.size} samples, kernel and plain TX "
+                  f"within {worst} LSB")
+    recs = [json.loads(ln) for ln in k["outs"][-1][0]
+            if ln.startswith("{")]
+    if name == "tx_rx_wav":
+        need(recs[0]["per"] == 0.0 and recs[0]["sync_score"] == 4,
+             f"{name}: {recs[0]}")
+    if name == "sweep":
+        need(recs[-1]["per"] == 0.0 and recs[-1]["sync_score"] == 4,
+             f"{name}: 12 dB point {recs[-1]}")
+    if name == "stream":
+        lines = k["outs"][1][0] + k["outs"][2][0]
+        sent = set(open(os.path.join(root, name, "kernel", "p.hex"))
+                   .read().split())
+        need(len(lines) >= CLI_STREAM_LINES - 8 and set(lines) <= sent,
+             f"{name}: {len(lines)} lines, {len(set(lines) - sent)} not sent")
+    if name == "fdm":
+        fdm_channels(recs[0], k["rec"]["packets"], p["rec"]["packets"])
+    print(f"  {name}: kernel side {k['wall']:.2f} s, plain side "
+          f"{p['wall']:.2f} s (host clock); launches {moved}; "
+          + ("decisions equal" if not diffs else
+             f"{len(diffs)} decisions differ at ties")
+          + "; " + "; ".join(json.dumps(r)[:160] for r in recs[:1]))
+
+
+def fdm_channels(rec: dict, k_pkts: list, p_pkts: list) -> None:
+    """The ``fdm`` command at 2048 slots: every channel synced with no
+    packet lost (the JAX CLI's test holds ``per`` 0 at 18 dB); on 64
+    sampled channels the payloads bit-exact against those sent (the
+    CLI's seeded draw) and equal on the kernel and plain sides."""
+    import numpy as np
+    import torch
+    chans = rec["channels"]
+    need(len(chans) == len(k_pkts) == len(p_pkts) == FDM_SLOTS // 2 - 1,
+         f"fdm: {len(chans)} channels, {len(k_pkts)} extractions")
+    bad = [c["chan"] for c in chans if c["sync_score"] < 3 or c["per"] > 0]
+    need(not bad, f"fdm: channels without a clean link {bad[:10]}")
+    sent = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 2, (len(chans), FDM_FRAMES, 240), dtype=np.int32))
+    sampled = sorted({round(i * (len(chans) - 1) / (CLI_SAMPLED - 1))
+                      for i in range(CLI_SAMPLED)})
+    nok = 0
+    for ch in sampled:
+        nok += check_payloads(k_pkts[ch], sent[ch], ch)
+        need(torch.equal(k_pkts[ch].payload_bits.cpu(),
+                         p_pkts[ch].payload_bits.cpu())
+             and torch.equal(k_pkts[ch].crc_ok.cpu(), p_pkts[ch].crc_ok.cpu()),
+             f"fdm channel {ch}: the kernel and plain sides' packets differ")
+    offs = [c["detected_offset_hz"] for c in chans]
+    print(f"  fdm: all {len(chans)} channels synced (scores "
+          f"{min(c['sync_score'] for c in chans)}..4), PER 0 on every one; "
+          f"{nok} packets of {len(sampled)} sampled channels bit-exact and "
+          f"equal on both sides; offsets {min(offs):.2f}..{max(offs):.2f} Hz")
+
+
+def fdm_receiver_on_card(dev, counts: dict) -> None:
+    """Phase 10b: ``FdmReceiver`` at 16 slots (7 channels) on the card, a
+    short stream in seeded chunks, kernel side (``no_plain``) against the
+    plain side (the config's plain lowerings) on the same wideband PCM:
+    the same packets on every channel, every passing payload sent."""
+    import numpy as np
+    import torch
+    from qpsk_tpu_torch import ModemConfig, tx_init, tx_stream
+    from qpsk_tpu_torch.channel import awgn_pcm
+    from qpsk_tpu_torch.fdm import FdmConfig, FdmReceiver, fdm_mux
+    from qpsk_tpu_torch.packet import PacketConfig, assemble_packet
+
+    nslots, nframes = FDM_RX
+    fcfg, cfg = FdmConfig(nslots=nslots), ModemConfig()
+    pcfg, c = PacketConfig(payload_bytes=30), FdmConfig(nslots=nslots).nchan
+    gen = torch.Generator(device=dev).manual_seed(2053)
+    payload = torch.randint(0, 2, (c, nframes, 240), generator=gen,
+                            device=dev, dtype=torch.int32)
+    _, pcm = tx_stream(cfg, tx_init(cfg, (c,), device=dev),
+                       assemble_packet(pcfg, payload), TX_OFFSET_HZ)
+    wide = fdm_mux(fcfg, pcm.reshape(c, -1))
+    power = float(((wide.to(torch.float32) / cfg.pcm_scale) ** 2).mean())
+    wide = awgn_pcm(gen, wide, 18.0, power, cfg.pcm_scale).cpu().numpy()
+    sizes = np.random.default_rng(2053).integers(1000, 30000, 400)
+    mods = kernel_modules()
+    got = {}
+    for side in ("kernel", "plain"):
+        reset_launches()
+        rcfg = cfg if side == "kernel" else path_cfg(cfg, "plain")
+        t0 = time.perf_counter()
+        with (no_plain() if side == "kernel" else contextlib.nullcontext()):
+            rx = FdmReceiver(fcfg, rcfg, pcfg, bucket_blocks=1024, device=dev)
+            pkts = [[] for _ in range(c)]
+            pos = 0
+            for sz in sizes:
+                if pos >= wide.size:
+                    break
+                for ch, new in enumerate(rx.push(wide[pos:pos + int(sz)])):
+                    pkts[ch].extend(new)
+                pos += int(sz)
+            for ch, new in enumerate(rx.flush()):
+                pkts[ch].extend(new)
+        launched = {n: mods[n].launches for n in ("frontend", "costas")}
+        need(all(launched.values()) if side == "kernel"
+             else not any(launched.values()),
+             f"FdmReceiver {side} side: launches {launched}")
+        if side == "kernel":
+            for n, v in launched.items():
+                counts[n] = counts.get(n, 0) + v
+        got[side] = (pkts, time.perf_counter() - t0, launched)
+    nok = 0
+    for ch in range(c):
+        a, b = got["kernel"][0][ch], got["plain"][0][ch]
+        need(len(a) == len(b) and all(
+            (x.crc_ok, x.stream_index) == (y.crc_ok, y.stream_index)
+            and np.array_equal(x.payload, y.payload) for x, y in zip(a, b)),
+             f"FdmReceiver channel {ch}: the sides' packets differ")
+        ok = [x for x in a if x.crc_ok]
+        sent = {bytes(row) for row in payload[ch].cpu().numpy().astype(np.int8)}
+        need(len(ok) >= nframes - 10 and all(
+            bytes(x.payload.astype(np.int8)) in sent for x in ok),
+             f"FdmReceiver channel {ch}: {len(ok)} passing packets")
+        nok += len(ok)
+    print(f"  FdmReceiver at {nslots} slots ({c} channels x {nframes} "
+          f"packets, 18 dB, {wide.size} wideband samples in seeded chunks): "
+          f"the kernel and plain sides emit the same packets, {nok} passing, "
+          f"all sent; kernel side {got['kernel'][1]:.2f} s (launches "
+          f"{got['kernel'][2]}), plain side {got['plain'][1]:.2f} s")
+
+
+def bank_rates(dev) -> None:
+    """Phase 10c: by CUDA events, the FDM receive at 2048 slots x 8 frames
+    (the wideband samples a second of demux + ``rx_stream`` over the 1023
+    channels, the filterbank alone and the modem alone, state chained) and
+    the resampler (10 minutes in one call; 1 s calls chained, the CLI's
+    streaming use, by the host clock)."""
+    import torch
+    from qpsk_tpu_torch import ModemConfig, rx_init, rx_stream
+    from qpsk_tpu_torch.fdm import FdmConfig, fdm_demux_stream, fdm_init
+    from qpsk_tpu_torch.ops import resample as rs
+
+    fcfg, cfg = FdmConfig(nslots=FDM_SLOTS), ModemConfig()
+    c, nf = fcfg.nchan, FDM_RATE_FRAMES
+    gen = torch.Generator(device=dev).manual_seed(2054)
+    wide = torch.clamp(torch.round(torch.randn(
+        nf * 512 * FDM_SLOTS, generator=gen, device=dev) * 3000.0),
+        -32768, 32767).to(torch.int16)
+    st = {"fb": fdm_init(fcfg, dev), "rx": rx_init(cfg, (c,), device=dev)}
+
+    def bank():
+        out, st["fb"] = fdm_demux_stream(fcfg, wide, st["fb"])
+        return out
+    back = bank().reshape(c, nf, 512)
+
+    def modem():
+        st["rx"], _ = rx_stream(cfg, st["rx"], back)
+
+    def composed():
+        st["rx"], _ = rx_stream(cfg, st["rx"], bank().reshape(c, nf, 512))
+    ms = {}
+    for name, fn in (("composed", composed), ("bank", bank), ("modem", modem),
+                     ("composed", composed)):
+        ms.setdefault(name, []).append(cuda_time_ms(fn, 10))
+    n = wide.numel()
+    print(f"  FDM receive at {FDM_SLOTS} slots x {nf} frames ({n} wideband "
+          f"samples a call): composed "
+          + " / ".join(f"{t:.4f}" for t in ms["composed"])
+          + f" ms, {n / min(ms['composed']) * 1e3:.6g} samples/s; filterbank "
+          f"alone {ms['bank'][0]:.4f} ms ({n / ms['bank'][0] * 1e3:.6g} "
+          f"samples/s), modem alone {ms['modem'][0]:.4f} ms "
+          f"({n / ms['modem'][0] * 1e3:.6g} samples/s); the filterbank's "
+          f"share {ms['bank'][0] / min(ms['composed']):.3f} "
+          f"({nvidia_smi_line()})")
+    for fs_in, fs_out in RESAMPLE_RATES:
+        l, m = rs.rational_ratio(fs_in, fs_out)
+        x = torch.randn(fs_in * RESAMPLE_SECONDS, generator=gen,
+                        device=dev) * 6000.0
+        one = cuda_time_ms(lambda: rs.resample(x, l, m), 3, warmup=1)
+        chunks = x.reshape(RESAMPLE_SECONDS, fs_in)
+        st_r = rs.resample_init(l, m, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(60):
+            _, st_r = rs.resample_stream(chunks[i], st_r, l, m)
+        torch.cuda.synchronize()
+        chained = (time.perf_counter() - t0) / 60
+        print(f"  resample {fs_in} -> {fs_out}: {RESAMPLE_SECONDS} s in one "
+              f"call {one:.4f} ms ({x.numel() / one * 1e3:.6g} input "
+              f"samples/s); 1 s calls chained {chained * 1e3:.4f} ms a call "
+              f"({fs_in / chained:.6g} input samples/s, host clock) "
+              f"({nvidia_smi_line()})")
+
+
+def cli_phase(dev, counts: dict) -> None:
+    """Phase 10: the resampler, the FDM bank and the command line on the
+    card (``--cli`` runs it alone); adds the launches of its CLI commands
+    and of ``FdmReceiver`` to ``counts``."""
+    import tempfile
+    t0 = time.perf_counter()
+    print("phase 10a: the resampler and the FDM bank, card against CPU")
+    bank_on_card(dev)
+    print("phase 10b: the CLI on the card through cli.main, kernels against "
+          "plain versions")
+    walls = {}
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as root:
+        for name in CLI_COMMANDS:
+            cli_command(name, root, counts, walls)
+    fdm_receiver_on_card(dev, counts)
+    print("phase 10c: rates")
+    print(f"  before: {CLOCKS} = {nvidia_smi_line(CLOCKS)}")
+    bank_rates(dev)
+    print(f"  after:  {CLOCKS} = {nvidia_smi_line(CLOCKS)}")
+    print("  CLI wall seconds, kernel side / plain side (host clock): "
+          + ", ".join(f"{n} {k:.2f} / {p:.2f}" for n, (k, p) in walls.items())
+          + f" ({nvidia_smi_line()})")
+    print(f"phase 10 took {time.perf_counter() - t0:.1f} s "
+          f"({nvidia_smi_line()})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3482,6 +4050,10 @@ def main() -> int:
         modes_phase(pcfg, dev, errs, {})
         print(smi)
         return 0
+    if "--cli" in sys.argv[1:]:
+        cli_phase(dev, {})
+        print(smi)
+        return 0
     print("phase 2: kernels against their plain versions")
     check_sincosf(dev)
     compare_kernels(cfg, pcfg, dev, errs)
@@ -3524,6 +4096,7 @@ def main() -> int:
     print(f"  after:  {CLOCKS} = {nvidia_smi_line(CLOCKS)}")
     runtime_phase(pcfg, dev, errs, counts, times)
     modes_phase(pcfg, dev, errs, counts)
+    cli_phase(dev, counts)
 
     for name in KERNELS:
         if name.startswith(("frontend", "tx")):

@@ -202,6 +202,31 @@ Phases, each of which exits non-zero on failure:
    samples/s in one call and in chained 1 s calls; each command's wall
    seconds on both sides.  Phase 10's launches join the ``kernels``
    line's front-end, Costas, TX, Viterbi and LDPC rows.
+11. One stream block-parallel, ``bench``, the debug taps and the
+   examples.  (a) (``--blocks`` runs it alone.)  One stream of 4096 frames
+   (218 s of audio) of 30-byte packets from TX at +50 Hz through AWGN
+   10 dB, received by ``parallel.rx_stream_blockparallel`` at 128 and
+   1024 blocks (64 symbols of overlap) and at 1024 blocks with 37 (a
+   window not a multiple of 16), kernels only (``no_plain``), every
+   launch counter reset before each: one Costas launch, nothing else;
+   the Costas kernel on the blocks' own (blocks, window) input
+   bit-identical to its plain version; the plain path (``costas_impl=
+   "scan"``) on the same PCM with equal bits, symbols and block offsets,
+   the same sync and packets, every passing payload one that was sent;
+   the blocks' offsets within 20 Hz of +50 Hz and their mean within 2;
+   at 128 blocks at most one packet lost a seam beyond the serial
+   ``rx_stream`` on one channel.  Rates by CUDA events: the serial
+   receive and each block count, with a ``torch.profiler`` breakdown of
+   the block-parallel call, and the Costas kernel alone on the 1024
+   blocks beside its plain version (the ``kernels`` line's
+   ``costas_blocks`` row, whose launches are phase 11a's).  (b)
+   (``--bench`` runs b and c.)  ``bench --suite <s>`` through
+   ``cli.main`` for every suite at its card sizes: each record names the
+   card, has a positive finite rate, and keeps its decode guard.  (c)
+   ``assert_finite`` passes a clean receive and raises at ``throw()`` on
+   an injected NaN, after which the card launches again; ``ScatterTap``;
+   ``trace`` writes a Chrome trace naming the front-end and Costas
+   kernels; the three examples run on the card in subprocesses, exit 0.
 
 The Costas kernel is also held at a chain of 1000 symbols, not a multiple
 of 16, in every mode (phases 2, 6a and 7a).  Beside each Costas, front-end
@@ -252,7 +277,8 @@ larger of the bytes it must move over 3.35 TB/s and its operations over
 the peak of their type (the H100 SXM's published peaks): float32 at 67
 TFLOP/s, and for the front-end's and TX's FIRs, which run on the tensor
 cores in three float16 passes with float32 sums, 989 TFLOP/s (their
-float32-FMA floors are printed beside).
+float32-FMA floors are printed beside), as ``qpsk_tpu_torch/utils/roofline.py``
+prices them.
 ``library_ms`` is null: no single PyTorch call computes any of these
 functions (PERF.md says why for each).
 With no CUDA device, or without the package beside it, it exits non-zero
@@ -270,6 +296,11 @@ import os
 import subprocess
 import sys
 import time
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+# the bounds of every kernel's work on the H100 (its published peaks)
+from qpsk_tpu_torch.utils.roofline import (  # noqa: E402
+    costas_work, fec_work, frontend_work, general_work, tx_work)
 
 
 # channel counts of the kernel comparisons, (channels, frames) of the main
@@ -413,9 +444,14 @@ MODE_CHIRP, PARITY_RATE = (256, 16, 25.0), (8192, 4)
 FDM_SLOTS, FDM_FRAMES, FDM_RATE_FRAMES = 2048, 32, 8
 RESAMPLE_SECONDS, RESAMPLE_RATES = 600, ((9600, 48000), (44100, 9600))
 FDM_RX, CLI_STREAM_LINES, CLI_SAMPLED = (16, 24), 48, 64
-# the H100 SXM's published peaks: HBM bytes/s, float32 (non-tensor) FLOP/s
-# and dense float16 tensor-core FLOP/s
-PEAK_BYTES_S, PEAK_FLOP_S, PEAK_F16_S = 3.35e12, 67e12, 989e12
+# phase 11: one stream of BLOCKS_FRAMES frames (218 s of audio) of 30-byte
+# packets from TX at +50 Hz through AWGN 10 dB, received block-parallel at
+# each of BLOCKS_NBLOCKS blocks with BLOCKS_OVERLAP symbols of warmup, and
+# at BLOCKS_ODD (blocks, overlap: a window of 37 + 512 symbols, not a
+# multiple of 16); the example modules run in subprocesses
+BLOCKS_FRAMES, BLOCKS_NBLOCKS, BLOCKS_OVERLAP = 4096, (128, 1024), 64
+BLOCKS_ODD = (1024, 37)
+EXAMPLES = ("end_to_end", "modulation_family", "streaming_receiver")
 
 
 class SmokeFailure(RuntimeError):
@@ -1138,87 +1174,6 @@ def kernel_alone(name: str, fn, steps: int | None = None) -> float:
     return min(g1, g2)
 
 
-def bound(nbytes: float, flops: float) -> tuple:
-    """(least ms, what bounds it): the larger of ``nbytes`` moved at the
-    card's memory rate and ``flops`` float32 operations at its peak."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FLOP_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def frontend_work(c, nframes, cycles, tm: bool, power: bool) -> tuple:
-    """The front-end's bound on the route the kernel takes, (least ms, what
-    bounds it, the float32-FMA floor ms): int16 PCM, the carried tail and
-    phasor in, the picks, the index and the new tail and phasor out (and
-    the carried delay in and out, the powers out); the FIR, 127 complex
-    taps on a real input (254 multiply-adds a sample), on the tensor cores
-    in three float16 passes (hi*hi, hi*lo, lo*hi) at the float16 peak, beside the
-    float32 work of the CUDA cores (the gain, the phase energy at every
-    sample, a phasor per pick).  The third value is the same FIR as float32
-    FMAs on the CUDA cores, the floor of the route the kernel left."""
-    n, nsym = nframes * 512, 512 // cycles
-    t = nframes * nsym
-    nbytes = c * (n * 2 + 2 * (126 * 4 + 4) * 2) + c * (2 * t * 4 + nframes * 4)
-    fir, rest = c * n * 254 * 2, c * n * (2 + 3) + c * t * 6
-    if tm:
-        nbytes += 2 * 2 * c * nsym * 4
-    if power:
-        nbytes += c * nframes * 4
-        rest += c * t * 3
-    return fir_bound(nbytes, fir, rest)
-
-
-def fir_bound(nbytes: float, fir: float, rest: float) -> tuple:
-    """(least ms, what bounds it, the float32-FMA floor ms) of a function
-    moving ``nbytes`` whose FIR's ``fir`` float operations could run on the
-    tensor cores in three float16 passes (hi*hi, hi*lo, lo*hi) at the
-    float16 peak, beside ``rest`` float32 operations on the CUDA cores;
-    the floor is the same FIR as float32 FMAs on the CUDA cores."""
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = (3 * fir / PEAK_F16_S + rest / PEAK_FLOP_S) * 1e3
-    fma = max(t_bytes, (fir + rest) / PEAK_FLOP_S * 1e3)
-    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")) \
-        + (fma,)
-
-
-# the dd detectors' comparisons, selects and products beyond QPSK's
-_DD_OPS = {None: 0, "bpsk": 2, "8psk": 8, "16qam": 12}
-_BPS = {None: 2, "bpsk": 1, "8psk": 3, "16qam": 4}
-
-
-def costas_work(c, t, trace_every, gear: bool = False,
-                gains: bool = False, dd: str | None = None) -> tuple:
-    """The Costas loop's bound: (T, C) planes in, derotated planes, the
-    (C, bps*T) int32 bits the wrapper returns, the frame-rate trace and
-    the state out; about 22 float operations a symbol (derotation,
-    detector, loop update, wrap and clamp, cos and sin counted once each),
-    8 more for the gear, 2 for a gain, 2 / 8 / 12 more for the BPSK /
-    8PSK / 16QAM detector.  The serial chain's floor (cycles a step x T /
-    clock) is printed beside the kernel's time, not counted here."""
-    nstate = 4 if gear else 2
-    nbytes = c * t * (8 + 8 + 4 * _BPS[dd]) + c * (t // trace_every) * 4 \
-        + 2 * c * nstate * 4
-    flops = c * t * (22 + (8 if gear else 0) + (2 if gains else 0)
-                     + _DD_OPS[dd])
-    if gains:
-        nbytes += c * (t // trace_every) * 4
-    return bound(nbytes, flops)
-
-
-def tx_work(c, s, cycles) -> tuple:
-    """TX's bound on the route the kernel takes, (least ms, what bounds
-    it, the float32-FMA floor ms): symbols, the carried tail's 126 //
-    cycles symbol lanes (all the function reads of it) and the phasor in,
-    int16 PCM, the whole new zero-stuffed tail and the phasor out; per sample two planes
-    of 127 / cycles polyphase multiply-adds, on the tensor cores in three
-    float16 passes at the float16 peak, beside the carrier mix's float32
-    work on the CUDA cores (two complex products and the real part, 8
-    operations).  The third value is the same FIR as float32 FMAs on the
-    CUDA cores, the floor of the route the kernel left."""
-    n = s * cycles
-    nbytes = c * (s * 8 + n * 2 + (126 // cycles) * 8 + 126 * 8 + 2 * 8)
-    return fir_bound(nbytes, c * n * 2 * 2 * -(-127 // cycles), c * n * 8)
-
-
 @contextlib.contextmanager
 def plain_decoders():
     """Inside, ``fec.viterbi_decode`` and ``ldpc.ldpc_decode`` run the
@@ -1591,21 +1546,6 @@ def coded_rates(cfg, dev, errs: dict) -> dict:
     return times
 
 
-def fec_work(name: str, b: int) -> tuple:
-    """A decoder's bound at ``b`` packets: LLRs in, bits out; Viterbi 64
-    states x (2 adds, compare, select) a step, LDPC about 8 operations per
-    edge and iteration."""
-    from qpsk_tpu_torch.ops.cuda import ldpc_kernel as lk
-    from qpsk_tpu_torch.packet import LdpcCode
-    import torch
-
-    if name == "viterbi":
-        return bound(b * (524 + 256) * 4, b * 262 * (64 * 4 + 4))
-    code = LdpcCode(k=256)
-    edges = int((lk._tables(code, torch.device("cpu"))[0] >= 0).sum())
-    return bound(b * (512 + 256) * 4, b * code.iters * edges * 8)
-
-
 def fec_build_lines(log: str) -> None:
     """Print what ptxas said of the two decoders' kernels: registers,
     stack frame and spills of every instantiation."""
@@ -1684,6 +1624,8 @@ KERNELS = {
                     "qpsk_tpu/ops/pallas/viterbi_kernel.py:151+166"),
     "ldpc_gen": ("qpsk_tpu_torch/csrc/ldpc.cu",
                  "qpsk_tpu/ops/pallas/ldpc_kernel.py:116"),
+    # the Costas kernel with a stream's blocks on its channel axis (phase 11)
+    "costas_blocks": (_CO, "qpsk_tpu/ops/pallas/costas_kernel.py:373"),
 }
 
 
@@ -2600,46 +2542,6 @@ def lowering_switches(pcfg, dev) -> None:
           "kernels; 'pallas' on CPU tensors raises")
 
 
-def general_work(kind: str, cfg=None, c=0, nframes=0, s=0, code=None,
-                 b=0, nbits=0) -> tuple:
-    """The bound of a general instance on its inputs, (least ms, what
-    bounds it), and for the front-end and TX the float32-FMA floor ms: the
-    front-end (``kind`` "tm", "tm_power" or "cm") moves the PCM, the
-    carried tail and phase in and the picks, index, new tail and phase (the
-    delay in and out, the powers) out, and does 2 x ntaps multiply-adds a
-    sample for the FIR plus 3 operations a sample and the energy and a
-    phasor a pick; TX moves the symbols and the tail's symbol lanes in,
-    PCM and the new tail out, 2 x ceil(ntaps/cycles) multiply-adds and 8
-    carrier operations a sample.  Both FIRs as ``fir_bound`` prices them
-    (on the tensor cores, as the fast instances run them).  Viterbi moves
-    the LLRs in and the bits out, 2 x rate_den + 8 operations a state and
-    step; LDPC as ``fec_work`` on its code's edges; both float32."""
-    if kind in ("tm", "tm_power", "cm"):
-        fsz, nsym, h = cfg.frame_size, cfg.symbols_per_frame, cfg.ntaps - 1
-        n, t = nframes * fsz, nframes * nsym
-        nbytes = c * (n * 2 + 2 * (h * 4 + 4) * 2 + 2 * t * 4 + nframes * 4)
-        fir, rest = c * n * 4 * cfg.ntaps, c * n * 3 + c * t * 6
-        if kind != "cm":
-            nbytes += 2 * 2 * c * nsym * 4
-        if kind == "tm_power":
-            nbytes += c * nframes * 4
-            rest += c * t * 3
-        return fir_bound(nbytes, fir, rest)
-    if kind == "tx":
-        n, h = s * cfg.cycles, cfg.ntaps - 1
-        nbytes = c * (s * 8 + n * 2 + (h // cfg.cycles) * 8 + h * 8 + 2 * 8)
-        return fir_bound(nbytes, c * n * 4 * -(-cfg.ntaps // cfg.cycles),
-                         c * n * 8)
-    if kind == "viterbi":
-        nsteps = nbits + code.constraint - 1
-        return bound(b * (code.rate_den * nsteps + nbits) * 4,
-                     b * nsteps * code.nstates * (2 * code.rate_den + 8))
-    import torch
-    from qpsk_tpu_torch.ops.cuda import ldpc_kernel as lk
-    edges = int((lk._tables(code, torch.device("cpu"))[0] >= 0).sum())
-    return bound(b * (code.n + code.k) * 4, b * code.iters * edges * 8)
-
-
 def general_instances(pcfg, dev, errs: dict, counts: dict,
                       times: dict) -> None:
     """Phase 8b: the geometries and codes of the general instances on the
@@ -3068,20 +2970,22 @@ def no_plain():
 
 
 @contextlib.contextmanager
-def recorded_costas(seen: list):
-    """Inside, every ``costas_run_cm`` call of the modem (the composed
-    chains and ``rx_frame``) is recorded in ``seen`` as (args, kwargs)."""
-    from qpsk_tpu_torch import modem
-    saved = modem.costas_run_cm
+def recorded_costas(seen: list, caller=None):
+    """Inside, every ``costas_run_cm`` call of ``caller`` (a module; the
+    modem's composed chains and ``rx_frame`` by default) is recorded in
+    ``seen`` as (args, kwargs)."""
+    if caller is None:
+        from qpsk_tpu_torch import modem as caller
+    saved = caller.costas_run_cm
 
     def call(*args, **kw):
         seen.append((args, kw))
         return saved(*args, **kw)
-    modem.costas_run_cm = call
+    caller.costas_run_cm = call
     try:
         yield
     finally:
-        modem.costas_run_cm = saved
+        caller.costas_run_cm = saved
 
 
 def check_costas_cm(seen: list, label: str, errs: dict, every: int = 1,
@@ -3998,12 +3902,257 @@ def cli_phase(dev, counts: dict) -> None:
           f"({nvidia_smi_line()})")
 
 
+def recovered(pcfg, bits, sent: dict, skip: int, label: str) -> tuple:
+    """(indices of the sent packets recovered, sync, packets) of a 1-D
+    stream's bits past ``skip``, the slip-tracked extractor: every
+    CRC-passing payload must be one of ``sent`` (payload bytes -> index),
+    bit-exact."""
+    import numpy as np
+    sync, rx = decode(pcfg, bits[skip:], tracked=True)
+    ok, got = rx.crc_ok.cpu().numpy(), rx.payload_bits.cpu().numpy()
+    found = set()
+    for row in got[ok]:
+        k = sent.get(np.packbits(row.astype(np.uint8)).tobytes())
+        need(k is not None, f"{label}: a packet passed CRC with a payload "
+             "never sent")
+        found.add(k)
+    return found, sync, rx
+
+
+def blocks_phase(pcfg, dev, errs: dict, counts: dict, times: dict) -> None:
+    """Phase 11a (``--blocks`` runs it alone): one stream received
+    block-parallel (``parallel.rx_stream_blockparallel``) at full width,
+    kernels only, the Costas launch counter reset before each receive;
+    the Costas kernel on the blocks' own input against its plain version
+    (bit-identical); the plain path on the same PCM (same sync, same
+    packets, payloads bit-exact); the loss against the serial
+    ``rx_stream`` on one channel; the rates.  Adds the receives' Costas
+    launches and the kernel's time on the blocks' input to ``counts`` /
+    ``times`` as "costas_blocks"."""
+    import numpy as np
+    import torch
+    from qpsk_tpu_torch import ModemConfig, rx_init, rx_stream
+    from qpsk_tpu_torch.ops.cuda import costas_kernel as ck
+    from qpsk_tpu_torch.parallel import blocks
+
+    t0 = time.perf_counter()
+    cfg, nframes = ModemConfig(), BLOCKS_FRAMES
+    payload, _, _, pcm = loopback_pcm(cfg, pcfg, 1, nframes, seed=2111,
+                                      dev=dev)
+    pcm = pcm[0]
+    sent = {np.packbits(row).tobytes(): k for k, row in
+            enumerate(payload[0].cpu().numpy().astype(np.uint8))}
+    nsamples = pcm.numel()
+    print(f"  one stream of {nframes} frames ({nsamples} samples, "
+          f"{nsamples / cfg.fs:.1f} s of audio), +50 Hz, 10 dB")
+    _, out = rx_stream(cfg, rx_init(cfg, device=dev), pcm)
+    found, sync, _ = recovered(pcfg, out.bits.reshape(-1), sent,
+                               8 * pcfg.frame_bits, "serial rx_stream")
+    lost_serial = nframes - len(found)
+    print(f"  serial rx_stream (one channel, 8 packets skipped): sync "
+          f"{int(sync.score)}/4, {len(found)} of {nframes} packets "
+          f"recovered bit-exact, {lost_serial} lost")
+    mods = kernel_modules()
+    launched, keep = 0, None
+    runs = [(nb, BLOCKS_OVERLAP) for nb in BLOCKS_NBLOCKS] + [BLOCKS_ODD]
+    for nb, overlap in runs:
+        label = f"{nb} blocks, overlap {overlap}"
+        seen = []
+        reset_launches()
+        with no_plain(), recorded_costas(seen, blocks):
+            sym, bits, hz = blocks.rx_stream_blockparallel(cfg, pcm, nb,
+                                                           overlap)
+            torch.cuda.synchronize()
+        moved = {k: m.launches for k, m in mods.items()}
+        need(moved["costas"] == 1 and len(seen) == 1
+             and not any(v for k, v in moved.items() if k != "costas"),
+             f"{label}: launches {moved}, {len(seen)} Costas calls")
+        launched += moved["costas"]
+        need(bool(torch.isfinite(sym.re).all() and torch.isfinite(sym.im).all()
+                  and torch.isfinite(hz).all()), f"{label}: non-finite output")
+        need(tuple(bits.shape) == (nframes * 2 * cfg.symbols_per_frame,),
+             f"{label}: bits of shape {tuple(bits.shape)}")
+        (cs, zb, params, trace), kw = seen[0]
+        body = nframes * cfg.symbols_per_frame // nb
+        window = min(overlap, body) + body
+        need(tuple(zb.re.shape) == (nb, window) and trace == window,
+             f"{label}: the Costas input {tuple(zb.re.shape)}, trace {trace}")
+        zr, zi = zb.re.T.contiguous(), zb.im.T.contiguous()
+        k, p = check_costas(cs, zr, zi, params, trace, True, label, errs,
+                            gear=kw.get("gear"))
+        err = max(cmax_abs(k[1], p[1]), max_abs(k[2], p[2]),
+                  max_abs(k[0].freq, p[0].freq),
+                  max_abs(k[0].phase, p[0].phase))
+        need(err == 0 and torch.equal(k[3], p[3]),
+             f"{label}: the Costas kernel is {err} from its plain version")
+        errs["costas_blocks"] = max(errs["costas_blocks"], err)
+        if nb == BLOCKS_NBLOCKS[-1] and overlap == BLOCKS_OVERLAP:
+            keep = (cs, zr, zi, params, trace)
+        # the plain path: the plain Costas on the same windows
+        psym, pbits, phz = blocks.rx_stream_blockparallel(
+            path_cfg(cfg, "plain"), pcm, nb, overlap)
+        kfound, ks, krx = recovered(pcfg, bits, sent, 0, label)
+        pfound, ps, prx = recovered(pcfg, pbits, sent, 0, label + " plain")
+        need((int(ks.rotation), int(ks.bit_lag)) == (int(ps.rotation),
+                                                     int(ps.bit_lag))
+             and torch.equal(krx.crc_ok, prx.crc_ok) and kfound == pfound,
+             f"{label}: the kernel and plain paths sync or pass differently")
+        need(torch.equal(bits, pbits) and cmax_abs(sym, psym) == 0
+             and torch.equal(hz, phz),
+             f"{label}: the kernel and plain paths' outputs differ")
+        lost = nframes - len(kfound)
+        mean_hz = float(hz.mean())
+        # each block's loop ends within its noise of the offset; a block
+        # that failed to lock would be far off
+        need(abs(mean_hz - TX_OFFSET_HZ) <= 2.0
+             and float((hz - TX_OFFSET_HZ).abs().max()) <= 20.0,
+             f"{label}: block offsets {float(hz.min()):.2f}.."
+             f"{float(hz.max()):.2f} Hz")
+        if nb == BLOCKS_NBLOCKS[0]:
+            need(lost <= lost_serial + nb - 1,
+                 f"{label}: {lost} packets lost, the serial receive lost "
+                 f"{lost_serial}: more than one a seam beyond it")
+        print(f"  {label}: one Costas launch on ({nb}, {window}); the kernel "
+              f"and plain paths equal (bits, symbols, offsets), sync "
+              f"{int(ks.score)}/4, {len(kfound)} of {nframes} packets "
+              f"recovered bit-exact, {lost} lost ({lost - lost_serial:+d} "
+              f"beyond the serial receive, {nb - 1} seams); block offsets "
+              f"{float(hz.min()):.3f}..{float(hz.max()):.3f} Hz, mean "
+              f"{mean_hz:.4f}")
+    counts["costas_blocks"] = counts.get("costas_blocks", 0) + launched
+    print(f"  rates ({nvidia_smi_line()}), CUDA events:")
+    st = rx_init(cfg, device=dev)
+    ms = cuda_time_ms(lambda: rx_stream(cfg, st, pcm), 3, warmup=1)
+    print(f"  serial rx_stream, one channel: {ms:.4f} ms/call, "
+          f"{nsamples / ms * 1e3:.6g} samples/s")
+    for nb in BLOCKS_NBLOCKS:
+        ms_b = cuda_time_ms(lambda: blocks.rx_stream_blockparallel(
+            cfg, pcm, nb, BLOCKS_OVERLAP), 10)
+        print(f"  rx_stream_blockparallel, {nb} blocks: {ms_b:.4f} ms/call, "
+              f"{nsamples / ms_b * 1e3:.6g} samples/s, {ms / ms_b:.1f}x the "
+              f"serial receive")
+        report_trace(f"rx_stream_blockparallel, {nb} blocks, under "
+                     "torch.profiler", *traced(
+                         lambda: blocks.rx_stream_blockparallel(
+                             cfg, pcm, nb, BLOCKS_OVERLAP), 5), 5)
+    cs, zr, zi, params, trace = keep
+    times["costas_blocks"] = time_pair(
+        "costas_blocks", ck.costas_run_tm, ck.costas_run_tm_plain,
+        (cs, zr, zi, params, trace), {}, 3, 20) + costas_work(
+            zr.shape[1], trace, trace)
+    print(f"phase 11a took {time.perf_counter() - t0:.1f} s")
+
+
+def bench_phase(dev) -> None:
+    """Phase 11b: ``python -m qpsk_tpu_torch bench --suite <s>`` for every
+    suite, through ``cli.main`` on the card at each suite's default sizes:
+    each record names the card, has a positive finite rate, and its
+    decode guard held (the suites raise otherwise; the coded suite
+    decodes every packet of a call, the latency suite's packets are the
+    ones sent)."""
+    from qpsk_tpu_torch import benchmarks
+    t0 = time.perf_counter()
+    smi = nvidia_smi_line()
+    for name in benchmarks.suites():
+        rc, out, err, wall = cli_call(["bench", "--suite", name])
+        recs = [json.loads(ln) for ln in out if ln.startswith("{")]
+        need(rc == 0 and recs, f"bench --suite {name}: rc {rc}, "
+             f"{len(recs)} records; {err[-5:]}")
+        for r in recs:
+            need(r["platform"] == "gpu" and r["card"] == smi
+                 and math.isfinite(r["value"]) and r["value"] > 0,
+                 f"bench --suite {name}: {r}")
+            if r["metric"].startswith("coded_rx"):
+                need(r["packets_per_pass"] > 0, f"{name}: {r}")
+            if r["metric"] == "streaming_latency":
+                need(r["decoded"] >= 0.8 * r["sent"], f"{name}: {r}")
+            print(f"  {json.dumps(r)}")
+        print(f"  bench --suite {name}: {len(recs)} records in {wall:.1f} s")
+    print(f"phase 11b took {time.perf_counter() - t0:.1f} s")
+
+
+def taps_phase(dev) -> None:
+    """Phase 11c: the debug taps on the card (``assert_finite`` clean and
+    with an injected NaN, which raises at ``throw()`` and leaves the card
+    launching kernels; ``ScatterTap``; ``trace`` writing a Chrome trace
+    with the kernels' names), then each example in a subprocess on the
+    card, the three at once."""
+    import glob
+    import tempfile
+
+    import torch
+    from qpsk_tpu_torch import ModemConfig, rx_init, rx_stream
+    from qpsk_tpu_torch.utils.debug import (ScatterTap, assert_finite,
+                                            checkify, trace)
+
+    t0 = time.perf_counter()
+    cfg = ModemConfig()
+    pcm = noise_pcm(cfg, 256, 4, 17, dev)
+    _, out = rx_stream(cfg, rx_init(cfg, (256,), device=dev), pcm)
+    assert_finite(out, "clean").throw()
+    bad = out.symbols.re.clone()
+    bad[7, 1, 3] = float("nan")
+
+    def fn(x):
+        assert_finite(x, "x")
+        return x * 2.0
+    err, _ = checkify(fn)(bad)
+    try:
+        err.throw()
+    except FloatingPointError as e:
+        print(f"  assert_finite: clean rx_stream output passes; the injected "
+              f"NaN raises at throw(): {e}")
+    else:
+        raise SmokeFailure("assert_finite missed an injected NaN")
+    reset_launches()
+    _, again = rx_stream(cfg, rx_init(cfg, (256,), device=dev), pcm)
+    torch.cuda.synchronize()
+    need(kernel_modules()["costas"].launches == 1
+         and torch.equal(again.bits, out.bits),
+         "the card does not launch kernels after the NaN check")
+    tap = ScatterTap()
+    tap.tap(out.symbols)
+    need(tap.as_array().shape == (out.symbols.re.numel(), 2), "ScatterTap")
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=root) as d:
+        with trace(d):
+            rx_stream(cfg, rx_init(cfg, (256,), device=dev), pcm)
+            torch.cuda.synchronize()
+        files = glob.glob(os.path.join(d, "trace-*.json"))
+        need(len(files) == 1, f"trace wrote {files}")
+        with open(files[0]) as fh:
+            names = {e.get("name", "") for e in json.load(fh)["traceEvents"]
+                     if e.get("cat") == "kernel"}
+    need(any("costas" in n for n in names)
+         and any("frontend" in n for n in names),
+         f"the trace's kernels: {sorted(names)[:8]}")
+    print(f"  trace: a Chrome trace with {len(names)} kernel names, the "
+          f"front-end's and Costas' among them; ScatterTap took "
+          f"{tap.as_array().shape[0]} points")
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", f"qpsk_tpu_torch.examples.{name}"], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in EXAMPLES}
+    for name, proc in procs.items():
+        try:
+            text = proc.communicate(timeout=300)[0]
+        except subprocess.TimeoutExpired:
+            for p in procs.values():
+                p.kill()
+            raise SmokeFailure(f"example {name} ran past 300 s")
+        need(proc.returncode == 0,
+             f"example {name} exited {proc.returncode}: {text[-2000:]}")
+        print(f"  example {name} on the card:")
+        for line in text.strip().splitlines():
+            print(f"    {line}")
+    print(f"phase 11c took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from qpsk_tpu_torch import ModemConfig
     from qpsk_tpu_torch.ops.cuda import _lib
     from qpsk_tpu_torch.packet import PacketConfig
@@ -4054,6 +4203,17 @@ def main() -> int:
         cli_phase(dev, {})
         print(smi)
         return 0
+    if {"--blocks", "--bench"} & set(sys.argv[1:]):
+        if "--blocks" in sys.argv[1:]:
+            print("phase 11a: one stream, block-parallel")
+            blocks_phase(pcfg, dev, errs, {}, {})
+        if "--bench" in sys.argv[1:]:
+            print("phase 11b: bench, every suite on the card")
+            bench_phase(dev)
+            print("phase 11c: the debug taps and the examples on the card")
+            taps_phase(dev)
+        print(smi)
+        return 0
     print("phase 2: kernels against their plain versions")
     check_sincosf(dev)
     compare_kernels(cfg, pcfg, dev, errs)
@@ -4097,6 +4257,14 @@ def main() -> int:
     runtime_phase(pcfg, dev, errs, counts, times)
     modes_phase(pcfg, dev, errs, counts)
     cli_phase(dev, counts)
+    print("phase 11a: one stream, block-parallel")
+    print(f"  before: {CLOCKS} = {nvidia_smi_line(CLOCKS)}")
+    blocks_phase(pcfg, dev, errs, counts, times)
+    print(f"  after:  {CLOCKS} = {nvidia_smi_line(CLOCKS)}")
+    print("phase 11b: bench, every suite on the card")
+    bench_phase(dev)
+    print("phase 11c: the debug taps and the examples on the card")
+    taps_phase(dev)
 
     for name in KERNELS:
         if name.startswith(("frontend", "tx")):

@@ -72,11 +72,14 @@ def tone_pcm(pcm: torch.Tensor, freq_hz: float, level_db: float,
     return _to_pcm(pcm.to(torch.float32) + tone * float(np.float32(pcm_scale)))
 
 
-def multipath_pcm(pcm: torch.Tensor, paths) -> torch.Tensor:
+def multipath_pcm(pcm: torch.Tensor, paths,
+                  pcm_scale: float = 16384.0) -> torch.Tensor:
     """Static multipath on int16 passband PCM along the last axis:
     ``y[n] = sum_d gain_d * x[n - delay_d]`` for ``paths`` of
     (delay_samples >= 0, gain), the echoes silent before sample 0.  The
-    symbol-level ISI is what ``ModemConfig(eq_taps=...)`` removes."""
+    symbol-level ISI is what ``ModemConfig(eq_taps=...)`` removes.
+    ``pcm_scale`` is accepted as the JAX package's signature has it; the
+    sum is linear in the PCM, so no scale enters it."""
     x = pcm.to(torch.float32)
     y = torch.zeros_like(x)
     for delay, gain in paths:

@@ -13,6 +13,9 @@ messages and JSON keys:
   ``--stream`` push-mode decode of a file or stdin.
 * ``sweep``    — PER/BER against SNR (``eval.per_vs_snr``).
 * ``fdm``      — multi-carrier loopback through the FDM filterbank.
+* ``bench``    — the throughput and latency suites of ``benchmarks.py``,
+  one JSON record a line (the JAX CLI's suites but ``scaling``, which
+  needs several cards).
 
 The one flag the JAX CLI lacks is ``--device {cuda,cpu}``: the port runs
 on the card unless told otherwise, and without one it exits with code 2
@@ -35,6 +38,7 @@ import tempfile
 import numpy as np
 import torch
 
+from qpsk_tpu_torch import benchmarks
 from qpsk_tpu_torch.channel import (_to_pcm, awgn_pcm, clock_offset_pcm,
                                     impulse_noise_pcm, multipath_pcm,
                                     phase_noise_pcm)
@@ -653,6 +657,15 @@ def cmd_fdm(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    suites = benchmarks.suites(args.device)
+    for name in suites if args.suite == "all" else (args.suite,):
+        recs = suites[name]()
+        for rec in recs if isinstance(recs, list) else [recs]:
+            print(json.dumps(rec), flush=True)
+    return 0
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="qpsk_tpu_torch", description=__doc__)
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -738,6 +751,16 @@ def parser() -> argparse.ArgumentParser:
     fd.add_argument("--snr-db", type=float, default=None,
                     help="wideband AWGN SNR; omit for noiseless")
     fd.set_defaults(fn=cmd_fdm)
+
+    be = sub.add_parser("bench", help="throughput benchmark")
+    be.add_argument("--suite", type=str, default="rx",
+                    choices=tuple(benchmarks.suites()) + ("all",),
+                    help="which benchmark to run (all = every suite)")
+    be.add_argument("--device", type=str, default="cuda",
+                    choices=("cuda", "cpu"),
+                    help="where the suites run: the card (default; exits "
+                         "with an error without one) or the CPU")
+    be.set_defaults(fn=cmd_bench)
     return ap
 
 

@@ -16,6 +16,7 @@ import math
 from qpsk_tpu_torch.ops import modfam
 
 TAU = 2.0 * math.pi
+ROTATE45 = math.pi / 4.0
 
 # bits per symbol: QPSK's 2 and the generic family's (ops/modfam.py)
 _BPS = {"qpsk": 2, **{name: m.bps for name, m in modfam.MODULATIONS.items()}}

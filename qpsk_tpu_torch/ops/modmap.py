@@ -16,9 +16,23 @@ import torch
 
 from qpsk_tpu_torch.ops.cplx import CF32, cmul
 
+TAU = 2.0 * math.pi
+ROTATE45 = math.pi / 4.0
 # e^{j pi/4} as float32 values (the reference's ROTATE45)
-ROT45_RE = float(np.float32(math.cos(math.pi / 4.0)))
-ROT45_IM = float(np.float32(math.sin(math.pi / 4.0)))
+ROT45_RE = float(np.float32(math.cos(ROTATE45)))
+ROT45_IM = float(np.float32(math.sin(ROTATE45)))
+
+# constellation[(b1 << 1) | b0] (qpsk.c:58-63)
+CONSTELLATION = np.array([1.0 + 0.0j, 0.0 + 1.0j, 0.0 - 1.0j, -1.0 + 0.0j],
+                         dtype=np.complex64)
+
+
+def mod_symbols(indices: torch.Tensor) -> CF32:
+    """Constellation lookup for integer indices in [0, 4)."""
+    idx = torch.as_tensor(indices).long()
+    table = torch.from_numpy(np.stack([CONSTELLATION.real, CONSTELLATION.imag
+                                       ]).astype(np.float32)).to(idx.device)
+    return CF32(table[0][idx], table[1][idx])
 
 
 def bits_to_symbols(bits: torch.Tensor) -> CF32:

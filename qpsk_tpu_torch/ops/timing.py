@@ -29,17 +29,13 @@ import warnings
 import numpy as np
 import torch
 
-from qpsk_tpu_torch.ops.cplx import CF32
-
-
-def _abs2(x: CF32) -> torch.Tensor:
-    return x.re * x.re + x.im * x.im
+from qpsk_tpu_torch.ops.cplx import CF32, cabs2
 
 
 def timing_power(frames: CF32, cycles: int) -> torch.Tensor:
     """argmax_p mean |x[i*cycles + p]|^2 over (..., frame_size) frames."""
     nsym = frames.shape[-1] // cycles
-    energy = _abs2(frames).reshape(frames.shape[:-1] + (nsym, cycles)).mean(
+    energy = cabs2(frames).reshape(frames.shape[:-1] + (nsym, cycles)).mean(
         dim=-2)
     return torch.argmax(energy, dim=-1).to(torch.int32)
 
@@ -90,7 +86,7 @@ def _om_tables(n: int, cycles: int, device) -> tuple:
 def timing_fractional(frames: CF32, cycles: int) -> torch.Tensor:
     """Oerder & Meyr fractional timing estimate in samples, in
     [0, cycles)."""
-    e = _abs2(frames)
+    e = cabs2(frames)
     cos_t, sin_t = _om_tables(frames.shape[-1], cycles, frames.re.device)
     cr = (e * cos_t).sum(dim=-1)
     ci = (e * sin_t).sum(dim=-1)

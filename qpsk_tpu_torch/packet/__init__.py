@@ -1,7 +1,8 @@
 """Packet layer: CRC16, DVB scrambler, golden-prime interleaver, and the
 convolutional and LDPC codes."""
 
-from qpsk_tpu_torch.packet.bits import bits_to_bytes, bytes_to_bits
+from qpsk_tpu_torch.packet.bits import (bits_to_bytes, bits_to_dibits,
+                                        bytes_to_bits, dibits_to_bits)
 from qpsk_tpu_torch.packet.crc16 import crc16, crc16_np
 from qpsk_tpu_torch.packet.fec import (ConvCode, conv_encode, hard_llrs,
                                        viterbi_decode)

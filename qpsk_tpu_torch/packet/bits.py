@@ -22,6 +22,20 @@ def bits_to_bytes(bits: torch.Tensor) -> torch.Tensor:
     return (b * weights).sum(-1).to(torch.uint8)
 
 
+def bits_to_dibits(bits: torch.Tensor) -> torch.Tensor:
+    """(..., 2n) bits -> (..., n) int32 dibit values, LSB of the dibit
+    first (the scrambler clocks bit 0 then bit 1 of each pair)."""
+    b = bits.to(torch.int32).reshape(bits.shape[:-1] + (-1, 2))
+    return b[..., 0] | (b[..., 1] << 1)
+
+
+def dibits_to_bits(dibits: torch.Tensor) -> torch.Tensor:
+    """(..., n) dibit values -> (..., 2n) int32 bits, LSB first."""
+    d = dibits.to(torch.int32)
+    bits = torch.stack([d & 1, (d >> 1) & 1], dim=-1)
+    return bits.reshape(d.shape[:-1] + (d.shape[-1] * 2,))
+
+
 def np_bytes_to_bits(data: np.ndarray) -> np.ndarray:
     """Host-side twin of ``bytes_to_bits`` (numpy): (..., n) bytes ->
     (..., 8n) int32 bits."""

@@ -1,0 +1,1 @@
+from qpsk_tpu_torch.utils.checkpoint import load_state, save_state

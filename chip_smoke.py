@@ -227,6 +227,36 @@ Phases, each of which exits non-zero on failure:
    an injected NaN, after which the card launches again; ``ScatterTap``;
    ``trace`` writes a Chrome trace naming the front-end and Costas
    kernels; the three examples run on the card in subprocesses, exit 0.
+12. Scale-out (``--scale`` runs it alone after the build): one process a
+   card (``torch.multiprocessing`` workers on a ``FileStore`` in a
+   temporary directory, NCCL bound to each rank's card), world size
+   ``torch.cuda.device_count()``; each rank prints its card's name and
+   power limit.  (b) ``dp`` at full width, kernels only (``no_plain``),
+   the launch counters reset on every rank: 8192 channels a card x 32
+   frames of packets from TX at +50 Hz through AWGN 10 dB (the global
+   batch on every rank; phase 3's PCM at world size 1) through
+   ``parallel.channels.make_channel_demod``; gate 1: the gathered bits
+   and frequency trace equal one ``rx_stream`` call over the whole batch
+   on rank 0's card; gate 2: on 64 channels of each rank, sync and CRC,
+   every passing payload one that was sent; gate 3: ``fec="conv"`` at
+   1024 channels a card x 48 packets at 6 dB, the LLRs of the sharded
+   symbols within 1e-5 of the unsharded ones, the soft hunt and tracked
+   extraction on 32 channels of each rank through the Viterbi kernel.
+   (c) ``sp`` at full width: phase 11a's stream of 4096 frames split over
+   the ranks; ``rx_frontend_timeparallel`` within 2e-4 of the serial mix
+   and FIR on one card; ``rx_stream_timeparallel`` kernels only, one
+   Costas launch a rank and nothing else, each rank's loop within 10 Hz
+   of +50, at most 2 % of its packets lost and every CRC-passing payload
+   one that was sent; on 64 frames a rank, the plain path
+   (``costas_impl="scan"``) with equal bits and symbols and frequency
+   within 1e-4, the Costas kernel on a rank's block bit-identical to its
+   plain version and timed beside it (the ``kernels`` line's
+   ``costas_timeparallel`` row).  (d) By CUDA events, the largest over the
+   ranks: the ``dp`` receive a call, the ``sp`` receive a call and the
+   serial ``rx_stream`` on one channel of the same stream; then ``bench
+   --suite scaling`` through ``cli.main``, which starts its own ranks:
+   every record names the card and has positive, finite times and rates.
+   Phase 12's front-end, Costas, TX and Viterbi launches join their rows.
 
 The Costas kernel is also held at a chain of 1000 symbols, not a multiple
 of 16, in every mode (phases 2, 6a and 7a).  Beside each Costas, front-end
@@ -452,6 +482,16 @@ FDM_RX, CLI_STREAM_LINES, CLI_SAMPLED = (16, 24), 48, 64
 BLOCKS_FRAMES, BLOCKS_NBLOCKS, BLOCKS_OVERLAP = 4096, (128, 1024), 64
 BLOCKS_ODD = (1024, 37)
 EXAMPLES = ("end_to_end", "modulation_family", "streaming_receiver")
+# phase 12: scale-out, one rank a card.  The dp receive at SCALE_DP
+# (channels a card, frames) with SCALE_SAMPLED channels of each rank
+# decoded, its soft path at SCALE_SOFT channels a card (fec="conv", phase
+# 5b's CODED_PATH packets) with SCALE_SOFT_SAMPLED channels decoded; the
+# sp receive of phase 11a's stream (BLOCKS_FRAMES frames), held against
+# its plain version on SCALE_SP_PLAIN frames a rank; the largest share
+# of a block's packets it may lose
+SCALE_DP, SCALE_SAMPLED = (8192, 32), 64
+SCALE_SOFT, SCALE_SOFT_SAMPLED = 1024, 32
+SCALE_SP_PLAIN, SCALE_SP_LOSS = 64, 0.02
 
 
 class SmokeFailure(RuntimeError):
@@ -463,11 +503,11 @@ def need(cond, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def nvidia_smi_line(fields: str = "name,power.limit") -> str:
+def nvidia_smi_line(fields: str = "name,power.limit", card: int = 0) -> str:
     out = subprocess.run(
         ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout
-    return out.strip().splitlines()[0]
+    return out.strip().splitlines()[card]
 
 
 CLOCKS = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
@@ -1626,6 +1666,8 @@ KERNELS = {
                  "qpsk_tpu/ops/pallas/ldpc_kernel.py:116"),
     # the Costas kernel with a stream's blocks on its channel axis (phase 11)
     "costas_blocks": (_CO, "qpsk_tpu/ops/pallas/costas_kernel.py:373"),
+    # the Costas kernel on one rank's time block of a stream (phase 12)
+    "costas_timeparallel": (_CO, "qpsk_tpu/ops/pallas/costas_kernel.py:373"),
 }
 
 
@@ -4054,6 +4096,8 @@ def bench_phase(dev) -> None:
     t0 = time.perf_counter()
     smi = nvidia_smi_line()
     for name in benchmarks.suites():
+        if name == "scaling":
+            continue    # phase 12d, in its process group
         rc, out, err, wall = cli_call(["bench", "--suite", name])
         recs = [json.loads(ln) for ln in out if ln.startswith("{")]
         need(rc == 0 and recs, f"bench --suite {name}: rc {rc}, "
@@ -4148,6 +4192,398 @@ def taps_phase(dev) -> None:
     print(f"phase 11c took {time.perf_counter() - t0:.1f} s")
 
 
+def gather_ranks(t):
+    """``t`` of every rank, concatenated on the leading axis in rank
+    order (``all_gather_into_tensor`` over NCCL)."""
+    import torch.distributed as dist
+    t = t.contiguous()
+    out = t.new_empty((dist.get_world_size() * t.shape[0],) + tuple(t.shape[1:]))
+    dist.all_gather_into_tensor(out, t)
+    return out
+
+
+def ranks_max(x: float, dev) -> float:
+    """The largest of the ranks' ``x``."""
+    import torch
+    import torch.distributed as dist
+    t = torch.tensor([float(x)], dtype=torch.float64, device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return float(t.item())
+
+
+def launched(names) -> dict:
+    mods = kernel_modules()
+    return {k: mods[k].launches for k in names}
+
+
+def scale_dp(cfg, pcfg, mesh, dev, rank: int, world: int, say, res: dict):
+    """Phase 12b on one rank: the dp receive at full width, kernels only,
+    then gates 1 and 2.  Returns (demod, state, PCM) for the rates."""
+    import numpy as np
+    import torch
+    from qpsk_tpu_torch import rx_init, rx_stream
+    from qpsk_tpu_torch.parallel.channels import (init_channels,
+                                                  make_channel_demod)
+
+    c, nframes = SCALE_DP
+    total = c * world
+    demod = make_channel_demod(cfg, mesh)
+    t0 = time.perf_counter()
+    with no_plain():
+        reset_launches()
+        # the global stimulus on every rank (phase 3's at world size 1)
+        payload, _, _, pcm = loopback_pcm(cfg, pcfg, total, nframes,
+                                          seed=2024, dev=dev)
+        st0 = init_channels(cfg, total, mesh)
+        _, out = demod(st0, pcm)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    moved = launched(("tx", "frontend", "costas"))
+    for k, n in moved.items():
+        need(n > 0, f"dp: rank {rank} never launched the {k} kernel")
+        res["launches"][k] += n
+    need(tuple(out.bits.shape) == (c, nframes, 2 * cfg.symbols_per_frame),
+         f"dp: bits of shape {tuple(out.bits.shape)}")
+    say(f"dp: {total} channels ({c} a rank) x {nframes} frames, TX -> AWGN "
+        f"-> make_channel_demod in {seconds:.3f} s (host clock, first "
+        f"call), kernels only; launches {moved}")
+    # gate 1: the gathered outputs against one rx_stream over the whole
+    # batch on rank 0's card
+    bits, hz = gather_ranks(out.bits), gather_ranks(out.freq_hz)
+    if rank == 0:
+        _, ref = rx_stream(cfg, rx_init(cfg, (total,), device=dev), pcm)
+        fd = max_abs(hz, ref.freq_hz)
+        need(torch.equal(bits, ref.bits) and fd == 0,
+             f"dp: the gathered receive differs from one rx_stream call "
+             f"(frequency by {fd})")
+        say(f"dp gate 1: the gathered bits and frequency trace of {world} "
+            f"rank(s) equal one rx_stream call over all {total} channels on "
+            f"rank 0's card (largest frequency difference {fd})")
+    # gate 2: sync and CRC on sampled channels of this rank's block
+    skip = 8 * pcfg.frame_bits
+    sampled = sorted({round(i * (c - 1) / (SCALE_SAMPLED - 1))
+                      for i in range(SCALE_SAMPLED)})
+    npass = ntot = 0
+    for ch in sampled:
+        g = rank * c + ch
+        sent = {np.packbits(row).tobytes(): k for k, row in
+                enumerate(payload[g].cpu().numpy().astype(np.uint8))}
+        found, sync, rx = recovered(pcfg, out.bits[ch].reshape(-1), sent, skip,
+                                    f"dp channel {g}")
+        need(int(sync.score) >= 3, f"dp channel {g}: sync {int(sync.score)}/4")
+        npass += len(found)
+        ntot += rx.crc_ok.numel()
+    need(npass >= 0.9 * ntot, f"dp: {npass} of {ntot} packets recovered")
+    say(f"dp gate 2: {len(sampled)} channels of rank {rank} synced, {npass} of "
+        f"{ntot} packets pass CRC, every one a payload sent")
+    return demod, st0, pcm
+
+
+def scale_soft(cfg, mesh, dev, rank: int, world: int, say, res: dict) -> None:
+    """Phase 12b gate 3 on one rank: the coded (conv) soft path at phase
+    5b's shape a card through ``make_channel_demod``: the LLRs of the
+    sharded symbols against the unsharded ones, then the soft sync hunt
+    and tracked extraction through the Viterbi kernel."""
+    import torch
+    from qpsk_tpu_torch import rx_init, rx_stream, tx_init, tx_stream
+    from qpsk_tpu_torch.channel import awgn_pcm
+    from qpsk_tpu_torch.ops.modmap import demod_soft
+    from qpsk_tpu_torch.packet import PacketConfig, assemble_packet
+    from qpsk_tpu_torch.parallel.channels import (init_channels,
+                                                  make_channel_demod)
+    from qpsk_tpu_torch.sync import (default_max_lag,
+                                     extract_packets_soft_tracked,
+                                     find_sync_streams, rotate_soft)
+
+    pcfg = PacketConfig(payload_bytes=30, fec="conv")
+    c, npkt = SCALE_SOFT, CODED_PATH[1]
+    total, fb, mfb = c * world, pcfg.frame_bits, cfg.bits_per_frame
+    skip = 8 * fb
+    sampled = sorted({round(i * (c - 1) / (SCALE_SOFT_SAMPLED - 1))
+                      for i in range(SCALE_SOFT_SAMPLED)})
+    t0 = time.perf_counter()
+    with no_plain():
+        reset_launches()
+        gen = torch.Generator(device=dev).manual_seed(2025)
+        payload = torch.randint(0, 2, (total, npkt, 8 * pcfg.payload_bytes),
+                                generator=gen, device=dev, dtype=torch.int32)
+        chan = assemble_packet(pcfg, payload).reshape(total, -1)
+        nframes = -(-chan.shape[1] // mfb)
+        filler = torch.randint(0, 2, (total, nframes * mfb - chan.shape[1]),
+                               generator=gen, device=dev, dtype=torch.int32)
+        frames = torch.cat([chan, filler], dim=1).reshape(total, nframes, mfb)
+        _, clean = tx_stream(cfg, tx_init(cfg, (total,), device=dev), frames,
+                             tx_offset_hz=TX_OFFSET_HZ)
+        power = float(((clean.to(torch.float32) / cfg.pcm_scale) ** 2).mean())
+        pcm = awgn_pcm(gen, clean, CODED_SNR_DB, power, cfg.pcm_scale)
+        _, out = make_channel_demod(cfg, mesh)(init_channels(cfg, total, mesh),
+                                               pcm)
+        llrs = demod_soft(out.symbols).reshape(c, -1)
+        results = []
+        for ch in sampled:
+            x = llrs[ch, skip:]
+            rows = torch.stack([rotate_soft(x, r) for r in range(4)])
+            sync = find_sync_streams(pcfg, rows, max_lag=default_max_lag(pcfg),
+                                     probe_frames=8, soft=True)
+            navail = (x.numel() - int(sync.bit_lag)) // fb
+            results.append((sync, extract_packets_soft_tracked(pcfg, x, sync,
+                                                               navail)))
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    moved = launched(("tx", "frontend", "costas", "viterbi"))
+    for k, n in moved.items():
+        need(n > 0, f"soft: rank {rank} never launched the {k} kernel")
+        res["launches"][k] += n
+    _, ref = rx_stream(cfg, rx_init(cfg, (total,), device=dev), pcm)
+    ref_llrs = demod_soft(ref.symbols).reshape(total, -1)[rank * c:(rank + 1) * c]
+    err = max_abs(llrs, ref_llrs)
+    need(err <= 1e-5, f"soft: sharded LLRs {err} from the unsharded ones")
+    nok = npk = synced = 0
+    for ch, (sync, rx) in zip(sampled, results):
+        synced += int(sync.score) > 0
+        nok += check_payloads(rx, payload[rank * c + ch], rank * c + ch)
+        npk += rx.crc_ok.numel()
+    need(synced == len(sampled) and nok >= npk // 2,
+         f"soft: {synced} of {len(sampled)} channels synced, {nok} of {npk} "
+         "packets pass")
+    say(f"soft (fec=conv, {CODED_SNR_DB} dB): {total} channels ({c} a rank) x "
+        f"{npkt} packets in {seconds:.3f} s, launches {moved}; LLRs "
+        f"{err:.3g} from the unsharded ones; {synced}/{len(sampled)} channels "
+        f"synced, {nok} of {npk} packets pass CRC through the Viterbi "
+        "kernel, every one bit-exact")
+
+
+def scale_sp(cfg, pcfg, mesh, dev, rank: int, world: int, say, res: dict,
+             errs: dict):
+    """Phase 12c on one rank: the sp front-end against the serial one,
+    the sp receive through the Costas kernel, and the plain version on a
+    cut of the stream.  Returns the stream's PCM (1, frames, 512)."""
+    import numpy as np
+    import torch
+    from qpsk_tpu_torch.modem import _tmat
+    from qpsk_tpu_torch.ops import nco
+    from qpsk_tpu_torch.ops import rrc as rrc_ops
+    from qpsk_tpu_torch.ops.cplx import CF32
+    from qpsk_tpu_torch.ops.cuda import costas_kernel as ck
+    from qpsk_tpu_torch.parallel import stream
+
+    nframes = BLOCKS_FRAMES
+    payload, _, _, pcm = loopback_pcm(cfg, pcfg, 1, nframes, seed=2111,
+                                      dev=dev)
+    flat = pcm.reshape(-1)
+    n = flat.numel()
+    blk = n // world
+    sent = {np.packbits(row).tobytes(): k for k, row in
+            enumerate(payload[0].cpu().numpy().astype(np.uint8))}
+    # the front-end against the serial mix and FIR over the whole stream
+    y = stream.rx_frontend_timeparallel(cfg, flat, mesh)
+    x = flat.to(torch.float32) / float(cfg.pcm_scale)
+    x, _ = nco.mix(CF32(x, torch.zeros_like(x)), nco.nco_init((), dev),
+                   -cfg.omega_center, "fast")
+    tile = rrc_ops.pick_block(n)
+    x, _ = rrc_ops.fir_block(x, rrc_ops.fir_init_tail(cfg.ntaps, (), dev),
+                             _tmat(cfg, tile, dev), cfg.gain, tile)
+    mine = slice(rank * blk, (rank + 1) * blk)
+    fe = ranks_max(max(max_abs(y.re, x.re[mine]), max_abs(y.im, x.im[mine])),
+                   dev)
+    need(fe <= 2e-4, f"sp: the front-end is {fe} from the serial one")
+    say(f"sp front-end: {nframes} frames ({n} samples) over {world} rank(s), "
+        f"largest difference from the serial mix and FIR on one card {fe:.3g}")
+    # the receive, kernels only, one Costas launch a rank
+    seen = []
+    with no_plain(), recorded_costas(seen, stream):
+        reset_launches()
+        sym, bits, hz = stream.rx_stream_timeparallel(cfg, flat, mesh)
+        torch.cuda.synchronize()
+    moved = launched(kernel_modules())
+    need(moved["costas"] == 1 and len(seen) == 1
+         and not any(v for k, v in moved.items() if k != "costas"),
+         f"sp: rank {rank} launches {moved}, {len(seen)} Costas calls")
+    res["launches"]["costas_timeparallel"] += moved["costas"]
+    need(bool(torch.isfinite(sym.re).all() and torch.isfinite(hz).all()),
+         "sp: non-finite output")
+    need(abs(float(hz[0]) - TX_OFFSET_HZ) <= 10.0,
+         f"sp: rank {rank}'s loop ended at {float(hz[0])} Hz")
+    found, sync, rx = recovered(pcfg, bits, sent, 0, f"sp rank {rank}")
+    per_block = nframes // world
+    need(len(found) >= (1.0 - SCALE_SP_LOSS) * per_block,
+         f"sp: rank {rank} recovered {len(found)} of {per_block} packets")
+    say(f"sp: rx_stream_timeparallel, one Costas launch on rank {rank}'s "
+        f"{blk // cfg.cycles} symbols; loop at {float(hz[0]):.4f} Hz; sync "
+        f"{int(sync.score)}/4, {len(found)} of its {per_block} packets "
+        f"recovered bit-exact")
+    # the whole chain against the same symbols as kernel calls of
+    # SCALE_SP_PLAIN frames, the state carried: the length that is held
+    # against the plain version below
+    (cs, zc, params, trace), kw = seen[0]
+    zr, zi = zc.re.T.contiguous(), zc.im.T.contiguous()
+    step = SCALE_SP_PLAIN * cfg.symbols_per_frame
+    with no_plain():
+        whole = ck.costas_run_tm(cs, zr, zi, params, trace, gear=kw.get("gear"))
+        st, parts = cs, []
+        for k in range(0, trace, step):
+            m = min(step, trace - k)
+            st, d, f, b = ck.costas_run_tm(st, zr[k:k + m], zi[k:k + m],
+                                           params, m, gear=kw.get("gear"))
+            parts.append((d, b))
+        torch.cuda.synchronize()
+    cut_re = torch.cat([d.re for d, _ in parts])
+    cut_im = torch.cat([d.im for d, _ in parts])
+    wit = max([max_abs(whole[1].re, cut_re), max_abs(whole[1].im, cut_im),
+               max_abs(whole[2][:, -1], f[:, -1]),
+               max_abs(whole[1].re.reshape(-1), sym.re)]
+              + [max_abs(a.float(), b.float()) for a, b in zip(whole[0], st)
+                 if a is not None])
+    need(wit == 0 and torch.equal(whole[3], torch.cat([b for _, b in parts], 1))
+         and torch.equal(whole[3].reshape(-1), bits),
+         f"sp: the {trace}-step Costas chain is {wit} from its {len(parts)} "
+         f"calls of {step} steps")
+    say(f"sp chain: the {trace}-step kernel call equals {len(parts)} chained "
+        f"calls of {step} steps (symbols, bits, final state and frequency; "
+        f"largest difference {wit}), and the main path's output")
+    # against the plain version on SCALE_SP_PLAIN frames a rank
+    cut = flat[:SCALE_SP_PLAIN * world * cfg.frame_size]
+    seen = []
+    with recorded_costas(seen, stream):
+        ksym, kbits, khz = stream.rx_stream_timeparallel(cfg, cut, mesh)
+    psym, pbits, phz = stream.rx_stream_timeparallel(path_cfg(cfg, "plain"),
+                                                     cut, mesh)
+    err = max(cmax_abs(ksym, psym), max_abs(khz, phz))
+    need(torch.equal(kbits, pbits) and err <= 1e-4,
+         f"sp: the kernel path is {err} from the plain path")
+    (cs, zc, params, trace), kw = seen[0]
+    zr, zi = zc.re.T.contiguous(), zc.im.T.contiguous()
+    k, p = check_costas(cs, zr, zi, params, trace, True,
+                        f"sp rank {rank}, {SCALE_SP_PLAIN} frames", errs,
+                        gear=kw.get("gear"))
+    kerr = max(cmax_abs(k[1], p[1]), max_abs(k[2], p[2]),
+               max_abs(k[0].freq, p[0].freq), max_abs(k[0].phase, p[0].phase))
+    need(kerr == 0 and torch.equal(k[3], p[3]),
+         f"sp: the Costas kernel is {kerr} from its plain version")
+    errs["costas_timeparallel"] = max(errs["costas_timeparallel"], err, kerr)
+    say(f"sp plain: on {SCALE_SP_PLAIN} frames a rank the kernel and plain "
+        f"paths give equal bits, symbols and loop frequency {err:.3g} apart; "
+        f"the Costas kernel on the rank's {trace} symbols is {kerr} from its "
+        "plain version, bits equal")
+    if rank == 0:
+        res["time"] = list(time_pair(
+            "costas_timeparallel", ck.costas_run_tm, ck.costas_run_tm_plain,
+            (cs, zr, zi, params, trace), {}, 1, 20)
+            + costas_work(1, trace, trace))
+    return pcm
+
+
+def scale_rates(cfg, dp_run, sp_mesh, pcm, dev, say) -> None:
+    """Phase 12d on one rank: the dp receive a call, the sp receive a call
+    and the serial ``rx_stream`` on one channel of the same stream, by
+    CUDA events, the largest over the ranks."""
+    from qpsk_tpu_torch import rx_init, rx_stream
+    from qpsk_tpu_torch.parallel import stream
+
+    demod, st, pcm_dp = dp_run
+    flat = pcm.reshape(-1)
+    one = rx_init(cfg, device=dev)
+    ms_dp = ranks_max(cuda_time_ms(lambda: demod(st, pcm_dp), 10), dev)
+    ms_sp = ranks_max(cuda_time_ms(
+        lambda: stream.rx_stream_timeparallel(cfg, flat, sp_mesh), 3,
+        warmup=1), dev)
+    ms_serial = ranks_max(cuda_time_ms(lambda: rx_stream(cfg, one, pcm[0]), 3,
+                                       warmup=1), dev)
+    c, nframes = SCALE_DP
+    say(f"rates ({nvidia_smi_line()}), CUDA events, the largest over the "
+        f"ranks: dp receive {ms_dp:.4f} ms a call ({c} channels a card x "
+        f"{nframes} frames, {pcm_dp.numel() / ms_dp * 1e3:.6g} samples/s in "
+        f"all); sp receive {ms_sp:.4f} ms a call ({flat.numel()} samples, "
+        f"{flat.numel() / ms_sp * 1e3:.6g} samples/s); serial rx_stream on "
+        f"one channel {ms_serial:.4f} ms ({flat.numel() / ms_serial * 1e3:.6g} "
+        f"samples/s); sp / serial {ms_sp / ms_serial:.4f}")
+
+
+def scale_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of phase 12 on card ``rank``, in the NCCL group that
+    ``multihost.spawn_per_card`` started: its launches, largest
+    differences and (rank 0) the Costas row's times go to
+    ``tmp/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+    from qpsk_tpu_torch import ModemConfig
+    from qpsk_tpu_torch.packet import PacketConfig
+    from qpsk_tpu_torch.parallel import multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank)
+
+    def say(msg: str) -> None:
+        print(f"  [rank {rank}] {msg}" if world > 1 else f"  {msg}", flush=True)
+    res = {"launches": dict.fromkeys(("frontend", "costas", "tx", "viterbi",
+                                      "costas_timeparallel"), 0)}
+    errs = dict.fromkeys(KERNELS, 0.0)
+    say(f"rank {rank} of {world}: {dist.get_backend()} on "
+        f"{nvidia_smi_line(card=rank)}")
+    cfg, pcfg = ModemConfig(), PacketConfig(payload_bytes=30)
+    dp = multihost.global_mesh(("dp",), device=dev)
+    sp = multihost.global_mesh(("sp",), device=dev)
+    dp_run = scale_dp(cfg, pcfg, dp, dev, rank, world, say, res)
+    scale_soft(cfg, dp, dev, rank, world, say, res)
+    pcm = scale_sp(cfg, pcfg, sp, dev, rank, world, say, res, errs)
+    scale_rates(cfg, dp_run, sp, pcm, dev, say)
+    res["errs"] = errs
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
+        json.dump(res, fh)
+
+
+def scale_phase(errs: dict, counts: dict, times: dict) -> None:
+    """Phase 12 (``--scale`` runs it alone): scale-out over every card,
+    one rank a card on NCCL, spawned here; then ``bench --suite
+    scaling`` through ``cli.main``, which spawns its own ranks.  Adds the
+    ranks' launches to ``counts`` and the ``costas_timeparallel`` row's
+    error and times."""
+    import tempfile
+
+    import torch
+    from qpsk_tpu_torch.parallel import multihost
+
+    t0 = time.perf_counter()
+    world = torch.cuda.device_count()
+    print(f"  world size {world}, one rank a card; NCCL "
+          f"{torch.cuda.nccl.version()}")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        multihost.spawn_per_card(scale_rank, os.path.join(tmp, "store"), tmp)
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+    total = {}
+    for res in ranks:
+        for k, n in res["launches"].items():
+            total[k] = total.get(k, 0) + n
+            counts[k] = counts.get(k, 0) + n
+        for k, e in res["errs"].items():
+            errs[k] = max(errs[k], e)
+    times["costas_timeparallel"] = tuple(ranks[0]["time"])
+    print(f"  launches over the ranks: {total}")
+    smi = nvidia_smi_line()
+    rc, out, err, wall = cli_call(["bench", "--suite", "scaling"])
+    recs = [json.loads(ln) for ln in out if ln.startswith("{")]
+    need(rc == 0 and {r["mode"] for r in recs}
+         == {"dp", "sp", "sp_bound", "sp_decomp"},
+         f"bench --suite scaling: rc {rc}, {len(recs)} records; {err[-5:]}")
+    for r in recs:
+        need(r["platform"] == "gpu" and r["card"] == smi,
+             f"bench --suite scaling: {r}")
+        for k, v in r.items():
+            if k.startswith(("time_", "throughput", "eff", "t_launch")) \
+                    or k in ("t_full_s", "t_frontend_s", "t_block_s"):
+                need(math.isfinite(v) and v > 0,
+                     f"bench --suite scaling: {k} = {v} in {r}")
+        print(f"  {json.dumps(r)}")
+    print(f"  bench --suite scaling: {len(recs)} records in {wall:.1f} s")
+    print(f"phase 12 took {time.perf_counter() - t0:.1f} s "
+          f"({nvidia_smi_line()})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4201,6 +4637,11 @@ def main() -> int:
         return 0
     if "--cli" in sys.argv[1:]:
         cli_phase(dev, {})
+        print(smi)
+        return 0
+    if "--scale" in sys.argv[1:]:
+        print("phase 12: scale-out, one rank a card")
+        scale_phase(errs, {}, {})
         print(smi)
         return 0
     if {"--blocks", "--bench"} & set(sys.argv[1:]):
@@ -4265,6 +4706,10 @@ def main() -> int:
     bench_phase(dev)
     print("phase 11c: the debug taps and the examples on the card")
     taps_phase(dev)
+    print("phase 12: scale-out, one rank a card")
+    print(f"  before: {CLOCKS} = {nvidia_smi_line(CLOCKS)}")
+    scale_phase(errs, counts, times)
+    print(f"  after:  {CLOCKS} = {nvidia_smi_line(CLOCKS)}")
 
     for name in KERNELS:
         if name.startswith(("frontend", "tx")):

@@ -23,9 +23,18 @@ Sizes default to the JAX package's TPU operating points on the card (RX
 8192 channels x 8 frames, FEC 4096 packets, block-parallel 512 frames x
 128 blocks, ...) and to its CPU sizes on the CPU.  On the card the rate
 records carry ``utils/roofline.py``'s reports where the JAX suites attach
-theirs on the TPU.  The weak-scaling suites (``scaling_efficiency``,
-``sp_bound_record``, ``sp_scaling_decomposition``) need several cards
-and are not ported yet.
+theirs on the TPU.
+
+The scale-out records (``scaling_efficiency``, ``sp_bound_record``,
+``sp_scaling_decomposition``) run in a ``torch.distributed`` group, one
+process a card (``parallel/multihost.py``; with no group up, a one-rank
+group is started).  Every rank calls them; a count of ``n`` devices runs
+on the group's first ``n`` ranks.  A barrier stands before and after each
+timed window, a rank's time is its own (CUDA events on the card), and the
+record's time is the largest over the ranks.  Rank 0 returns the records,
+the other ranks ``[]``.  ``rx_throughput`` in a group of more than one
+rank shards its channels over the group (``parallel.channels``) and sums
+its checksum over it.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def _device(device) -> torch.device:
@@ -42,6 +52,9 @@ def _device(device) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to measure the "
                            "CPU")
+    if dev.type == "cuda" and dev.index is None:
+        # the process's card: a rank's own in a group
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -74,13 +87,18 @@ def _sizes(dev: torch.device, card: tuple, cpu: tuple, given: tuple) -> tuple:
     return tuple(g or b for g, b in zip(given, base))
 
 
-def _timed(step, calls: int, dev: torch.device) -> float:
+def _timed(step, calls: int, dev: torch.device, group=None) -> float:
     """Seconds of ``calls`` chained ``step()`` calls after warm-up calls
-    (3 on the card, which also build the kernels; 1 on the CPU)."""
+    (3 on the card, which also build the kernels; 1 on the CPU).  With a
+    process ``group``, a barrier stands before and after the window and
+    the time is the largest over the group's ranks."""
     for _ in range(3 if _on_card(dev) else 1):
         step()
     if _on_card(dev):
         torch.cuda.synchronize(dev)
+    if group is not None:
+        dist.barrier(group=group)
+    if _on_card(dev):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -88,11 +106,18 @@ def _timed(step, calls: int, dev: torch.device) -> float:
             step()
         end.record()
         end.synchronize()
-        return start.elapsed_time(end) / 1e3
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        step()
-    return time.perf_counter() - t0
+        dt = start.elapsed_time(end) / 1e3
+    else:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            step()
+        dt = time.perf_counter() - t0
+    if group is None:
+        return dt
+    dist.barrier(group=group)
+    t = torch.tensor([dt], dtype=torch.float64, device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return float(t.item())
 
 
 def _noise_pcm(shape, dev: torch.device, seed: int = 0) -> torch.Tensor:
@@ -152,7 +177,10 @@ def rx_throughput(channels: int | None = None, frames: int | None = None,
     """Aggregate demodulation rate of ``rx_stream`` (matched filter,
     timing, decimation, Costas, slicing) in samples/s, channels on the
     batch axis, the state chained; on the card with
-    ``roofline.composed_rx_report``."""
+    ``roofline.composed_rx_report`` (of one card's channels).  In a
+    process group of more than one rank, the ``channels`` are sharded over
+    its ranks (``parallel.channels.make_channel_demod``), each call's
+    checksum is summed over them, and the rate is the group's."""
     from qpsk_tpu_torch import ModemConfig
 
     cfg = cfg or ModemConfig()
@@ -161,17 +189,38 @@ def rx_throughput(channels: int | None = None, frames: int | None = None,
         dev, (8192, 8, 60, 10), (16, 4, 3, 2),
         (channels, frames, iters, inner))
     nsamples = channels * frames * cfg.frame_size
+    ndev = dist.get_world_size() if dist.is_initialized() else 1
+    if ndev > 1:
+        # raises for a group whose backend is not the device's
+        dev, _, _ = _scale_group(dev)
     pcm = _noise_pcm((channels, frames, cfg.frame_size), dev)
-    dt = _timed(_rx_chained(cfg, dev, pcm, channels), iters * inner, dev)
+    if ndev > 1:
+        from qpsk_tpu_torch.parallel.channels import (init_channels,
+                                                      make_channel_demod)
+        from qpsk_tpu_torch.parallel.multihost import global_mesh
+        mesh = global_mesh(("dp",), device=dev)
+        group = mesh.get_group("dp")
+        demod = make_channel_demod(cfg, mesh)
+        carry = {"st": init_channels(cfg, channels, mesh),
+                 "acc": torch.zeros((), dtype=torch.int64, device=dev)}
+
+        def step():
+            carry["st"], out = demod(carry["st"], pcm)
+            acc = out.bits.sum()
+            dist.all_reduce(acc, group=group)
+            carry["acc"] += acc
+        dt = _timed(step, iters * inner, dev, group)
+    else:
+        dt = _timed(_rx_chained(cfg, dev, pcm, channels), iters * inner, dev)
     rec = {"metric": "rx_demod_throughput",
            "value": round(nsamples * inner * iters / dt, 1),
-           "unit": "samples/s", "platform": _platform(dev), "devices": 1,
+           "unit": "samples/s", "platform": _platform(dev), "devices": ndev,
            "channels": channels, "card": _card(dev)}
     if cfg.modulation != "qpsk":
         rec["modulation"] = cfg.modulation
     if _on_card(dev):
         from qpsk_tpu_torch.utils.roofline import composed_rx_report
-        rec.update(composed_rx_report(cfg, channels, frames,
+        rec.update(composed_rx_report(cfg, channels // ndev, frames,
                                       measured_s=dt / (iters * inner)))
     return rec
 
@@ -619,9 +668,229 @@ def latency_benchmark(bucket_frames: int | None = None,
             "card": _card(dev)}
 
 
+def _scale_group(device) -> tuple:
+    """(this rank's device, its rank, the world size) of the running
+    process group, started as a one-rank group on ``device`` when none is
+    up; ValueError if the group's backend is not ``device``'s (NCCL on the
+    card, gloo on the CPU)."""
+    from qpsk_tpu_torch.parallel import multihost
+
+    dev = _device(device)
+    multihost.ensure_group(dev)
+    if (multihost.mesh_type() == "cuda") != _on_card(dev):
+        raise ValueError(f"a {dist.get_backend()} group cannot measure on "
+                         f"{dev}")
+    return dev, dist.get_rank(), dist.get_world_size()
+
+
+def _finish(records: list, rank: int, dev: torch.device) -> list:
+    """Rank 0's records, each naming where it ran; ``[]`` elsewhere."""
+    if rank:
+        return []
+    for r in records:
+        r["platform"], r["card"] = _platform(dev), _card(dev)
+    return records
+
+
+def _per_count(counts, axis: str, rank: int, measure) -> list:
+    """``measure(mesh, n)`` on a mesh of the group's first ``n`` ranks for
+    each count ``n``: the records of the counts this rank took part in."""
+    from qpsk_tpu_torch.parallel.multihost import first_ranks_mesh
+
+    records = []
+    for n in counts:
+        with first_ranks_mesh(n, axis) as mesh:
+            if rank < n:
+                records.append(measure(mesh, n))
+    return records
+
+
+def scaling_efficiency(device_counts=None,
+                       channels_per_device: int | None = None,
+                       frames: int = 8, iters: int = 3, inner: int = 2,
+                       modes=("dp", "sp"), device="cuda") -> list[dict]:
+    """Weak-scaling sweep over 1..N ranks (one a card), the work a rank
+    held constant (perfect = flat time, efficiency = T1 / TN):
+
+    * ``dp``: ``channels_per_device`` channels a rank (8192 on the card,
+      the RX rate point a card; 8 on the CPU) x ``frames``, sharded by
+      ``parallel.channels.make_channel_demod``, ``iters * inner`` chained
+      calls;
+    * ``sp``: one stream of ``frames`` frames a rank in time blocks with
+      the FIR-halo exchange (``parallel.stream.rx_stream_timeparallel``),
+      ``iters`` calls.
+
+    One record per (mode, devices), the JAX package's keys plus ``card``;
+    counts past the world size are skipped."""
+    from qpsk_tpu_torch import ModemConfig
+    from qpsk_tpu_torch.parallel.channels import (init_channels,
+                                                  make_channel_demod)
+    from qpsk_tpu_torch.parallel.stream import rx_stream_timeparallel
+
+    cfg = ModemConfig()
+    dev, rank, world = _scale_group(device)
+    cpd = channels_per_device or (8192 if _on_card(dev) else 8)
+    counts = [n for n in (device_counts or (1, 2, 4, 8)) if n <= world]
+
+    def dp(mesh, n):
+        channels = cpd * n
+        pcm = _noise_pcm((channels, frames, cfg.frame_size), dev)
+        demod = make_channel_demod(cfg, mesh)
+        carry = {"st": init_channels(cfg, channels, mesh),
+                 "acc": torch.zeros((), dtype=torch.int64, device=dev)}
+
+        def step():
+            carry["st"], out = demod(carry["st"], pcm)
+            carry["acc"] += out.bits.sum()
+        dt = _timed(step, iters * inner, dev, mesh.get_group("dp"))
+        nsamples = channels * frames * cfg.frame_size * inner * iters
+        return {"mode": "dp", "devices": n, "channels": channels,
+                "time_s": round(dt, 6),
+                "throughput_sps": round(nsamples / dt, 1)}
+
+    def sp(mesh, n):
+        nsamp = n * frames * cfg.frame_size
+        pcm = _noise_pcm((nsamp,), dev, seed=1)
+        acc = {"a": torch.zeros((), dtype=torch.int64, device=dev)}
+
+        def step():
+            _, bits, _ = rx_stream_timeparallel(cfg, pcm, mesh)
+            acc["a"] += bits.sum()
+        dt = _timed(step, iters, dev, mesh.get_group("sp"))
+        return {"mode": "sp", "devices": n, "samples": nsamp,
+                "time_s": round(dt, 6),
+                "throughput_sps": round(nsamp * iters / dt, 1)}
+
+    records = []
+    for m, measure in (("dp", dp), ("sp", sp)):
+        if m in modes:
+            rows = _per_count(counts, m, rank, measure)
+            # weak-scaling efficiency against the first count's time
+            for r in rows:
+                r["efficiency"] = round(rows[0]["time_s"] / r["time_s"], 3)
+            records += rows
+    return _finish(records, rank, dev)
+
+
+def sp_bound_record(device_counts=(1, 2, 4), frames: int = 64,
+                    iters: int = 30, device="cuda") -> list[dict]:
+    """The fixed per-call cost of the sp halo exchange and the efficiency
+    bound it implies.
+
+    Two micro-benchmarks a count, alike but for the exchange: one call of
+    ``parallel.stream``'s neighbour shift of a (2, ntaps-1) tail plus a
+    sum, and the same with the shift replaced by a local product.  Their
+    difference is ``t_fixed``, the per-call cost of the exchange (the
+    halo is about 1 KB: latency and synchronisation, not bandwidth).
+    ``t_block`` is a rank's time for ``rx_stream_timeparallel`` on
+    ``frames`` frames a rank, and ``eff_bound = t_block / (t_block +
+    t_fixed)``.  The JAX record's ``real_mesh_eff`` priced a TPU v5e
+    interconnect link; it is dropped, and no guess for another
+    interconnect takes its place."""
+    from qpsk_tpu_torch import ModemConfig
+    from qpsk_tpu_torch.parallel.stream import (_halo_from_left,
+                                                rx_stream_timeparallel)
+
+    cfg = ModemConfig()
+    dev, rank, world = _scale_group(device)
+    ntm1 = cfg.ntaps - 1
+
+    def measure(mesh, n):
+        group = mesh.get_group("sp")
+        gen = torch.Generator(device=dev).manual_seed(rank)
+        tails = torch.randn((2, ntm1), generator=gen, device=dev)
+        carry = {"acc": torch.zeros((), device=dev)}
+
+        def coll():
+            tail = tails + carry["acc"]
+            halo, reqs = _halo_from_left(tail, mesh, "sp")
+            for req in reqs:
+                req.wait()
+            carry["acc"] = halo.sum() * 1e-9
+
+        def local():
+            carry["acc"] = (tails * 1.0000001 + carry["acc"]).sum() * 1e-9
+
+        t_coll = _timed(coll, iters, dev, group) / iters
+        t_local = _timed(local, iters, dev, group) / iters
+        t_fixed = max(t_coll - t_local, 0.0)
+
+        pcm = _noise_pcm((n * frames * cfg.frame_size,), dev, seed=1)
+        acc = {"a": torch.zeros((), dtype=torch.int64, device=dev)}
+
+        def block():
+            _, bits, _ = rx_stream_timeparallel(cfg, pcm, mesh)
+            acc["a"] += bits.sum()
+        k = max(iters // 3, 3)
+        t_block = _timed(block, k, dev, group) / k
+        return {"mode": "sp_bound", "devices": n,
+                "t_launch_collective_s": round(t_coll, 7),
+                "t_launch_local_s": round(t_local, 7),
+                "t_fixed_s": round(t_fixed, 7),
+                "t_block_s": round(t_block, 7),
+                "eff_bound": round(t_block / (t_block + t_fixed), 4),
+                "frames_per_dev": frames}
+
+    counts = [n for n in device_counts if n <= world]
+    return _finish(_per_count(counts, "sp", rank, measure), rank, dev)
+
+
+def sp_scaling_decomposition(device_counts=(1, 2, 4),
+                             frames_per_dev=(16, 64), iters: int = 8,
+                             device="cuda") -> list[dict]:
+    """The sp weak-scaling time split in its parts, at each count and
+    each ``frames_per_dev``: ``t_full`` (``rx_stream_timeparallel``: the
+    halo exchange, the FIR, timing, acquisition, Costas, bits),
+    ``t_frontend`` (``rx_frontend_timeparallel``: the exchange and the
+    FIR alone) and ``t_block_rest`` (their difference: block-local work
+    with no communication), each a call, with each part's efficiency
+    against the first count of the same size.  A part whose efficiency
+    rises with the size has a fixed per-call cost; one that stays flat
+    scales with the work."""
+    from qpsk_tpu_torch import ModemConfig
+    from qpsk_tpu_torch.parallel.stream import (rx_frontend_timeparallel,
+                                                rx_stream_timeparallel)
+
+    cfg = ModemConfig()
+    dev, rank, world = _scale_group(device)
+    counts = [n for n in device_counts if n <= world]
+    records = []
+    for fpd in frames_per_dev:
+        def measure(mesh, n):
+            group = mesh.get_group("sp")
+            nsamp = n * fpd * cfg.frame_size
+            pcm = _noise_pcm((nsamp,), dev, seed=1)
+            acc = {"a": torch.zeros((), dtype=torch.float64, device=dev)}
+
+            def full():
+                _, bits, _ = rx_stream_timeparallel(cfg, pcm, mesh)
+                acc["a"] += bits.sum()
+
+            def frontend():
+                y = rx_frontend_timeparallel(cfg, pcm, mesh)
+                acc["a"] += y.re[-8:].sum()
+            t_full = _timed(full, iters, dev, group) / iters
+            t_fe = _timed(frontend, iters, dev, group) / iters
+            return {"mode": "sp_decomp", "devices": n, "frames_per_dev": fpd,
+                    "samples": nsamp, "t_full_s": round(t_full, 7),
+                    "t_frontend_s": round(t_fe, 7),
+                    "t_block_rest_s": round(t_full - t_fe, 7)}
+        rows = _per_count(counts, "sp", rank, measure)
+        # each part's efficiency against the first count of this size
+        for r in rows:
+            for comp in ("t_full_s", "t_frontend_s", "t_block_rest_s"):
+                r["eff_" + comp[2:-2]] = round(
+                    rows[0][comp] / max(r[comp], 1e-12), 3)
+        records += rows
+    return _finish(records, rank, dev)
+
+
 def suites(device="cuda") -> dict:
     """The ``bench`` subcommand's suites, name -> a call returning one
-    record or a list of them (the JAX CLI's names, without ``scaling``)."""
+    record or a list of them (the JAX CLI's names).  ``scaling`` runs in
+    a process group (rank 0 gets the records, the other ranks ``[]``):
+    ``scaling_efficiency``, then ``sp_bound_record`` and
+    ``sp_scaling_decomposition``."""
     from qpsk_tpu_torch.config import ModemConfig
 
     def d(fn, *args, **kw):
@@ -647,4 +916,7 @@ def suites(device="cuda") -> dict:
                        d(rx_throughput, cfg=ModemConfig(modulation="16qam",
                                                         agc=True))),
         "latency": d(latency_benchmark),
+        "scaling": lambda: (scaling_efficiency(device=device)
+                            + sp_bound_record(device=device)
+                            + sp_scaling_decomposition(device=device)),
     }

@@ -14,8 +14,12 @@ messages and JSON keys:
 * ``sweep``    — PER/BER against SNR (``eval.per_vs_snr``).
 * ``fdm``      — multi-carrier loopback through the FDM filterbank.
 * ``bench``    — the throughput and latency suites of ``benchmarks.py``,
-  one JSON record a line (the JAX CLI's suites but ``scaling``, which
-  needs several cards).
+  one JSON record a line.  ``--suite scaling`` runs the scale-out records
+  in a process group: under ``torchrun`` the one that is there; on the
+  card outside one, a rank a visible card (``torch.multiprocessing``
+  workers on a ``FileStore`` in a temporary directory, NCCL); with
+  ``--device cpu`` outside one, a single rank.  Rank 0's records are
+  printed.
 
 The one flag the JAX CLI lacks is ``--device {cuda,cpu}``: the port runs
 on the card unless told otherwise, and without one it exits with code 2
@@ -657,12 +661,56 @@ def cmd_fdm(args) -> int:
     return 0
 
 
+def _print_records(recs) -> None:
+    for rec in recs if isinstance(recs, list) else [recs]:
+        print(json.dumps(rec), flush=True)
+
+
+def _scaling_rank(rank: int, world: int, out: str) -> None:
+    """One rank of ``bench --suite scaling`` on its card; rank 0 writes
+    the records to ``out``."""
+    recs = benchmarks.suites("cuda")["scaling"]()
+    if rank == 0:
+        with open(out, "w") as fh:
+            json.dump(recs, fh)
+
+
+def _bench_scaling(device: str) -> int:
+    """``bench --suite scaling``: in torchrun's group if there is one,
+    else one rank a visible card, or one rank on the CPU."""
+    import torch.distributed as dist
+    from qpsk_tpu_torch.parallel import multihost
+
+    multihost.initialize(device=device)
+    if dist.is_initialized() or device == "cpu":
+        started = not dist.is_initialized()
+        try:
+            recs = benchmarks.suites(device)["scaling"]()
+        finally:
+            if started and dist.is_initialized():
+                dist.destroy_process_group()
+        _print_records(recs)
+        return 0
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "records.json")
+        multihost.spawn_per_card(_scaling_rank, os.path.join(tmp, "store"),
+                                 out)
+        with open(out) as fh:
+            _print_records(json.load(fh))
+    return 0
+
+
 def cmd_bench(args) -> int:
+    if args.suite == "scaling":
+        return _bench_scaling(args.device)
+    import torch.distributed as dist
     suites = benchmarks.suites(args.device)
-    for name in suites if args.suite == "all" else (args.suite,):
+    names = [n for n in suites if n != "scaling"] if args.suite == "all" \
+        else [args.suite]
+    for name in names:
         recs = suites[name]()
-        for rec in recs if isinstance(recs, list) else [recs]:
-            print(json.dumps(rec), flush=True)
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            _print_records(recs)
     return 0
 
 
@@ -755,7 +803,9 @@ def parser() -> argparse.ArgumentParser:
     be = sub.add_parser("bench", help="throughput benchmark")
     be.add_argument("--suite", type=str, default="rx",
                     choices=tuple(benchmarks.suites()) + ("all",),
-                    help="which benchmark to run (all = every suite)")
+                    help="which benchmark to run (all = every suite but "
+                         "scaling; scaling = weak-scaling efficiency sweep "
+                         "over the cards)")
     be.add_argument("--device", type=str, default="cuda",
                     choices=("cuda", "cpu"),
                     help="where the suites run: the card (default; exits "

@@ -133,14 +133,21 @@ def unflatten(like, leaves):
     return build(like)
 
 
+def tree_map(fn, tree):
+    """``fn`` on every leaf of a tree of dicts, lists, tuples and named
+    tuples (a state, a metric tree); None stays None."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        vals = [tree_map(fn, v) for v in tree]
+        return type(tree)(*vals) if hasattr(tree, "_fields") \
+            else type(tree)(vals)
+    return fn(tree)
+
+
 def to_numpy(state):
     """The port's state -> the same tuples with numpy leaves, whose field
     names match the JAX package's state tuples."""
-    def leaf(v):
-        if v is None:
-            return None
-        if isinstance(v, tuple):
-            return type(v)(*map(leaf, v)) if hasattr(v, "_fields") \
-                else tuple(map(leaf, v))
-        return v.detach().cpu().numpy()
-    return leaf(state)
+    return tree_map(lambda v: v.detach().cpu().numpy(), state)

@@ -10,9 +10,12 @@
     are ``qpsk_tpu_torch.ops.cuda``), the native IO library, the TPU's
     constants, the JAX-only options ``unroll=`` (scan unrolling) and
     ``precision=`` (XLA's matmul precision; the port's ``fir_block`` takes
-    ``exact=``), and the scale-out modules and records, which a later
-    slice ports.  A JAX ``key`` argument is positional, a
-    ``torch.Generator`` in the port, so (a) does not compare it.
+    ``exact=``).  Since the scale-out modules (``parallel.channels``,
+    ``.stream``, ``.multihost``) and records (``benchmarks.
+    scaling_efficiency``, ``sp_bound_record``, ``sp_scaling_decomposition``)
+    have been ported, the list holds nothing else.  A JAX ``key``
+    argument is positional, a ``torch.Generator`` in the port, so (a)
+    does not compare it.
 (b) The names the port once lacked, each held against JAX on the same
     inputs: ``config.ROTATE45``; ``ops.modmap``'s ``TAU``, ``ROTATE45``,
     ``CONSTELLATION``, ``mod_symbols``; ``packet.bits_to_dibits`` /
@@ -44,17 +47,9 @@ MISSING_MODULES = {
                  ".tx_kernel", ".viterbi_kernel")},
     "qpsk_tpu.io.libqpsk_io": "the native IO library, not a Python module "
     "(the port builds its own, qpsk_tpu_torch/io/qpsk_io.cc)",
-    **{f"qpsk_tpu.parallel.{m}": "scale-out over several cards: not ported "
-       "yet" for m in ("channels", "stream", "multihost")},
 }
 # (JAX module, name) -> why the port has no such name
 MISSING_NAMES = {
-    **{("qpsk_tpu.parallel", n): "scale-out: not ported yet"
-       for n in ("make_channel_demod", "shard_channel_state",
-                 "rx_stream_timeparallel")},
-    **{("qpsk_tpu.benchmarks", n): "a scale-out record: not ported yet"
-       for n in ("scaling_efficiency", "sp_bound_record",
-                 "sp_scaling_decomposition")},
     **{("qpsk_tpu.utils.roofline", n): "a TPU v5e constant; the port's "
        "roofline holds the H100's" for n in ("PEAK_MATMUL_FLOPS",
                                              "PEAK_HBM_BPS", "V5E_CLOCK_HZ")},

@@ -127,9 +127,12 @@ Phases, each of which exits non-zero on failure:
    (at 3 and 16 samples per symbol the JAX package passes no packet
    either, so only sync and CRC agreement are held there); TX at 16
    samples per symbol and at 255 taps with 8; Viterbi at K=5 (23, 35),
-   K=9 (561, 753) and rate 1/4 K=7, LDPC at (256, dv 2, 5, 6) and (192,
-   dv 8), at 1, 156 and 4096 packets (Viterbi bit-equal, LDPC >= 99.9 %);
-   each general instance's time beside its plain version's; then calls
+   K=9 (561, 753), rate 1/4 K=7, K=11, K=7 (132, 171) and rate 1/8 K=5
+   at 1, 156 and 4096 packets and K=15 at 1 and 156, LDPC at (256, dv 2,
+   4, 5, 6, 7), (192, dv 8) and (512, dv 2) at 1, 156 and 4096 (Viterbi
+   bit-equal, LDPC >= 99.9 %); every general decoder code alone in a CUDA
+   graph at its largest batch beside its bound, and each general
+   instance's time beside its plain version's; then calls
    past the new coverage (1031 taps, K=16, dv=9), which raise before any
    launch.  (c) ``StreamModulator`` on the card, 1536 packets in seeded
    pushes of 1-97 and a flush, QPSK and 8PSK, against ``tx_impl="xla"``:
@@ -409,9 +412,15 @@ ODD_T = (1000, 125)
 # package passes none either, measured on CPU with the same stimulus), TX
 # at 16 samples per symbol and at 255 taps with 8 (channels, symbols), and
 # the decoders' other codes: Viterbi (K, generators), LDPC (k, dv), at
-# these batches; LDPC also at its instances' largest thread counts, the
-# general one's 512 checks and PacketConfig(payload_bytes=407)'s 3272
-# (four checks a thread), which launch only within their launch bounds
+# these batches (K = 15, a block of 512 threads a packet, at the first
+# two); LDPC also at its instances' largest thread counts, the general
+# ones' 512 checks and PacketConfig(payload_bytes=407)'s 3272 (four
+# checks a thread), which launch only within their launch bounds.  The
+# Viterbi codes reach each shape of the general instances: a packet in
+# part of a warp (K 5-7), in a warp (K 9, 11), in a block (K 15); one
+# table value a butterfly (every generator tapping both ends), four
+# (132, 171), and none at rate 1/8 and K = 5 (256 branch values > 16
+# states, summed a butterfly)
 GEOMETRY8_PATHS = {
     "rs=3200,frame_size=384": (dict(rs=3200.0, frame_size=384), False),
     "rs=1600,frame_size=768": (dict(rs=1600.0, frame_size=768), True),
@@ -422,8 +431,11 @@ GEOMETRY8_PATHS = {
 TX8 = ((dict(rs=600.0, frame_size=2048), (256, 4096)),
        (dict(rs=1200.0, ntaps=255), (256, 4096)))
 VITERBI8 = ((5, (0o23, 0o35)), (9, (0o561, 0o753)),
-            (7, (0o117, 0o127, 0o155, 0o171)))
-LDPC8 = ((256, 2), (256, 5), (256, 6), (192, 8), (512, 2), (3272, 3))
+            (7, (0o117, 0o127, 0o155, 0o171)), (11, (0o3345, 0o3613)),
+            (15, (0o46321, 0o51271)), (7, (0o132, 0o171)),
+            (5, (0o23, 0o35, 0o27, 0o31, 0o37, 0o25, 0o33, 0o21)))
+LDPC8 = ((256, 2), (256, 5), (256, 6), (192, 8), (512, 2), (3272, 3),
+         (256, 4), (256, 7))
 FEC8_BATCHES = (1, 156, 4096)
 # phase 8c: StreamModulator, packets of 30 bytes in seeded pushes of 1 to
 # this many packets
@@ -2584,6 +2596,14 @@ def lowering_switches(pcfg, dev) -> None:
           "kernels; 'pallas' on CPU tensors raises")
 
 
+def fec8_batches(name: str, code) -> tuple:
+    """The batches phase 8b decodes a general code at: ``FEC8_BATCHES``,
+    but K = 15 (a block a packet) at the first two."""
+    if name == "viterbi" and code.constraint >= 15:
+        return FEC8_BATCHES[:2]
+    return FEC8_BATCHES
+
+
 def general_instances(pcfg, dev, errs: dict, counts: dict,
                       times: dict) -> None:
     """Phase 8b: the geometries and codes of the general instances on the
@@ -2591,9 +2611,11 @@ def general_instances(pcfg, dev, errs: dict, counts: dict,
     held against its plain version on the path's inputs and the plain
     path against the kernel path; TX at 16 samples per symbol and at 255
     taps; the decoders' other codes against their plain versions (Viterbi
-    bit-equal, LDPC >= 99.9 %); each general instance's time at one shape;
-    then calls past the coverage, which raise before any launch."""
+    bit-equal, LDPC >= 99.9 %), each alone in a CUDA graph beside its
+    bound; each general instance's time at one shape; then calls past the
+    coverage, which raise before any launch."""
     import torch
+    from fec_times import graph_ms
     from qpsk_tpu_torch import ModemConfig, rx_init, tx_init
     from qpsk_tpu_torch.ops.cplx import CF32
     from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
@@ -2629,7 +2651,7 @@ def general_instances(pcfg, dev, errs: dict, counts: dict,
         [("ldpc", LdpcCode(k, dv=dv)) for k, dv in LDPC8]
     for name, code in codes:
         nbits = 256
-        for b in FEC8_BATCHES:
+        for b in fec8_batches(name, code):
             gen = torch.Generator(device=dev).manual_seed(b + code.k
                                                           if name == "ldpc"
                                                           else b)
@@ -2661,6 +2683,27 @@ def general_instances(pcfg, dev, errs: dict, counts: dict,
          "the general decoder instances never launched")
     print(f"  decoder launches: viterbi {dict(vk.by_mode)}, ldpc "
           f"{dict(lk.by_mode)}")
+
+    # every general decoder code alone in a CUDA graph beside its bound
+    print("  the general decoder instances alone in a CUDA graph:")
+    gen = torch.Generator(device=dev).manual_seed(83)
+    for name, code in codes:
+        if name == "ldpc" and code.dv == 3:
+            continue
+        b = fec8_batches(name, code)[-1]
+        if name == "ldpc":
+            x = torch.randn((b, code.n), generator=gen, device=dev)
+            fn, work = (lambda: lk.ldpc_decode(code, x)), general_work(
+                "ldpc", code=code, b=b)
+        else:
+            x = torch.randn((b, code.rate_den * (256 + code.constraint - 1)),
+                            generator=gen, device=dev)
+            fn, work = (lambda: vk.viterbi_decode(code, x, 256)), general_work(
+                "viterbi", code=code, b=b, nbits=256)
+        g1, g2 = graph_ms(fn), graph_ms(fn)
+        print(f"  {name}_gen {code} B={b}: {g1:.4f} / {g2:.4f} ms, bound "
+              f"{work[0]:.5f} ms ({work[1]}), {work[0] / min(g1, g2):.3f} "
+              f"of it")
 
     # each general instance's time at one shape of its path, beside its
     # plain version's

@@ -4,7 +4,7 @@ GPU: the two FEC decoders at the batch sizes the coded paths give them,
 and the Costas loop, RX front-end and TX at the receiver's rate point
 (8192 channels x 8 frames of 512 samples, 1024 symbols a channel).
 
-    python3 fec_times.py [ROOT] [--fec | --modem]
+    python3 fec_times.py [ROOT] [--fec | --modem | --gen]
 
 ROOT is a checkout of this repository (default: the directory of this
 script).  The script imports ``qpsk_tpu_torch`` from ROOT, builds its
@@ -15,7 +15,18 @@ compare two commits on the same card:
     python3 fec_times.py archive/parent; python3 fec_times.py
 
 ``--fec`` times only the decoders, ``--modem`` only the Costas loop, the
-front-end, TX and the default receive call; with neither it times all.
+front-end, TX and the default receive call, ``--gen`` only the decoders'
+general instances; with none of them it times the first two.
+
+General instances (``--gen``): ``viterbi_decode`` at codes other than K=7
+rate 1/2 (K 5, 7, 9, 11 and 15, rates 1/2, 1/4 and 1/8, with and without
+taps at both ends) and ``ldpc_decode`` at variable degrees 2 and 4-8, on
+random LLRs of 256-bit packets at 156 and 4096 packets (K=15 at 156),
+each time taken as the decoders' are: twice alone in a CUDA graph, once
+launched from the host.  Only the public signatures are called, so a
+checkout from before the instances changed times the same calls:
+
+    python3 fec_times.py archive/parent --gen; python3 fec_times.py --gen
 
 Decoders: ``viterbi_decode`` and ``ldpc_decode`` on random LLRs at 156
 packets (a channel's tracked extraction), 4096 (the rate point of
@@ -45,8 +56,8 @@ synchronisations per call.
 
 The last line is one JSON object ``{"card": ..., "root": ..., "ms":
 {"viterbi": {"156": [graph, graph, host], ...}, "ldpc": {...}}, "rows":
-{name: [host, graph, kernel]}, "rx": {...}}`` (the keys of the groups
-timed).  Exits non-zero without a CUDA device.
+{name: [host, graph, kernel]}, "rx": {...}, "gen": {code: {"156": [graph,
+graph, host], ...}}}`` (the keys of the groups timed).  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -58,6 +69,14 @@ import subprocess
 import sys
 
 BATCHES = {"viterbi": (156, 4096, 16768, 67072), "ldpc": (156, 4096, 16768)}
+# the general instances' codes: Viterbi (K, generators), LDPC (k, dv), and
+# their batches (K = 15 at the first)
+GEN_VITERBI = ((5, (0o23, 0o35)), (7, (0o117, 0o127, 0o155, 0o171)),
+               (7, (0o132, 0o171)), (9, (0o561, 0o753)),
+               (11, (0o3345, 0o3613)), (15, (0o46321, 0o51271)),
+               (5, (0o23, 0o35, 0o27, 0o31, 0o37, 0o25, 0o33, 0o21)))
+GEN_LDPC = ((256, 2), (256, 4), (256, 5), (256, 6), (256, 7), (192, 8))
+GEN_BATCHES = (156, 4096)
 # the modem kernels' rate point: channels, frames
 C, NFRAMES = 8192, 8
 
@@ -175,6 +194,42 @@ def decoder_times(dev) -> dict:
     return out
 
 
+def general_times(dev) -> dict:
+    """{code: {batch: [graph ms, graph ms, host ms]}} of the decoders'
+    general instances on random LLRs, through the public wrappers."""
+    import torch
+    from qpsk_tpu_torch.packet import ConvCode, LdpcCode
+    from qpsk_tpu_torch.packet.fec import viterbi_decode
+    from qpsk_tpu_torch.packet.ldpc import ldpc_decode
+
+    nbits = 256
+    decoders = {}
+    for k, polys in GEN_VITERBI:
+        code = ConvCode(k, polys)
+        decoders[f"viterbi K={k} {'/'.join(f'{g:o}' for g in polys)}"] = (
+            code.rate_den * (nbits + k - 1),
+            lambda x, code=code: viterbi_decode(code, x, nbits),
+            GEN_BATCHES[:1] if k >= 15 else GEN_BATCHES)
+    for k, dv in GEN_LDPC:
+        code = LdpcCode(k, dv=dv)
+        decoders[f"ldpc k={k} dv={dv}"] = (
+            code.n, lambda x, code=code: ldpc_decode(code, x), GEN_BATCHES)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    out = {}
+    for name, (n, decode, batches) in decoders.items():
+        out[name] = {}
+        for b in batches:
+            llrs = torch.randn((b, n), generator=gen, device=dev)
+            times = [graph_ms(lambda: decode(llrs)),
+                     graph_ms(lambda: decode(llrs)),
+                     host_ms(lambda: decode(llrs))]
+            out[name][str(b)] = times
+            print(f"  {name:30s} at {b:4d} packets: kernel alone "
+                  f"{times[0]:.4f} / {times[1]:.4f} ms, launched from the host "
+                  f"{times[2]:.4f} ms")
+    return out
+
+
 def modem_times(dev) -> tuple:
     """({row: [host ms, graph ms or None, kernel ms]}, {default rx_stream
     call's ms, ops, busy_ms, htod, waits}) at the rate point."""
@@ -269,7 +324,7 @@ def main() -> int:
         print("fec_times: no CUDA device", file=sys.stderr)
         return 2
     args = sys.argv[1:]
-    groups = {"--fec", "--modem"} & set(args) or {"--fec", "--modem"}
+    groups = {"--fec", "--modem", "--gen"} & set(args) or {"--fec", "--modem"}
     paths = [a for a in args if not a.startswith("--")]
     root = os.path.abspath(paths[0] if paths
                            else os.path.dirname(os.path.abspath(__file__)))
@@ -287,6 +342,8 @@ def main() -> int:
         result["ms"] = decoder_times(dev)
     if "--modem" in groups:
         result["rows"], result["rx"] = modem_times(dev)
+    if "--gen" in groups:
+        result["gen"] = general_times(dev)
     print(json.dumps(result))
     return 0
 

@@ -39,7 +39,7 @@ _SIGNATURES = {
     "qpsk_tx": [_P] * 11 + [_I] * 4 + [_P, _D, _F, _F, _P],
     "qpsk_tx_gen": [_P] * 12 + [_I] * 4 + [_D, _F, _F, _P],
     "qpsk_viterbi": [_P] * 3 + [_I] * 4 + [ctypes.c_uint] * 2 + [_P],
-    "qpsk_viterbi_gen": [_P] * 4 + [_I] * 5 + [_P],
+    "qpsk_viterbi_gen": [_P] * 4 + [_I] * 7 + [_P],
     "qpsk_ldpc": [_P] * 5 + [_I] * 7 + [_F, _P],
 }
 

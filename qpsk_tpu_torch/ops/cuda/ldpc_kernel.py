@@ -8,11 +8,14 @@ block per packet, one barrier an iteration, every index in registers):
 the instances for variable degree 3 (``PacketConfig`` builds ``dv=3``
 only), check degree <= 8 and k <= m <= ``_KERNEL_M`` = 3276 checks
 (``PacketConfig(payload_bytes=407, fec="ldpc")``), one check a thread up
-to 1024 checks and two or four beyond; and the general instance for
-every other ``LdpcCode(k, dv)`` of variable degree <= 8, check degree
-<= 10 and m <= 512 checks (the most threads its registers allow a
-block), which holds every code the TPU kernel's gate admits
-(``dmax*m*n*4 <= 6 MiB``, so m <= 443).  Past that it raises
+to 1024 checks and two or four beyond; and the general instances for
+every other ``LdpcCode(k, dv)`` of variable degree <= 8 and m <= 512
+checks (the most threads their registers allow a block), one a variable
+degree with the code's exact degrees (check degree dv + 2, edge lists of
+max(dv, 2): ``_instance``; from dv = 4 each variable's total is summed
+once an iteration, for a second barrier), which hold every code the TPU
+kernel's gate admits (``dmax*m*n*4 <= 6 MiB``, so m <= 443).  Past that
+it raises
 ``NotImplementedError`` naming the field before any launch.
 ``impl="xla"`` runs the plain version on any device, as the JAX package's
 ``impl`` does.  On a CPU tensor it runs
@@ -48,9 +51,9 @@ _BIG = 1e30
 # dmax*m below 16384 (m <= 3276 at the codes' check degree 5), and with
 # four checks a thread a block of 1024 threads takes 4096 checks
 _KERNEL_DMAX, _KERNEL_VMAX, _KERNEL_M = 8, 3, 3276
-# the general instance's: check degree, variable degree, checks (one a
-# thread, GEN_THREADS of csrc/ldpc.cu)
-_GEN_DMAX, _GEN_VMAX, _GEN_M = 10, 8, 512
+# the general instances': largest variable degree, checks (one a thread,
+# GEN_THREADS of csrc/ldpc.cu)
+_GEN_VMAX, _GEN_M = 8, 512
 
 
 def _iters(code: LdpcCode, llrs: torch.Tensor, iters) -> int:
@@ -153,13 +156,27 @@ def coverage(code: LdpcCode):
                 f"m <= {_GEN_M} at other dv")
     if code.dv > _GEN_VMAX:
         return "dv", code.dv, f"variable degree <= {_GEN_VMAX}"
-    check_var, _ = _index_tables(code.k, code.dv, code.seed)
+    check_var, var_edges = _index_tables(code.k, code.dv, code.seed)
     dmax, m = check_var.shape
-    if dmax > (_KERNEL_DMAX if fast else _GEN_DMAX):
-        return ("dmax", dmax, f"check degrees <= {_KERNEL_DMAX} at dv=3, "
-                f"<= {_GEN_DMAX} at other dv")
+    if fast and dmax > _KERNEL_DMAX:
+        return "dmax", dmax, f"check degrees <= {_KERNEL_DMAX} at dv=3"
+    if not fast and _instance(dmax, var_edges.shape[1]) != code.dv:
+        return ("dmax", dmax, f"check degree dv + 2 = {code.dv + 2} and "
+                f"edge lists of {max(code.dv, 2)} at dv={code.dv}")
     if dmax * m >= 16384:
         return "m", m, "dmax*m < 16384 (16-bit message offsets)"
+    return None
+
+
+def _instance(dmax: int, vmax: int) -> int | None:
+    """The variable degree of the general instance that runs a code of
+    check degree ``dmax`` and edge lists of ``vmax`` (the shapes of its
+    ``check_var`` and ``var_edges``), or None: each instance is compiled for
+    its exact degrees, dmax = dv + 2 and vmax = max(dv, 2), for dv 1..8
+    but 3 (the fast instances')."""
+    dv = dmax - 2
+    if dv in (1, 2, 4, 5, 6, 7, 8) and vmax == max(dv, 2):
+        return dv
     return None
 
 
@@ -183,5 +200,6 @@ def _launch(code: LdpcCode, llrs: torch.Tensor, iters) -> torch.Tensor:
         vmax, its, code.alpha, _lib.stream_ptr(dev))
     _lib.check(rc, "qpsk_ldpc")
     launches += 1
-    by_mode["dv3" if vmax == _KERNEL_VMAX else f"general_dv{code.dv}"] += 1
+    by_mode["dv3" if vmax == _KERNEL_VMAX
+            else f"general_dv{_instance(dmax, vmax)}"] += 1
     return out.reshape(batch + (code.k,))

@@ -8,9 +8,12 @@ to the kernel as the two bit masks of its sign table, ``code_masks``) the
 fast kernels, a packet's trellis in the registers of 1, 8 or 32 lanes of a
 warp, by batch size; for every other code the TPU kernel's gate takes
 (rate 1/1, 1/2, 1/4 or 1/8, K >= 5, any generators) up to K = 15 the
-general instance (one block a packet, the path metrics in shared memory,
-the branch signs of ``_trellis`` as a table, the decisions packed as bits
-in device memory and traced back afterwards); past K = 15 it raises
+general instances (a packet's states in the registers of one warp or part
+of one up to K = 11, ``_states_per_thread`` of them a lane, of a block of
+S/32 threads beyond; each butterfly's four branch patterns as one word of
+``_pattern_table``, a step's branch values summed once into a table; the
+decisions packed as bits in shared or device memory and traced back by
+the packet's lanes together); past K = 15 it raises
 ``NotImplementedError`` naming ``constraint`` before any launch.
 ``impl="scan"`` runs the plain version on any device, as the JAX
 package's ``impl`` does.  On a CPU tensor it runs
@@ -106,6 +109,7 @@ def viterbi_decode_plain(code: ConvCode, llrs: torch.Tensor,
     return us.movedim(0, -1)[..., :nbits].contiguous()
 
 
+@functools.lru_cache(maxsize=None)
 def code_masks(code: ConvCode) -> tuple[int, int] | None:
     """The kernel's form of ``code``'s sign table: for each output k the
     32-bit mask whose bit j is set where that output is a one on the branch
@@ -113,7 +117,8 @@ def code_masks(code: ConvCode) -> tuple[int, int] | None:
     None unless the code is K=7 rate 1/2 with the butterfly symmetry the
     kernel runs on (both generators tap the newest and the oldest bit):
     the branches into 2j + 1 and from 32 + j carry the same signs, negated
-    once each."""
+    once each.  Cached: its numpy work costs the host more than the
+    kernel takes on the card at 4096 packets (PERF.md § 7)."""
     if code.constraint != 7 or code.rate_den != 2:
         return None
     _, sgns = _trellis(code)
@@ -139,14 +144,49 @@ def coverage(code: ConvCode):
 
 
 @functools.lru_cache(maxsize=None)
-def _sign_table(code: ConvCode, device) -> torch.Tensor:
-    """The general instance's branch signs: (2, S) uint8, bit j of [p, s']
-    set where ``_trellis``'s ``sgns[j, s', p]`` is -1."""
+def _branch_patterns(code: ConvCode) -> np.ndarray:
+    """(S/2, 4) uint8: the four branch patterns of butterfly j, the
+    branches from predecessor p (states j and S/2 + j) into state 2j + u
+    in column p + 2u; bit k of a pattern is set where ``_trellis``'s
+    ``sgns[k, s', p]`` is -1 (output k of the branch is a one)."""
     _, sgns = _trellis(code)                      # (rd, S, 2)
-    bits = (sgns < 0).astype(np.uint8) << np.arange(
-        code.rate_den, dtype=np.uint8)[:, None, None]
-    table = np.ascontiguousarray(bits.sum(0, dtype=np.uint8).T)
-    return torch.from_numpy(table).to(device)
+    pat = ((sgns < 0).astype(np.int64) << np.arange(
+        code.rate_den)[:, None, None]).sum(0)     # (S, 2): [s', p]
+    return np.stack([pat[0::2, 0], pat[0::2, 1], pat[1::2, 0],
+                     pat[1::2, 1]], axis=1).astype(np.uint8)
+
+
+@functools.lru_cache(maxsize=None)
+def _complementary(code: ConvCode) -> bool:
+    """Whether each butterfly's branches carry one value and its negative:
+    the patterns (1, 0) and (0, 1) are the complement of (0, 0) and (1, 1)
+    is (0, 0), as where every generator taps the newest and the oldest
+    bit.  The general instance then reads one table value a butterfly."""
+    pat = _branch_patterns(code).astype(np.int64)
+    full = (1 << code.rate_den) - 1
+    return bool((pat[:, 1] == pat[:, 0] ^ full).all()
+                and (pat[:, 2] == pat[:, 0] ^ full).all()
+                and (pat[:, 3] == pat[:, 0]).all())
+
+
+@functools.lru_cache(maxsize=None)
+def _pattern_table(code: ConvCode, device) -> torch.Tensor:
+    """The general instance's branch patterns: (S/2,) int32, butterfly j's
+    four ``_branch_patterns`` as the bytes of one word, column c at bits
+    8c."""
+    words = _branch_patterns(code).view("<u4")[:, 0].view(np.int32)
+    return torch.from_numpy(np.ascontiguousarray(words)).to(device)
+
+
+def _states_per_thread(constraint: int) -> int:
+    """The states a thread of the general instance holds at constraint
+    length K: all 2 or 4 at K = 2, 3 (one lane a packet); 8 up to K = 9 (a
+    warp a packet at K = 9), 16 at K = 10, 32 at K = 11 (a warp a packet);
+    32 from K = 12, where a block of S/32 threads holds a packet."""
+    s = 1 << (constraint - 1)
+    if s <= 4:
+        return s
+    return 8 if constraint <= 9 else 16 if constraint == 10 else 32
 
 
 def _lanes(b: int) -> int:
@@ -176,14 +216,16 @@ def _launch(code: ConvCode, llrs: torch.Tensor, nbits: int,
     out = torch.empty((b, nbits), dtype=torch.int32, device=dev)
     if b == 0:
         return out.reshape(batch + (nbits,))
-    if code_masks(code) is None:
+    masks = code_masks(code)
+    if masks is None:
         # a decision bit a state and step
         dec = torch.empty((b, nsteps, max(code.nstates // 32, 1)),
                           dtype=torch.int32, device=dev)
         rc = _lib.library().qpsk_viterbi_gen(
-            flat.data_ptr(), _sign_table(code, dev).data_ptr(),
+            flat.data_ptr(), _pattern_table(code, dev).data_ptr(),
             dec.data_ptr(), out.data_ptr(), b, code.constraint, rd, nsteps,
-            nbits, _lib.stream_ptr(dev))
+            nbits, _states_per_thread(code.constraint),
+            int(_complementary(code)), _lib.stream_ptr(dev))
         _lib.check(rc, "qpsk_viterbi_gen")
         launches += 1
         by_mode[f"general_k{code.constraint}_r{rd}"] += 1
@@ -192,7 +234,7 @@ def _launch(code: ConvCode, llrs: torch.Tensor, nbits: int,
     dec = torch.empty((nsteps, b, 2), dtype=torch.int32, device=dev)
     rc = _lib.library().qpsk_viterbi(
         flat.data_ptr(), dec.data_ptr(), out.data_ptr(), b, nsteps, nbits,
-        lanes or _lanes(b), *code_masks(code), _lib.stream_ptr(dev))
+        lanes or _lanes(b), *masks, _lib.stream_ptr(dev))
     _lib.check(rc, "qpsk_viterbi")
     launches += 1
     by_mode["k7"] += 1

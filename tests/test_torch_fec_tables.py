@@ -21,9 +21,13 @@ The general instances (codes the fast kernels do not take): the plain
 decoders against the JAX package at those codes (Viterbi bit-equal to
 the scan; LDPC >= 99.9 % and equal frame errors, the JAX package's own
 bound between its lowerings), and numpy twins of the general Viterbi
-kernel (sign table, block maximum, decisions packed 32 states a word,
-traceback through the words) and of the LDPC kernel at any variable
-degree, which must decode bit for bit as the plain versions.
+instances (the branch-pattern table, each step's branch values built as
+the kernel builds them, the maximum subtracted as the metrics are read,
+decisions packed 32 states a word, traceback through the words) and of
+the LDPC instances at the code's exact degrees, which must decode bit for
+bit as the plain versions; the pattern table against ``fec._trellis``,
+the Viterbi layout at every K and the LDPC instance over the coverage
+grid.
 """
 
 import numpy as np
@@ -34,6 +38,7 @@ import jax.numpy as jnp
 from qpsk_tpu.packet import fec as jfec, ldpc as jldpc
 from qpsk_tpu_torch.ops.cuda import ldpc_kernel, viterbi_kernel
 from qpsk_tpu_torch.packet import fec, ldpc
+from test_torch_kernel_coverage import _GATE_EDGE_K
 
 torch.set_num_threads(2)
 
@@ -417,26 +422,42 @@ _GEN_CONV = [(5, (0o23, 0o35)), (9, (0o561, 0o753)),
              (7, (0o117, 0o127, 0o155, 0o171)), (5, (0o31,)),
              (7, (0o132, 0o171))]
 _GEN_LDPC = [(128, 2), (128, 5), (64, 8)]
+# and the general Viterbi instances' other shapes: K = 11 (a warp a packet,
+# 32 states a lane) and K = 15 (a block of 512 threads a packet), K = 12
+# without the butterflies' +- symmetry (the block instance's general
+# branch), K = 5 at rate 1/8 (2^rd = 256 branch values > 16 states: summed
+# a butterfly, no table); LDPC at dv 4 and 7
+_GEN_CONV_MORE = [(11, (0o3345, 0o3613)), (15, (0o46321, 0o51271)),
+                  (12, (0o5262, 0o6711)),
+                  (5, (0o23, 0o35, 0o27, 0o31, 0o37, 0o25, 0o33, 0o21))]
+_GEN_LDPC_MORE = [(128, 4), (96, 7)]
 
 
-@pytest.mark.parametrize("k,polys", _GEN_CONV,
-                         ids=[f"K{k}-r{len(p)}" for k, p in _GEN_CONV])
+def _conv_ids(codes):
+    return [f"K{k}-r{len(p)}" for k, p in codes]
+
+
+@pytest.mark.parametrize("k,polys", _GEN_CONV + _GEN_CONV_MORE,
+                         ids=_conv_ids(_GEN_CONV + _GEN_CONV_MORE))
 def test_plain_viterbi_matches_jax_at_new_codes(k, polys):
     """The plain Viterbi (the general instance's reference) against the
     JAX scan at the codes the widened kernel takes: bits equal."""
     rng = np.random.default_rng(k * 10 + len(polys))
+    nbits = 40 if k < 11 else 16
     code, jcode = fec.ConvCode(k, polys), jfec.ConvCode(k, polys)
-    u = rng.integers(0, 2, (6, 40), dtype=np.int32)
+    u = rng.integers(0, 2, (6 if k < 11 else 3, nbits), dtype=np.int32)
     c = fec.conv_encode(code, torch.from_numpy(u)).numpy()
     llrs = ((1.0 - 2.0 * c) + rng.normal(0, 0.7, c.shape)).astype(F32)
-    got = viterbi_kernel.viterbi_decode_plain(code, torch.from_numpy(llrs), 40)
-    want = np.asarray(jfec.viterbi_decode(jcode, jnp.asarray(llrs), 40,
+    got = viterbi_kernel.viterbi_decode_plain(code, torch.from_numpy(llrs),
+                                              nbits)
+    want = np.asarray(jfec.viterbi_decode(jcode, jnp.asarray(llrs), nbits,
                                           impl="scan"))
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("k,dv", _GEN_LDPC,
-                         ids=[f"k{k}-dv{dv}" for k, dv in _GEN_LDPC])
+@pytest.mark.parametrize("k,dv", _GEN_LDPC + _GEN_LDPC_MORE,
+                         ids=[f"k{k}-dv{dv}" for k, dv in
+                              _GEN_LDPC + _GEN_LDPC_MORE])
 def test_plain_ldpc_matches_jax_at_new_codes(k, dv):
     """The plain min-sum against the JAX XLA lowering at variable degrees
     other than 3: >= 99.9 % bit agreement and equal frame errors."""
@@ -452,39 +473,140 @@ def test_plain_ldpc_matches_jax_at_new_codes(k, dv):
     assert (got != u).any(-1).sum() == (ref != u).any(-1).sum()
 
 
+@pytest.mark.parametrize("k,polys", _GEN_CONV + _GEN_CONV_MORE,
+                         ids=_conv_ids(_GEN_CONV + _GEN_CONV_MORE))
+def test_pattern_table_matches_trellis(k, polys):
+    """``_pattern_table``: word j holds butterfly j's four branch patterns,
+    the branch from predecessor p into state 2j + u at byte p + 2u, bit r
+    set where ``_trellis``'s sign of output r is -1; ``_complementary``
+    holds exactly where every generator taps the newest and oldest bit."""
+    code = fec.ConvCode(k, polys)
+    _, sgns = fec._trellis(code)                  # (rd, S, 2)
+    words = viterbi_kernel._pattern_table(code, torch.device("cpu")).numpy()
+    assert words.shape == (code.nstates // 2,) and words.dtype == np.int32
+    words = words.view(np.uint32).astype(np.int64)
+    for p in range(2):
+        for u in range(2):
+            pat = (words >> (8 * (p + 2 * u))) & 0xff
+            for r in range(code.rate_den):
+                np.testing.assert_array_equal((pat >> r) & 1,
+                                              sgns[r, u::2, p] < 0)
+    ends = all(g & 1 and g >> (k - 1) & 1 for g in polys)
+    assert viterbi_kernel._complementary(code) == ends
+
+
+@pytest.mark.parametrize("k", range(2, 16))
+def test_general_viterbi_layout(k):
+    """The general instance's states a thread at each constraint length: a
+    power of two that divides the states, a packet in at most one warp up
+    to K = 11 (S / spt <= 32 lanes), and from K = 12 the block instance's
+    32 a thread, S/32 <= 512 threads a block."""
+    s = 1 << (k - 1)
+    spt = viterbi_kernel._states_per_thread(k)
+    assert spt in (2, 4, 8, 16, 32) and s % spt == 0
+    if k <= 11:
+        assert s // spt <= 32
+    else:
+        assert spt == 32 and s // spt <= 512
+
+
+def _branch_table(l, rd, builders):
+    """One step's 2^rd branch values (..., 2^rd) as ``build_table`` forms
+    them: builder g of ``builders`` (a power of two) takes the patterns
+    g + builders*i, sums the shared low log2(builders) bits of them in
+    order, then doubles a tree over the high bits (x - l for a one), and
+    halves each sum."""
+    gb = builders.bit_length() - 1
+    pre = min(gb, rd)
+    table = np.zeros(l.shape[:-1] + (1 << rd,), F32)
+    for g in range(min(builders, 1 << rd)):
+        acc = np.zeros(l.shape[:-1], F32)
+        for j in range(pre):
+            acc = (acc + (-l[..., j] if g >> j & 1 else l[..., j])).astype(F32)
+        vals = [acc]
+        for lev in range(rd - pre):
+            lj = l[..., gb + lev]
+            vals = ([(v + lj).astype(F32) for v in vals]
+                    + [(v - lj).astype(F32) for v in vals])
+        for i, v in enumerate(vals):
+            table[..., g + builders * i] = F32(0.5) * v
+    return table
+
+
+def _direct_value(l, pattern, rd):
+    """A pattern's branch value summed a butterfly (no table), (..., n)
+    for (n,) patterns."""
+    acc = np.zeros(l.shape[:-1] + pattern.shape, F32)
+    for j in range(rd):
+        lj = l[..., j:j + 1]
+        acc = (acc + np.where((pattern >> j) & 1, -lj, lj)).astype(F32)
+    return (F32(0.5) * acc).astype(F32)
+
+
+def test_branch_table_equals_plain_sums():
+    """Every builder count gives each pattern the plain version's value
+    ``0.5 * (((0 + s0*l0) + s1*l1) + ...)``: the tree reorders nothing."""
+    rng = np.random.default_rng(5)
+    for rd in range(1, 9):
+        l = rng.normal(0, 2, (7, rd)).astype(F32)
+        want = _direct_value(l, np.arange(1 << rd), rd)
+        for builders in (1, 2, 4, 8, 32, 64, 512):
+            np.testing.assert_array_equal(_branch_table(l, rd, builders), want)
+
+
 def _viterbi_general_twin(code, llrs, nbits):
-    """The schedule of ``viterbi_general_kernel`` in float32 numpy: the
-    branch signs from the wrapper's table (``_sign_table``), bm = 0.5 *
-    (((0 + s0*l0) + s1*l1) + ...), c_p = pm[p*S/2 + (s' >> 1)] + bm_p,
-    decision c1 > c0, max, the block maximum subtracted; the decisions
-    packed a word per 32 states (bit s & 31 of word s >> 5), then the
-    traceback through the words."""
+    """The schedule of the general instances in float32 numpy: a step's
+    branch values built into a table by the instance's S / spt threads
+    (``_branch_table``) where 2^rd <= S, else summed a butterfly; each
+    butterfly's values looked up by its patterns of ``_pattern_table`` (one
+    value and its negative on a ``_complementary`` code); the predecessors
+    read with the maximum of the step before subtracted, (nm - mx) + bm;
+    decision c1 > c0 as the sign of c0 - c1; the new metrics stored
+    un-normalised beside their maximum; the decisions packed a word per 32
+    states (bit s & 31 of word s >> 5), then the traceback through the
+    words."""
     k, s_count, rd = code.constraint, code.nstates, code.rate_den
     nsteps = nbits + k - 1
-    table = viterbi_kernel._sign_table(code, torch.device("cpu")).numpy()
+    half = s_count // 2
+    builders = s_count // viterbi_kernel._states_per_thread(k)
+    words = viterbi_kernel._pattern_table(code, torch.device("cpu")).numpy()
+    pat = [(words.view(np.uint32) >> (8 * c)) & 0xff for c in range(4)]
+    cpl = viterbi_kernel._complementary(code)
+    direct = (1 << rd) > s_count
     b = llrs.shape[0]
     ll = llrs.reshape(b, nsteps, rd).astype(F32)
-    pm = np.full((b, s_count), F32(-1e9), F32)
-    pm[:, 0] = 0.0
+    nm = np.full((b, s_count), F32(-1e9), F32)
+    nm[:, 0] = 0.0
+    mx = np.zeros((b, 1), F32)
+    dw = max(s_count // 32, 1)
+    dec = np.zeros((b, nsteps, dw), np.uint32)
     sp = np.arange(s_count)
-    words = max(s_count // 32, 1)
-    dec = np.zeros((b, nsteps, words), np.uint32)
     for t in range(nsteps):
-        cand = []
-        for p in range(2):
-            acc = np.zeros((b, s_count), F32)
-            for j in range(rd):
-                neg = (table[p] >> j) & 1
-                acc = (acc + np.where(neg, -ll[:, t, j:j + 1],
-                                      ll[:, t, j:j + 1])).astype(F32)
-            bm = (F32(0.5) * acc).astype(F32)
-            cand.append((pm[:, p * (s_count // 2) + (sp >> 1)] + bm)
-                        .astype(F32))
-        d = cand[1] > cand[0]
-        new = np.maximum(cand[0], cand[1])
-        pm = (new - new.max(-1, keepdims=True)).astype(F32)
+        l = ll[:, t]
+        if direct:
+            def val(p):
+                return _direct_value(l, p, rd)
+        else:
+            table = _branch_table(l, rd, builders)
+
+            def val(p):
+                return table[:, p]
+        q0 = (nm[:, :half] - mx).astype(F32)
+        q1 = (nm[:, half:] - mx).astype(F32)
+        if cpl:
+            v = val(pat[0])
+            x0, x1, y0, y1 = q0 + v, q1 - v, q0 - v, q1 + v
+        else:
+            x0, x1 = q0 + val(pat[0]), q1 + val(pat[1])
+            y0, y1 = q0 + val(pat[2]), q1 + val(pat[3])
+        new = np.empty_like(nm)
+        new[:, 0::2], new[:, 1::2] = np.maximum(x0, x1), np.maximum(y0, y1)
+        d = np.empty((b, s_count), bool)
+        d[:, 0::2] = np.signbit((x0 - x1).astype(F32))
+        d[:, 1::2] = np.signbit((y0 - y1).astype(F32))
+        nm, mx = new, new.max(-1, keepdims=True)
         bits = d.astype(np.uint32) << (sp & 31).astype(np.uint32)
-        for w in range(words):
+        for w in range(dw):
             dec[:, t, w] = np.bitwise_or.reduce(bits[:, 32 * w:32 * w + 32],
                                                 axis=-1)
     out = np.zeros((b, nbits), np.int32)
@@ -498,41 +620,53 @@ def _viterbi_general_twin(code, llrs, nbits):
     return out
 
 
-@pytest.mark.parametrize("k,polys", _GEN_CONV,
-                         ids=[f"K{k}-r{len(p)}" for k, p in _GEN_CONV])
+@pytest.mark.parametrize("k,polys", _GEN_CONV + _GEN_CONV_MORE,
+                         ids=_conv_ids(_GEN_CONV + _GEN_CONV_MORE))
 @pytest.mark.parametrize("hard", [False, True])
 def test_viterbi_general_schedule_equals_plain(k, polys, hard):
-    """The general instance's twin decodes as the plain version, hard-LLR
+    """The general instances' twin decodes as the plain version, hard-LLR
     ties included (bit-equal)."""
     rng = np.random.default_rng(k + 3 * len(polys) + hard)
     code = fec.ConvCode(k, polys)
     assert viterbi_kernel.code_masks(code) is None
-    u = rng.integers(0, 2, (5, 30), dtype=np.int32)
+    nbits, npkt = (30, 5) if k < 11 else (12, 3)
+    u = rng.integers(0, 2, (npkt, nbits), dtype=np.int32)
     c = fec.conv_encode(code, torch.from_numpy(u)).numpy()
     if hard:
         llrs = (1.0 - 2.0 * (c ^ (rng.random(c.shape) < 0.05))).astype(F32)
     else:
         llrs = ((1.0 - 2.0 * c) + rng.normal(0, 0.8, c.shape)).astype(F32)
-    want = viterbi_kernel.viterbi_decode_plain(code, torch.from_numpy(llrs), 30)
-    np.testing.assert_array_equal(_viterbi_general_twin(code, llrs, 30),
+    want = viterbi_kernel.viterbi_decode_plain(code, torch.from_numpy(llrs),
+                                               nbits)
+    np.testing.assert_array_equal(_viterbi_general_twin(code, llrs, nbits),
                                   want.numpy())
 
 
 def _ldpc_general_twin(code, llrs):
-    """``_ldpc_kernel_twin`` for any variable degree: each slot's next
-    message sums its variable's edge list over the table's vmax entries in
-    order (padding reads the zero slot), as the general instance does."""
+    """``_ldpc_kernel_twin`` at the instance of the code's exact degrees
+    (``ldpc_kernel._instance``): DMAX = dv + 2 slots a check and edge lists
+    of VMAX = max(dv, 2), as the general instances are compiled (at dv = 3
+    the fast instances' 5 and 3).  Up to dv = 3 each slot's next message
+    sums its variable's VMAX list in order (padding reads the zero slot)
+    plus the LLR, less its own message; from dv = 4 (``ldpc_totals_kernel``)
+    each variable's total, LLR plus its list in order, is formed once and
+    a slot's message is its variable's total less its own message; a slot
+    past the check's degree carries BIG."""
     check_var, var_edges = ldpc._index_tables(code.k, code.dv, code.seed)
     table = ldpc._slot_edge_table(code.k, code.dv, code.seed)
     dmax, m = check_var.shape
     vmax = var_edges.shape[1]
+    assert (dmax, vmax) == (code.dv + 2, max(code.dv, 2))
+    if code.dv != 3:
+        assert ldpc_kernel._instance(dmax, vmax) == code.dv
+    totals = code.dv >= 4
     real = check_var >= 0
     big, alpha = F32(1e30), F32(code.alpha)
     llrs = llrs.astype(F32) + F32(0.0)
     lv = np.where(real, llrs[..., check_var.clip(min=0)], big).astype(F32)
     mm = lv.copy()
     idx = np.where(table >= 0, table, dmax * m)
-    post = np.where(var_edges[:code.k] >= 0, var_edges[:code.k], dmax * m)
+    edges = np.where(var_edges >= 0, var_edges, dmax * m)
 
     def edge_sum(flat, cols):
         s = flat[..., cols[0]]
@@ -556,17 +690,25 @@ def _ldpc_general_twin(code, llrs):
                                np.zeros(e.shape[:-2] + (1,), F32)], axis=-1)
         if it == code.iters - 1:
             break
-        nxt = (lv + edge_sum(flat, [idx[:, j] for j in range(vmax)])) - e
+        if totals:
+            tot = llrs + edge_sum(flat, [edges[:, j] for j in range(vmax)])
+            nxt = np.where(real, tot[..., check_var.clip(min=0)], big) - e
+        else:
+            nxt = (lv + edge_sum(flat, [idx[:, j] for j in range(vmax)])) - e
         mm = np.where(real, nxt, (lv + F32(0.0)) - e).astype(F32)
-    sums = edge_sum(flat, [post[:, j] for j in range(vmax)])
+    sums = edge_sum(flat, [edges[:code.k, j] for j in range(vmax)])
     return ((llrs[..., :code.k] + sums) < 0).astype(np.int32)
 
 
-@pytest.mark.parametrize("k,dv", _GEN_LDPC + [(128, 3)],
-                         ids=[f"k{k}-dv{dv}" for k, dv in _GEN_LDPC + [(128, 3)]])
+_LDPC_TWIN = _GEN_LDPC + [(128, 3)] + _GEN_LDPC_MORE
+
+
+@pytest.mark.parametrize("k,dv", _LDPC_TWIN,
+                         ids=[f"k{k}-dv{dv}" for k, dv in _LDPC_TWIN])
 def test_ldpc_general_schedule_equals_plain(k, dv):
-    """The general instance's twin (any vmax) decodes as the plain version;
-    at dv=3 it is the fast instances' schedule."""
+    """The general instances' twin (the code's exact degrees, the totals
+    schedule from dv = 4) decodes as the plain version; at dv=3 it is the
+    fast instances' schedule."""
     rng = np.random.default_rng(7 * k + dv)
     code = ldpc.LdpcCode(k, dv=dv)
     u = torch.from_numpy(rng.integers(0, 2, (6, k), dtype=np.int32))
@@ -574,3 +716,20 @@ def test_ldpc_general_schedule_equals_plain(k, dv):
     llrs = ((1.0 - 2.0 * c) + rng.normal(0, 0.75, c.shape)).astype(F32)
     want = ldpc_kernel.ldpc_decode_plain(code, torch.from_numpy(llrs))
     np.testing.assert_array_equal(_ldpc_general_twin(code, llrs), want.numpy())
+
+
+@pytest.mark.parametrize("dv", range(1, 9))
+def test_ldpc_instance_choice(dv):
+    """Over the grid the coverage test walks (k 64..512 and the gate's
+    largest code), each code of dv != 3 the wrapper covers has the exact
+    degrees of one general instance, dmax = dv + 2 and vmax = max(dv, 2),
+    and ``_instance`` picks that one; dv = 3 picks none (the fast
+    instances)."""
+    for k in list(range(64, 513, 64)) + [_GATE_EDGE_K.get(dv, 64)]:
+        code = ldpc.LdpcCode(k, dv=dv)
+        if ldpc_kernel.coverage(code) is not None:
+            continue
+        check_var, var_edges = ldpc._index_tables(k, dv, code.seed)
+        dmax, vmax = check_var.shape[0], var_edges.shape[1]
+        assert (dmax, vmax) == (dv + 2, max(dv, 2)), (k, dv)
+        assert ldpc_kernel._instance(dmax, vmax) == (None if dv == 3 else dv)

@@ -123,16 +123,19 @@ Phases, each of which exits non-zero on failure:
    ``frame_size=384``: 3 samples per symbol; ``rs=1600``, 768: 6, and
    384: 6 on the composed chain; ``rs=600``, 2048: 16;
    ``frame_size=4096``; ``frame_size=1536`` with
-   ``agc=True``: the power output at 384 symbols a frame), held as in 7f
-   (at 3 and 16 samples per symbol the JAX package passes no packet
-   either, so only sync and CRC agreement are held there); TX at 16
-   samples per symbol and at 255 taps with 8; Viterbi at K=5 (23, 35),
+   ``agc=True``: the power output at 384 symbols a frame; ``rs=4800``,
+   2048: 2 samples per symbol past the fast instances' frames), held as
+   in 7f (at 2, 3 and 16 samples per symbol the JAX package passes no
+   packet either, so only sync and CRC agreement are held there); TX at
+   16 samples per symbol, at 255 taps with 8 and at 131 taps with 4;
+   Viterbi at K=5 (23, 35),
    K=9 (561, 753), rate 1/4 K=7, K=11, K=7 (132, 171) and rate 1/8 K=5
    at 1, 156 and 4096 packets and K=15 at 1 and 156, LDPC at (256, dv 2,
    4, 5, 6, 7), (192, dv 8) and (512, dv 2) at 1, 156 and 4096 (Viterbi
    bit-equal, LDPC >= 99.9 %); every general decoder code alone in a CUDA
    graph at its largest batch beside its bound, and each general
-   instance's time beside its plain version's; then calls
+   instance's time beside its plain version's, its bound and its
+   float32-FMA floor; then calls
    past the new coverage (1031 taps, K=16, dv=9), which raise before any
    launch.  (c) ``StreamModulator`` on the card, 1536 packets in seeded
    pushes of 1-97 and a flush, QPSK and 8PSK, against ``tx_impl="xla"``:
@@ -408,9 +411,10 @@ CONV_SWAPPED = (0o171, 0o133)
 ODD_T = (1000, 125)
 # phase 8b: the geometries of the general kernel instances, each a
 # loopback of GEOMETRY_SHAPE at 10 dB: name -> (config fields, whether the
-# link carries packets there; at 3 and 16 samples per symbol the JAX
+# link carries packets there; at 2, 3 and 16 samples per symbol the JAX
 # package passes none either, measured on CPU with the same stimulus), TX
-# at 16 samples per symbol and at 255 taps with 8 (channels, symbols), and
+# at 16 samples per symbol, at 255 taps with 8 and at 131 taps with 4
+# (channels, symbols), and
 # the decoders' other codes: Viterbi (K, generators), LDPC (k, dv), at
 # these batches (K = 15, a block of 512 threads a packet, at the first
 # two); LDPC also at its instances' largest thread counts, the general
@@ -427,9 +431,11 @@ GEOMETRY8_PATHS = {
     "rs=1600,frame_size=384": (dict(rs=1600.0, frame_size=384), True),
     "rs=600,frame_size=2048": (dict(rs=600.0, frame_size=2048), False),
     "frame_size=4096": (dict(frame_size=4096), True),
-    "frame_size=1536,agc": (dict(frame_size=1536, agc=True), True)}
+    "frame_size=1536,agc": (dict(frame_size=1536, agc=True), True),
+    "rs=4800,frame_size=2048": (dict(rs=4800.0, frame_size=2048), False)}
 TX8 = ((dict(rs=600.0, frame_size=2048), (256, 4096)),
-       (dict(rs=1200.0, ntaps=255), (256, 4096)))
+       (dict(rs=1200.0, ntaps=255), (256, 4096)),
+       (dict(ntaps=131), (256, 4096)))
 VITERBI8 = ((5, (0o23, 0o35)), (9, (0o561, 0o753)),
             (7, (0o117, 0o127, 0o155, 0o171)), (11, (0o3345, 0o3613)),
             (15, (0o46321, 0o51271)), (7, (0o132, 0o171)),
@@ -1205,9 +1211,24 @@ def time_pair(name: str, kern, plain, args, kw: dict, n_plain: int,
     p2 = cuda_time_ms(lambda: plain(*args, **kw), n_plain, warmup=1)
     print(f"  {name:8s} kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms")
     if name.startswith(("costas", "frontend", "tx")):
-        kernel_alone(name, lambda: kern(*args, **kw),
-                     args[1].shape[0] if name.startswith("costas") else None)
+        ALONE[name] = kernel_alone(
+            name, lambda: kern(*args, **kw),
+            args[1].shape[0] if name.startswith("costas") else None)
     return min(k1, k2), min(p1, p2)
+
+
+# each wrapper's time alone in a CUDA graph, as time_pair last took it
+ALONE: dict = {}
+
+
+def print_bound(name: str, t: tuple) -> None:
+    """A front-end or TX row ``t`` = (wrapper ms, plain ms, bound ms, what
+    bounds it, float32-FMA floor ms): its times beside its bound and its
+    floor, the FIR priced on the tensor cores in three float16 passes."""
+    alone = ALONE.get(name)
+    print(f"  {name}: {t[0]:.4f} ms (alone in a CUDA graph "
+          f"{'not measured' if alone is None else f'{alone:.4f}'}), bound "
+          f"{t[2]:.4f} ms ({t[3]}), float32-FMA floor {t[4]:.4f} ms")
 
 
 def kernel_alone(name: str, fn, steps: int | None = None) -> float:
@@ -2609,10 +2630,11 @@ def general_instances(pcfg, dev, errs: dict, counts: dict,
     """Phase 8b: the geometries and codes of the general instances on the
     card.  Loopbacks through the kernels (``GEOMETRY8_PATHS``), each kernel
     held against its plain version on the path's inputs and the plain
-    path against the kernel path; TX at 16 samples per symbol and at 255
-    taps; the decoders' other codes against their plain versions (Viterbi
-    bit-equal, LDPC >= 99.9 %), each alone in a CUDA graph beside its
-    bound; each general instance's time at one shape; then calls past the
+    path against the kernel path; TX at 16 samples per symbol, at 255
+    taps and at 131 (``TX8``); the decoders' other codes against their
+    plain versions (Viterbi bit-equal, LDPC >= 99.9 %), each alone in a
+    CUDA graph beside its bound; each general instance's time at one
+    shape beside its bound and float32-FMA floor; then calls past the
     coverage, which raise before any launch."""
     import torch
     from fec_times import graph_ms
@@ -2730,6 +2752,7 @@ def general_instances(pcfg, dev, errs: dict, counts: dict,
                                  fk.rx_frontend_tm_plain)
         times[key] = time_pair(key, kern, plain, args, {}, iters, iters) + \
             general_work(kind, cfg, c, nframes)
+        print_bound(key, times[key])
     fields, (c, s) = TX8[0]
     cfg = ModemConfig(**fields)
     gen = torch.Generator(device=dev).manual_seed(73)
@@ -2741,6 +2764,7 @@ def general_instances(pcfg, dev, errs: dict, counts: dict,
         "tx_gen", tk.tx_modulate, tk.tx_modulate_plain,
         (cfg, sym, ts.nco_phase, ts.fir_tail, TX_OFFSET_HZ), {}, iters,
         iters) + general_work("tx", cfg, c, s=s)
+    print_bound("tx_gen", times["tx_gen"])
     b = FEC8_BATCHES[-1]
     gen = torch.Generator(device=dev).manual_seed(79)
     code = ConvCode(*VITERBI8[1])
@@ -4756,11 +4780,7 @@ def main() -> int:
 
     for name in KERNELS:
         if name.startswith(("frontend", "tx")):
-            route = "the route the general instance left" if "gen" in name \
-                else "the kernel's route"
-            print(f"  {name}: bound {times[name][2]:.4f} ms ({times[name][3]}; "
-                  f"the FIR on the tensor cores in three float16 passes, {route}), "
-                  f"float32-FMA floor {times[name][4]:.4f} ms")
+            print_bound(name, times[name])
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": counts[name], "max_abs_err": errs[name],
                 "ms": times[name][0], "plain_ms": times[name][1],

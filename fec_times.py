@@ -4,7 +4,7 @@ GPU: the two FEC decoders at the batch sizes the coded paths give them,
 and the Costas loop, RX front-end and TX at the receiver's rate point
 (8192 channels x 8 frames of 512 samples, 1024 symbols a channel).
 
-    python3 fec_times.py [ROOT] [--fec | --modem | --gen]
+    python3 fec_times.py [ROOT] [--fec | --modem | --gen | --gen-modem]
 
 ROOT is a checkout of this repository (default: the directory of this
 script).  The script imports ``qpsk_tpu_torch`` from ROOT, builds its
@@ -16,7 +16,21 @@ compare two commits on the same card:
 
 ``--fec`` times only the decoders, ``--modem`` only the Costas loop, the
 front-end, TX and the default receive call, ``--gen`` only the decoders'
-general instances; with none of them it times the first two.
+general instances, ``--gen-modem`` only the front-end's and TX's; with
+none of them it times the first two.
+
+General modem instances (``--gen-modem``): ``rx_frontend_tm`` and
+``rx_frontend`` at phase 8b's shapes of ``chip_smoke.py`` (256 channels x
+8 frames of noise PCM: time-major at 4096-sample frames, with the AGC
+power output at 1536, channel-major at 3 samples per symbol and 384; and
+time-major at 16 samples per symbol and at 2, both at 2048) and
+``tx_modulate`` at 256 channels x 4096 symbols (16 samples per symbol;
+255 taps at 8; 131 at 4), each twice alone in a CUDA graph and once
+launched from the host; beside them the fast instances at the rate
+point (the time-major front-end and TX at 4 samples per symbol), which
+the same A/B should show unmoved:
+
+    python3 fec_times.py archive/parent --gen-modem; python3 fec_times.py --gen-modem
 
 General instances (``--gen``): ``viterbi_decode`` at codes other than K=7
 rate 1/2 (K 5, 7, 9, 11 and 15, rates 1/2, 1/4 and 1/8, with and without
@@ -57,7 +71,8 @@ synchronisations per call.
 The last line is one JSON object ``{"card": ..., "root": ..., "ms":
 {"viterbi": {"156": [graph, graph, host], ...}, "ldpc": {...}}, "rows":
 {name: [host, graph, kernel]}, "rx": {...}, "gen": {code: {"156": [graph,
-graph, host], ...}}}`` (the keys of the groups timed).  Exits non-zero without a CUDA device.
+graph, host], ...}}, "gen_modem": {row: [graph, graph, host]}}`` (the keys
+of the groups timed).  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -230,6 +245,61 @@ def general_times(dev) -> dict:
     return out
 
 
+# the general modem rows of --gen-modem: name -> (launch, config fields,
+# channels, frames or symbols); the first four are phase 8b's timed shapes
+GEN_MODEM = (("frontend_gen", "tm", dict(frame_size=4096), 256, 8),
+             ("frontend_gen_power", "tm", dict(frame_size=1536, agc=True),
+              256, 8),
+             ("frontend_cm_gen", "cm", dict(rs=3200.0, frame_size=384), 256, 8),
+             ("tx_gen", "tx", dict(rs=600.0, frame_size=2048), 256, 4096),
+             ("frontend_gen cyc16 2048", "tm", dict(rs=600.0, frame_size=2048),
+              256, 8),
+             ("frontend_gen cyc2 2048", "tm", dict(rs=4800.0, frame_size=2048),
+              256, 8),
+             ("tx_gen ntaps255 cyc8", "tx", dict(rs=1200.0, ntaps=255), 256,
+              4096),
+             ("tx_gen ntaps131 cyc4", "tx", dict(ntaps=131), 256, 4096),
+             ("frontend_tm (fast)", "tm", {}, C, NFRAMES),
+             ("tx (fast)", "tx", {}, C, NFRAMES * 128))
+
+
+def modem_general_times(dev) -> dict:
+    """{row: [graph ms, graph ms, host ms]} of ``GEN_MODEM`` through the
+    public wrappers."""
+    import torch
+    from qpsk_tpu_torch import ModemConfig, rx_init, tx_init
+    from qpsk_tpu_torch.ops.cplx import CF32
+    from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
+    from qpsk_tpu_torch.ops.cuda import tx_kernel as tk
+    from qpsk_tpu_torch.ops.modmap import bits_to_symbols
+
+    gen = torch.Generator(device=dev).manual_seed(37)
+    out = {}
+    for name, kind, fields, c, n in GEN_MODEM:
+        cfg = ModemConfig(**fields)
+        if kind == "tx":
+            sym = bits_to_symbols(torch.randint(0, 2, (c, 2 * n), generator=gen,
+                                                device=dev, dtype=torch.int32))
+            sym = CF32(sym.re.contiguous(), sym.im.contiguous())
+            ts = tx_init(cfg, (c,), device=dev)
+            fn = (lambda cfg=cfg, sym=sym, ts=ts: tk.tx_modulate(
+                cfg, sym, ts.nco_phase, ts.fir_tail, 50.0))
+        else:
+            pcm = (torch.randn((c, n, cfg.frame_size), generator=gen,
+                               device=dev) * 8000.0).to(torch.int16)
+            st = rx_init(cfg, (c,), device=dev)
+            fn = ((lambda cfg=cfg, pcm=pcm, st=st: fk.rx_frontend(
+                cfg, pcm, st.nco_phase, st.fir_tail)) if kind == "cm" else
+                  (lambda cfg=cfg, pcm=pcm, st=st: fk.rx_frontend_tm(
+                      cfg, pcm, st.nco_phase, st.fir_tail, st.decim_delay)))
+        times = [graph_ms(fn), graph_ms(fn), host_ms(fn)]
+        out[name] = times
+        print(f"  {name:26s} {c:5d} x {n:5d}: alone in a CUDA graph "
+              f"{times[0]:.4f} / {times[1]:.4f} ms, launched from the host "
+              f"{times[2]:.4f} ms")
+    return out
+
+
 def modem_times(dev) -> tuple:
     """({row: [host ms, graph ms or None, kernel ms]}, {default rx_stream
     call's ms, ops, busy_ms, htod, waits}) at the rate point."""
@@ -324,7 +394,8 @@ def main() -> int:
         print("fec_times: no CUDA device", file=sys.stderr)
         return 2
     args = sys.argv[1:]
-    groups = {"--fec", "--modem", "--gen"} & set(args) or {"--fec", "--modem"}
+    groups = ({"--fec", "--modem", "--gen", "--gen-modem"} & set(args)
+              or {"--fec", "--modem"})
     paths = [a for a in args if not a.startswith("--")]
     root = os.path.abspath(paths[0] if paths
                            else os.path.dirname(os.path.abspath(__file__)))
@@ -344,6 +415,8 @@ def main() -> int:
         result["rows"], result["rx"] = modem_times(dev)
     if "--gen" in groups:
         result["gen"] = general_times(dev)
+    if "--gen-modem" in groups:
+        result["gen_modem"] = modem_general_times(dev)
     print(json.dumps(result))
     return 0
 

@@ -158,6 +158,69 @@ __device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// This warp's plane (re or im taps ``h``, KT of them) of the B fragments,
+// D = 8*(d - 1): b0 holds h[D + 2t - g .. +1], b1 h[D + 2t + 8 - g .. +1],
+// split into hi + lo
+__device__ __forceinline__ void band_fragments(uint32_t (&bh)[ND][2],
+                                               uint32_t (&bl)[ND][2],
+                                               const float* h, int g, int t) {
+#pragma unroll
+  for (int d = 0; d < ND; ++d) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      __half hi[2], lo[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int k = 8 * (d - 1) + 2 * t + 8 * r + e - g;
+        split((k >= 0 && k < KT) ? h[k] : 0.f, hi[e], lo[e]);
+      }
+      bh[d][r] = pack(hi[0], hi[1]);
+      bl[d][r] = pack(lo[0], lo[1]);
+    }
+  }
+}
+
+// The Toeplitz product of one row block: acc[nt] = the 4 n-tiles of 8
+// outputs, rows g at ``ah_p``/``al_p`` (the window's hi / lo planes at
+// s0 + 2t of row g) and g + 8 at ``half`` halves further, over the band
+// of 16-wide k-tiles, each x_lo*h_hi + x_hi*h_lo + x_hi*h_hi.
+__device__ __forceinline__ void band_rows(float (&acc)[4][4],
+                                          const __half* ah_p,
+                                          const __half* al_p, int half,
+                                          const uint32_t (&bh)[ND][2],
+                                          const uint32_t (&bl)[ND][2]) {
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[nt][r] = 0.f;
+#pragma unroll
+  for (int kt = 0; kt < NKT; ++kt) {
+    // A: rows g (s0) and g + 8 (s0 + half), columns 16kt + 2t, +1 and
+    // 16kt + 2t + 8, +1, read in place as half pairs
+    const uint32_t ah[4] = {ld32(ah_p + 16 * kt), ld32(ah_p + half + 16 * kt),
+                            ld32(ah_p + 16 * kt + 8),
+                            ld32(ah_p + half + 16 * kt + 8)};
+    const uint32_t al[4] = {ld32(al_p + 16 * kt), ld32(al_p + half + 16 * kt),
+                            ld32(al_p + 16 * kt + 8),
+                            ld32(al_p + half + 16 * kt + 8)};
+    // the three passes in turn over the n-tiles, so that consecutive
+    // products accumulate into different tiles; tile (kt, nt) meets the
+    // band at fragment d = 2kt - nt + 1
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+      if (2 * kt - nt + 1 >= 0 && 2 * kt - nt + 1 < ND)
+        mma_f16(acc[nt], al, bh[2 * kt - nt + 1][0], bh[2 * kt - nt + 1][1]);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+      if (2 * kt - nt + 1 >= 0 && 2 * kt - nt + 1 < ND)
+        mma_f16(acc[nt], ah, bl[2 * kt - nt + 1][0], bl[2 * kt - nt + 1][1]);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+      if (2 * kt - nt + 1 >= 0 && 2 * kt - nt + 1 < ND)
+        mma_f16(acc[nt], ah, bh[2 * kt - nt + 1][0], bh[2 * kt - nt + 1][1]);
+  }
+}
+
 // 16 bytes global -> shared; zero-filled when ``live`` is false
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool live) {
@@ -260,24 +323,8 @@ frontend_kernel(const int16_t* __restrict__ pcm,
   stage_frame(stage, pcm, c0, C, F, f0, fsz, tid);
   cp_async_commit();
 
-  // this warp's plane of the B fragments, D = 8*(d - 1): b0 holds
-  // h[D + 2t - g .. +1], b1 h[D + 2t + 8 - g .. +1], split into hi + lo
-  const float* h = plane ? taps.im : taps.re;
   uint32_t bh[ND][2], bl[ND][2];
-#pragma unroll
-  for (int d = 0; d < ND; ++d) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      __half hi[2], lo[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int k = 8 * (d - 1) + 2 * t + 8 * r + e - g;
-        split((k >= 0 && k < KT) ? h[k] : 0.f, hi[e], lo[e]);
-      }
-      bh[d][r] = pack(hi[0], hi[1]);
-      bl[d][r] = pack(lo[0], lo[1]);
-    }
-  }
+  band_fragments(bh, bl, plane ? taps.im : taps.re, g, t);
   if (f0 == 0) {
     for (int k = tid; k < H; k += NTHR)
       phasor(omega * (double)(k - (H - 1)), ph[k], ph[HALO + k]);
@@ -348,39 +395,9 @@ frontend_kernel(const int16_t* __restrict__ pcm,
 #pragma unroll 1
     for (int rb = 0; rb < nrb; ++rb) {
       const int s0 = 32 * ((warp >> 1) * nrb + rb);
-      const __half* ah_p = xh + g * stride + s0 + 2 * t;
-      const __half* al_p = xl + g * stride + s0 + 2 * t;
       float acc[4][4];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[nt][r] = 0.f;
-#pragma unroll
-      for (int kt = 0; kt < NKT; ++kt) {
-        // A: rows g (s0) and g + 8 (s0 + fsz/2), columns 16kt + 2t, +1 and
-        // 16kt + 2t + 8, +1, read in place as half pairs
-        const uint32_t ah[4] = {ld32(ah_p + 16 * kt), ld32(ah_p + half + 16 * kt),
-                                ld32(ah_p + 16 * kt + 8),
-                                ld32(ah_p + half + 16 * kt + 8)};
-        const uint32_t al[4] = {ld32(al_p + 16 * kt), ld32(al_p + half + 16 * kt),
-                                ld32(al_p + 16 * kt + 8),
-                                ld32(al_p + half + 16 * kt + 8)};
-        // the three passes in turn over the n-tiles, so that consecutive
-        // products accumulate into different tiles; tile (kt, nt) meets
-        // the band at fragment d = 2kt - nt + 1
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          if (2 * kt - nt + 1 >= 0 && 2 * kt - nt + 1 < ND)
-            mma_f16(acc[nt], al, bh[2 * kt - nt + 1][0], bh[2 * kt - nt + 1][1]);
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          if (2 * kt - nt + 1 >= 0 && 2 * kt - nt + 1 < ND)
-            mma_f16(acc[nt], ah, bl[2 * kt - nt + 1][0], bl[2 * kt - nt + 1][1]);
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          if (2 * kt - nt + 1 >= 0 && 2 * kt - nt + 1 < ND)
-            mma_f16(acc[nt], ah, bh[2 * kt - nt + 1][0], bh[2 * kt - nt + 1][1]);
-      }
+      band_rows(acc, xh + g * stride + s0 + 2 * t, xl + g * stride + s0 + 2 * t,
+                half, bh, bl);
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
 #pragma unroll
@@ -597,107 +614,137 @@ bool covered(int C, int F, int fsz, int cycles, int ntaps) {
 // the time-major one with the one-frame delay and the power output; else
 // the channel-major one) at the geometries the instances above do not
 // take and the TPU kernel's gate admits (qpsk_tpu/ops/pallas/
-// frontend_kernel.py, frontend_supported): any samples per symbol CYC that
-// divides the frame (3, 6 or 16 at a custom rs), any frame of a multiple
-// of 128 samples with no cap (4096 samples and more), any odd ntaps <= 129,
-// and the AGC power output at any number of symbols a frame (384 at a
-// 1536-sample frame): the halves pairing of ops/agc.py::_frame_power while
-// the count is even, then its odd residue summed in order, then times
-// float32(1/NSYM).  It computes what the instances above compute (their
-// header has the formulas); what differs is how.
+// frontend_kernel.py, frontend_supported): any samples per symbol CYC from
+// 1 to 256 that divides the frame (3, 6 or 16 at a custom rs), any frame of
+// a multiple of 128 samples with no cap (2048 samples at 2 samples per
+// symbol, 4096 and more), any odd ntaps <= 129, and the AGC power output at
+// any number of symbols a frame (384 at a 1536-sample frame): the halves
+// pairing of ops/agc.py::_frame_power while the count is even, then its
+// odd residue summed in order, then times float32(1/NSYM).  It computes
+// what the instances above compute (their header has the formulas).
 //
-// What bounds it on the H100: arithmetic on the CUDA cores, 2 x 129 float32
-// multiply-adds a sample and pass, where the instances above run the FIR on
-// the tensor cores.  The design is the plain one, so that no geometry is
-// special: one block of GNT threads a (channel, frame); the frame is walked
-// in chunks of CYC * (1024 / CYC) outputs, each chunk's window of that
-// many + 128 samples staged in shared memory as float32 (the carried tail
-// un-mixed in frame 0, the previous frame's PCM otherwise), so no frame is
-// too long for a block.  Pass 1 computes every output's |y|^2 and sums each
-// phase p = s % CYC: a warp a phase over the chunk, a shuffle tree, then
-// the chunks in order; the first maximum wins.  Pass 2 runs the FIR again
-// only at the picks y[CYC*i + p] (1/CYC of the samples), rotates and stores
-// them, and for the power output writes their squares to a scratch row in
-// device memory, where the block runs the pairing tree (so the tree is not
-// capped by shared memory either).  The FIR thus runs 1 + 1/CYC times over
-// a frame; the phasor of each pick is taken in float64.
-constexpr int GNT = 256;                 // threads a block
-constexpr int GNW = GNT / 32;
-constexpr int GCH = 1024;                // outputs a chunk, at most
+// What bounds it on the H100: as above, the FIR's arithmetic, 129 complex
+// taps a sample.  The instance it replaced ran the FIR on the CUDA cores,
+// one thread an output, and was bound by the shared-memory loads of that
+// (three 4-byte loads for two multiply-adds a tap: 0.53 ms at 256 channels
+// x 8 frames of 4096 samples, 39x its bound).  Here the FIR runs on the
+// tensor cores as the instances above run it (band_fragments, band_rows:
+// float16 hi + lo, three passes), over rows of 8 channels, and what ties
+// those instances to their geometries is done at run time:
+//   - the frame is streamed in chunks of GCH outputs: each chunk's window
+//     (128-sample halo + chunk, float16 hi / lo planes) is staged from the
+//     PCM by cp.async into a second buffer while the previous chunk's FIR
+//     runs; the halo is the previous chunk's tail (frame 0's first chunk:
+//     the carried tail un-mixed; another frame's: the end of frame f-1), so
+//     no frame is too long;
+//   - CYC is a launch argument: the outputs go to shared memory in sample
+//     order, y[plane][channel][s], and a warp a channel sums the phase
+//     energies from there: 32 / CYC lanes a phase below 32 samples per
+//     symbol (each lane its own residue of that phase's outputs, in order,
+//     then the lanes' partials in order), a lane a phase from 32 on; the
+//     chunks in order; the first maximum wins;
+//   - the picks: where the frame's outputs fit in shared memory beside the
+//     window (GenLayout's bytes at most GRES_BYTES: frames up to about
+//     2500 samples), they stay there and the picks are read from them, one
+//     FIR pass (on the card the faster of the two wherever both fit); a
+//     longer frame runs the chunks' FIR a second time and picks from each
+//     chunk.  The second pass costs the FIR again but keeps the block's
+//     shared memory the same at any frame length; writing the outputs to
+//     device memory instead would cost 8 bytes a sample and a scratch of
+//     that size a call.  A warp rotates its channel's picks as above (the
+//     angle of a lane's first in float64 reduced mod 2*pi, then a float32
+//     step of 32 symbols); the time-major ones go out through a shared
+//     buffer of GPR symbols x 8 channels, so that a warp's stores are
+//     32-byte rows of the (T, C) output, not 4 bytes C floats apart (frame
+//     0's carried delay likewise);
+//   - the power output: a warp runs its channel's pairing tree over the
+//     squares of the stored picks, in shared memory up to GSQ symbols a
+//     frame, beyond that in a device scratch row the wrapper passes.
+// One block of GNT threads a (8 channels, frame); frames ride grid.x
+// fastest, so a block's halo (the end of frame f-1) was just read by its
+// neighbour.  The B fragments are built from a shared copy of the taps
+// (from the by-value parameter, whose per-lane indices serialise the
+// constant cache, they were the longest step of a block's prologue), and
+// the launch bounds ask for two blocks an SM only where two fit.
+// Times it was chosen by (fec_times.py --gen-modem, NVIDIA H100 80GB HBM3,
+// 700.00 W, 256 channels x 8 frames alone in a CUDA graph, the instance
+// it replaced in brackets): 4096-sample frames 0.1357 ms [0.5271], the
+// power output at 1536 0.0460 [0.2030], channel-major at 3 samples per
+// symbol and 384 0.0129 [0.0451]; 9-10x its bound at each.
+constexpr int GNW = 8;                   // warps a block: one a channel
+constexpr int GNT = 32 * GNW;
+constexpr int GCH = 512;                 // outputs a chunk, at most
 constexpr int GMAXCYC = 256;             // samples per symbol, at most
+constexpr int GSQ = 512;                 // squares of a frame in shared, at most
+constexpr int GKEEP = CG * HALO / GNT;   // halo samples a thread carries
+constexpr int GRES_BYTES = 227 * 1024;   // shared memory of a resident frame
+constexpr int GPR = 128;                 // symbols a round of picks
+constexpr int PBS = GPR + 4;             // a channel's row of them: 4 mod 32
 
-struct GenSmem {
-  float tr[KT], ti[KT];                  // the taps, front-padded to KT
-  float x[GCH + HALO];                   // a chunk's window
-  float e[GCH];                          // a chunk's |y|^2
-  float esum[GMAXCYC];                   // the phase energies
-  int phase;
+// The shared-memory layout of a frame of ``fsz`` samples, in bytes (every
+// offset a multiple of 16): the frame's outputs resident, or a chunk's.
+struct GenLayout {
+  int stride, ys;                        // window row in halves, y row in floats
+  int stage, halo16, xh, xl, y, esum, epart, sq, pb, ph, taps, rng, bytes;
+  __host__ __device__ GenLayout(int fsz, int cyc, int nsym, bool resident,
+                                bool sq_smem) {
+    stride = GCH + HALO + 8;             // GCH/2 + 68 words: 4 mod 32
+    ys = (resident ? fsz : GCH) + 8;     // 8 mod 32
+    stage = 0;                           // int16 [2][CG][GCH]
+    halo16 = stage + 2 * CG * GCH * 2;   // int16 [CG][128]
+    xh = halo16 + CG * 128 * 2;          // half [CG][stride]
+    xl = xh + CG * stride * 2;           // half [CG][stride]
+    y = xl + CG * stride * 2;            // float [2][CG][ys]
+    esum = y + 2 * CG * ys * 4;          // float [CG][cyc]
+    epart = esum + (CG * cyc * 4 + 15) / 16 * 16;   // float [CG][32]
+    sq = epart + CG * 32 * 4;            // float [CG][nsym]
+    pb = sq + (sq_smem ? (CG * nsym * 4 + 15) / 16 * 16 : 0);  // float [2][CG][PBS]
+    ph = pb + 2 * CG * PBS * 4;          // float [2][HALO]
+    taps = ph + 2 * HALO * 4;            // float [2][KT]
+    rng = taps + (2 * KT * 4 + 15) / 16 * 16;   // int [2][CG]
+    bytes = rng + 2 * CG * 4;
+  }
 };
 
-// the window of frame f's outputs [s0, s0 + len): frame samples s0 - 128
-// .. s0 + len - 1, the halo before the frame from the carried tail (f ==
-// 0, un-mixed) or the previous frame's PCM
-__device__ void gen_window(float* x, const int16_t* pcm, const float* tail_re,
-                           const float* tail_im, float p0r, float p0i, int c,
-                           int F, int f, int fsz, int H, int s0, int len,
-                           double omega, float inv_scale) {
-  const long long row = ((long long)c * F + f) * fsz;
-  for (int j = threadIdx.x; j < len + HALO; j += GNT) {
-    const int q = s0 - HALO + j;
-    float v = 0.f;
-    if (q >= 0) {
-      v = (float)pcm[row + q] * inv_scale;
-    } else if (f > 0) {
-      v = (float)pcm[row + q] * inv_scale;   // the end of frame f-1
-    } else if (q >= -H) {
-      const int kk = q + H;              // the carried tail's sample
-      float er, ei, pr, pi;
-      phasor(omega * (double)(kk - (H - 1)), er, ei);
-      cmul_pinned(p0r, p0i, er, ei, pr, pi);
-      v = __fadd_rn(__fmul_rn(tail_re[(long long)c * H + kk], pr),
-                    __fmul_rn(tail_im[(long long)c * H + kk], pi));
-    }
-    x[j] = v;
+// Stage chunk [s_c, s_c + len) of frame f of the block's channels into
+// ``dst`` (rows of GCH).
+__device__ __forceinline__ void stage_chunk(int16_t* dst, const int16_t* pcm,
+                                            int c0, int C, int F, int f,
+                                            int fsz, int s_c, int len,
+                                            int tid) {
+  const int q8 = len / 8;                // 16-byte copies a channel
+  for (int e = tid; e < CG * q8; e += GNT) {
+    const int ch = e / q8, q = e - ch * q8;
+    const int c = c0 + ch;
+    cp_async16(dst + ch * GCH + 8 * q,
+               pcm + ((long long)min(c, C - 1) * F + f) * fsz + s_c + 8 * q,
+               c < C);
   }
 }
 
-// y = gain * sum_k h[k] x[s + k] at window position s, re and im, k in order
-__device__ __forceinline__ void gen_fir(const GenSmem& sm, int s, float gain,
-                                        float& yr, float& yi) {
-  float ar = 0.f, ai = 0.f;
-#pragma unroll 8
-  for (int k = 0; k < KT; ++k) {
-    const float v = sm.x[s + k];
-    ar = fmaf(sm.tr[k], v, ar);
-    ai = fmaf(sm.ti[k], v, ai);
-  }
-  yr = ar * gain;
-  yi = ai * gain;
-}
-
-// the halves pairing of ops/agc.py::_frame_power over p[0 .. n) in place,
-// then the odd residue summed in order, times ``inv``.  Every thread of the
-// block calls it; thread 0 returns the value.
-__device__ float gen_tree(float* p, int n, float inv) {
+// The halves pairing of ops/agc.py::_frame_power over p[0 .. n) in place
+// by the lanes of one warp, then the odd residue summed in order, times
+// ``inv``; lane 0 returns the value.
+__device__ float warp_tree(float* p, int n, float inv, int lane) {
+  __syncwarp();
   while (n > 1 && n % 2 == 0) {
     const int h = n / 2;
-    __syncthreads();
-    for (int i = threadIdx.x; i < h; i += GNT) p[i] = __fadd_rn(p[i], p[i + h]);
+    for (int i = lane; i < h; i += 32) p[i] = __fadd_rn(p[i], p[i + h]);
     n = h;
+    __syncwarp();
   }
-  __syncthreads();
   float s = 0.f;
-  if (threadIdx.x == 0) {
+  if (lane == 0) {
     s = p[0];
     for (int i = 1; i < n; ++i) s = __fadd_rn(s, p[i]);
     s = __fmul_rn(s, inv);
   }
-  __syncthreads();                       // p may be written again
+  __syncwarp();                          // p may be written again
   return s;
 }
 
-template <bool TM>
-__global__ void __launch_bounds__(GNT)
+template <bool TM, int MINB>
+__global__ void __launch_bounds__(GNT, MINB)
 frontend_general_kernel(const int16_t* __restrict__ pcm,
                         const float* __restrict__ tail_re,
                         const float* __restrict__ tail_im,
@@ -712,131 +759,341 @@ frontend_general_kernel(const int16_t* __restrict__ pcm,
                         float* __restrict__ nph_re, float* __restrict__ nph_im,
                         float* __restrict__ ntail_re,
                         float* __restrict__ ntail_im, int C, int F, int fsz,
-                        int cyc, int H, const __grid_constant__ Taps taps,
-                        double omega, float gain, float inv_scale) {
-  __shared__ GenSmem sm;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int c = (int)(blockIdx.x / F), f = (int)(blockIdx.x % F);
+                        int cyc, int H, int resident,
+                        const __grid_constant__ Taps taps, double omega,
+                        float gain, float inv_scale) {
   const int nsym = fsz / cyc;
-  const int ch = cyc * (GCH / cyc);      // outputs a chunk: whole symbols
-  const float p0r = p0_re[c], p0i = p0_im[c];
-  const bool pow_out = TM && power != nullptr;
+  const bool pow_out = TM && power != nullptr;   // uniform over the grid
+  const bool sq_smem = nsym <= GSQ;
+  const GenLayout L(fsz, cyc, nsym, resident, pow_out && sq_smem);
+  const int stride = L.stride, ys = L.ys;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int16_t* stage = reinterpret_cast<int16_t*>(smem_raw + L.stage);
+  int16_t* halo16 = reinterpret_cast<int16_t*>(smem_raw + L.halo16);
+  __half* xh = reinterpret_cast<__half*>(smem_raw + L.xh);
+  __half* xl = reinterpret_cast<__half*>(smem_raw + L.xl);
+  float* y = reinterpret_cast<float*>(smem_raw + L.y);
+  float* ph = reinterpret_cast<float*>(smem_raw + L.ph);
+  float* pb = reinterpret_cast<float*>(smem_raw + L.pb);
+  float* tsm = reinterpret_cast<float*>(smem_raw + L.taps);
+  int* rng = reinterpret_cast<int*>(smem_raw + L.rng);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int f = (int)(blockIdx.x % F);
+  const int c0 = (int)(blockIdx.x / F) * CG;
+  const int g = lane >> 2, t = lane & 3;
+  const int plane = warp & 1, pair = warp >> 1;
+  // this warp's channel in the energies, the picks and the power
+  const int c = c0 + warp;
+  const bool live = c < C;
+  const float pr0 = live ? p0_re[c] : 1.f, pi0 = live ? p0_im[c] : 0.f;
+  float* esum = reinterpret_cast<float*>(smem_raw + L.esum) + warp * cyc;
+  float* epart = reinterpret_cast<float*>(smem_raw + L.epart) + warp * 32;
+  float* sq_row =
+      !pow_out ? nullptr
+      : sq_smem ? reinterpret_cast<float*>(smem_raw + L.sq) + warp * nsym
+                : scratch + ((long long)min(c, C - 1) * F + f) * nsym;
+  const float* y0 = y + warp * ys;       // this channel's re and im outputs
+  const float* y1 = y + (CG + warp) * ys;
   const float inv = (float)(1.0 / (double)nsym);   // float32(1/nsym)
-  float* sq_row = pow_out ? scratch + ((long long)c * F + f) * nsym : nullptr;
-  for (int k = tid; k < KT; k += GNT) {
-    sm.tr[k] = taps.re[k];
-    sm.ti[k] = taps.im[k];
+  const int nchunks = (fsz + GCH - 1) / GCH;
+
+  // the taps into shared memory first: the fragments' per-lane indices
+  // would serialise the parameter's constant-cache reads
+  for (int k = tid; k < 2 * KT; k += GNT)
+    tsm[k] = k < KT ? taps.re[k] : taps.im[k - KT];
+  if (f == 0) {
+    for (int k = tid; k < H; k += GNT)
+      phasor(omega * (double)(k - (H - 1)), ph[k], ph[HALO + k]);
   }
-  for (int p = tid; p < cyc; p += GNT) sm.esum[p] = 0.f;
+  for (int p = lane; p < cyc; p += 32) esum[p] = 0.f;
+  float sr, si;                          // a lane's pick step, 32 symbols
+  phasor(omega * (32.0 * cyc), sr, si);
+  __syncthreads();
+  uint32_t bh[ND][2], bl[ND][2];
+  band_fragments(bh, bl, tsm + plane * KT, g, t);
 
   if (TM && f == 0) {
-    // output frame 0: the carried delay, and its power
-    for (int i = tid; i < nsym; i += GNT) {
-      const float dr = dd_re[(long long)c * nsym + i];
-      const float di = dd_im[(long long)c * nsym + i];
-      zr[(long long)i * C + c] = dr;
-      zi[(long long)i * C + c] = di;
-      if (pow_out) sq_row[i] = sq(dr, di);
-    }
-    if (pow_out) {
-      const float v = gen_tree(sq_row, nsym, inv);
-      if (tid == 0) power[(long long)c * F] = v;
-    }
-  }
-  __syncthreads();
-
-  // pass 1: the phase energies, chunk by chunk in order
-  for (int s0 = 0; s0 < fsz; s0 += ch) {
-    const int len = min(ch, fsz - s0);
-    gen_window(sm.x, pcm, tail_re, tail_im, p0r, p0i, c, F, f, fsz, H, s0,
-               len, omega, inv_scale);
-    __syncthreads();
-    for (int s = tid; s < len; s += GNT) {
-      float yr, yi;
-      gen_fir(sm, s, gain, yr, yi);
-      sm.e[s] = sq(yr, yi);
-    }
-    __syncthreads();
-    for (int p = warp; p < cyc; p += GNW) {
-      float acc = 0.f;
-      for (int s = p + cyc * lane; s < len; s += 32 * cyc)
-        acc = __fadd_rn(acc, sm.e[s]);
+    // output frame 0: the carried delay, in rounds of GPR symbols through
+    // pb (a warp reads its channel's symbols, the block stores 8 channels,
+    // 32 bytes, a row), and its power
+    for (int r0 = 0; r0 < nsym; r0 += GPR) {
 #pragma unroll
-      for (int o = 16; o >= 1; o >>= 1)
-        acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, o));
-      if (lane == 0) sm.esum[p] = __fadd_rn(sm.esum[p], acc);
-    }
-    __syncthreads();                     // the window and e are free again
-  }
-  if (tid == 0) {
-    int best = 0;
-    for (int p = 1; p < cyc; ++p)
-      if (sm.esum[p] > sm.esum[best]) best = p;
-    sm.phase = best;
-    index[(long long)c * F + f] = best;
-  }
-  __syncthreads();
-  const int p = sm.phase;
-
-  // pass 2: the picks, in chunks of whole symbols
-  const int sch = ch / cyc;              // symbols a chunk
-  for (int i0 = 0; i0 < nsym; i0 += sch) {
-    const int ns = min(sch, nsym - i0);
-    gen_window(sm.x, pcm, tail_re, tail_im, p0r, p0i, c, F, f, fsz, H,
-               cyc * i0, cyc * ns, omega, inv_scale);
-    __syncthreads();
-    for (int j = tid; j < ns; j += GNT) {
-      const int i = i0 + j;
-      float yr, yi, er, ei;
-      gen_fir(sm, cyc * j + p, gain, yr, yi);
-      phasor(omega * (double)((long long)f * fsz + (long long)cyc * i + p + 1),
-             er, ei);
-      const float fr = p0r * er - p0i * ei;
-      const float fi = p0r * ei + p0i * er;
-      const float outr = yr * fr - yi * fi;
-      const float outi = yr * fi + yi * fr;
-      if (TM) {
-        if (f + 1 < F) {
-          const long long o = ((long long)(f + 1) * nsym + i) * C + c;
-          zr[o] = outr;
-          zi[o] = outi;
-        } else {
-          ndd_re[(long long)c * nsym + i] = outr;
-          ndd_im[(long long)c * nsym + i] = outi;
+      for (int m = 0; m < GPR / 32; ++m) {
+        const int i = r0 + 32 * m + lane;
+        if (live && i < nsym) {
+          const float dr = dd_re[(long long)c * nsym + i];
+          const float di = dd_im[(long long)c * nsym + i];
+          pb[warp * PBS + i - r0] = dr;
+          pb[(CG + warp) * PBS + i - r0] = di;
+          if (pow_out) sq_row[i] = sq(dr, di);
         }
-        if (pow_out) sq_row[i] = sq(outr, outi);
+      }
+      __syncthreads();
+      for (int e = tid; e < GPR * CG; e += GNT) {
+        const int i = r0 + e / CG, cc = c0 + e % CG;
+        if (cc < C && i < nsym) {
+          zr[(long long)i * C + cc] = pb[(e % CG) * PBS + i - r0];
+          zi[(long long)i * C + cc] = pb[(CG + e % CG) * PBS + i - r0];
+        }
+      }
+      __syncthreads();
+    }
+    if (pow_out && live) {
+      const float v = warp_tree(sq_row, nsym, inv, lane);
+      if (lane == 0) power[(long long)c * F] = v;
+    }
+  }
+
+  // the picks of outputs [s_c, s_c + len), y's column yb + s - s_c
+  // holding output s: lane ``lane`` of a warp walks its channel's symbols
+  // I0 + lane + 32m, I0 = s_c / cyc, the angle of its first in float64,
+  // then a float32 step of 32 symbols, and rotates those of the channel's
+  // phase.  In rounds of GPR symbols, the time-major picks of a frame but
+  // the last go into pb[plane][i][channel], which the block then stores 8
+  // channels (32 bytes) a row; the rest (the channel-major picks, the last
+  // frame's new delay) a warp stores itself, consecutive symbols.
+  const bool staged = TM && f + 1 < F;   // uniform over the block
+  int p = 0;                             // this warp's channel's phase
+  const int K = cyc >= 32 ? 1 : 32 / cyc;   // lanes a phase
+  float eacc = 0.f;                      // this lane's slot (K > 1)
+  auto picks = [&](int s_c, int len, int yb) {
+    const int I0 = s_c / cyc, I1 = min(nsym, (s_c + len + cyc - 1) / cyc);
+    const int lo = (s_c - p + cyc - 1) / cyc;   // the channel's picks
+    const int hi = min(nsym, (s_c + len - p + cyc - 1) / cyc);
+    if (staged && lane == 0) {
+      rng[warp] = lo;
+      rng[CG + warp] = hi;
+    }
+    float er, ei;
+    phasor(omega * (double)((long long)f * fsz + (long long)cyc * (I0 + lane) +
+                            p + 1),
+           er, ei);
+    float fr = pr0 * er - pi0 * ei;
+    float fi = pr0 * ei + pi0 * er;
+    for (int r0 = I0; r0 < I1; r0 += GPR) {
+#pragma unroll
+      for (int m = 0; m < GPR / 32; ++m) {
+        const int i = r0 + 32 * m + lane;
+        if (live && i >= lo && i < hi) {
+          const int s = cyc * i + p - s_c + yb;
+          const float ur = y0[s], ui = y1[s];
+          const float outr = ur * fr - ui * fi;
+          const float outi = ur * fi + ui * fr;
+          if (staged) {
+            pb[warp * PBS + i - r0] = outr;
+            pb[(CG + warp) * PBS + i - r0] = outi;
+          } else if (TM) {
+            ndd_re[(long long)c * nsym + i] = outr;
+            ndd_im[(long long)c * nsym + i] = outi;
+          } else {
+            const long long o = ((long long)c * F + f) * nsym + i;
+            zr[o] = outr;
+            zi[o] = outi;
+          }
+          if (pow_out) sq_row[i] = sq(outr, outi);
+        }
+        const float nr = fr * sr - fi * si;
+        fi = fr * si + fi * sr;
+        fr = nr;
+      }
+      if (!staged) continue;
+      __syncthreads();
+      for (int e = tid; e < GPR * CG; e += GNT) {
+        const int i = r0 + e / CG, ch = e % CG, cc = c0 + ch;
+        if (cc < C && i >= rng[ch] && i < rng[CG + ch]) {
+          const long long o = ((long long)(f + 1) * nsym + i) * C + cc;
+          zr[o] = pb[ch * PBS + i - r0];
+          zi[o] = pb[(CG + ch) * PBS + i - r0];
+        }
+      }
+      __syncthreads();
+    }
+  };
+
+  for (int pass = 0; pass < (resident ? 1 : 2); ++pass) {
+    // the prologue's copies: the end of frame f-1 and the first chunk
+    if (f > 0 && tid < CG * 16) {
+      const int ch = tid / 16, q = tid % 16;
+      const int cc = c0 + ch;
+      cp_async16(halo16 + ch * 128 + 8 * q,
+                 pcm + ((long long)min(cc, C - 1) * F + f - 1) * fsz + fsz -
+                     128 + 8 * q,
+                 cc < C);
+    }
+    stage_chunk(stage, pcm, c0, C, F, f, fsz, 0, min(GCH, fsz), tid);
+    cp_async_commit();
+    for (int k = 0; k < nchunks; ++k) {
+      const int s_c = k * GCH, len = min(GCH, fsz - s_c);
+      const int buf = k & 1;
+      // the halo of chunk k: carried (un-mixed), staged, or the end of k-1
+      __half keep_h[GKEEP], keep_l[GKEEP];
+      if (k > 0) {
+#pragma unroll
+        for (int j = 0; j < GKEEP; ++j) {
+          const int e = tid + j * GNT;
+          keep_h[j] = xh[(e / HALO) * stride + GCH + e % HALO];
+          keep_l[j] = xl[(e / HALO) * stride + GCH + e % HALO];
+        }
+      }
+      if (k + 1 < nchunks) {
+        stage_chunk(stage + (buf ^ 1) * CG * GCH, pcm, c0, C, F, f, fsz,
+                    s_c + GCH, min(GCH, fsz - s_c - GCH), tid);
+        cp_async_commit();
+        cp_async_wait<1>();
       } else {
-        const long long o = ((long long)c * F + f) * nsym + i;
-        zr[o] = outr;
-        zi[o] = outi;
+        cp_async_wait<0>();
+      }
+      __syncthreads();   // (A) chunk k staged; k-1 read out of the window, y
+#pragma unroll
+      for (int j = 0; j < GKEEP; ++j) {
+        const int e = tid + j * GNT;
+        const int ch = e / HALO, kk = e % HALO;
+        const int cc = c0 + ch;
+        if (k > 0) {
+          xh[ch * stride + kk] = keep_h[j];
+          xl[ch * stride + kk] = keep_l[j];
+          continue;
+        }
+        float v = 0.f;
+        if (f > 0) {
+          v = (float)halo16[ch * 128 + kk] * inv_scale;
+        } else if (cc < C && kk >= HALO - H) {
+          const int kt = kk - (HALO - H);   // the carried tail's sample
+          float pr, pi;
+          cmul_pinned(p0_re[cc], p0_im[cc], ph[kt], ph[HALO + kt], pr, pi);
+          v = __fadd_rn(__fmul_rn(tail_re[(long long)cc * H + kt], pr),
+                        __fmul_rn(tail_im[(long long)cc * H + kt], pi));
+        }
+        split(v, xh[ch * stride + kk], xl[ch * stride + kk]);
+      }
+      // the chunk, 8 samples a thread: one 16-byte stage load, two 16-byte
+      // window stores
+      const int16_t* st = stage + buf * CG * GCH;
+      const int q8 = len / 8;
+      for (int e = tid; e < CG * q8; e += GNT) {
+        const int ch = e / q8, q = e - ch * q8;
+        const int4 raw = *reinterpret_cast<const int4*>(st + ch * GCH + 8 * q);
+        const int16_t* v = reinterpret_cast<const int16_t*>(&raw);
+        __align__(16) __half hi[8], lo[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) split((float)v[u] * inv_scale, hi[u], lo[u]);
+        *reinterpret_cast<int4*>(xh + ch * stride + HALO + 8 * q) =
+            *reinterpret_cast<const int4*>(hi);
+        *reinterpret_cast<int4*>(xl + ch * stride + HALO + 8 * q) =
+            *reinterpret_cast<const int4*>(lo);
+      }
+      __syncthreads();   // (B) the window of chunk k
+
+      // the FIR of this warp's plane over its row blocks: rows g and g + 8
+      // are channel g at s0 and at s0 + len/2
+      const int half = len / 2, nrb = len / 64;
+      const int yb = resident ? s_c : 0;
+      float* yp = y + (plane * CG + g) * ys + yb;
+#pragma unroll 1
+      for (int rb = pair; rb < nrb; rb += GNW / 2) {
+        const int s0 = 32 * rb;
+        float acc[4][4];
+        band_rows(acc, xh + g * stride + s0 + 2 * t,
+                  xl + g * stride + s0 + 2 * t, half, bh, bl);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            yp[s0 + 8 * nt + 2 * t + (r & 1) + (r >> 1) * half] =
+                acc[nt][r] * gain;
+      }
+      __syncthreads();   // (C) the outputs of chunk k
+
+      if (pass == 1) {
+        picks(s_c, len, 0);
+        continue;
+      }
+      // the phase energies: below 32 samples per symbol lane l < cyc*K is
+      // the slot (phase l % cyc, part l / cyc) and sums, in order over the
+      // frame, |y|^2 at each chunk's outputs s = first(phase) + cyc * (part
+      // + K m); from 32 on a lane sums a chunk's outputs of each of its
+      // phases in order and adds that to the phase's energy
+      if (!live) continue;
+      const int cb = s_c % cyc;
+      if (K == 1) {
+        for (int pp = lane; pp < cyc; pp += 32) {
+          float acc = 0.f;
+#pragma unroll 4
+          for (int s = (pp - cb + cyc) % cyc; s < len; s += cyc)
+            acc = __fadd_rn(acc, sq(y0[yb + s], y1[yb + s]));
+          esum[pp] = __fadd_rn(esum[pp], acc);
+        }
+      } else if (lane < cyc * K) {
+#pragma unroll 4
+        for (int s = (lane % cyc - cb + cyc) % cyc + cyc * (lane / cyc);
+             s < len; s += cyc * K)
+          eacc = __fadd_rn(eacc, sq(y0[yb + s], y1[yb + s]));
       }
     }
-    __syncthreads();
+    if (pass == 0) {
+      if (K > 1) {
+        // the K partial sums of a phase, in order
+        epart[lane] = eacc;
+        __syncwarp();
+        if (lane < cyc) {
+          float tot = epart[lane];
+          for (int part = 1; part < K; ++part)
+            tot = __fadd_rn(tot, epart[lane + cyc * part]);
+          esum[lane] = tot;
+        }
+      }
+      // the first maximum of the channel's energies
+      __syncwarp();
+      float best = -1.f;
+      int bp = GMAXCYC;
+      for (int pp = lane; pp < cyc; pp += 32)
+        if (esum[pp] > best) {
+          best = esum[pp];
+          bp = pp;
+        }
+#pragma unroll
+      for (int o = 16; o >= 1; o >>= 1) {
+        const float ob = __shfl_xor_sync(0xffffffffu, best, o);
+        const int op = __shfl_xor_sync(0xffffffffu, bp, o);
+        if (ob > best || (ob == best && op < bp)) {
+          best = ob;
+          bp = op;
+        }
+      }
+      p = bp;
+      if (lane == 0 && live) index[(long long)c * F + f] = p;
+      if (resident) picks(0, fsz, 0);
+    }
   }
-  if (pow_out) {
-    const float v = gen_tree(sq_row, nsym, inv);
-    if (tid == 0 && f + 1 < F) power[(long long)c * F + f + 1] = v;
+  if (pow_out && live && f + 1 < F) {
+    const float v = warp_tree(sq_row, nsym, inv, lane);
+    if (lane == 0) power[(long long)c * F + f + 1] = v;
   }
 
   if (f != F - 1) return;
-  // the carried state after the call, from the last frame's block
+  // the carried state after the call, from the last frame's blocks
   const long long n = (long long)F * fsz;
-  const long long last = ((long long)c * F + f) * fsz;
-  for (int k = tid; k < H; k += GNT) {
+  for (int e = tid; e < CG * H; e += GNT) {
+    const int ch = e / H, k = e % H;
+    const int cc = c0 + ch;
+    if (cc >= C) continue;
     float er, ei, pr, pi;
     phasor(omega * (double)(n - H + k + 1), er, ei);
-    cmul_pinned(p0r, p0i, er, ei, pr, pi);
-    const float raw = (float)pcm[last + fsz - H + k] * inv_scale;
-    ntail_re[(long long)c * H + k] = __fmul_rn(raw, pr);
-    ntail_im[(long long)c * H + k] = __fmul_rn(raw, pi);
+    cmul_pinned(p0_re[cc], p0_im[cc], er, ei, pr, pi);
+    const float raw =
+        (float)pcm[((long long)cc * F + f) * fsz + fsz - H + k] * inv_scale;
+    ntail_re[(long long)cc * H + k] = __fmul_rn(raw, pr);
+    ntail_im[(long long)cc * H + k] = __fmul_rn(raw, pi);
   }
-  if (tid == 0) {
+  if (tid < CG && c0 + tid < C) {
+    const int cc = c0 + tid;
     float er, ei, ar, ai;
     phasor(omega * (double)n, er, ei);
-    cmul_pinned(p0r, p0i, er, ei, ar, ai);
+    cmul_pinned(p0_re[cc], p0_im[cc], er, ei, ar, ai);
     const float iv = __fdiv_rn(1.f, __fsqrt_rn(sq(ar, ai)));
-    nph_re[c] = __fmul_rn(ar, iv);
-    nph_im[c] = __fmul_rn(ai, iv);
+    nph_re[cc] = __fmul_rn(ar, iv);
+    nph_im[cc] = __fmul_rn(ai, iv);
   }
 }
 
@@ -889,9 +1146,9 @@ extern "C" int qpsk_frontend_cm(const void* pcm, const void* tail_re,
 
 // The general instance, both launches (``tm`` 1: time-major with the delay
 // and, if ``power`` is not null, the power output, whose tree runs in
-// ``scratch``, (C, F, fsz/cycles) float32; 0: channel-major, the picks in
-// zr/zi).  Takes any cycles in 1..256 dividing fsz, fsz a multiple of 128,
-// odd ntaps <= 129.
+// ``scratch``, (C, F, fsz/cycles) float32, past GSQ symbols a frame; 0:
+// channel-major, the picks in zr/zi).  Takes any cycles in
+// 1..256 dividing fsz, fsz a multiple of 128, odd ntaps <= 129.
 extern "C" int qpsk_frontend_gen(const void* pcm, const void* tail_re,
                                  const void* tail_im, const void* p0_re,
                                  const void* p0_im, const void* dd_re,
@@ -905,8 +1162,11 @@ extern "C" int qpsk_frontend_gen(const void* pcm, const void* tail_re,
                                  float inv_scale, void* stream) {
   if (C < 1 || F < 1 || ntaps < 1 || ntaps > KT || ntaps % 2 == 0 ||
       fsz < 128 || fsz % 128 != 0 || cycles < 1 || cycles > GMAXCYC ||
-      fsz % cycles != 0 || (long long)C * F > 0x7fffffffLL ||
-      (tm && power != nullptr && scratch == nullptr))
+      fsz % cycles != 0 || (long long)((C + CG - 1) / CG) * F > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const int nsym = fsz / cycles;
+  const bool sq_smem = tm && power != nullptr && nsym <= GSQ;
+  if (tm && power != nullptr && scratch == nullptr)
     return (int)cudaErrorInvalidValue;
   Taps taps;
   for (int k = 0; k < KT; ++k) {
@@ -914,14 +1174,27 @@ extern "C" int qpsk_frontend_gen(const void* pcm, const void* tail_re,
     taps.re[k] = j >= 0 ? static_cast<const float*>(taps_re)[j] : 0.f;
     taps.im[k] = j >= 0 ? static_cast<const float*>(taps_im)[j] : 0.f;
   }
-  const auto kernel = tm ? frontend_general_kernel<true>
-                         : frontend_general_kernel<false>;
-  kernel<<<(unsigned)((long long)C * F), GNT, 0, (cudaStream_t)stream>>>(
+  const bool resident =
+      GenLayout(fsz, cycles, nsym, true, sq_smem).bytes <= GRES_BYTES;
+  const int bytes = GenLayout(fsz, cycles, nsym, resident, sq_smem).bytes;
+  // two blocks an SM where their shared memory fits (then at most 128
+  // registers a thread), else one with no register cap
+  const bool two = 2 * (bytes + 1024) <= 228 * 1024;
+  const auto kernel = tm ? (two ? frontend_general_kernel<true, 2>
+                                : frontend_general_kernel<true, 1>)
+                         : (two ? frontend_general_kernel<false, 2>
+                                : frontend_general_kernel<false, 1>);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (long long)((C + CG - 1) / CG) * F;
+  kernel<<<(unsigned)blocks, GNT, bytes, (cudaStream_t)stream>>>(
       (const int16_t*)pcm, (const float*)tail_re, (const float*)tail_im,
       (const float*)p0_re, (const float*)p0_im, (const float*)dd_re,
       (const float*)dd_im, (float*)zr, (float*)zi, (int32_t*)index,
       (float*)ndd_re, (float*)ndd_im, (float*)power, (float*)scratch,
       (float*)nph_re, (float*)nph_im, (float*)ntail_re, (float*)ntail_im, C,
-      F, fsz, cycles, ntaps - 1, taps, omega, gain, inv_scale);
+      F, fsz, cycles, ntaps - 1, resident ? 1 : 0, taps, omega, gain,
+      inv_scale);
   return (int)cudaGetLastError();
 }

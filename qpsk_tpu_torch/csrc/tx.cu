@@ -133,6 +133,12 @@ __device__ __forceinline__ float symbol(const float* sym, const float* tail,
   return tail[c * (ntaps - 1) + (ntaps - 1) + cyc * m];
 }
 
+// e^{j*ang} of a float64 angle reduced to [0, 2*pi), in float64
+__device__ __forceinline__ void phasor64(double ang, double& re, double& im) {
+  ang -= TWO_PI * floor(ang * (1.0 / TWO_PI));
+  sincos(ang, &im, &re);
+}
+
 // (pr, pi) of lane j < ntiles: phase0 (x) e^{j*omega*(cyc*(m0 + j*tile)
 // + 1)}, the base of the work item's tile j
 __device__ __forceinline__ void tile_base(float p0r, float p0i, double omega,
@@ -359,24 +365,72 @@ int launch(const void* sym_re, const void* sym_im,
 // The general instance, tx_general_kernel: the TPU kernel's whole gate
 // (qpsk_tpu/ops/pallas/tx_kernel.py, tx_supported: any samples per symbol
 // CYC >= 2 and a halo of at most 128 symbols, (ntaps - 1 + CYC - 1) / CYC
-// + 1 <= 128, so 255 taps at 8 samples per symbol or 16 samples per
-// symbol), where tx_kernel<CYC> above takes CYC 2..8 and 129 taps.  It
-// computes what tx_kernel computes (the header above has the formulas):
-// output t = CYC*m + q is the polyphase sum over d = 0..HS of h[ntaps-1 -
-// CYC*d - q] * sym[m - d], the symbols before the call read from the
-// carried tail's lanes in place, times gain, mixed by phase0 *
-// e^{j*omega*(t+1)} (the angle in float64, reduced mod 2*pi), Re *
-// pcm_scale, truncated and saturated to int16; the block of the call's
-// first sample of a channel writes its carried state (write_state).
+// + 1 <= 128, so 16 samples per symbol, 131 taps at 4, 255 at 8), where
+// tx_kernel<CYC> above takes CYC 2..8 and 129 taps.  It computes what
+// tx_kernel computes (the header above has the formulas): with the taps
+// reversed, hr[j] = h[ntaps-1 - j], output t is the sum over the symbols m
+// with 0 <= t - CYC*m < ntaps of hr[t - CYC*m] * sym[m] (the symbols before
+// the call read from the carried tail's lanes in place), times gain, mixed
+// by phase0 * e^{j*omega*(t+1)}, Re * pcm_scale, truncated and saturated
+// to int16; the warp of a channel's first symbols writes its carried state
+// (write_state).
 //
-// What bounds it on the H100: arithmetic on the CUDA cores and the float64
-// phasor of every sample.  The design is the plain one: one thread a
-// (channel, sample), the taps in device memory (any count; the wrapper
-// keeps them on the card), the symbols read through the L1 cache, a
-// grid-stride loop so any length runs.  A simple kernel that is right:
-// the tensor-core route of tx_kernel<CYC> is the one to widen if these
-// geometries become hot.
-__global__ void __launch_bounds__(256)
+// What bounds it on the H100: bytes.  At 16 samples per symbol and 127
+// taps a sample costs 16 multiply-adds (8 taps, complex symbols, real
+// taps) against 2 bytes of PCM written and half a byte of symbols read:
+// 0.0126 ms at 256 channels x 4096 symbols, the float32 FMAs 0.010.
+// The instance it replaced spent, on one thread a sample, two 64-bit
+// divisions, a float64 sincos and a bounds-checked symbol fetch with
+// 64-bit indices a tap, some hundreds of instructions a sample (0.59 ms).
+// Here, on the CUDA cores:
+//   - a lane computes 8 consecutive samples t0..t0+7 (one 16-byte store),
+//     and the 8 at t0 + 256*CYC, 256 symbols later: each symbol m they
+//     meet contributes hr[t0 - CYC*m + e], 8 consecutive reversed taps,
+//     the same for both groups, so a symbol pair costs two 8-byte loads of
+//     symbols, two 16-byte loads of taps and 32 multiply-adds; a lane's
+//     symbols are the (ntaps + 6) / CYC + 1 newest from floor((t0+7)/CYC),
+//     one integer division a step; the lanes that meet the same taps read
+//     one address (a broadcast);
+//   - the taps sit in shared memory, reversed behind 8 zeros, in 4 copies
+//     shifted by 0..3, so that the 8 taps of any offset are two aligned
+//     16-byte loads at every CYC; they come from the device copy the
+//     wrapper keeps (2033 taps at CYC 16 exceed a by-value parameter);
+//   - one warp a (channel, TGL symbols) work item, on grid.x, so any length
+//     runs, int32 indices within it; its symbols plus the history (the
+//     carried tail's lanes) are staged in shared memory as complex pairs;
+//   - the carrier as tx_kernel computes it: a float64 base e^{j*omega*(T +
+//     1)} of each 256-sample step T, reduced mod 2*pi (one sincos a lane
+//     covers 32 steps, shuffled out), times the float32 ramp e^{j*omega*o}
+//     of the lane's 8 offsets o, computed once in float64 (two sincos and
+//     a float64 step) with gain * pcm_scale folded in, so a sample costs
+//     the two complex products and the conversion.
+// At 255 taps and 8 samples per symbol the multiply-adds (0.017 ms of
+// float32 FMAs at 256 x 4096) are above the bytes (0.008): the CUDA cores
+// are kept there too, as the measured time is 2.7x that floor, not the
+// floor; general_work prints both.  Times it was chosen by (fec_times.py
+// --gen-modem, NVIDIA H100 80GB HBM3, 700.00 W, 256 channels x 4096
+// symbols alone in a CUDA graph, the instance it replaced in brackets):
+// 16 samples per symbol 0.0435 ms [0.5917], 3.5x the bytes; 255 taps at 8
+// 0.0465 [0.8898]; 131 taps at 4 0.0275 [0.4421].  What is left is issue:
+// by count of its code a sample costs some 35 instructions a lane, half
+// of them the FIR's, and one wave of warps hides little shared-load latency.
+constexpr int TGW = 4;                   // warps a block
+constexpr int TGL = 512;                 // symbols a work item
+constexpr int TGS = 256;                 // samples a warp step, 8 a lane
+
+// The shared-memory layout, in 4-byte words: the taps' 4 copies of tw
+// words, then a warp's window of win complex symbols.
+struct TxGenLayout {
+  int nsy, tw, win, bytes;
+  TxGenLayout(int cyc, int ntaps) {
+    nsy = (ntaps + 6) / cyc + 1;         // symbols 8 samples meet, at most
+    tw = (ntaps + 2 * cyc + 24 + 3) / 4 * 4;
+    win = TGL + nsy;
+    bytes = 4 * tw * 4 + TGW * win * 8;
+  }
+};
+
+__global__ void __launch_bounds__(32 * TGW)
 tx_general_kernel(const float* __restrict__ sym_re,
                   const float* __restrict__ sym_im,
                   const float* __restrict__ tail_re,
@@ -386,32 +440,126 @@ tx_general_kernel(const float* __restrict__ sym_re,
                   const float* __restrict__ taps, int16_t* __restrict__ pcm,
                   float* __restrict__ nph_re, float* __restrict__ nph_im,
                   float* __restrict__ ntail_re, float* __restrict__ ntail_im,
-                  int C, int S, int cyc, int ntaps, double omega, float gain,
-                  float pcm_scale) {
-  const long long n = (long long)S * cyc;
+                  int C, int S, int cyc, int ntaps, int nitems, int nsy,
+                  int tw, double omega, float gain, float pcm_scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* tc = reinterpret_cast<float*>(smem_raw);   // [4][tw]
+  float2* win = reinterpret_cast<float2*>(smem_raw + 16 * tw) +
+                warp * (TGL + nsy);
+  // copy r: tc[r][u] = hr[u + r - 8], zero outside the taps
+  for (int e = threadIdx.x; e < 4 * tw; e += 32 * TGW) {
+    const int r = e / tw, j = e - r * tw + r - 8;
+    tc[e] = j >= 0 && j < ntaps ? taps[ntaps - 1 - j] : 0.f;
+  }
+  __syncthreads();
+  const long long item = (long long)blockIdx.x * TGW + warp;
+  const int c = (int)(item / nitems);
+  if (c >= C) return;                    // the whole warp leaves together
+  const long long m_first = (item % nitems) * TGL;
   const int hs = (ntaps - 1) / cyc;
-  const long long total = (long long)C * n;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       e < total; e += (long long)gridDim.x * blockDim.x) {
-    const long long c = e / n, t = e - c * n;
-    const long long m = t / cyc;
-    const int q = (int)(t - m * cyc);
-    float yr = 0.f, yi = 0.f;
-    for (int d = 0; d <= hs; ++d) {
-      const int k = ntaps - 1 - cyc * d - q;
-      if (k < 0) break;
-      const float h = __ldg(taps + k);
-      yr = fmaf(h, symbol(sym_re, tail_re, c, S, ntaps, cyc, hs, m - d), yr);
-      yi = fmaf(h, symbol(sym_im, tail_im, c, S, ntaps, cyc, hs, m - d), yi);
+  const float p0r = p0_re[c], p0i = p0_im[c];
+
+  // the ramp of this lane's offsets o = 8*lane + e, times gain *
+  // pcm_scale: e^{j*omega*8*lane} stepped by e^{j*omega} in float64
+  float rr[8], ri[8];
+  {
+    double ar, ai, sr, si;
+    phasor64(omega * (double)(8 * lane), ar, ai);
+    phasor64(omega, sr, si);
+    const double gs = (double)gain * (double)pcm_scale;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      rr[e] = (float)(ar * gs);
+      ri[e] = (float)(ai * gs);
+      const double nr = ar * sr - ai * si;
+      ai = ar * si + ai * sr;
+      ar = nr;
     }
-    const float p0r = p0_re[c], p0i = p0_im[c];
-    float er, ei;
-    phasor(omega * (double)(t + 1), er, ei);
-    const float fr = p0r * er - p0i * ei, fi = p0r * ei + p0i * er;
-    pcm[e] = to_pcm(yr, yi, fr, fi, gain, pcm_scale);
-    if (t == 0)
-      write_state(sym_re, sym_im, tail_re, tail_im, p0r, p0i, nph_re, nph_im,
-                  ntail_re, ntail_im, c, S, ntaps, cyc, omega, 0, 1);
+  }
+  // the window: symbol m_first - (nsy - 1) + x at x
+  for (int x = lane; x < TGL + nsy - 1; x += 32) {
+    const long long m = m_first - (nsy - 1) + x;
+    float vr = 0.f, vi = 0.f;
+    if (m >= 0 && m < S) {
+      vr = sym_re[(long long)c * S + m];
+      vi = sym_im[(long long)c * S + m];
+    } else if (m < 0 && m >= -hs) {      // the carried tail's lane
+      const long long k = (long long)c * (ntaps - 1) + (ntaps - 1) + cyc * m;
+      vr = tail_re[k];
+      vi = tail_im[k];
+    }
+    win[x] = make_float2(vr, vi);
+  }
+  if (m_first == 0)
+    write_state(sym_re, sym_im, tail_re, tail_im, p0r, p0i, nph_re, nph_im,
+                ntail_re, ntail_im, c, S, ntaps, cyc, omega, lane, 32);
+  __syncwarp();                          // the window is in
+
+  const long long n = (long long)S * cyc;
+  const long long t_first = m_first * cyc;
+  // the item's 256-sample steps; a lane takes step st and step st + cyc,
+  // 256 symbols later, whose samples meet the same taps
+  const int nsteps = (int)((min((long long)TGL * cyc, n - t_first) + TGS - 1) / TGS);
+  const bool vec = n % 8 == 0;           // every lane's 8 samples 16-byte aligned
+  int16_t* out = pcm + (long long)c * n + t_first;
+  float pb[2][2];                        // lane j: the bases of 32*(st/32) + j, + cyc
+#pragma unroll 1
+  for (int st = 0; st < min(cyc, nsteps); ++st) {
+    if ((st & 31) == 0) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float br, bi;
+        phasor(omega * (double)(t_first + (long long)(st + lane + hf * cyc) * TGS + 1),
+               br, bi);
+        pb[hf][0] = p0r * br - p0i * bi;
+        pb[hf][1] = p0r * bi + p0i * br;
+      }
+    }
+    const int tl = st * TGS + 8 * lane;  // this lane's first sample
+    float yr[2][8], yi[2][8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) yr[0][e] = yi[0][e] = yr[1][e] = yi[1][e] = 0.f;
+    const int mh = (tl + 7) / cyc;       // the newest symbol it meets
+#pragma unroll 2
+    for (int jj = 0; jj < nsy; ++jj) {
+      const int m = mh - jj;
+      const float2 s0 = win[m + nsy - 1], s1 = win[m + nsy - 1 + TGL / 2];
+      const int jt = tl - cyc * m + 8;   // hr index of e = 0, plus 8
+      const int r = jt & 3;
+      const float4* tp = reinterpret_cast<const float4*>(tc + r * tw + jt - r);
+      const float4 a = tp[0], b = tp[1];
+      const float h[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        yr[0][e] = fmaf(h[e], s0.x, yr[0][e]);
+        yi[0][e] = fmaf(h[e], s0.y, yi[0][e]);
+        yr[1][e] = fmaf(h[e], s1.x, yr[1][e]);
+        yi[1][e] = fmaf(h[e], s1.y, yi[1][e]);
+      }
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      if (hf == 1 && st + cyc >= nsteps) break;   // the whole warp
+      const float br = __shfl_sync(FULL, pb[hf][0], st & 31);
+      const float bi = __shfl_sync(FULL, pb[hf][1], st & 31);
+      const int tt = tl + hf * cyc * TGS;
+      __align__(16) short v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float fr = br * rr[e] - bi * ri[e];
+        const float fi = br * ri[e] + bi * rr[e];
+        v[e] = (short)max(-32768,
+                          min(32767, __float2int_rz(yr[hf][e] * fr - yi[hf][e] * fi)));
+      }
+      if (vec && t_first + tt + 8 <= n) {
+        *reinterpret_cast<int4*>(out + tt) = *reinterpret_cast<const int4*>(v);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (t_first + tt + e < n) out[tt + e] = v[e];
+      }
+    }
   }
 }
 
@@ -455,7 +603,8 @@ extern "C" int qpsk_tx(const void* sym_re, const void* sym_im,
 // The general instance: symbols (C, S), the carried zero-stuffed tail
 // (C, ntaps-1) and phase (C,) in, PCM (C, S*cycles) int16 and the new
 // phase and tail out; ``taps`` the ntaps RRC taps in device memory.
-// Takes cycles >= 2, odd ntaps, C >= 1, S >= 1.
+// Takes cycles >= 2, odd ntaps with (ntaps - 1) / cycles <= 128, C >= 1,
+// S >= 1, S * cycles < 2^31.
 extern "C" int qpsk_tx_gen(const void* sym_re, const void* sym_im,
                            const void* tail_re, const void* tail_im,
                            const void* p0_re, const void* p0_im,
@@ -463,15 +612,22 @@ extern "C" int qpsk_tx_gen(const void* sym_re, const void* sym_im,
                            void* nph_im, void* ntail_re, void* ntail_im,
                            int C, int S, int cycles, int ntaps, double omega,
                            float gain, float pcm_scale, void* stream) {
-  if (C < 1 || S < 1 || cycles < 2 || ntaps < 1 || ntaps % 2 == 0)
+  if (C < 1 || S < 1 || cycles < 2 || ntaps < 1 || ntaps % 2 == 0 ||
+      (ntaps - 1) / cycles > 128 || (long long)S * cycles > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const long long total = (long long)C * S * cycles;
-  const long long blocks = std::min((total + 255) / 256, 132LL * 64);
-  tx_general_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
+  const TxGenLayout L(cycles, ntaps);
+  const int nitems = (S + TGL - 1) / TGL;
+  const long long blocks = ((long long)C * nitems + TGW - 1) / TGW;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      tx_general_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
+  if (err != cudaSuccess) return (int)err;
+  tx_general_kernel<<<(unsigned)blocks, 32 * TGW, L.bytes,
+                      (cudaStream_t)stream>>>(
       (const float*)sym_re, (const float*)sym_im, (const float*)tail_re,
       (const float*)tail_im, (const float*)p0_re, (const float*)p0_im,
       (const float*)taps, (int16_t*)pcm, (float*)nph_re, (float*)nph_im,
-      (float*)ntail_re, (float*)ntail_im, C, S, cycles, ntaps, omega, gain,
-      pcm_scale);
+      (float*)ntail_re, (float*)ntail_im, C, S, cycles, ntaps, nitems, L.nsy,
+      L.tw, omega, gain, pcm_scale);
   return (int)cudaGetLastError();
 }

@@ -25,9 +25,9 @@ launches, the AGC power output at any symbol count.  The wrapper picks the
 instance by geometry: the tensor-core instances (``frontend_kernel``) at 2,
 4 or 8 samples per symbol and frames up to ``_FAST_MAX_FRAME`` samples (their
 shared-memory budget), with the power output when a frame's symbols are a
-power of two; the general instance (``frontend_general_kernel``, the FIR
-on the CUDA cores, the frame streamed through shared memory in chunks)
-everywhere else.  A CUDA call off the coverage raises
+power of two; the general instance (``frontend_general_kernel``, the same
+tensor-core FIR with the samples per symbol read at run time, the frame
+streamed through shared memory in chunks) everywhere else.  A CUDA call off the coverage raises
 ``NotImplementedError`` naming the field before any launch; a CPU call
 runs any geometry.  ``cfg.frontend_impl`` picks the lowering: "auto" (the
 tensor's device), "xla" (the plain version on any device) or "pallas"
@@ -58,10 +58,10 @@ from qpsk_tpu_torch.ops.cuda import _lib
 launches = 0
 by_mode = collections.Counter()
 
-# the samples per symbol the tensor-core instances are built for, their
-# largest frame (csrc/frontend.cu, Layout: 128 * frame_size + 8448 bytes of
-# shared memory, at most 227 KB), and the largest tap count (a 128-sample
-# halo) and samples per symbol (GMAXCYC) of every instance
+# the samples per symbol the fast instances are built for, their largest
+# frame (csrc/frontend.cu, Layout: 128 * frame_size + 8448 bytes of shared
+# memory, at most 227 KB), and the largest tap count (a 128-sample halo)
+# and samples per symbol (GMAXCYC) of every instance
 _FAST_CYCLES, _FAST_MAX_FRAME, _MAX_TAPS, _MAX_CYCLES = (2, 4, 8), 1664, 129, 256
 
 

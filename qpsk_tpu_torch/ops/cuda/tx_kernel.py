@@ -13,8 +13,8 @@ NCO mix, int16.  The kernel covers (``coverage``) the TPU kernel's gate
 whose halo is at most 128 symbols, any channel and symbol count.  The
 wrapper picks the instance by geometry: ``tx_kernel<CYC>`` (the FIR on the
 tensor cores) at 2 to 8 samples per symbol and up to 129 taps, the general
-instance (``tx_general_kernel``, a polyphase sum on the CUDA cores, the
-taps in device memory) everywhere else.  A CUDA call off the coverage
+instance (``tx_general_kernel``, a polyphase sum on the CUDA cores, 8
+samples a lane, the taps staged from the device copy) everywhere else.  A CUDA call off the coverage
 raises ``NotImplementedError`` naming the field before any launch; a CPU
 call runs any geometry.  ``cfg.tx_impl`` picks the lowering: "auto" (the
 tensor's device), "xla" (the plain version on any device) or "pallas"

@@ -175,18 +175,107 @@ def test_split_precision_fir_holds_frontend_xla(cfg):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=3e-4)
 
 
+# csrc/frontend.cu's general instance: outputs a chunk, the shared memory
+# a frame's outputs may stay in, the squares of a frame kept in shared
+# memory at most, symbols a round of picks (the layout's buffer)
+GCH, GRES_BYTES, GSQ, GPR = 512, 227 * 1024, 512, 128
+
+
+def _general_resident(fsz, cyc, power):
+    """``GenLayout(fsz, cyc, nsym, true, sq_smem).bytes <= GRES_BYTES``:
+    whether a frame's outputs stay in shared memory (one FIR pass)."""
+    nsym = fsz // cyc
+    sq = (8 * nsym * 4 + 15) // 16 * 16 if power and nsym <= GSQ else 0
+    ys = fsz + 8
+    return (2 * 8 * GCH * 2 + 8 * 128 * 2 + 2 * 8 * (GCH + KT + 7) * 2
+            + 2 * 8 * ys * 4 + (8 * cyc * 4 + 15) // 16 * 16 + 8 * 32 * 4
+            + sq + 2 * 8 * (GPR + 4) * 4 + 2 * (KT - 1) * 4
+            + (2 * KT * 4 + 15) // 16 * 16 + 2 * 8 * 4) <= GRES_BYTES
+
+
+def _seq_sum(v):
+    """float32 sums of the last axis in order, from 0."""
+    if v.shape[-1] == 0:
+        return np.zeros(v.shape[:-1], F32)
+    return np.cumsum(v, axis=-1, dtype=F32)[..., -1]
+
+
+def _general_energies(y, cyc):
+    """The phase energies of ``frontend_general_kernel``.  Below 32 samples
+    per symbol, K = 32 // cyc lanes a phase: slot (p, part) sums |y|^2 in
+    order over the frame at each chunk's (GCH outputs) outputs of phase p
+    from the part-th on, every K-th, and a phase's K slots are added in
+    order; from 32 on, each chunk's outputs of phase p are summed in order
+    and the chunks' sums added in order."""
+    y0, y1 = y
+    c, fsz = y0.shape
+    e = ((y0 * y0).astype(F32) + (y1 * y1).astype(F32)).astype(F32)
+    k = 1 if cyc >= 32 else 32 // cyc
+    esum = np.zeros((c, cyc), F32)
+    for p in range(cyc):
+        parts = [[] for _ in range(k)]
+        for s_c in range(0, fsz, GCH):
+            chunk = e[:, s_c:s_c + GCH]
+            first = (p - s_c % cyc) % cyc
+            for part in range(k):
+                parts[part].append(chunk[:, first + cyc * part::cyc * k])
+        if k == 1:
+            for v in parts[0]:
+                esum[:, p] = (esum[:, p] + _seq_sum(v)).astype(F32)
+            continue
+        sums = [_seq_sum(np.concatenate(v, axis=1)) for v in parts]
+        tot = sums[0]
+        for v in sums[1:]:
+            tot = (tot + v).astype(F32)
+        esum[:, p] = tot
+    return esum
+
+
+def _general_picks(y, p, f, fsz, cyc, p0, omega, resident):
+    """The picks y[cyc*i + p] rotated as the kernel's lanes rotate them:
+    per chunk (the whole frame when its outputs stay resident), lane l
+    walks the symbols I0 + l + 32m, I0 = the chunk's first sample //
+    cyc, the angle of its first in float64, then a float32 step of 32
+    symbols, and rotates those whose sample cyc*i + p is in the chunk."""
+    c = y[0].shape[0]
+    nsym = fsz // cyc
+    pr0, pi0 = p0
+    sr, si = _phasor(np.float64(omega) * (32.0 * cyc))
+    out = np.zeros((2, c, nsym), F32)
+    spans = [(0, fsz)] if resident else [
+        (s_c, min(GCH, fsz - s_c)) for s_c in range(0, fsz, GCH)]
+    for ch in range(c):
+        for s_c, n in spans:
+            i0, i1 = s_c // cyc, min(nsym, (s_c + n + cyc - 1) // cyc)
+            lo = (s_c - p[ch] + cyc - 1) // cyc
+            hi = min(nsym, (s_c + n - p[ch] + cyc - 1) // cyc)
+            for lane in range(32):
+                er, ei = _phasor(omega * np.float64(
+                    f * fsz + cyc * (i0 + lane) + p[ch] + 1))
+                fr = F32(pr0[ch] * er - pi0[ch] * ei)
+                fi = F32(pr0[ch] * ei + pi0[ch] * er)
+                for i in range(i0 + lane, i1, 32):
+                    if lo <= i < hi:
+                        s = cyc * i + p[ch]
+                        ur, ui = y[0][ch, s], y[1][ch, s]
+                        out[0, ch, i] = ur * fr - ui * fi
+                        out[1, ch, i] = ur * fi + ui * fr
+                    fr, fi = F32(fr * sr - fi * si), F32(fr * si + fi * sr)
+    return out
+
+
 def _general_twin(cfg, pcm, phase0, tail, delay):
     """``frontend_general_kernel<TM>`` in numpy for one call: per channel
     and frame, the window of the frame's outputs with its 128-sample halo
     (the carried tail un-mixed in frame 0, the previous frame's PCM
-    after), the FIR as float32 sums over the 129 front-padded taps in
-    order, the phase energies summed per chunk of cycles * (1024 //
-    cycles) outputs (each phase's lane partial sums, the 32-lane xor
-    tree, then the chunks in order), the first maximum, the picks rotated
-    by phase0 (x) e^{j*omega*(pos+1)} (float64 angle); then the one-frame
-    delay into (T, C) planes and each output frame's power by the pairing
-    tree with its odd residue summed in order.  Returns (zr, zi, index,
-    powers)."""
+    after), the three-pass float16 tensor-core FIR of the fast instances
+    (``_tc_fir``, which each chunk's row blocks reproduce), the phase
+    energies in the kernel's order (``_general_energies``), the first
+    maximum, the picks rotated lane by lane (``_general_picks``); then the
+    one-frame delay into (T, C) planes and each output frame's power by
+    the pairing tree with its odd residue summed in order (a warp's tree in
+    shared memory or in the scratch row, the same sums).  Returns (zr, zi,
+    index, powers)."""
     c, nframes, fsz = pcm.shape
     cyc, nsym, h = cfg.cycles, cfg.symbols_per_frame, cfg.ntaps - 1
     hm, omega, gain, inv_scale = fk._launch_consts(cfg)
@@ -198,43 +287,17 @@ def _general_twin(cfg, pcm, phase0, tail, delay):
     pr, pi = _cmul(pr0[:, None], pi0[:, None], er, ei)
     raw = (tail[0] * pr + tail[1] * pi).astype(F32)
     halo0 = np.concatenate([np.zeros((c, KT - 1 - h), F32), raw], axis=1)
-    ch = cyc * (1024 // cyc)
+    resident = _general_resident(fsz, cyc, bool(cfg.agc))
     index = np.zeros((c, nframes), np.int32)
     picks = np.zeros((2, c, nframes, nsym), F32)
     for f in range(nframes):
         halo = halo0 if f == 0 else x[:, f - 1, fsz - (KT - 1):]
         win = np.concatenate([halo, x[:, f]], axis=1)       # (C, 128 + fsz)
-        y = []
-        for plane in hm:
-            acc = np.zeros((c, fsz), F32)
-            for k in range(KT):
-                acc = (acc + plane[k] * win[:, k:k + fsz]).astype(F32)
-            y.append((acc * gain).astype(F32))
-        e = (y[0] * y[0] + y[1] * y[1]).astype(F32)
-        esum = np.zeros((c, cyc), F32)
-        for s0 in range(0, fsz, ch):
-            chunk = e[:, s0:s0 + ch]
-            for p in range(cyc):
-                vals = chunk[:, p::cyc]
-                lanes = np.zeros((c, 32), F32)
-                for j in range(0, vals.shape[1], 32):
-                    part = vals[:, j:j + 32]
-                    lanes[:, :part.shape[1]] = (lanes[:, :part.shape[1]]
-                                                + part).astype(F32)
-                for o in (16, 8, 4, 2, 1):
-                    lanes = (lanes + lanes[:, np.arange(32) ^ o]).astype(F32)
-                esum[:, p] = (esum[:, p] + lanes[:, 0]).astype(F32)
-        p = np.argmax(esum, axis=1)                          # first max
+        y = [(_tc_fir(win, plane) * gain).astype(F32) for plane in hm]
+        p = np.argmax(_general_energies(y, cyc), axis=1)    # first max
         index[:, f] = p
-        pos = f * fsz + cyc * np.arange(nsym)[None, :] + p[:, None] + 1
-        fr_, fi_ = _phasor(omega * pos.astype(np.float64))
-        fr = (pr0[:, None] * fr_ - pi0[:, None] * fi_).astype(F32)
-        fi = (pr0[:, None] * fi_ + pi0[:, None] * fr_).astype(F32)
-        at = cyc * np.arange(nsym)[None, :] + p[:, None]
-        ur = np.take_along_axis(y[0], at, 1)
-        ui = np.take_along_axis(y[1], at, 1)
-        picks[0, :, f] = ur * fr - ui * fi
-        picks[1, :, f] = ur * fi + ui * fr
+        picks[:, :, f] = _general_picks(y, p, f, fsz, cyc, phase0, omega,
+                                        resident)
     frames = [np.concatenate([d[:, None], pk[:, :-1]], axis=1)
               for d, pk in zip(delay, picks)]                # (C, F, nsym)
 
@@ -255,7 +318,11 @@ def _general_twin(cfg, pcm, phase0, tail, delay):
 _GENERAL_CFGS = {"rs=3200,384": ModemConfig(rs=3200.0, frame_size=384),
                  "rs=600,2048": ModemConfig(rs=600.0, frame_size=2048),
                  "4096": ModemConfig(frame_size=4096),
-                 "1536,agc": ModemConfig(frame_size=1536, agc=True)}
+                 "1536,agc": ModemConfig(frame_size=1536, agc=True),
+                 "rs=1600,384": ModemConfig(rs=1600.0, frame_size=384),
+                 "rs=1600,768": ModemConfig(rs=1600.0, frame_size=768),
+                 "rs=4800,2048": ModemConfig(rs=4800.0, frame_size=2048),
+                 "4096,agc": ModemConfig(frame_size=4096, agc=True)}
 
 
 @pytest.mark.parametrize("cfg", list(_GENERAL_CFGS.values()),

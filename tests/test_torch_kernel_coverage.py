@@ -30,6 +30,7 @@ from qpsk_tpu.ops.pallas.tx_kernel import tx_supported
 from qpsk_tpu.packet import ldpc as jldpc
 from qpsk_tpu_torch import ModemConfig, rx_init, rx_stream, tx_init, tx_stream
 from qpsk_tpu_torch.ops.costas import costas_init, costas_params
+from qpsk_tpu_torch.ops.cplx import CF32
 from qpsk_tpu_torch.ops.cuda import (costas_kernel, frontend_kernel,
                                      ldpc_kernel, tx_kernel, viterbi_kernel)
 from qpsk_tpu_torch.packet import ConvCode, LdpcCode, conv_encode
@@ -76,6 +77,112 @@ def test_tx_covers_the_tpu_gate(cycles):
         else:
             assert tx_kernel.coverage(g)[0] == "ntaps", (cycles, ntaps)
     assert admitted > 0
+
+
+class _Recorder:
+    """A stand-in for the kernel library: records the C entry called and
+    its arguments, launches nothing, returns 0 (success)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("qpsk_"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+def _routed(monkeypatch, launch):
+    """(C entry, its arguments, the by_mode keys that moved) of one wrapper
+    launch through a ``_Recorder``."""
+    from qpsk_tpu_torch.ops.cuda import _lib
+    rec = _Recorder()
+    monkeypatch.setattr(_lib, "library", lambda: rec)
+    monkeypatch.setattr(_lib, "stream_ptr", lambda dev: 0)
+    before = (dict(frontend_kernel.by_mode), dict(tx_kernel.by_mode))
+    launch()
+    after = (dict(frontend_kernel.by_mode), dict(tx_kernel.by_mode))
+    moved = [k for b, a in zip(before, after) for k in a
+             if a[k] != b.get(k, 0)]
+    (name, args), = rec.calls
+    return name, args, moved
+
+
+def _gen_key(base, cycles, fsz, ntaps):
+    """The general instance's ``by_mode`` key: the base, then each field
+    off the default geometry (4 samples per symbol, 127 taps, 512)."""
+    return "_".join([base] + [f"{n}{v}" for n, v, d in (
+        ("cyc", cycles, 4), ("ntaps", ntaps, 127), ("fsz", fsz, 512))
+        if v != d])
+
+
+@pytest.mark.parametrize("cycles", range(2, 17))
+def test_frontend_geometries_off_fast_route_to_the_general_instance(
+        monkeypatch, cycles):
+    """Every (samples per symbol, frame) of the coverage grid above that no
+    fast instance takes launches ``qpsk_frontend_gen`` in all three
+    launches (time-major, with the power output, channel-major) under the
+    ``by_mode`` keys "tm_gen...", "tm_power_gen...", "cm_gen...", with a
+    scratch row for the power tree when the power output is asked for;
+    the rest launch a fast instance."""
+    routed = 0
+    for fsz in range(128, 8193, 128):
+        if fsz % cycles:
+            continue
+        for ntaps in ((3, 127, 129) if fsz in (128, 2048) else (127,)):
+            for base in ("tm", "tm_power", "cm"):
+                cfg = ModemConfig(fs=1200.0 * cycles, rs=1200.0,
+                                  frame_size=fsz, ntaps=ntaps,
+                                  agc=base == "tm_power")
+                nsym = fsz // cycles
+                st = rx_init(cfg, (1,), device="cpu")
+                pcm = torch.zeros((1, 1, fsz), dtype=torch.int16)
+                if base == "cm":
+                    name, args, moved = _routed(
+                        monkeypatch, lambda: frontend_kernel._launch_cm(
+                            cfg, pcm, st.nco_phase, st.fir_tail))
+                else:
+                    name, args, moved = _routed(
+                        monkeypatch, lambda: frontend_kernel._launch_tm(
+                            cfg, pcm, st.nco_phase, st.fir_tail,
+                            st.decim_delay))
+                fast = (cycles in (2, 4, 8) and fsz <= 1664
+                        and not (base == "tm_power" and nsym & (nsym - 1)))
+                assert frontend_kernel._fast(cfg, base == "tm_power") == fast
+                if fast:
+                    assert name == f"qpsk_frontend_{base[:2]}", (cfg, name)
+                    continue
+                routed += 1
+                assert name == "qpsk_frontend_gen", (cycles, fsz, base, name)
+                assert moved == [_gen_key(f"{base}_gen", cycles, fsz, ntaps)]
+                assert args[23] == (0 if base == "cm" else 1)      # tm
+                assert (args[13] is not None) == (base == "tm_power")
+    assert routed > 0 or cycles in (2, 4, 8)
+
+
+@pytest.mark.parametrize("cycles", range(2, 17))
+def test_tx_geometries_off_fast_route_to_the_general_instance(monkeypatch,
+                                                              cycles):
+    """Every tap count of the TX coverage grid above that ``tx_kernel<CYC>``
+    does not take (past 8 samples per symbol or 129 taps) launches
+    ``qpsk_tx_gen`` under the ``by_mode`` key "gen_cycles<N>" (with
+    "_ntaps<M>" off 127); the rest launch ``qpsk_tx``."""
+    for ntaps in range(3, 130 * cycles, 2):
+        if tx_kernel.coverage(_geom(cycles, 512 * cycles, ntaps)) is not None:
+            continue
+        cfg = ModemConfig(fs=1200.0 * cycles, rs=1200.0,
+                          frame_size=128 * cycles, ntaps=ntaps)
+        st = tx_init(cfg, (1,), device="cpu")
+        sym = CF32(torch.zeros((1, 5)), torch.zeros((1, 5)))
+        name, _, moved = _routed(monkeypatch, lambda: tx_kernel._launch(
+            cfg, sym, st.nco_phase, st.fir_tail, 0.0))
+        tail = "" if ntaps == 127 else f"_ntaps{ntaps}"
+        if cycles <= 8 and ntaps <= 129:
+            assert tx_kernel._fast(cfg) and name == "qpsk_tx"
+            assert moved == [f"cycles{cycles}{tail}"]
+        else:
+            assert not tx_kernel._fast(cfg) and name == "qpsk_tx_gen"
+            assert moved == [f"gen_cycles{cycles}{tail}"]
 
 
 def _jax_viterbi_gate(code) -> bool:

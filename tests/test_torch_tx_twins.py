@@ -248,40 +248,57 @@ def test_tx_coverage_names_the_field():
 
 
 def _tx_general_twin(cfg, sym, tail, p0, omega):
-    """``tx_general_kernel`` in numpy: output t = cycles*m + q is the sum
-    over d of taps[ntaps-1 - cycles*d - q] * sym[m - d] in order of d
-    (float32), the history from the carried tail's symbol lanes; times the
-    gain, mixed by phase0 (x) e^{j*omega*(t+1)} (float64 angle), Re *
-    pcm_scale truncated and saturated; the state of ``write_state``."""
+    """``tx_general_kernel`` in numpy: with the taps reversed, hr[j] =
+    taps[ntaps-1 - j], the 8 samples t0..t0+7 of a lane (t0 a multiple of
+    8) sum, newest symbol first, over the (ntaps + 6) // cycles + 1
+    symbols m from floor((t0+7)/cycles) down, hr[t - cycles*m] * sym[m] as
+    float32 multiply-adds (zero outside the taps; the history from the
+    carried tail's symbol lanes); mixed by the carrier phase0 (x) base (x)
+    ramp: the base e^{j*omega*(256*T + 1)} of the 256-sample step T in
+    float64, the ramp e^{j*omega*o} of the offset o in it times gain *
+    pcm_scale in float64, both rounded to float32; Re truncated and
+    saturated; the state of ``write_state``."""
     taps = np.asarray(tk.rrc_ops.taps_for(cfg), F32)
     ntaps, cyc = cfg.ntaps, cfg.cycles
     hs = (ntaps - 1) // cyc
+    nsy = (ntaps + 6) // cyc + 1
     c, s = sym[0].shape
     n = s * cyc
+    hr = np.concatenate([taps[::-1], np.zeros(8 * cyc + 16, F32)])
     lanes = (ntaps - 1) + cyc * np.arange(-hs, 0)
-    ext = [np.concatenate([t[:, lanes], x], axis=1) for x, t in zip(sym, tail)]
+    off = nsy + hs
+    ext = [np.concatenate([np.zeros((c, nsy), F32), tl[:, lanes], x,
+                           np.zeros((c, 8), F32)], axis=1)
+           for x, tl in zip(sym, tail)]                 # symbol m at m + off
     t = np.arange(n)
-    m, q = t // cyc, t % cyc
+    mh = (t - t % 8 + 7) // cyc
     yr, yi = np.zeros((c, n), F32), np.zeros((c, n), F32)
-    for d in range(hs + 1):
-        k = ntaps - 1 - cyc * d - q
-        live = k >= 0
-        h = np.where(live, taps[np.clip(k, 0, ntaps - 1)], F32(0.0))
-        yr = (yr + h * ext[0][:, m - d + hs]).astype(F32)
-        yi = (yi + h * ext[1][:, m - d + hs]).astype(F32)
-    er, ei = _phasor(np.float64(omega) * (t + 1))
-    fr = p0[0][:, None] * er - p0[1][:, None] * ei
-    fi = p0[0][:, None] * ei + p0[1][:, None] * er
-    gain = F32(cfg.gain)
-    re = ((yr * gain) * fr - (yi * gain) * fi).astype(F32)
-    pcm = np.clip(np.trunc(re * F32(cfg.pcm_scale)), -32768, 32767)
+    for jj in range(nsy):
+        m = mh - jj
+        h = hr[t - cyc * m].astype(np.float64)      # t - cyc*m >= -7
+        h[t - cyc * m < 0] = 0.0
+        yr = (h * ext[0][:, m + off] + yr).astype(F32)
+        yi = (h * ext[1][:, m + off] + yi).astype(F32)
+    br, bi = _phasor(np.float64(omega) * (256.0 * (t // 256) + 1.0))
+    pbr = (p0[0][:, None] * br - p0[1][:, None] * bi).astype(F32)
+    pbi = (p0[0][:, None] * bi + p0[1][:, None] * br).astype(F32)
+    ang = np.float64(omega) * (t % 256)
+    gs = np.float64(F32(cfg.gain)) * np.float64(F32(cfg.pcm_scale))
+    rr, ri = (np.cos(ang) * gs).astype(F32), (np.sin(ang) * gs).astype(F32)
+    fr, fi = (pbr * rr - pbi * ri).astype(F32), (pbr * ri + pbi * rr).astype(F32)
+    re = (yr * fr - yi * fi).astype(F32)
+    pcm = np.clip(np.trunc(re), -32768, 32767)
     return (pcm.astype(np.int16),) + _new_state(cfg, sym, tail, p0, omega)
 
 
 @pytest.mark.parametrize("fields", [{"rs": 600.0, "frame_size": 2048},
                                     {"rs": 1200.0, "ntaps": 255},
-                                    {"ntaps": 131}],
-                         ids=["cyc16", "cyc8-ntaps255", "ntaps131"])
+                                    {"ntaps": 131},
+                                    {"rs": 960.0, "frame_size": 1280},
+                                    {"rs": 3200.0, "ntaps": 201,
+                                     "frame_size": 384}],
+                         ids=["cyc16", "cyc8-ntaps255", "ntaps131",
+                              "cyc10", "cyc3-ntaps201"])
 def test_tx_general_twin_holds_the_plain_version(fields):
     """The general instance's arithmetic against ``tx_modulate_plain`` in
     two chained calls: PCM within 2 LSB, phase within 1e-5, tail exact."""

@@ -48,6 +48,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from qpsk_tpu_torch import tracing
 from qpsk_tpu_torch.channel import _to_pcm
 from qpsk_tpu_torch.ops.resample import resampler_taps
 from qpsk_tpu_torch.runtime import StreamDemodulator, _on
@@ -169,27 +170,31 @@ def fdm_mux_stream(fcfg: FdmConfig, pcm: torch.Tensor, state: FdmState):
 def fdm_demux_stream(fcfg: FdmConfig, wide: torch.Tensor, state: FdmState):
     """Split (M * nslots,) int16 wideband PCM back into (nchan, M) int16
     subchannel PCM (each the standard modem-rate passband signal)."""
-    _, h2, _, wc_ana = _bank_on(fcfg.nslots, fcfg.taps_per_branch,
-                                fcfg.beta, wide.device)
-    n = fcfg.nslots
-    if wide.dim() != 1 or wide.shape[0] % n:
-        raise ValueError(f"wideband PCM of shape {tuple(wide.shape)}: one "
-                         f"stream of whole {n}-sample blocks expected")
-    w = wide.to(torch.float32)
-    mtot = w.shape[0] // n
-    # z[m*N + (N-1-p)] = x[m*N - p]: the previous chunk's last N-1 samples
-    # in front (zeros at stream start), then the lanes phase-reversed
-    z = torch.cat([state.tail, w])
-    state = state._replace(tail=z[-(n - 1):].clone())
-    v = z[: mtot * n].reshape(mtot, n).flip(-1)          # (M, N)
-    u, state = _branch_fir(v, h2, state)
-    # float32 product (TF32 stays off, torch's default): the demuxed int16
-    # PCM follows these sums, which the 2*nchan gain below magnifies
-    y = torch.matmul(u, wc_ana)                          # (M, nchan)
-    # x2: the real part of the complex mix leaves x_c/2; x nchan: undo the
-    # mux headroom backoff
-    y = y * float(2.0 * fcfg.nchan)
-    return _to_pcm(y.T), state
+    with tracing.span("fdm.demux"):
+        _, h2, _, wc_ana = _bank_on(fcfg.nslots, fcfg.taps_per_branch,
+                                    fcfg.beta, wide.device)
+        n = fcfg.nslots
+        if wide.dim() != 1 or wide.shape[0] % n:
+            raise ValueError(f"wideband PCM of shape {tuple(wide.shape)}: "
+                             f"one stream of whole {n}-sample blocks "
+                             f"expected")
+        w = wide.to(torch.float32)
+        mtot = w.shape[0] // n
+        # z[m*N + (N-1-p)] = x[m*N - p]: the previous chunk's last N-1
+        # samples in front (zeros at stream start), then the lanes
+        # phase-reversed
+        z = torch.cat([state.tail, w])
+        state = state._replace(tail=z[-(n - 1):].clone())
+        v = z[: mtot * n].reshape(mtot, n).flip(-1)      # (M, N)
+        u, state = _branch_fir(v, h2, state)
+        # float32 product (TF32 stays off, torch's default): the demuxed
+        # int16 PCM follows these sums, which the 2*nchan gain below
+        # magnifies
+        y = torch.matmul(u, wc_ana)                      # (M, nchan)
+        # x2: the real part of the complex mix leaves x_c/2; x nchan: undo
+        # the mux headroom backoff
+        y = y * float(2.0 * fcfg.nchan)
+        return _to_pcm(y.T), state
 
 
 def fdm_mux(fcfg: FdmConfig, pcm: torch.Tensor) -> torch.Tensor:

@@ -50,6 +50,7 @@ from typing import NamedTuple
 
 import torch
 
+from qpsk_tpu_torch import tracing
 from qpsk_tpu_torch.config import TAU, ModemConfig
 from qpsk_tpu_torch.ops import acquire, modfam, nco
 from qpsk_tpu_torch.ops import rrc as rrc_ops
@@ -276,7 +277,8 @@ def rx_stream(cfg: ModemConfig, state: RxState, pcm: torch.Tensor):
             return _rx_stream_scan(cfg, st, frames)
         chain, frontend, costas = _rx_path(cfg)
         return chain(cfg, st, frames, frontend, costas)
-    return _batched(state, batch, run)
+    with tracing.span("rx_stream"):
+        return _batched(state, batch, run)
 
 
 def _rx_stream_scan(cfg: ModemConfig, state: RxState, pcm: torch.Tensor):
@@ -331,17 +333,19 @@ def _rx_stream_tm(cfg: ModemConfig, state: RxState, pcm: torch.Tensor,
     scaled by the AGC gains in-register.  ``rx_stream`` passes the kernel
     wrappers, which follow ``cfg``'s lowering switches."""
     nframes = pcm.shape[1]
-    zr, zi, index, nco_phase, fir_tail, decim_delay, powers = frontend(
-        cfg, pcm, state.nco_phase, state.fir_tail, state.decim_delay)
+    with tracing.span("rx.frontend"):
+        zr, zi, index, nco_phase, fir_tail, decim_delay, powers = frontend(
+            cfg, pcm, state.nco_phase, state.fir_tail, state.decim_delay)
     agc_state, gains = state.agc, None
     if cfg.agc:
         agc_state, g = agc_gains(state.agc, powers, cfg.agc_target,
                                  cfg.agc_mu)
         gains = g.T.contiguous()                       # (F, C)
     params, gear, dd = _loop(cfg)
-    cstate, derot_tm, freq_frames, bits = costas(
-        state.costas, zr, zi, params, cfg.symbols_per_frame, gear=gear,
-        gains=gains, dd=dd, impl=cfg.costas_impl)
+    with tracing.span("rx.costas"):
+        cstate, derot_tm, freq_frames, bits = costas(
+            state.costas, zr, zi, params, cfg.symbols_per_frame, gear=gear,
+            gains=gains, dd=dd, impl=cfg.costas_impl)
     derot = CF32(derot_tm.re.T, derot_tm.im.T)
     return _emit(cfg, state._replace(
         fir_tail=fir_tail, nco_phase=nco_phase, costas=cstate,
@@ -353,8 +357,9 @@ def _rx_stream_composed(cfg: ModemConfig, state: RxState, pcm: torch.Tensor,
                         frontend, costas):
     """The composed RX chain on a channel-major front-end (``rx_frontend``
     or its plain twin): its picks, then ``_back_half``."""
-    picks, index, nco_phase, fir_tail = frontend(cfg, pcm, state.nco_phase,
-                                                 state.fir_tail)
+    with tracing.span("rx.frontend"):
+        picks, index, nco_phase, fir_tail = frontend(
+            cfg, pcm, state.nco_phase, state.fir_tail)
     return _back_half(cfg, state._replace(nco_phase=nco_phase,
                                           fir_tail=fir_tail),
                       picks, index, costas)
@@ -365,7 +370,8 @@ def _rx_stream_full_rate(cfg: ModemConfig, state: RxState,
     """The composed RX chain on the plain full-rate front-end
     (``_frontend_full_rate``, which also carries the timing PLL), then
     ``_back_half``."""
-    picks, index, state = frontend(cfg, pcm, state)
+    with tracing.span("rx.frontend"):
+        picks, index, state = frontend(cfg, pcm, state)
     return _back_half(cfg, state, picks, index, costas)
 
 
@@ -416,9 +422,10 @@ def _back_half(cfg: ModemConfig, state: RxState, picks: CF32,
         eq_state, delayed = equalize_stream(eq_state, delayed, cfg.eq_mu,
                                             cfg.eq_modulus)
     params, gear, dd = _loop(cfg)
-    cstate, derot, freq_frames, bits = costas(
-        state.costas, cmap(lambda p: p.reshape(c, -1), delayed), params,
-        nsym, gear=gear, dd=dd, impl=cfg.costas_impl)
+    with tracing.span("rx.costas"):
+        cstate, derot, freq_frames, bits = costas(
+            state.costas, cmap(lambda p: p.reshape(c, -1), delayed), params,
+            nsym, gear=gear, dd=dd, impl=cfg.costas_impl)
     return _emit(cfg, state._replace(
         costas=cstate, decim_delay=decim_delay, agc=agc_state, eq=eq_state),
         derot, bits, freq_frames, index, nframes)
@@ -430,12 +437,13 @@ def _emit(cfg: ModemConfig, new_state: RxState, derot: CF32,
     """Assemble RxOut from (C, T) derotated symbols and the (C, bps*T)
     bits the Costas call sliced (``_slice`` re-slices them for DQPSK and
     the reference slicer)."""
-    c, nsf = derot.re.shape[0], derot.re.shape[1] // nframes
-    bits, new_state = _slice(cfg, new_state, derot, bits)
-    out = RxOut(symbols=cmap(lambda p: p.reshape(c, nframes, nsf), derot),
-                bits=bits.reshape(c, nframes, cfg.bits_per_symbol * nsf),
-                freq_hz=freq_to_hz(freq_frames, cfg.rs),
-                timing_index=index)
+    with tracing.span("rx.emit"):
+        c, nsf = derot.re.shape[0], derot.re.shape[1] // nframes
+        bits, new_state = _slice(cfg, new_state, derot, bits)
+        out = RxOut(
+            symbols=cmap(lambda p: p.reshape(c, nframes, nsf), derot),
+            bits=bits.reshape(c, nframes, cfg.bits_per_symbol * nsf),
+            freq_hz=freq_to_hz(freq_frames, cfg.rs), timing_index=index)
     return new_state, out
 
 

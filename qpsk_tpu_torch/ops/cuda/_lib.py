@@ -6,7 +6,10 @@ linked into one shared library with a plain C interface, loaded with
 ``ctypes``.  The library is built at first use into the git-ignored
 ``qpsk_tpu_torch/_build/`` directory, under a name keyed on a hash of the
 sources and flags, so an edited source is rebuilt and a fresh checkout
-builds its own.  Nothing here runs at import time.
+builds its own.  Nothing here runs at import time.  Every launch is a
+call of ``launch``, whose ``check`` counts it as ``launch.<entry>`` in
+``qpsk_tpu_torch.tracing``; the load is the ``kernels.load`` span, a build
+the ``kernels.build`` counter.
 """
 
 from __future__ import annotations
@@ -18,8 +21,11 @@ import os
 import pathlib
 import shutil
 import subprocess
+import time
 
 import torch
+
+from qpsk_tpu_torch import tracing
 
 _PKG = pathlib.Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -68,6 +74,7 @@ def build() -> tuple[pathlib.Path, str]:
     lib = BUILD_DIR / f"libqpsk_kernels-{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return lib, ""
+    start = time.time_ns()
     BUILD_DIR.mkdir(exist_ok=True)
     tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
     objs = [BUILD_DIR / f"{src.stem}-{tag}.o" for src in sources]
@@ -92,14 +99,16 @@ def build() -> tuple[pathlib.Path, str]:
         for obj in objs:
             obj.unlink(missing_ok=True)
     os.replace(tmp, lib)
+    tracing.count("kernels.build", always=True, start_ns=start)
     return lib, "".join(logs)
 
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
+    with tracing.span("kernels.load", always=True):
+        path, _ = build()
+        lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -138,10 +147,20 @@ def use_kernel(impl: str, t: torch.Tensor, field: str) -> bool:
     raise ValueError(f"unknown {field} {impl!r}")
 
 
-def check(rc: int, name: str) -> None:
-    """Raise if a C entry returned a CUDA error code."""
+def launch(entry: str, *args) -> None:
+    """Call the library's C entry ``entry`` on ``args`` (one kernel launch)
+    and ``check`` its return code; the launch's record spans the call."""
+    fn = getattr(library(), entry)
+    start = time.time_ns()
+    check(fn(*args), entry, start)
+
+
+def check(rc: int, name: str, start_ns: int | None = None) -> None:
+    """Raise if a C entry returned a CUDA error code, else count the
+    launch (begun at ``start_ns``, else now)."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}")
+    tracing.count(f"launch.{name}", start_ns=start_ns)
 
 
 def require(t, name: str, dtype, shape: tuple, device) -> None:

@@ -160,7 +160,8 @@ def _launch(state, zr_tm, zi_tm, params, trace_every, gear, gains, dd):
     out = {name: empty((c,)) for name in fields}
     mod = None if dd is None else modfam.get(dd[0])
     bits = empty((c, (2 if mod is None else mod.bps) * t), torch.int32)
-    rc = _lib.library().qpsk_costas_tm(
+    _lib.launch(
+        "qpsk_costas_tm",
         zr_tm.data_ptr(), zi_tm.data_ptr(), state.phase.data_ptr(),
         state.freq.data_ptr(), _ptr(state.lev if gear else None),
         _ptr(state.locked if gear else None), _ptr(gains), outr.data_ptr(),
@@ -170,7 +171,6 @@ def _launch(state, zr_tm, zi_tm, params, trace_every, gear, gains, dd):
         0 if mod is None else _DETECTOR[mod.name],
         *(a.ctypes.data for a in _constants(params, gear, dd)),
         _lib.stream_ptr(dev))
-    _lib.check(rc, "qpsk_costas_tm")
     launches += 1
     if gear:
         by_mode["gear"] += 1

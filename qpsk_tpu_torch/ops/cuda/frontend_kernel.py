@@ -237,7 +237,8 @@ def _launch_tm(cfg, pcm, nco_phase, fir_tail, decim_delay):
     phase, tail = _state_out(c, cfg.ntaps - 1, dev)
     if not _fast(cfg, want_power):
         scratch = empty((c, nframes, nsym)) if want_power else None
-        rc = _lib.library().qpsk_frontend_gen(
+        _lib.launch(
+            "qpsk_frontend_gen",
             pcm.data_ptr(), fir_tail.re.data_ptr(), fir_tail.im.data_ptr(),
             nco_phase.re.data_ptr(), nco_phase.im.data_ptr(),
             decim_delay.re.data_ptr(), decim_delay.im.data_ptr(),
@@ -248,11 +249,11 @@ def _launch_tm(cfg, pcm, nco_phase, fir_tail, decim_delay):
             nframes, cfg.frame_size, cfg.cycles, cfg.ntaps, 1,
             hm[0].ctypes.data, hm[1].ctypes.data, omega, gain, inv_scale,
             _lib.stream_ptr(dev))
-        _lib.check(rc, "qpsk_frontend_gen")
         launches += 1
         by_mode[_mode(cfg, "tm_power_gen" if want_power else "tm_gen")] += 1
         return zr, zi, index, phase, tail, ndd, powers
-    rc = _lib.library().qpsk_frontend_tm(
+    _lib.launch(
+        "qpsk_frontend_tm",
         pcm.data_ptr(), fir_tail.re.data_ptr(), fir_tail.im.data_ptr(),
         nco_phase.re.data_ptr(), nco_phase.im.data_ptr(),
         decim_delay.re.data_ptr(), decim_delay.im.data_ptr(), zr.data_ptr(),
@@ -261,7 +262,6 @@ def _launch_tm(cfg, pcm, nco_phase, fir_tail, decim_delay):
         phase.im.data_ptr(), tail.re.data_ptr(), tail.im.data_ptr(), c,
         nframes, cfg.frame_size, cfg.cycles, cfg.ntaps, hm[0].ctypes.data,
         hm[1].ctypes.data, omega, gain, inv_scale, _lib.stream_ptr(dev))
-    _lib.check(rc, "qpsk_frontend_tm")
     launches += 1
     by_mode[_mode(cfg, "tm_power" if want_power else "tm")] += 1
     return zr, zi, index, phase, tail, ndd, powers
@@ -278,7 +278,8 @@ def _launch_cm(cfg, pcm, nco_phase, fir_tail):
     index = torch.empty((c, nframes), dtype=torch.int32, device=dev)
     phase, tail = _state_out(c, cfg.ntaps - 1, dev)
     if not _fast(cfg, False):
-        rc = _lib.library().qpsk_frontend_gen(
+        _lib.launch(
+            "qpsk_frontend_gen",
             pcm.data_ptr(), fir_tail.re.data_ptr(), fir_tail.im.data_ptr(),
             nco_phase.re.data_ptr(), nco_phase.im.data_ptr(), None, None,
             picks.re.data_ptr(), picks.im.data_ptr(), index.data_ptr(), None,
@@ -286,18 +287,17 @@ def _launch_cm(cfg, pcm, nco_phase, fir_tail):
             tail.re.data_ptr(), tail.im.data_ptr(), c, nframes,
             cfg.frame_size, cfg.cycles, cfg.ntaps, 0, hm[0].ctypes.data,
             hm[1].ctypes.data, omega, gain, inv_scale, _lib.stream_ptr(dev))
-        _lib.check(rc, "qpsk_frontend_gen")
         launches += 1
         by_mode[_mode(cfg, "cm_gen")] += 1
         return picks, index, phase, tail
-    rc = _lib.library().qpsk_frontend_cm(
+    _lib.launch(
+        "qpsk_frontend_cm",
         pcm.data_ptr(), fir_tail.re.data_ptr(), fir_tail.im.data_ptr(),
         nco_phase.re.data_ptr(), nco_phase.im.data_ptr(), picks.re.data_ptr(),
         picks.im.data_ptr(), index.data_ptr(), phase.re.data_ptr(),
         phase.im.data_ptr(), tail.re.data_ptr(), tail.im.data_ptr(), c,
         nframes, cfg.frame_size, cfg.cycles, cfg.ntaps, hm[0].ctypes.data,
         hm[1].ctypes.data, omega, gain, inv_scale, _lib.stream_ptr(dev))
-    _lib.check(rc, "qpsk_frontend_cm")
     launches += 1
     by_mode[_mode(cfg, f"cm{cfg.cycles}")] += 1
     return picks, index, phase, tail

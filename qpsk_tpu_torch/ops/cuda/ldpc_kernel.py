@@ -194,11 +194,11 @@ def _launch(code: LdpcCode, llrs: torch.Tensor, iters) -> torch.Tensor:
     out = torch.empty((b, code.k), dtype=torch.int32, device=dev)
     if b == 0:
         return out.reshape(batch + (code.k,))
-    rc = _lib.library().qpsk_ldpc(
+    _lib.launch(
+        "qpsk_ldpc",
         flat.data_ptr(), check_var.data_ptr(), slot_edges.data_ptr(),
         var_edges.data_ptr(), out.data_ptr(), b, m, code.n, code.k, dmax,
         vmax, its, code.alpha, _lib.stream_ptr(dev))
-    _lib.check(rc, "qpsk_ldpc")
     launches += 1
     by_mode["dv3" if vmax == _KERNEL_VMAX
             else f"general_dv{_instance(dmax, vmax)}"] += 1

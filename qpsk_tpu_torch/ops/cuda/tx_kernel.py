@@ -141,21 +141,21 @@ def _launch(cfg, symbols, nco_phase, fir_tail, tx_offset_hz):
     phase = CF32(empty((c,)), empty((c,)))
     tail = CF32(empty((c, ntaps_m1)), empty((c, ntaps_m1)))
     if not _fast(cfg):
-        rc = _lib.library().qpsk_tx_gen(
-            symbols.re.data_ptr(), symbols.im.data_ptr(),
+        _lib.launch(
+            "qpsk_tx_gen", symbols.re.data_ptr(), symbols.im.data_ptr(),
             fir_tail.re.data_ptr(), fir_tail.im.data_ptr(),
             nco_phase.re.data_ptr(), nco_phase.im.data_ptr(),
             _taps_on(cfg, dev).data_ptr(), pcm.data_ptr(), phase.re.data_ptr(),
             phase.im.data_ptr(), tail.re.data_ptr(), tail.im.data_ptr(), c, s,
             cfg.cycles, cfg.ntaps, _omega(cfg, tx_offset_hz), float(cfg.gain),
             float(cfg.pcm_scale), _lib.stream_ptr(dev))
-        _lib.check(rc, "qpsk_tx_gen")
         launches += 1
         by_mode[f"gen_cycles{cfg.cycles}"
                 + ("" if cfg.ntaps == 127 else f"_ntaps{cfg.ntaps}")] += 1
         return pcm, phase, tail
     taps, gain = _launch_consts(cfg)
-    rc = _lib.library().qpsk_tx(
+    _lib.launch(
+        "qpsk_tx",
         symbols.re.data_ptr(), symbols.im.data_ptr(), fir_tail.re.data_ptr(),
         fir_tail.im.data_ptr(), nco_phase.re.data_ptr(),
         nco_phase.im.data_ptr(), pcm.data_ptr(), phase.re.data_ptr(),
@@ -163,7 +163,6 @@ def _launch(cfg, symbols, nco_phase, fir_tail, tx_offset_hz):
         cfg.cycles, cfg.ntaps, taps.ctypes.data,
         _omega(cfg, tx_offset_hz), gain, float(cfg.pcm_scale),
         _lib.stream_ptr(dev))
-    _lib.check(rc, "qpsk_tx")
     launches += 1
     by_mode[f"cycles{cfg.cycles}"
             + ("" if cfg.ntaps == 127 else f"_ntaps{cfg.ntaps}")] += 1

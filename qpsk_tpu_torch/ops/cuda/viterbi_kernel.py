@@ -221,21 +221,21 @@ def _launch(code: ConvCode, llrs: torch.Tensor, nbits: int,
         # a decision bit a state and step
         dec = torch.empty((b, nsteps, max(code.nstates // 32, 1)),
                           dtype=torch.int32, device=dev)
-        rc = _lib.library().qpsk_viterbi_gen(
+        _lib.launch(
+            "qpsk_viterbi_gen",
             flat.data_ptr(), _pattern_table(code, dev).data_ptr(),
             dec.data_ptr(), out.data_ptr(), b, code.constraint, rd, nsteps,
             nbits, _states_per_thread(code.constraint),
             int(_complementary(code)), _lib.stream_ptr(dev))
-        _lib.check(rc, "qpsk_viterbi_gen")
         launches += 1
         by_mode[f"general_k{code.constraint}_r{rd}"] += 1
         return out.reshape(batch + (nbits,))
     # one 64-bit word of decisions per trellis step and packet
     dec = torch.empty((nsteps, b, 2), dtype=torch.int32, device=dev)
-    rc = _lib.library().qpsk_viterbi(
+    _lib.launch(
+        "qpsk_viterbi",
         flat.data_ptr(), dec.data_ptr(), out.data_ptr(), b, nsteps, nbits,
         lanes or _lanes(b), *masks, _lib.stream_ptr(dev))
-    _lib.check(rc, "qpsk_viterbi")
     launches += 1
     by_mode["k7"] += 1
     return out.reshape(batch + (nbits,))

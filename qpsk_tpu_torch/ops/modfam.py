@@ -27,6 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from qpsk_tpu_torch import tracing
 from qpsk_tpu_torch.ops.cplx import CF32
 
 
@@ -119,6 +120,7 @@ def get(name: str) -> Modulation:
 
 
 def _table(values: np.ndarray, device) -> torch.Tensor:
+    tracing.count("sync.modfam.table")
     return torch.from_numpy(np.ascontiguousarray(values)).to(device)
 
 

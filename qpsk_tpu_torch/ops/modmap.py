@@ -14,6 +14,7 @@ import math
 import numpy as np
 import torch
 
+from qpsk_tpu_torch import tracing
 from qpsk_tpu_torch.ops.cplx import CF32, cmul
 
 TAU = 2.0 * math.pi
@@ -56,8 +57,9 @@ def demod_soft(symbols: CF32, scale: float = 1.0) -> torch.Tensor:
     """Soft twin of ``demod_bits``: LLRs (..., 2n), positive = bit 0,
     aligned with the hard bits: ``llr(b1) = scale*im``, ``llr(b0) =
     scale*re``.  Max-sum decoding is invariant to positive scaling."""
-    llr = torch.stack([symbols.im, symbols.re], dim=-1) * scale
-    return llr.reshape(symbols.shape[:-1] + (-1,))
+    with tracing.span("packet.soft"):
+        llr = torch.stack([symbols.im, symbols.re], dim=-1) * scale
+        return llr.reshape(symbols.shape[:-1] + (-1,))
 
 
 def demod_bits_reference(symbols: CF32) -> torch.Tensor:

@@ -13,6 +13,7 @@ import functools
 import numpy as np
 import torch
 
+from qpsk_tpu_torch import tracing
 from qpsk_tpu_torch.packet.bits import bits_to_bytes, bytes_to_bits
 
 
@@ -36,13 +37,16 @@ def crc16_np(data) -> int:
 
 def crc16(data: torch.Tensor) -> torch.Tensor:
     """CRC over the last axis of (..., n) bytes; returns (...,) int64."""
-    table = torch.from_numpy(_crc_table()).to(data.device)
-    data = data.to(torch.int64)
-    crc = torch.full(data.shape[:-1], 0xFFFF, dtype=torch.int64,
-                     device=data.device)
-    for i in range(data.shape[-1]):
-        crc = ((crc << 8) & 0xFFFF) ^ table[((crc >> 8) ^ data[..., i]) & 0xFF]
-    return crc
+    with tracing.span("packet.crc"):
+        tracing.count("sync.crc16.table")
+        table = torch.from_numpy(_crc_table()).to(data.device)
+        data = data.to(torch.int64)
+        crc = torch.full(data.shape[:-1], 0xFFFF, dtype=torch.int64,
+                         device=data.device)
+        for i in range(data.shape[-1]):
+            crc = ((crc << 8) & 0xFFFF) ^ table[((crc >> 8) ^ data[..., i])
+                                                & 0xFF]
+        return crc
 
 
 def crc16_append_bits(payload_bits: torch.Tensor) -> torch.Tensor:

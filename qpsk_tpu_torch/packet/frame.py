@@ -18,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from qpsk_tpu_torch import tracing
 from qpsk_tpu_torch.packet.crc16 import crc16_append_bits, crc16_check_bits
 from qpsk_tpu_torch.packet.fec import (ConvCode, conv_encode, hard_llrs,
                                        viterbi_decode)
@@ -105,9 +106,10 @@ def disassemble_packet(pcfg: PacketConfig, bits: torch.Tensor) -> RxPacket:
     FEC on this decodes the hard bits as unit LLRs."""
     if pcfg.fec:
         return disassemble_packet_soft(pcfg, hard_llrs(bits))
-    bits = unwrap_bits(pcfg, bits)
-    return RxPacket(payload_bits=bits[..., :-16],
-                    crc_ok=crc16_check_bits(bits))
+    with tracing.span("packet.disassemble"):
+        bits = unwrap_bits(pcfg, bits)
+        return RxPacket(payload_bits=bits[..., :-16],
+                        crc_ok=crc16_check_bits(bits))
 
 
 def disassemble_packet_soft(pcfg: PacketConfig,
@@ -116,16 +118,22 @@ def disassemble_packet_soft(pcfg: PacketConfig,
     ``modmap.demod_soft``) -> payload + CRC verdict: deinterleave, flip
     the sign where the keystream is 1, then decode."""
     _check_width(llrs, pcfg.frame_bits, "frame")
-    llrs = llrs.to(torch.float32)
-    if pcfg.interleave:
-        llrs = deinterleave_bits(llrs)
-    if pcfg.scramble:
-        ks = torch.from_numpy(keystream(pcfg.frame_bits, pcfg.scramble_seed))
-        llrs = llrs * (1 - 2 * ks).to(torch.float32).to(llrs.device)
-    if pcfg.fec_kind == "conv":
-        bits = viterbi_decode(ConvCode(), llrs, pcfg.payload_crc_bits)
-    elif pcfg.fec_kind == "ldpc":
-        bits = ldpc_decode(pcfg.ldpc_code(), llrs)
-    else:
-        bits = (llrs < 0).to(torch.int32)
-    return RxPacket(payload_bits=bits[..., :-16], crc_ok=crc16_check_bits(bits))
+    with tracing.span("packet.disassemble"):
+        llrs = llrs.to(torch.float32)
+        if pcfg.interleave:
+            llrs = deinterleave_bits(llrs)
+        if pcfg.scramble:
+            ks = torch.from_numpy(keystream(pcfg.frame_bits,
+                                            pcfg.scramble_seed))
+            tracing.count("sync.frame.keystream")
+            llrs = llrs * (1 - 2 * ks).to(torch.float32).to(llrs.device)
+        if pcfg.fec_kind == "conv":
+            with tracing.span("packet.decode"):
+                bits = viterbi_decode(ConvCode(), llrs, pcfg.payload_crc_bits)
+        elif pcfg.fec_kind == "ldpc":
+            with tracing.span("packet.decode"):
+                bits = ldpc_decode(pcfg.ldpc_code(), llrs)
+        else:
+            bits = (llrs < 0).to(torch.int32)
+        return RxPacket(payload_bits=bits[..., :-16],
+                        crc_ok=crc16_check_bits(bits))

@@ -13,6 +13,8 @@ import math
 import numpy as np
 import torch
 
+from qpsk_tpu_torch import tracing
+
 _PRIMES = np.array([
     2, 3, 5, 7, 11, 13, 17, 19, 23, 29,
     31, 37, 41, 43, 47, 53, 59, 61, 67, 71,
@@ -57,9 +59,11 @@ def deinterleave_permutation(nbits: int) -> np.ndarray:
 
 def interleave_bits(bits: torch.Tensor) -> torch.Tensor:
     perm = torch.from_numpy(interleave_permutation(int(bits.shape[-1])))
+    tracing.count("sync.interleave.perm")
     return bits[..., perm.to(bits.device)]
 
 
 def deinterleave_bits(bits: torch.Tensor) -> torch.Tensor:
     perm = torch.from_numpy(deinterleave_permutation(int(bits.shape[-1])))
+    tracing.count("sync.interleave.perm")
     return bits[..., perm.to(bits.device)]

@@ -22,6 +22,8 @@ import functools
 import numpy as np
 import torch
 
+from qpsk_tpu_torch import tracing
+
 
 @dataclasses.dataclass(frozen=True)
 class LdpcCode:
@@ -129,6 +131,7 @@ def _xor_rows(bits: torch.Tensor, cols: np.ndarray) -> torch.Tensor:
                        device=bits.device)
     padded = torch.cat([bits, zero], dim=-1)
     idx = torch.from_numpy(np.where(cols >= 0, cols, bits.shape[-1]))
+    tracing.count("sync.ldpc.rows")
     return padded[..., idx.to(bits.device)].sum(-1) % 2
 
 

@@ -10,6 +10,8 @@ import functools
 import numpy as np
 import torch
 
+from qpsk_tpu_torch import tracing
+
 
 @functools.lru_cache(maxsize=None)
 def keystream(nbits: int, seed: int = 0x4A80) -> np.ndarray:
@@ -25,5 +27,6 @@ def keystream(nbits: int, seed: int = 0x4A80) -> np.ndarray:
 
 def scramble_bits(bits: torch.Tensor, seed: int = 0x4A80) -> torch.Tensor:
     """XOR a (..., nbits) bit stream with the frame keystream."""
+    tracing.count("sync.scramble.keystream")
     ks = torch.from_numpy(keystream(int(bits.shape[-1]), seed)).to(bits.device)
     return bits.to(torch.int32) ^ ks

@@ -50,6 +50,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from qpsk_tpu_torch import tracing
 from qpsk_tpu_torch.config import ModemConfig
 from qpsk_tpu_torch.metrics import snr_estimate_db_host
 from qpsk_tpu_torch.modem import rx_acquire_hz, rx_stream, tx_stream
@@ -250,17 +251,18 @@ class StreamDemodulator:
         far.  Eager: buffering and demodulation happen even if the list is
         ignored.  A sub-bucket remainder stays buffered until more samples
         arrive or ``flush()``."""
-        pcm = np.asarray(pcm, np.int16).ravel()
-        self._pcm_buf = np.concatenate([self._pcm_buf, pcm])
-        fsz = self.cfg.frame_size
-        bucket = self.bucket_frames * fsz
-        out: list[Packet] = []
-        while self._pcm_buf.size >= bucket:
-            out.extend(self._demod(
-                self._pcm_buf[:bucket].reshape(self.bucket_frames, fsz)))
-            self._pcm_buf = self._pcm_buf[bucket:]
-        out.extend(self._drain())
-        return out
+        with tracing.span("runtime.push"):
+            pcm = np.asarray(pcm, np.int16).ravel()
+            self._pcm_buf = np.concatenate([self._pcm_buf, pcm])
+            fsz = self.cfg.frame_size
+            bucket = self.bucket_frames * fsz
+            out: list[Packet] = []
+            while self._pcm_buf.size >= bucket:
+                out.extend(self._demod(
+                    self._pcm_buf[:bucket].reshape(self.bucket_frames, fsz)))
+                self._pcm_buf = self._pcm_buf[bucket:]
+            out.extend(self._drain())
+            return out
 
     def _start_state(self, x: torch.Tensor):
         """A cold loop state for the bucket ``x``, warm-started on the
@@ -268,7 +270,9 @@ class StreamDemodulator:
         acq = 0.0
         if self.cfg.acquisition == "fft":
             try:
-                cands = self._acquire(x).reshape(-1).cpu().numpy()
+                cands = self._acquire(x).reshape(-1)
+                tracing.count("sync.runtime.d2h")
+                cands = cands.cpu().numpy()
             except ValueError:
                 cands = None       # too short to acquire: cold start
             if cands is not None:
@@ -277,6 +281,8 @@ class StreamDemodulator:
                        else self._sweep_hz[i - cands.size])
                 acq = hz_to_costas_freq(torch.tensor(est, dtype=torch.float32),
                                         self.cfg.rs)
+                # rx_init copies the host frequency to the device
+                tracing.count("sync.runtime.h2d")
         return rx_init(self.cfg, acq_freq=acq, device=self._dev)
 
     def _demod(self, chunk: np.ndarray) -> list[Packet]:
@@ -284,58 +290,64 @@ class StreamDemodulator:
         acts here, per bucket: a push carrying a burst and then dead air
         drains the burst's buffered bits before the dead air's are
         dropped.  Returns any packets that drain emitted."""
-        nframes = chunk.shape[0]
-        if (self._sync is None and self._state is not None
-                and self.cfg.acquisition == "fft"
-                and self._acq_bits >= self._acq_rotate_bits):
-            # a full hunt's worth of bits on this candidate without a sync:
-            # cold-restart this bucket on the next candidate, keeping the
-            # buffered bits (they may hold a burst demodulated fine)
-            self._acq_idx += 1
-            self._acq_bits = 0
-            self._acq_stale = self._bit_buf.shape[1]
-            self._state = None
-        x = torch.from_numpy(np.ascontiguousarray(chunk)).to(self._dev)
-        if self._state is None:
-            self._state = self._start_state(x)
-        self._state, out = rx_stream(self.cfg, self._state, x)
-        host = self._to_host(out)
-        self.counters.frames += nframes
-        freq = host["freq"]
-        self.counters.detected_offset_hz = float(np.mean(
-            freq[-min(10, nframes):]))
-        snr = snr_estimate_db_host(host["re"], host["im"])
-        self.counters.carrier_snr_db = snr
-        if self.squelch_db is None:
-            self.counters.carrier_detect = True
-        elif self.counters.carrier_detect:
-            self.counters.carrier_detect = snr >= self.squelch_db - 3.0
-        else:
-            self.counters.carrier_detect = snr >= self.squelch_db
-
-        pkts: list[Packet] = []
-        if self.squelch_db is not None and not self.counters.carrier_detect:
-            # squelched: drain what earlier buckets buffered first ...
-            pkts = self._drain()
-            if self._sync is None:
-                # ... then, still unsynced, drop this bucket's noise, re-arm
-                # the transient skip and cold-restart, so the next carrier
-                # re-runs acquisition from its first candidate
-                self._bit_buf = self._bit_buf[:, :0]
-                self._llr_buf = self._llr_buf[:, :0]
-                self.sync_skip = self._sync_skip0
-                self._state = None
+        with tracing.span("runtime.bucket"):
+            nframes = chunk.shape[0]
+            if (self._sync is None and self._state is not None
+                    and self.cfg.acquisition == "fft"
+                    and self._acq_bits >= self._acq_rotate_bits):
+                # a full hunt's worth of bits on this candidate without a
+                # sync: cold-restart this bucket on the next candidate,
+                # keeping the buffered bits (they may hold a burst
+                # demodulated fine)
+                self._acq_idx += 1
                 self._acq_bits = 0
-                self._acq_stale = 0
-                self._acq_idx = 0
-                return pkts
-            # an established sync is never squelch-dropped: only
-            # resync_after CRC failures end the epoch
-        self._bit_buf = np.concatenate([self._bit_buf, host["bits"]], axis=1)
-        if self._use_soft:
-            self._llr_buf = np.concatenate([self._llr_buf, host["llrs"]],
+                self._acq_stale = self._bit_buf.shape[1]
+                self._state = None
+            tracing.count("sync.runtime.h2d")
+            x = torch.from_numpy(np.ascontiguousarray(chunk)).to(self._dev)
+            if self._state is None:
+                self._state = self._start_state(x)
+            self._state, out = rx_stream(self.cfg, self._state, x)
+            host = self._to_host(out)
+            self.counters.frames += nframes
+            freq = host["freq"]
+            self.counters.detected_offset_hz = float(np.mean(
+                freq[-min(10, nframes):]))
+            snr = snr_estimate_db_host(host["re"], host["im"])
+            self.counters.carrier_snr_db = snr
+            if self.squelch_db is None:
+                self.counters.carrier_detect = True
+            elif self.counters.carrier_detect:
+                self.counters.carrier_detect = snr >= self.squelch_db - 3.0
+            else:
+                self.counters.carrier_detect = snr >= self.squelch_db
+
+            pkts: list[Packet] = []
+            if (self.squelch_db is not None
+                    and not self.counters.carrier_detect):
+                # squelched: drain what earlier buckets buffered first ...
+                pkts = self._drain()
+                if self._sync is None:
+                    # ... then, still unsynced, drop this bucket's noise,
+                    # re-arm the transient skip and cold-restart, so the
+                    # next carrier re-runs acquisition from its first
+                    # candidate
+                    self._bit_buf = self._bit_buf[:, :0]
+                    self._llr_buf = self._llr_buf[:, :0]
+                    self.sync_skip = self._sync_skip0
+                    self._state = None
+                    self._acq_bits = 0
+                    self._acq_stale = 0
+                    self._acq_idx = 0
+                    return pkts
+                # an established sync is never squelch-dropped: only
+                # resync_after CRC failures end the epoch
+            self._bit_buf = np.concatenate([self._bit_buf, host["bits"]],
                                            axis=1)
-        return pkts
+            if self._use_soft:
+                self._llr_buf = np.concatenate(
+                    [self._llr_buf, host["llrs"]], axis=1)
+            return pkts
 
     def _to_host(self, out) -> dict:
         """What the host needs of a bucket's ``RxOut``, in one
@@ -358,6 +370,7 @@ class StreamDemodulator:
                 lstreams = rotated_streams(None, self.cfg.modulation,
                                            soft=scores)
             parts.append(lstreams.reshape(-1))
+        tracing.count("sync.runtime.d2h")
         flat = torch.cat(parts).cpu().numpy()
         nf, ns = out.freq_hz.numel(), sym.re.numel()
         nb = self._nrot * out.bits.numel()
@@ -372,128 +385,142 @@ class StreamDemodulator:
 
     # ------------------------------------------------------------------
     def _try_sync(self) -> bool:
-        window = default_max_lag(self.pcfg)
-        probe_bits = self.probe_frames * self.pcfg.frame_bits + 64
-        while True:
-            if self._bit_buf.shape[1] - self.sync_skip < probe_bits:
+        with tracing.span("runtime.hunt"):
+            window = default_max_lag(self.pcfg)
+            probe_bits = self.probe_frames * self.pcfg.frame_bits + 64
+            while True:
+                if self._bit_buf.shape[1] - self.sync_skip < probe_bits:
+                    return False
+                # the soft hunt when the LLR rows exist
+                buf = self._llr_buf if self._use_soft else self._bit_buf
+                tracing.count("sync.runtime.h2d")
+                streams = torch.from_numpy(np.ascontiguousarray(
+                    buf[:, self.sync_skip:])).to(self._dev)
+                found = find_sync_streams(self.pcfg, streams, max_lag=window,
+                                          probe_frames=self.probe_frames,
+                                          lag_step=self._lag_step,
+                                          soft=self._use_soft)
+                tracing.count("sync.runtime.d2h", len(found))
+                sync = SyncResult(*(int(v) for v in found))
+                # 3 CRC hits are collision-proof already; probe-1 hits of
+                # the coded probe (8) would be unreachable where it is
+                # needed
+                if sync.score >= max(2, min(self.probe_frames - 1, 3)):
+                    cut = self.sync_skip + sync.bit_lag
+                    self._bit_buf = self._bit_buf[:, cut:]
+                    if self._use_soft:
+                        self._llr_buf = self._llr_buf[:, cut:]
+                    self._sync = sync
+                    self._rotation = sync.rotation
+                    self.counters.synced = True
+                    self.sync_skip = 0   # later resyncs hunt from the head
+                    self._acq_bits = 0   # this candidate acquired it
+                    self._acq_stale = 0
+                    self._pkt_index = 0  # stream_index restarts per epoch
+                    self._lead = np.zeros((self._nrot, self._hw), np.int32)
+                    self._lead_llr = np.zeros((self._nrot, self._hw),
+                                              np.float32)
+                    return True
+                # no sync in [sync_skip, sync_skip + window): slide the hunt
+                # forward if more stream remains, trimming the dead prefix
+                if (self._bit_buf.shape[1] - self.sync_skip
+                        > probe_bits + window):
+                    cut = self.sync_skip + window
+                    self._bit_buf = self._bit_buf[:, cut:]
+                    if self._use_soft:
+                        self._llr_buf = self._llr_buf[:, cut:]
+                    # rejected bits indict the current candidate, except the
+                    # stale prefix demodulated under the previous one
+                    stale_overlap = max(0, min(cut, self._acq_stale)
+                                        - self.sync_skip)
+                    self._acq_bits += window - stale_overlap
+                    self._acq_stale = max(0, self._acq_stale - cut)
+                    self.sync_skip = 0
+                    continue
                 return False
-            # the soft hunt when the LLR rows exist
-            buf = self._llr_buf if self._use_soft else self._bit_buf
-            streams = torch.from_numpy(
-                np.ascontiguousarray(buf[:, self.sync_skip:])).to(self._dev)
-            found = find_sync_streams(self.pcfg, streams, max_lag=window,
-                                      probe_frames=self.probe_frames,
-                                      lag_step=self._lag_step,
-                                      soft=self._use_soft)
-            sync = SyncResult(*(int(v) for v in found))
-            # 3 CRC hits are collision-proof already; probe-1 hits of the
-            # coded probe (8) would be unreachable where it is needed
-            if sync.score >= max(2, min(self.probe_frames - 1, 3)):
-                cut = self.sync_skip + sync.bit_lag
-                self._bit_buf = self._bit_buf[:, cut:]
-                if self._use_soft:
-                    self._llr_buf = self._llr_buf[:, cut:]
-                self._sync = sync
-                self._rotation = sync.rotation
-                self.counters.synced = True
-                self.sync_skip = 0   # later resyncs hunt from the head
-                self._acq_bits = 0   # this candidate acquired the carrier
-                self._acq_stale = 0
-                self._pkt_index = 0  # stream_index restarts per epoch
-                self._lead = np.zeros((self._nrot, self._hw), np.int32)
-                self._lead_llr = np.zeros((self._nrot, self._hw), np.float32)
-                return True
-            # no sync in [sync_skip, sync_skip + window): slide the hunt
-            # forward if more stream remains, trimming the dead prefix
-            if self._bit_buf.shape[1] - self.sync_skip > probe_bits + window:
-                cut = self.sync_skip + window
-                self._bit_buf = self._bit_buf[:, cut:]
-                if self._use_soft:
-                    self._llr_buf = self._llr_buf[:, cut:]
-                # rejected bits indict the current candidate, except the
-                # stale prefix demodulated under the previous one
-                stale_overlap = max(0, min(cut, self._acq_stale)
-                                    - self.sync_skip)
-                self._acq_bits += window - stale_overlap
-                self._acq_stale = max(0, self._acq_stale - cut)
-                self.sync_skip = 0
-                continue
-            return False
 
     def _drain(self) -> list[Packet]:
-        fb = self.pcfg.frame_bits
-        hw = self._hw
-        shifts = np.arange(-hw, hw + 1, self._bps, dtype=np.int64)
-        out: list[Packet] = []
-        while True:
-            if self._sync is None and not self._try_sync():
-                return out
-            nf = self._bit_buf.shape[1] // fb
-            if nf <= 0:
-                return out
-            # every (rotation x shift) span of the whole packets buffered:
-            # the lead window serves the negative shifts, zeros the
-            # positive ones on the last packet; one batched decode
-            ext = np.concatenate(
-                [self._lead, self._bit_buf,
-                 np.zeros((self._nrot, hw), np.int32)], axis=1)
-            if self._use_soft:
-                ext_l = np.concatenate(
-                    [self._lead_llr, self._llr_buf,
-                     np.zeros((self._nrot, hw), np.float32)], axis=1)
-                spans = np.stack([ext_l[:, hw + s: hw + s + nf * fb]
-                                  for s in shifts], axis=1)  # (R, S, nf*fb)
-                cand = torch.from_numpy(spans.reshape(
-                    self._nrot, len(shifts), nf, fb)).to(self._dev)
-                rx = disassemble_packet_soft(self.pcfg, cand)
-            else:
-                spans = np.stack([ext[:, hw + s: hw + s + nf * fb]
-                                  for s in shifts], axis=1)
-                cand = torch.from_numpy(spans.reshape(
-                    self._nrot, len(shifts), nf, fb)).to(self._dev)
-                rx = disassemble_packet(self.pcfg, cand)
-            res = torch.cat([rx.crc_ok.to(torch.int32)[..., None],
-                             rx.payload_bits.to(torch.int32)],
-                            dim=-1).cpu().numpy()
-            ok = res[..., 0] != 0                     # (R, S, nf)
-            payloads = res[..., 1:]                   # (R, S, nf, bits)
-            cur_si = self.slip_track                  # grid index of shift 0
-            stop_j = None
-            for j in range(nf):
-                good, r, si = walk_step(ok[:, :, j], shifts, self._rotation,
-                                        cur_si, max_step=self._bps)
-                if good:
-                    self._rotation, cur_si = r, si
-                    self._consecutive_bad = 0
+        with tracing.span("runtime.drain"):
+            fb = self.pcfg.frame_bits
+            hw = self._hw
+            shifts = np.arange(-hw, hw + 1, self._bps, dtype=np.int64)
+            out: list[Packet] = []
+            while True:
+                if self._sync is None and not self._try_sync():
+                    return out
+                nf = self._bit_buf.shape[1] // fb
+                if nf <= 0:
+                    return out
+                # every (rotation x shift) span of the whole packets
+                # buffered: the lead window serves the negative shifts,
+                # zeros the positive ones on the last packet; one batched
+                # decode
+                ext = np.concatenate(
+                    [self._lead, self._bit_buf,
+                     np.zeros((self._nrot, hw), np.int32)], axis=1)
+                if self._use_soft:
+                    ext_l = np.concatenate(
+                        [self._lead_llr, self._llr_buf,
+                         np.zeros((self._nrot, hw), np.float32)], axis=1)
+                    # (R, S, nf*fb)
+                    spans = np.stack([ext_l[:, hw + s: hw + s + nf * fb]
+                                      for s in shifts], axis=1)
+                    tracing.count("sync.runtime.h2d")
+                    cand = torch.from_numpy(spans.reshape(
+                        self._nrot, len(shifts), nf, fb)).to(self._dev)
+                    rx = disassemble_packet_soft(self.pcfg, cand)
                 else:
-                    self.counters.crc_failures += 1
-                    self._consecutive_bad += 1
-                out.append(Packet(payloads[r, si, j], good, self._pkt_index))
-                self._pkt_index += 1
-                self.counters.packets += 1
-                if self._consecutive_bad >= self.resync_after:
-                    stop_j = j
-                    break
-            # consume through the last emitted packet, the adopted shift
-            # folded into the offset (capped at the buffer: the walk then
-            # re-adopts the shift on the next span), and refresh the lead
-            last = nf if stop_j is None else stop_j + 1
-            consumed = min(last * fb + int(shifts[cur_si]),
-                           self._bit_buf.shape[1])
-            self._lead = ext[:, consumed: consumed + hw].astype(np.int32)
-            self._bit_buf = self._bit_buf[:, consumed:]
-            if self._use_soft:
-                self._lead_llr = ext_l[:, consumed: consumed + hw].astype(
-                    np.float32)
-                self._llr_buf = self._llr_buf[:, consumed:]
-            if stop_j is None:
-                return out
-            # lost the channel: drop sync and re-arm; the unconsumed
-            # remainder stays buffered for the re-hunt
-            self._sync = None
-            self.counters.synced = False
-            self.counters.resyncs += 1
-            self._consecutive_bad = 0
+                    spans = np.stack([ext[:, hw + s: hw + s + nf * fb]
+                                      for s in shifts], axis=1)
+                    tracing.count("sync.runtime.h2d")
+                    cand = torch.from_numpy(spans.reshape(
+                        self._nrot, len(shifts), nf, fb)).to(self._dev)
+                    rx = disassemble_packet(self.pcfg, cand)
+                tracing.count("sync.runtime.d2h")
+                res = torch.cat([rx.crc_ok.to(torch.int32)[..., None],
+                                 rx.payload_bits.to(torch.int32)],
+                                dim=-1).cpu().numpy()
+                ok = res[..., 0] != 0                     # (R, S, nf)
+                payloads = res[..., 1:]                   # (R, S, nf, bits)
+                cur_si = self.slip_track      # grid index of shift 0
+                stop_j = None
+                for j in range(nf):
+                    good, r, si = walk_step(ok[:, :, j], shifts,
+                                            self._rotation, cur_si,
+                                            max_step=self._bps)
+                    if good:
+                        self._rotation, cur_si = r, si
+                        self._consecutive_bad = 0
+                    else:
+                        self.counters.crc_failures += 1
+                        self._consecutive_bad += 1
+                    out.append(Packet(payloads[r, si, j], good,
+                                      self._pkt_index))
+                    self._pkt_index += 1
+                    self.counters.packets += 1
+                    if self._consecutive_bad >= self.resync_after:
+                        stop_j = j
+                        break
+                # consume through the last emitted packet, the adopted shift
+                # folded into the offset (capped at the buffer: the walk then
+                # re-adopts the shift on the next span), and refresh the lead
+                last = nf if stop_j is None else stop_j + 1
+                consumed = min(last * fb + int(shifts[cur_si]),
+                               self._bit_buf.shape[1])
+                self._lead = ext[:, consumed: consumed + hw].astype(np.int32)
+                self._bit_buf = self._bit_buf[:, consumed:]
+                if self._use_soft:
+                    self._lead_llr = ext_l[:, consumed: consumed + hw].astype(
+                        np.float32)
+                    self._llr_buf = self._llr_buf[:, consumed:]
+                if stop_j is None:
+                    return out
+                # lost the channel: drop sync and re-arm; the unconsumed
+                # remainder stays buffered for the re-hunt
+                self._sync = None
+                self.counters.synced = False
+                self.counters.resyncs += 1
+                self._consecutive_bad = 0
 
     def flush(self) -> list[Packet]:
         """Demodulate the buffered whole frames (one frame a pass), then

@@ -22,6 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from qpsk_tpu_torch import tracing
 from qpsk_tpu_torch.ops import modfam
 from qpsk_tpu_torch.packet.frame import (PacketConfig, RxPacket,
                                          disassemble_packet,
@@ -51,6 +52,7 @@ def rotate_dibits(bits: torch.Tensor, r) -> torch.Tensor:
     hypothesis ``r`` (0..3)."""
     pairs = bits.to(torch.int64).reshape(bits.shape[:-1] + (-1, 2))
     m = (pairs[..., 0] << 1) | pairs[..., 1]
+    tracing.count("sync.rotation.table")
     m2 = torch.from_numpy(_ROT_POW).to(bits.device)[r][m]
     return torch.stack([(m2 >> 1) & 1, m2 & 1], dim=-1).reshape(bits.shape)
 

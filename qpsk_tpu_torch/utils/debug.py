@@ -13,7 +13,12 @@ behind ``-DTEST_SCATTER`` (qpsk.c:199-201).  Here:
 * ``ScatterTap``: the constellation tap, a host list of the symbols each
   ``tap`` call copies out.
 * ``trace``: a ``torch.profiler`` capture around a region, written as a
-  Chrome trace into a directory.
+  Chrome trace into a directory.  While it records, the port's own spans
+  (``qpsk_tpu_torch.tracing``: ``rx_stream``, ``rx.frontend``,
+  ``rx.costas``, the packet path, the runtime) show in it as
+  ``qpsk.<name>`` ranges beside the card's kernels, and the port's
+  counters (kernel launches, blocking host-device copies) are recorded;
+  ``tracing.records`` reads both back.
 """
 
 from __future__ import annotations

@@ -342,6 +342,11 @@ from qpsk_tpu_torch.utils.roofline import (  # noqa: E402
 # channel counts of the kernel comparisons, (channels, frames) of the main
 # path and of the rate measurement
 COMPARE_CHANNELS = (1, 200, 8192)
+# the front-end pipeline's ragged edges (phase 2b): channel counts (a
+# partial group of 8, one past a whole grid's) and frames a call
+PIPE_CHANNELS, PIPE_FRAMES = (1, 7, 9, 8193), (1, 2, 3, 5, 9)
+# frame sizes of the power output's checks there (pipeline, general instance)
+PIPE_POWER_FRAMES = (128, 256, 1024)
 MAIN_PATH = (8192, 32)
 RATE_POINT = (8192, 8)
 TX_OFFSET_HZ = 50.0
@@ -750,6 +755,82 @@ def check_sincosf(dev, bound: float = 8.0) -> None:
     need(bad == 0, f"sincosf differs from torch.sin/cos on {bad} values")
     print(f"  sincosf: bit-equal to torch.sin and torch.cos on all {n} floats "
           f"of magnitude <= {bound:g}")
+
+
+def pipeline_edges(dev, errs: dict) -> None:
+    """Phase 2b: the front-end pipeline (``frontend_kernel_pipe``: one
+    persistent block an SM walking tiles of 8 channels x a frame) against
+    the plain versions where its schedule is ragged: every channel count of
+    ``PIPE_CHANNELS`` x frame count of ``PIPE_FRAMES``, time-major at 4, 2
+    and 8 samples per symbol and with the power output, channel-major at 4
+    and 8, each on noise PCM after a chained call (a carried tail, phase
+    and delay), within the limits of phase 2; every launch the pipeline's.
+    Then the power output at the frame sizes of ``PIPE_POWER_FRAMES``, at
+    1, 9 and 200 channels x 1 and 5 frames: the pipeline's up to 512
+    samples, the general instance's past it."""
+    import torch
+    from qpsk_tpu_torch import ModemConfig, rx_init
+    from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
+
+    tm = ((ModemConfig(), "frontend"), (ModemConfig(rs=4800.0), "frontend"),
+          (ModemConfig(rs=1200.0), "frontend"),
+          (ModemConfig(agc=True), "frontend_tm_power"))
+    cm = ((ModemConfig(), "frontend_cm"), (ModemConfig(rs=1200.0),
+                                           "frontend_cm_1200"))
+    reset_launches()
+    checks = 0
+    for c in PIPE_CHANNELS:
+        for f in PIPE_FRAMES:
+            for i, (cfg, key) in enumerate(tm + cm):
+                pcm = noise_pcm(cfg, c, f + 1, 7 * c + f + i, dev)
+                st = rx_init(cfg, (c,), device=dev)
+                first = pcm[:, :1].contiguous()
+                a = fk.rx_frontend_tm_plain(cfg, first, st.nco_phase,
+                                            st.fir_tail, st.decim_delay)
+                st = st._replace(nco_phase=a[3], fir_tail=a[4],
+                                 decim_delay=a[5])
+                x = pcm[:, 1:].contiguous()
+                label = (f"C={c} F={f} {cfg.cycles} samples a symbol"
+                         f"{' power' if cfg.agc else ''}")
+                if (cfg, key) in tm:
+                    check_frontend(cfg, x, st, False, f"{label} tm", errs,
+                                   key=key if not cfg.agc else "frontend",
+                                   pow_key=key)
+                else:
+                    check_frontend_cm(cfg, x, st, False, f"{label} cm", errs,
+                                      key)
+                checks += 1
+    # the power output at frame sizes read from the launch, whose squares
+    # go through shared memory: the pipeline at 128 and 256 samples, the
+    # general instance at 1024, one frame a call and several
+    past = 0
+    for fsz in PIPE_POWER_FRAMES:
+        cfg = ModemConfig(agc=True, frame_size=fsz)
+        for c in (1, 9, 200):
+            for f in (1, 5):
+                pcm = noise_pcm(cfg, c, f + 1, 11 * c + f + fsz, dev)
+                st = rx_init(cfg, (c,), device=dev)
+                a = fk.rx_frontend_tm_plain(cfg, pcm[:, :1].contiguous(),
+                                            st.nco_phase, st.fir_tail,
+                                            st.decim_delay)
+                st = st._replace(nco_phase=a[3], fir_tail=a[4],
+                                 decim_delay=a[5])
+                pipe = fk._fast(cfg, True)
+                key, pow_key = (("frontend", "frontend_tm_power") if pipe
+                                else ("frontend_gen_power",) * 2)
+                check_frontend(cfg, pcm[:, 1:].contiguous(), st, False,
+                               f"C={c} F={f} frame {fsz} power tm", errs,
+                               key=key, pow_key=pow_key)
+                if pipe:
+                    checks += 1
+                else:
+                    past += 1
+    pipe = sum(v for k, v in fk.by_mode.items() if "_pipe" in k)
+    need(pipe == checks and fk.launches == checks + past,
+         f"the pipeline took {pipe} of {fk.launches} front-end launches "
+         f"({checks} checks at frames up to 512): {dict(fk.by_mode)}")
+    print(f"  {checks} checks at frames up to 512, every launch the "
+          f"pipeline's, {past} past it: {dict(fk.by_mode)}")
 
 
 def compare_kernels(cfg, pcfg, dev, errs: dict) -> None:
@@ -1826,14 +1907,14 @@ def option_loopback(name: str, pcfg, dev, errs: dict) -> dict:
     seconds = time.perf_counter() - t0
     on_path = {
         "level": {"tx": tk.by_mode["cycles4"],
-                  "frontend_tm_power": fk.by_mode["tm_power"],
+                  "frontend_tm_power": fk.by_mode["tm_power_pipe"],
                   "costas_gear": ck.by_mode["gear"],
                   "costas_gains": ck.by_mode["gains"]},
         "multipath": {"tx": tk.by_mode["cycles4"],
-                      "frontend_cm": fk.by_mode["cm4"],
+                      "frontend_cm": fk.by_mode["cm4_pipe"],
                       "costas": ck.by_mode["qpsk"]},
         "1200": {"tx_1200": tk.by_mode["cycles8"],
-                 "frontend_cm_1200": fk.by_mode["cm8"],
+                 "frontend_cm_1200": fk.by_mode["cm8_pipe"],
                  "costas": ck.by_mode["qpsk"]}}[name]
     print(f"  {name}: {c} channels x {nframes} frames, TX -> "
           f"{'multipath -> ' if paths else ''}AWGN {snr_db} dB"
@@ -2048,7 +2129,7 @@ def family_loopback(name: str, pcfg, dev, errs: dict) -> dict:
         fe_key, fe_mode = (("frontend_tm_power", "tm_power") if cfg.agc
                            else ("frontend", "tm"))
     on_path = {"tx_1200" if slow else "tx": tk.by_mode[f"cycles{cfg.cycles}"],
-               fe_key: fk.by_mode[fe_mode], key: ck.by_mode[f"dd_{kind}"]}
+               fe_key: fk.by_mode[f"{fe_mode}_pipe"], key: ck.by_mode[f"dd_{kind}"]}
     peak = int(clean.to(torch.int32).abs().max())
     print(f"  {name}: {c} channels x {nframes} frames, TX (largest |PCM| "
           f"{peak}) -> AWGN {snr_db} dB -> acquisition (mean {float(hz.mean()):.4f} "
@@ -2330,7 +2411,7 @@ def family_coded(kind: str, dev, errs: dict) -> int:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = {"tx": mods["tx"].by_mode["cycles4"],
-              "frontend": mods["frontend"].by_mode["tm"],
+              "frontend": mods["frontend"].by_mode["tm_pipe"],
               "costas_dd_8psk": mods["costas"].by_mode["dd_8psk"],
               decoder: mods[decoder].launches}
     print(f"  8psk fec={kind}: {c} channels x {npkt} packets = {nframes} "
@@ -4725,6 +4806,8 @@ def main() -> int:
     print("phase 2: kernels against their plain versions")
     check_sincosf(dev)
     compare_kernels(cfg, pcfg, dev, errs)
+    print("phase 2b: the front-end pipeline at its ragged edges")
+    pipeline_edges(dev, errs)
     print("phase 3: main path at full width")
     counts = main_path(cfg, pcfg, dev, errs)
     print("phase 4: rates at 8192 channels x 8 frames")

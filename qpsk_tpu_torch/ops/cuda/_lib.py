@@ -37,8 +37,8 @@ LINK_FLAGS = _ARCH + ("-shared",)
 
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
-    "qpsk_frontend_tm": [_P] * 17 + [_I] * 5 + [_P, _P, _D, _F, _F, _P],
-    "qpsk_frontend_cm": [_P] * 12 + [_I] * 5 + [_P, _P, _D, _F, _F, _P],
+    "qpsk_frontend_tm": [_P] * 17 + [_I] * 6 + [_P, _P, _D, _F, _F, _P],
+    "qpsk_frontend_cm": [_P] * 12 + [_I] * 6 + [_P, _P, _D, _F, _F, _P],
     "qpsk_frontend_gen": [_P] * 18 + [_I] * 6 + [_P, _P, _D, _F, _F, _P],
     "qpsk_costas_tm": [_P] * 15 + [_I] * 5 + [_P, _P, _P],
     "qpsk_sincosf": [_P] * 3 + [ctypes.c_longlong, _P],
@@ -172,6 +172,12 @@ def require(t, name: str, dtype, shape: tuple, device) -> None:
             f"{name}: the kernel takes a contiguous {dtype} tensor of shape "
             f"{shape} on {device}, got {t.dtype} {tuple(t.shape)} on "
             f"{t.device} (contiguous={t.is_contiguous()})")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The streaming multiprocessors of the CUDA ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_ptr(device) -> int:

@@ -22,12 +22,13 @@ admits (``frontend_supported``): any samples per symbol up to 256 that
 divide the frame, any odd ``ntaps`` up to 129 (the TPU kernel's ``ntaps -
 1 <= 128``) and any ``frame_size`` that is a multiple of 128, in both
 launches, the AGC power output at any symbol count.  The wrapper picks the
-instance by geometry: the tensor-core instances (``frontend_kernel``) at 2,
-4 or 8 samples per symbol and frames up to ``_FAST_MAX_FRAME`` samples (their
-shared-memory budget), with the power output when a frame's symbols are a
-power of two; the general instance (``frontend_general_kernel``, the same
-tensor-core FIR with the samples per symbol read at run time, the frame
-streamed through shared memory in chunks) everywhere else.  A CUDA call off the coverage raises
+instance by geometry: at 2, 4 or 8 samples per symbol and frames up to
+``_FAST_MAX_FRAME`` = 512 samples, with the power output when a frame's
+symbols are a power of two, the persistent, warp-specialised pipeline
+(``frontend_kernel_pipe``, one block an SM, ``wgmma``); the general
+instance (``frontend_general_kernel``, a tensor-core FIR by ``mma.sync``
+with the samples per symbol read at run time, the frame streamed through
+shared memory in chunks) everywhere else.  A CUDA call off the coverage raises
 ``NotImplementedError`` naming the field before any launch; a CPU call
 runs any geometry.  ``cfg.frontend_impl`` picks the lowering: "auto" (the
 tensor's device), "xla" (the plain version on any device) or "pallas"
@@ -51,18 +52,19 @@ from qpsk_tpu_torch.ops.cplx import CF32, cmap
 from qpsk_tpu_torch.ops.cuda import _lib
 
 # Kernel launches since the last reset (set to 0 to start a count), and
-# the same launches by mode: "tm", "tm_power", "cm4", "cm8", and for a
-# geometry off the default config, e.g. "tm_cyc2", "cm4_fsz256",
-# "tm_ntaps63"; the general instance's as "tm_gen_cyc3_fsz384",
-# "cm_gen_cyc16_fsz2048", "tm_power_gen_fsz1536" (clear() it).
+# the same launches by mode: the pipeline's "tm_pipe", "tm_power_pipe",
+# "cm4_pipe", "cm8_pipe", each with the fields off the default config
+# after it, e.g. "tm_pipe_cyc2", "cm4_pipe_fsz256", "tm_pipe_ntaps63";
+# the general instance's as "tm_gen_cyc3_fsz384", "cm_gen_cyc16_fsz2048",
+# "tm_power_gen_fsz1536", "tm_gen_fsz1024" (clear() it).
 launches = 0
 by_mode = collections.Counter()
 
-# the samples per symbol the fast instances are built for, their largest
-# frame (csrc/frontend.cu, Layout: 128 * frame_size + 8448 bytes of shared
-# memory, at most 227 KB), and the largest tap count (a 128-sample halo)
-# and samples per symbol (GMAXCYC) of every instance
-_FAST_CYCLES, _FAST_MAX_FRAME, _MAX_TAPS, _MAX_CYCLES = (2, 4, 8), 1664, 129, 256
+# the samples per symbol the pipeline is built for, its longest frame
+# (csrc/frontend.cu, PIPE_MAX_FRAME: 16 segments of 32 outputs, a FIR
+# group's two accumulators), and the largest tap count (a 128-sample
+# halo) and samples per symbol (GMAXCYC) of every instance
+_FAST_CYCLES, _FAST_MAX_FRAME, _MAX_TAPS, _MAX_CYCLES = (2, 4, 8), 512, 129, 256
 
 
 def coverage(cfg):
@@ -79,11 +81,19 @@ def coverage(cfg):
 
 
 def _fast(cfg, power: bool) -> bool:
-    """Whether a tensor-core instance takes ``cfg`` (else the general one
-    runs it)."""
+    """Whether the pipeline (``frontend_kernel_pipe``) takes ``cfg`` (else
+    the general instance runs it)."""
     nsym = cfg.symbols_per_frame
     return (cfg.cycles in _FAST_CYCLES and cfg.frame_size <= _FAST_MAX_FRAME
             and not (power and nsym & (nsym - 1)))
+
+
+def _pipe_grid(c: int, nframes: int, sms: int) -> int:
+    """The pipeline's persistent blocks: one an SM (its 384 threads' 168
+    registers fill one), at most one a tile of 8 channels x a frame.
+    Block b walks tiles [b * T // B, (b + 1) * T // B) of the T tiles,
+    frames fastest."""
+    return min(-(-c // 8) * nframes, sms)
 
 
 def _mode(cfg, base: str) -> str:
@@ -178,7 +188,9 @@ def rx_frontend_tm_plain(cfg, pcm, nco_phase, fir_tail, decim_delay):
 
 def _check_inputs(cfg, pcm, nco_phase, fir_tail):
     """Check the geometry, then validate what the kernel reads by pointer;
-    return (C, nframes)."""
+    return (pcm, C, nframes), the PCM copied where it does not start on a
+    16-byte boundary (a view into a stream at an odd sample): every
+    instance reads it in 16-byte copies."""
     _lib.check_geometry(coverage(cfg))
     c, nframes, _ = pcm.shape
     if nframes < 1 or c < 1:
@@ -190,7 +202,7 @@ def _check_inputs(cfg, pcm, nco_phase, fir_tail):
                            ("fir_tail", fir_tail, (c, cfg.ntaps - 1))):
         for part, plane in zip(("re", "im"), t):
             _lib.require(plane, f"{name}.{part}", torch.float32, shape, dev)
-    return c, nframes
+    return (pcm.clone() if pcm.data_ptr() % 16 else pcm), c, nframes
 
 
 @functools.lru_cache(maxsize=None)
@@ -220,7 +232,7 @@ def _state_out(c, ntaps_m1, dev):
 def _launch_tm(cfg, pcm, nco_phase, fir_tail, decim_delay):
     global launches
     want_power = bool(cfg.agc)
-    c, nframes = _check_inputs(cfg, pcm, nco_phase, fir_tail)
+    pcm, c, nframes = _check_inputs(cfg, pcm, nco_phase, fir_tail)
     dev = pcm.device
     nsym = cfg.symbols_per_frame
     for part, plane in zip(("re", "im"), decim_delay):
@@ -252,6 +264,7 @@ def _launch_tm(cfg, pcm, nco_phase, fir_tail, decim_delay):
         launches += 1
         by_mode[_mode(cfg, "tm_power_gen" if want_power else "tm_gen")] += 1
         return zr, zi, index, phase, tail, ndd, powers
+    blocks = _pipe_grid(c, nframes, _lib.sm_count(dev))
     _lib.launch(
         "qpsk_frontend_tm",
         pcm.data_ptr(), fir_tail.re.data_ptr(), fir_tail.im.data_ptr(),
@@ -260,16 +273,17 @@ def _launch_tm(cfg, pcm, nco_phase, fir_tail, decim_delay):
         zi.data_ptr(), index.data_ptr(), ndd.re.data_ptr(), ndd.im.data_ptr(),
         powers.data_ptr() if want_power else None, phase.re.data_ptr(),
         phase.im.data_ptr(), tail.re.data_ptr(), tail.im.data_ptr(), c,
-        nframes, cfg.frame_size, cfg.cycles, cfg.ntaps, hm[0].ctypes.data,
-        hm[1].ctypes.data, omega, gain, inv_scale, _lib.stream_ptr(dev))
+        nframes, cfg.frame_size, cfg.cycles, cfg.ntaps, blocks,
+        hm[0].ctypes.data, hm[1].ctypes.data, omega, gain, inv_scale,
+        _lib.stream_ptr(dev))
     launches += 1
-    by_mode[_mode(cfg, "tm_power" if want_power else "tm")] += 1
+    by_mode[_mode(cfg, "tm_power_pipe" if want_power else "tm_pipe")] += 1
     return zr, zi, index, phase, tail, ndd, powers
 
 
 def _launch_cm(cfg, pcm, nco_phase, fir_tail):
     global launches
-    c, nframes = _check_inputs(cfg, pcm, nco_phase, fir_tail)
+    pcm, c, nframes = _check_inputs(cfg, pcm, nco_phase, fir_tail)
     dev = pcm.device
     nsym = cfg.symbols_per_frame
     hm, omega, gain, inv_scale = _launch_consts(cfg)
@@ -290,14 +304,16 @@ def _launch_cm(cfg, pcm, nco_phase, fir_tail):
         launches += 1
         by_mode[_mode(cfg, "cm_gen")] += 1
         return picks, index, phase, tail
+    blocks = _pipe_grid(c, nframes, _lib.sm_count(dev))
     _lib.launch(
         "qpsk_frontend_cm",
         pcm.data_ptr(), fir_tail.re.data_ptr(), fir_tail.im.data_ptr(),
         nco_phase.re.data_ptr(), nco_phase.im.data_ptr(), picks.re.data_ptr(),
         picks.im.data_ptr(), index.data_ptr(), phase.re.data_ptr(),
         phase.im.data_ptr(), tail.re.data_ptr(), tail.im.data_ptr(), c,
-        nframes, cfg.frame_size, cfg.cycles, cfg.ntaps, hm[0].ctypes.data,
-        hm[1].ctypes.data, omega, gain, inv_scale, _lib.stream_ptr(dev))
+        nframes, cfg.frame_size, cfg.cycles, cfg.ntaps, blocks,
+        hm[0].ctypes.data, hm[1].ctypes.data, omega, gain, inv_scale,
+        _lib.stream_ptr(dev))
     launches += 1
-    by_mode[_mode(cfg, f"cm{cfg.cycles}")] += 1
+    by_mode[_mode(cfg, f"cm{cfg.cycles}_pipe")] += 1
     return picks, index, phase, tail

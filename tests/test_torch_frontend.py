@@ -16,7 +16,7 @@ from qpsk_tpu import ModemConfig as JCfg, rx_init as j_rx_init, tx_stream as j_t
 from qpsk_tpu.modem import frontend_xla as j_frontend_xla, rx_stream as j_rx_stream
 from qpsk_tpu.ops.cplx import CF32 as JCF32
 from qpsk_tpu.ops.pallas.frontend_kernel import rx_frontend_fused_tm
-from qpsk_tpu_torch import ModemConfig
+from qpsk_tpu_torch import ModemConfig, rx_init
 from qpsk_tpu_torch.ops.cplx import CF32
 from qpsk_tpu_torch.ops.cuda.frontend_kernel import rx_frontend_tm
 from qpsk_tpu_torch.state import from_numpy
@@ -140,3 +140,119 @@ def test_frontend_cpu_tensor_runs_plain_version():
     out = _port(pcm, st)
     assert frontend_kernel.launches == before
     assert isinstance(out[5], CF32) and out[0].shape == (NSYM, 2)
+
+
+class _Recorder:
+    """A stand-in for the kernel library: records the C entry called and
+    its arguments, launches nothing, returns 0 (success)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("qpsk_"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+def _fast_launch(monkeypatch, cfg, c, nframes, tm=True, sms=132):
+    """(C entry, its ``blocks`` argument where it is the pipeline's, the
+    by_mode key that moved) of one front-end launch of ``cfg`` over (c, nframes) through a
+    ``_Recorder`` on a card of ``sms`` SMs."""
+    from qpsk_tpu_torch.ops.cuda import _lib, frontend_kernel as fk
+    rec = _Recorder()
+    monkeypatch.setattr(_lib, "library", lambda: rec)
+    monkeypatch.setattr(_lib, "stream_ptr", lambda dev: 0)
+    monkeypatch.setattr(_lib, "sm_count", lambda dev: sms)
+    st = rx_init(cfg, (c,), device="cpu")
+    pcm = torch.zeros((c, nframes, cfg.frame_size), dtype=torch.int16)
+    before = dict(fk.by_mode)
+    if tm:
+        fk._launch_tm(cfg, pcm, st.nco_phase, st.fir_tail, st.decim_delay)
+    else:
+        fk._launch_cm(cfg, pcm, st.nco_phase, st.fir_tail)
+    moved = [k for k, v in fk.by_mode.items() if v != before.get(k, 0)]
+    (name, args), = rec.calls
+    return name, args[22 if tm else 17], moved
+
+
+def test_frontend_pipeline_takes_the_frames_its_ring_holds(monkeypatch):
+    """The pipeline (``frontend_kernel_pipe``) takes frames up to 512
+    samples (16 segments of 32 outputs, a FIR group's two accumulators) at
+    2, 4 and 8 samples per symbol: it runs the default config (time-major,
+    with the power output, channel-major at 4 and 8 samples per symbol)
+    and every such geometry up to 512 under its own ``by_mode`` keys
+    ("..._pipe") with one block an SM; longer frames run the general
+    instance ("..._gen..." keys)."""
+    from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
+    for cyc in (2, 4, 8):
+        for fsz in range(128, 1665, 128):
+            cfg = ModemConfig(rs=9600.0 / cyc, frame_size=fsz)
+            assert fk._fast(cfg, False) == (fsz <= 512), (cyc, fsz)
+    cases = ((ModemConfig(), True, "tm_pipe"),
+             (ModemConfig(agc=True), True, "tm_power_pipe"),
+             (ModemConfig(), False, "cm4_pipe"),
+             (ModemConfig(rs=1200.0), False, "cm8_pipe"),
+             (ModemConfig(rs=4800.0, frame_size=256), True,
+              "tm_pipe_cyc2_fsz256"),
+             (ModemConfig(ntaps=63, frame_size=384), False,
+              "cm4_pipe_ntaps63_fsz384"),
+             (ModemConfig(frame_size=640), True, "tm_gen_fsz640"),
+             (ModemConfig(rs=4800.0, frame_size=640), True,
+              "tm_gen_cyc2_fsz640"),
+             (ModemConfig(frame_size=1024, agc=True), True,
+              "tm_power_gen_fsz1024"),
+             (ModemConfig(rs=1200.0, frame_size=1664), False,
+              "cm_gen_cyc8_fsz1664"))
+    for cfg, tm, key in cases:
+        name, blocks, moved = _fast_launch(monkeypatch, cfg, 200, 3, tm)
+        assert moved == [key]
+        if "_gen" in key:
+            assert name == "qpsk_frontend_gen"
+            continue
+        assert name == ("qpsk_frontend_tm" if tm else "qpsk_frontend_cm")
+        assert blocks == 75
+
+
+@pytest.mark.parametrize("c", list(range(1, 41)) + [8192])
+def test_frontend_pipeline_grid_walks_every_tile_once(monkeypatch, c):
+    """The persistent grid is min(tiles, SMs); block b walks tiles
+    [b T // B, (b + 1) T // B), frames fastest (``frontend_kernel_pipe``):
+    every (channel group, frame) once, no block idle, at F = 1..9."""
+    from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
+    groups = -(-c // 8)
+    for nframes in range(1, 10):
+        tiles = groups * nframes
+        for sms in (132, 7, 1):
+            b = fk._pipe_grid(c, nframes, sms)
+            assert b == min(tiles, sms)
+            seen = []
+            for k in range(b):
+                walk = range(tiles * k // b, tiles * (k + 1) // b)
+                assert len(walk) >= 1
+                seen += [(t // nframes, t % nframes) for t in walk]
+            assert sorted(seen) == [(g, f) for g in range(groups)
+                                    for f in range(nframes)]
+    if c in (1, 7, 9, 8192):
+        _, blocks, _ = _fast_launch(monkeypatch, ModemConfig(), c, 9)
+        assert blocks == min(groups * 9, 132)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 8])
+def test_frontend_kernel_gets_pcm_on_a_16_byte_boundary(offset):
+    """Every front-end instance reads the PCM in 16-byte copies, so the
+    wrapper's input check hands on PCM that starts on a 16-byte boundary:
+    the caller's tensor where it does, else a copy with the same samples
+    (a view into a stream at ``offset`` samples)."""
+    from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
+    cfg = ModemConfig()
+    c, nframes = 3, 2
+    n = c * nframes * cfg.frame_size
+    stream = torch.arange(n + offset, dtype=torch.int32).to(torch.int16)
+    pcm = stream[offset:].view(c, nframes, cfg.frame_size)
+    st = rx_init(cfg, (c,), device="cpu")
+    got, gc, gf = fk._check_inputs(cfg, pcm, st.nco_phase, st.fir_tail)
+    assert (gc, gf) == (c, nframes)
+    assert got.data_ptr() % 16 == 0
+    assert (got is pcm) == (pcm.data_ptr() % 16 == 0)
+    assert torch.equal(got, pcm)

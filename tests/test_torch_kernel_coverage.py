@@ -99,6 +99,7 @@ def _routed(monkeypatch, launch):
     rec = _Recorder()
     monkeypatch.setattr(_lib, "library", lambda: rec)
     monkeypatch.setattr(_lib, "stream_ptr", lambda dev: 0)
+    monkeypatch.setattr(_lib, "sm_count", lambda dev: 132)
     before = (dict(frontend_kernel.by_mode), dict(tx_kernel.by_mode))
     launch()
     after = (dict(frontend_kernel.by_mode), dict(tx_kernel.by_mode))
@@ -146,7 +147,7 @@ def test_frontend_geometries_off_fast_route_to_the_general_instance(
                         monkeypatch, lambda: frontend_kernel._launch_tm(
                             cfg, pcm, st.nco_phase, st.fir_tail,
                             st.decim_delay))
-                fast = (cycles in (2, 4, 8) and fsz <= 1664
+                fast = (cycles in (2, 4, 8) and fsz <= 512
                         and not (base == "tm_power" and nsym & (nsym - 1)))
                 assert frontend_kernel._fast(cfg, base == "tm_power") == fast
                 if fast:

@@ -337,6 +337,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 # the bounds of every kernel's work on the H100 (its published peaks)
 from qpsk_tpu_torch.utils.roofline import (  # noqa: E402
     costas_work, fec_work, frontend_work, general_work, tx_work)
+# each C entry's launches, counted by the kernel library (``_lib.check``)
+from qpsk_tpu_torch.ops.cuda import _lib  # noqa: E402
 
 
 # channel counts of the kernel comparisons, (channels, frames) of the main
@@ -825,12 +827,14 @@ def pipeline_edges(dev, errs: dict) -> None:
                     checks += 1
                 else:
                     past += 1
-    pipe = sum(v for k, v in fk.by_mode.items() if "_pipe" in k)
-    need(pipe == checks and fk.launches == checks + past,
-         f"the pipeline took {pipe} of {fk.launches} front-end launches "
-         f"({checks} checks at frames up to 512): {dict(fk.by_mode)}")
+    n = _lib.launches
+    pipe, gen = n["qpsk_frontend_pipe"], n["qpsk_frontend_gen"]
+    need(pipe == checks and gen == past,
+         f"the pipeline took {pipe} and the general instance {gen} "
+         f"front-end launches ({checks} checks at frames up to 512, {past} "
+         f"past it)")
     print(f"  {checks} checks at frames up to 512, every launch the "
-          f"pipeline's, {past} past it: {dict(fk.by_mode)}")
+          f"pipeline's, {past} past it the general instance's")
 
 
 def compare_kernels(cfg, pcfg, dev, errs: dict) -> None:
@@ -1173,22 +1177,25 @@ def decode(pcfg, bits, modulation: str = "qpsk", tracked: bool = False):
     return sync, extract_packets(pcfg, bits, sync, navail, modulation)
 
 
-def kernel_modules() -> dict:
-    """The kernel wrapper modules, each with its ``launches`` counter."""
-    from qpsk_tpu_torch.ops.cuda import costas_kernel as ck
-    from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
-    from qpsk_tpu_torch.ops.cuda import ldpc_kernel as lk
-    from qpsk_tpu_torch.ops.cuda import tx_kernel as tk
-    from qpsk_tpu_torch.ops.cuda import viterbi_kernel as vk
-    return {"frontend": fk, "costas": ck, "tx": tk, "viterbi": vk, "ldpc": lk}
+# the C entries of each kernel wrapper, by the kernel's name in the
+# launch counts
+KERNEL_ENTRIES = {"frontend": ("qpsk_frontend_pipe", "qpsk_frontend_gen"),
+                  "costas": ("qpsk_costas_tm",),
+                  "tx": ("qpsk_tx", "qpsk_tx_gen"),
+                  "viterbi": ("qpsk_viterbi", "qpsk_viterbi_gen"),
+                  "ldpc": ("qpsk_ldpc",)}
+
+
+def kernel_launches(names=tuple(KERNEL_ENTRIES)) -> dict:
+    """{kernel: its C entries' launches since ``reset_launches``} of each
+    kernel of ``names``."""
+    return {k: sum(_lib.launches[e] for e in KERNEL_ENTRIES[k])
+            for k in names}
 
 
 def reset_launches() -> None:
-    """Every launch counter to 0, the per-mode ones included."""
-    for mod in kernel_modules().values():
-        mod.launches = 0
-        if hasattr(mod, "by_mode"):
-            mod.by_mode.clear()
+    """Every launch count to 0."""
+    _lib.launches.clear()
 
 
 def main_path(cfg, pcfg, dev, errs: dict) -> dict:
@@ -1199,7 +1206,6 @@ def main_path(cfg, pcfg, dev, errs: dict) -> dict:
 
     c, nframes = MAIN_PATH
     nsym = cfg.symbols_per_frame
-    mods = kernel_modules()
     reset_launches()
     t0 = time.perf_counter()
     payload, chan, clean, pcm = loopback_pcm(cfg, pcfg, c, nframes, seed=2024,
@@ -1207,7 +1213,7 @@ def main_path(cfg, pcfg, dev, errs: dict) -> dict:
     _, out = rx_stream(cfg, rx_init(cfg, (c,), device=dev), pcm)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = {name: mods[name].launches for name in ("frontend", "costas", "tx")}
+    counts = kernel_launches(("frontend", "costas", "tx"))
     print(f"  {c} channels x {nframes} frames: TX -> AWGN -> RX in {seconds:.3f} s "
           f"(host clock, first call); launches {counts}")
     for name, n in counts.items():
@@ -1507,7 +1513,6 @@ def coded_loopback(cfg, kind: str, dev, errs: dict) -> int:
     (c, npkt), fb, mfb = CODED_PATH, pcfg.frame_bits, cfg.bits_per_frame
     skip = 8 * fb      # the CLI's skip of the Costas transient (cli.py:167-174)
     channels = sorted({round(i * (c - 1) / 63) for i in range(64)})
-    mods = kernel_modules()
     decoder = "viterbi" if kind == "conv" else "ldpc"
 
     def decode(llrs):
@@ -1537,7 +1542,7 @@ def coded_loopback(cfg, kind: str, dev, errs: dict) -> int:
     results = [decode(llrs[ch, skip:]) for ch in channels]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = {name: mod.launches for name, mod in mods.items()}
+    counts = kernel_launches()
     print(f"  fec={kind}: {c} channels x {npkt} packets = {nframes} frames, "
           f"TX -> AWGN {CODED_SNR_DB} dB -> RX -> soft sync and tracked "
           f"extraction on {len(channels)} channels in {seconds:.3f} s (host "
@@ -1895,8 +1900,6 @@ def option_loopback(name: str, pcfg, dev, errs: dict) -> dict:
 
     _, snr_db, paths, level_db, nframes = OPTION_PATHS[name]
     cfg, c = option_cfg(name), MAIN_PATH[0]
-    mods = kernel_modules()
-    fk, ck, tk = mods["frontend"], mods["costas"], mods["tx"]
     reset_launches()
     t0 = time.perf_counter()
     payload, chan, clean, pcm = loopback_pcm(
@@ -1905,17 +1908,17 @@ def option_loopback(name: str, pcfg, dev, errs: dict) -> dict:
     _, out = rx_stream(cfg, rx_init(cfg, (c,), device=dev), pcm)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    # each mode the config runs, by the C entry that runs it: the TX and
+    # the front-end pipeline, the Costas loop with this config's gear or
+    # gains
+    n = _lib.launches
+    tx, fe, costas = n["qpsk_tx"], n["qpsk_frontend_pipe"], n["qpsk_costas_tm"]
     on_path = {
-        "level": {"tx": tk.by_mode["cycles4"],
-                  "frontend_tm_power": fk.by_mode["tm_power_pipe"],
-                  "costas_gear": ck.by_mode["gear"],
-                  "costas_gains": ck.by_mode["gains"]},
-        "multipath": {"tx": tk.by_mode["cycles4"],
-                      "frontend_cm": fk.by_mode["cm4_pipe"],
-                      "costas": ck.by_mode["qpsk"]},
-        "1200": {"tx_1200": tk.by_mode["cycles8"],
-                 "frontend_cm_1200": fk.by_mode["cm8_pipe"],
-                 "costas": ck.by_mode["qpsk"]}}[name]
+        "level": {"tx": tx, "frontend_tm_power": fe, "costas_gear": costas,
+                  "costas_gains": costas},
+        "multipath": {"tx": tx, "frontend_cm": fe, "costas": costas},
+        "1200": {"tx_1200": tx, "frontend_cm_1200": fe,
+                 "costas": costas}}[name]
     print(f"  {name}: {c} channels x {nframes} frames, TX -> "
           f"{'multipath -> ' if paths else ''}AWGN {snr_db} dB"
           f"{f' -> {level_db} dB level' if level_db else ''} -> RX in "
@@ -1949,8 +1952,10 @@ def option_rates(dev, errs: dict) -> dict:
     from qpsk_tpu_torch.ops.cplx import CF32
     from qpsk_tpu_torch.ops.modmap import bits_to_symbols
 
-    mods = kernel_modules()
-    fk, ck, tk = mods["frontend"], mods["costas"], mods["tx"]
+    from qpsk_tpu_torch.ops.cuda import costas_kernel as ck
+    from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
+    from qpsk_tpu_torch.ops.cuda import tx_kernel as tk
+
     (c, nframes), iters = RATE_POINT, 20
     nsamples = c * nframes * 512
     for name in OPTION_PATHS:
@@ -2112,8 +2117,6 @@ def family_loopback(name: str, pcfg, dev, errs: dict) -> dict:
         cfg, snr_db, nframes = family_cfg(name), FAMILY_PATHS[name][1], MAIN_PATH[1]
     kind, c = cfg.modulation, MAIN_PATH[0]
     slow = cfg.cycles == 8
-    mods = kernel_modules()
-    fk, ck, tk = mods["frontend"], mods["costas"], mods["tx"]
     reset_launches()
     t0 = time.perf_counter()
     payload, chan, clean, pcm = loopback_pcm(cfg, pcfg, c, nframes, seed=2027,
@@ -2124,12 +2127,14 @@ def family_loopback(name: str, pcfg, dev, errs: dict) -> dict:
     seconds = time.perf_counter() - t0
     key = f"costas_dd_{kind}"
     if slow:
-        fe_key, fe_mode = "frontend_cm_1200", "cm8"
+        fe_key = "frontend_cm_1200"
     else:
-        fe_key, fe_mode = (("frontend_tm_power", "tm_power") if cfg.agc
-                           else ("frontend", "tm"))
-    on_path = {"tx_1200" if slow else "tx": tk.by_mode[f"cycles{cfg.cycles}"],
-               fe_key: fk.by_mode[f"{fe_mode}_pipe"], key: ck.by_mode[f"dd_{kind}"]}
+        fe_key = "frontend_tm_power" if cfg.agc else "frontend"
+    # the dd mode of this modulation is the config's: the Costas entry's
+    # launches are its launches
+    n = _lib.launches
+    on_path = {"tx_1200" if slow else "tx": n["qpsk_tx"],
+               fe_key: n["qpsk_frontend_pipe"], key: n["qpsk_costas_tm"]}
     peak = int(clean.to(torch.int32).abs().max())
     print(f"  {name}: {c} channels x {nframes} frames, TX (largest |PCM| "
           f"{peak}) -> AWGN {snr_db} dB -> acquisition (mean {float(hz.mean()):.4f} "
@@ -2201,17 +2206,16 @@ def geometry_path(name: str, pcfg, dev, errs: dict, fields=None,
     cfg = ModemConfig(**(fields or GEOMETRY_PATHS[name]))
     c, npk = GEOMETRY_SHAPE
     nframes = npk * pcfg.frame_bits // cfg.bits_per_frame
-    mods = kernel_modules()
     reset_launches()
     payload, chan, clean, pcm = loopback_pcm(cfg, pcfg, c, nframes,
                                              seed=2030, dev=dev)
     _, out = rx_stream(cfg, rx_init(cfg, (c,), device=dev), pcm)
     torch.cuda.synchronize()
-    counts = {n: mods[n].launches for n in ("tx", "frontend", "costas")}
-    modes = {n: dict(mods[n].by_mode) for n in ("tx", "frontend")}
+    counts = kernel_launches(("tx", "frontend", "costas"))
+    entries = {e: n for e, n in _lib.launches.items() if n}
     print(f"  {name}: {c} channels x {nframes} frames of {cfg.frame_size} "
           f"samples, {cfg.cycles} samples per symbol, {cfg.ntaps} taps: "
-          f"launches {counts}, modes {modes}")
+          f"launches {counts}, by entry {entries}")
     for kernel, n in counts.items():
         need(n > 0, f"the {name} path never launched the {kernel} kernel")
     need(bool(torch.isfinite(out.symbols.re).all()
@@ -2343,7 +2347,7 @@ def off_geometry_call(pcfg, dev) -> None:
                   f"NotImplementedError ({err})")
         else:
             need(False, f"{what} at ntaps={cfg.ntaps} ran on the card")
-    launched = {n: m.launches for n, m in kernel_modules().items()}
+    launched = kernel_launches()
     need(not any(launched.values()),
          f"the off-geometry calls launched kernels: {launched}")
 
@@ -2374,7 +2378,6 @@ def family_coded(kind: str, dev, errs: dict) -> int:
     (c, npkt), fb, mfb = CODED_PATH, pcfg.frame_bits, cfg.bits_per_frame
     skip = 8 * fb - (8 * fb) % mod.bps           # cli.py:167-174
     channels = sorted({round(i * (c - 1) / 63) for i in range(64)})
-    mods = kernel_modules()
     decoder = "viterbi" if kind == "conv" else "ldpc"
 
     def scores_of(sym):
@@ -2410,10 +2413,10 @@ def family_coded(kind: str, dev, errs: dict) -> int:
     results = [decode(scores[ch]) for ch in channels]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = {"tx": mods["tx"].by_mode["cycles4"],
-              "frontend": mods["frontend"].by_mode["tm_pipe"],
-              "costas_dd_8psk": mods["costas"].by_mode["dd_8psk"],
-              decoder: mods[decoder].launches}
+    n = _lib.launches
+    counts = {"tx": n["qpsk_tx"], "frontend": n["qpsk_frontend_pipe"],
+              "costas_dd_8psk": n["qpsk_costas_tm"],
+              decoder: kernel_launches((decoder,))[decoder]}
     print(f"  8psk fec={kind}: {c} channels x {npkt} packets = {nframes} "
           f"frames, TX -> AWGN {FAMILY_CODED_SNR_DB} dB -> acquisition -> RX "
           f"-> scores -> soft hunt and tracked extraction on {len(channels)} "
@@ -2636,7 +2639,6 @@ def lowering_switches(pcfg, dev) -> None:
                                  frontend_impl="pallas", tx_impl="pallas")
     plain = dataclasses.replace(base, costas_impl="scan", frontend_impl="xla",
                                 tx_impl="xla")
-    mods = kernel_modules()
     st0, ts0 = rx_init(base, (c,), device=dev), tx_init(base, (c,), device=dev)
     _, auto_out = rx_stream(base, st0, pcm)
     for cfg, moved in ((pallas, True), (plain, False)):
@@ -2644,7 +2646,7 @@ def lowering_switches(pcfg, dev) -> None:
         _, out = rx_stream(cfg, st0, pcm)
         _, txp = tx_stream(cfg, ts0, chan, TX_OFFSET_HZ)
         torch.cuda.synchronize()
-        launched = {n: mods[n].launches for n in ("frontend", "costas", "tx")}
+        launched = kernel_launches(("frontend", "costas", "tx"))
         need(all(launched.values()) if moved else not any(launched.values()),
              f"{cfg.costas_impl}/{cfg.frontend_impl}/{cfg.tx_impl}: launches "
              f"{launched}")
@@ -2677,7 +2679,7 @@ def lowering_switches(pcfg, dev) -> None:
     reset_launches()
     v = viterbi_decode(ConvCode(), llrs, 256, impl="scan")
     lq = ldpc_decode(LdpcCode(256), ll, impl="xla")
-    need(not mods["viterbi"].launches and not mods["ldpc"].launches,
+    need(not any(kernel_launches(("viterbi", "ldpc")).values()),
          "a decoder's plain impl launched its kernel")
     need(torch.equal(v, viterbi_decode(ConvCode(), llrs, 256))
          and float((lq == ldpc_decode(LdpcCode(256), ll)).float().mean())
@@ -2752,8 +2754,10 @@ def general_instances(pcfg, dev, errs: dict, counts: dict,
     reset_launches()
     codes = [("viterbi", ConvCode(k, polys)) for k, polys in VITERBI8] + \
         [("ldpc", LdpcCode(k, dv=dv)) for k, dv in LDPC8]
+    ldpc_gen = 0
     for name, code in codes:
         nbits = 256
+        ldpc_before = _lib.launches["qpsk_ldpc"]
         for b in fec8_batches(name, code):
             gen = torch.Generator(device=dev).manual_seed(b + code.k
                                                           if name == "ldpc"
@@ -2780,12 +2784,16 @@ def general_instances(pcfg, dev, errs: dict, counts: dict,
             print(f"  {name}_gen {code} B={b:5d}: "
                   f"{'equal' if name == 'viterbi' else f'agreement {rate:.6f}'}"
                   f", {ck_}/{b} clean (plain {cp})")
-    counts["viterbi_gen"] = sum(vk.by_mode.values()) - vk.by_mode["k7"]
-    counts["ldpc_gen"] = sum(lk.by_mode.values()) - lk.by_mode["dv3"]
+        # a code's LDPC instance follows its dv: 3 the fast one, else general
+        if name == "ldpc" and code.dv != 3:
+            ldpc_gen += _lib.launches["qpsk_ldpc"] - ldpc_before
+    n = _lib.launches
+    counts["viterbi_gen"], counts["ldpc_gen"] = n["qpsk_viterbi_gen"], ldpc_gen
     need(counts["viterbi_gen"] > 0 and counts["ldpc_gen"] > 0,
          "the general decoder instances never launched")
-    print(f"  decoder launches: viterbi {dict(vk.by_mode)}, ldpc "
-          f"{dict(lk.by_mode)}")
+    print(f"  decoder launches: viterbi {n['qpsk_viterbi']} (K=7), "
+          f"{counts['viterbi_gen']} (general); ldpc "
+          f"{n['qpsk_ldpc'] - ldpc_gen} (dv 3), {ldpc_gen} (general)")
 
     # every general decoder code alone in a CUDA graph beside its bound
     print("  the general decoder instances alone in a CUDA graph:")
@@ -2878,7 +2886,7 @@ def general_instances(pcfg, dev, errs: dict, counts: dict,
                   f"NotImplementedError ({err})")
         else:
             need(False, f"{what} past the coverage ran on the card")
-    launched = {n: m.launches for n, m in kernel_modules().items()}
+    launched = kernel_launches()
     need(not any(launched.values()),
          f"the calls past the coverage launched kernels: {launched}")
 
@@ -2930,7 +2938,6 @@ def runtime_tx(dev) -> None:
     import numpy as np
     import torch
     from qpsk_tpu_torch import ModemConfig, StreamModulator
-    from qpsk_tpu_torch.ops.cuda import tx_kernel as tk
     from qpsk_tpu_torch.packet import PacketConfig
 
     npk, most = RUNTIME_TX
@@ -2958,7 +2965,8 @@ def runtime_tx(dev) -> None:
             pcm.append(mod.flush())
             torch.cuda.synchronize()
             walls[side] = time.perf_counter() - t0
-            out[side] = (np.concatenate(pcm), pends, mod, tk.launches)
+            out[side] = (np.concatenate(pcm), pends, mod,
+                         kernel_launches()["tx"])
         (pk, ek, mk, nk), (pp, ep, mp, np_) = out["kernel"], out["plain"]
         worst = int(np.abs(pk.astype(np.int32) - pp.astype(np.int32)).max())
         need(pk.shape == pp.shape and worst <= 3,
@@ -3009,7 +3017,6 @@ def runtime_case(name: str, dev, rtf: dict) -> None:
     chunks = list(zip(cuts[:-1], cuts[1:]))
     knobs = (dict(squelch_db=RUNTIME_SQUELCH_DB) if name == "uncoded" else {})
     half = len(chunks) // 2
-    mods = kernel_modules()
     path = os.path.join(tempfile.mkdtemp(), f"{name}.npz")
     runs, at_half = {}, 0
     for side, scfg in (("kernel", cfg), ("plain", path_cfg(cfg, "plain"))):
@@ -3028,7 +3035,7 @@ def runtime_case(name: str, dev, rtf: dict) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0 - saved_s
         runs[side] = (demod, pkts, wall,
-                      {n: m.launches for n, m in mods.items()})
+                      kernel_launches())
     (dk, pk, wk, lk_), (dp, pp, wp, lp) = runs["kernel"], runs["plain"]
     need(len(pk) == len(pp) and all(
         (a.crc_ok, a.stream_index) == (b.crc_ok, b.stream_index)
@@ -3139,7 +3146,11 @@ def no_plain():
     """Inside, a call of a kernel wrapper's plain version (Costas, either
     front-end, TX, Viterbi, LDPC) raises: a path run in it reaches the
     kernels only."""
-    mods = kernel_modules()
+    from qpsk_tpu_torch.ops.cuda import (costas_kernel, frontend_kernel,
+                                         ldpc_kernel, tx_kernel,
+                                         viterbi_kernel)
+    mods = {"frontend": frontend_kernel, "costas": costas_kernel,
+            "tx": tx_kernel, "viterbi": viterbi_kernel, "ldpc": ldpc_kernel}
     names = {"costas": ("costas_run_tm_plain",),
              "frontend": ("rx_frontend_tm_plain", "frontend_xla"),
              "tx": ("tx_modulate_plain",), "viterbi": ("viterbi_decode_plain",),
@@ -3206,7 +3217,6 @@ def mode_loopback(name: str, pcfg, dev, errs: dict) -> dict:
 
     fields, snr_db, nframes, skip, link = MODE_PATHS[name]
     cfg, c = ModemConfig(**fields), MAIN_PATH[0]
-    mods = kernel_modules()
     reset_launches()
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(2031)
@@ -3228,11 +3238,11 @@ def mode_loopback(name: str, pcfg, dev, errs: dict) -> dict:
         _, out = rx_stream(cfg, rx_init(cfg, (c,), device=dev), pcm)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = {n: mods[n].launches for n in ("tx", "frontend", "costas")}
+    counts = kernel_launches(("tx", "frontend", "costas"))
     print(f"  {name}: {c} channels x {pcm.shape[1]} frames, TX -> "
           + (f"clock offset {MODE_CLOCK} -> " if name == "tracking" else "")
           + f"AWGN {snr_db} dB -> RX in {seconds:.3f} s (host clock, first "
-          f"call); launches {counts}, Costas modes {dict(mods['costas'].by_mode)}")
+          f"call); launches {counts}")
     fe_kernel = cfg.timing_mode == "power"
     for kernel, n in counts.items():
         need((n > 0) == (kernel != "frontend" or fe_kernel),
@@ -3276,7 +3286,6 @@ def mode_coded(dev, errs: dict) -> int:
     (c, npkt), fb, mfb = MODE_CODED, pcfg.frame_bits, cfg.bits_per_frame
     skip = 8 * fb
     channels = sorted({round(i * (c - 1) / 63) for i in range(64)})
-    mods = kernel_modules()
 
     def decode(bits):
         sync = find_sync_streams(pcfg, rotated_streams(bits),
@@ -3304,7 +3313,7 @@ def mode_coded(dev, errs: dict) -> int:
         results = [decode(out.bits[ch].reshape(-1)[skip:]) for ch in channels]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = {name: mod.launches for name, mod in mods.items()}
+    counts = kernel_launches()
     print(f"  dqpsk+conv: {c} channels x {npkt} packets = {nframes} frames, "
           f"TX -> AWGN {MODE_CODED_SNR_DB} dB -> RX -> hard sync and tracked "
           f"extraction on {len(channels)} channels in {seconds:.3f} s (host "
@@ -3409,7 +3418,7 @@ def parity_on_card(dev, errs: dict) -> int:
                            torch.from_numpy(golden["pcm"].reshape(nf, fsz)).to(dev))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = kernel_modules()["costas"].launches
+    launches = kernel_launches()["costas"]
     need(launches == nf, f"the parity scan launched the Costas kernel "
          f"{launches} times for {nf} frames")
     ti = out.timing_index.cpu().numpy()
@@ -3425,9 +3434,9 @@ def parity_on_card(dev, errs: dict) -> int:
     loop = CostasLoop(cfg.loop_bw, cfg.min_freq, cfg.max_freq, cfg.damping,
                       device=dev)
     dec = torch.from_numpy(golden["decim"]).to(dev)
-    before = kernel_modules()["costas"].launches
+    before = kernel_launches()["costas"]
     costas = [loop(CF32(dec[k, :, 0], dec[k, :, 1])) for k in range(nf)]
-    need(kernel_modules()["costas"].launches - before == nf,
+    need(kernel_launches()["costas"] - before == nf,
          "CostasLoop did not launch the Costas kernel a call")
     costas = torch.stack([torch.stack([z.re, z.im], -1) for z in costas])
     e_cos = float(np.abs(costas.cpu().numpy() - golden["costas"]).max())
@@ -3466,7 +3475,7 @@ def chirp_tx(dev) -> None:
                         TX_OFFSET_HZ, doppler_hz_per_s=rate)
     worst = int((card.cpu().to(torch.int32) - host.to(torch.int32)).abs().max())
     need(worst <= 2, f"the chirped TX on the card is {worst} LSB off the CPU's")
-    need(kernel_modules()["tx"].launches == 0, "the chirp launched the TX kernel")
+    need(kernel_launches()["tx"] == 0, "the chirp launched the TX kernel")
     print(f"  chirp TX ({rate} Hz/s from +{TX_OFFSET_HZ} Hz, {c} channels x "
           f"{nframes} frames): within {worst} LSB of the same call on the CPU")
 
@@ -3481,7 +3490,6 @@ def mode_rates(dev, errs: dict) -> None:
     from qpsk_tpu_torch import ModemConfig, config_parity, rx_init, rx_stream
 
     (c, nframes), iters = RATE_POINT, 10
-    mods = kernel_modules()
     for name in ("dqpsk", "tracking"):
         cfg = ModemConfig(**MODE_PATHS[name][0])
         pcm = noise_pcm(cfg, c, nframes, 7, dev)
@@ -3496,7 +3504,7 @@ def mode_rates(dev, errs: dict) -> None:
         torch.cuda.synchronize()
         print(f"  rx_stream {name:8s} kernel path: {ms:.4f} ms/call, "
               f"{c * nframes * cfg.frame_size / ms * 1e3:.6g} samples/s; "
-              f"launches a call {[(n, m.launches) for n, m in mods.items()]}")
+              f"launches a call {list(kernel_launches().items())}")
     cfg = config_parity()
     c, nframes = PARITY_RATE
     pcm = noise_pcm(cfg, c, nframes, 8, dev)
@@ -3510,7 +3518,7 @@ def mode_rates(dev, errs: dict) -> None:
         rx_stream(cfg, st, pcm)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    launches = mods["costas"].launches
+    launches = kernel_launches()["costas"]
     print(f"  rx_stream parity   kernel path: {ms:.3f} ms/call of {nframes} "
           f"frames, {c * nframes * cfg.frame_size / ms * 1e3:.6g} samples/s, "
           f"{ms / nframes:.3f} ms a frame (host clock); Costas launches "
@@ -3535,7 +3543,7 @@ def forced_kernel_refusal(dev) -> None:
         raise SmokeFailure("frontend_impl='pallas' with tracking ran")
     except ValueError as e:
         need("frontend_impl" in str(e), f"the refusal does not name the field: {e}")
-    n = sum(m.launches for m in kernel_modules().values())
+    n = sum(_lib.launches.values())
     need(n == 0, f"{n} launches before the refusal")
     print("  frontend_impl='pallas' with timing_mode='tracking': ValueError "
           "before any launch")
@@ -3764,7 +3772,6 @@ def cli_side(name: str, d: str, plain: bool) -> dict:
     with open(os.path.join(d, "p.hex"), "w") as fh:
         fh.write("\n".join(rng.integers(0, 256, 30, dtype=np.uint8).tobytes()
                            .hex() for _ in range(CLI_STREAM_LINES)) + "\n")
-    mods = kernel_modules()
     reset_launches()
     rec, outs, wall = {}, [], 0.0
     with (plain_cli() if plain else no_plain()), recorded_cli(rec):
@@ -3780,7 +3787,7 @@ def cli_side(name: str, d: str, plain: bool) -> dict:
             outs.append((out, err))
             wall += sec
     return dict(outs=outs, rec=rec, wall=wall,
-                launches={k: mods[k].launches for k in mods})
+                launches=kernel_launches())
 
 
 def same_records(a: dict, b: dict, label: str, diffs: list) -> None:
@@ -3956,7 +3963,6 @@ def fdm_receiver_on_card(dev, counts: dict) -> None:
     power = float(((wide.to(torch.float32) / cfg.pcm_scale) ** 2).mean())
     wide = awgn_pcm(gen, wide, 18.0, power, cfg.pcm_scale).cpu().numpy()
     sizes = np.random.default_rng(2053).integers(1000, 30000, 400)
-    mods = kernel_modules()
     got = {}
     for side in ("kernel", "plain"):
         reset_launches()
@@ -3974,7 +3980,7 @@ def fdm_receiver_on_card(dev, counts: dict) -> None:
                 pos += int(sz)
             for ch, new in enumerate(rx.flush()):
                 pkts[ch].extend(new)
-        launched = {n: mods[n].launches for n in ("frontend", "costas")}
+        launched = kernel_launches(("frontend", "costas"))
         need(all(launched.values()) if side == "kernel"
              else not any(launched.values()),
              f"FdmReceiver {side} side: launches {launched}")
@@ -4142,7 +4148,6 @@ def blocks_phase(pcfg, dev, errs: dict, counts: dict, times: dict) -> None:
     print(f"  serial rx_stream (one channel, 8 packets skipped): sync "
           f"{int(sync.score)}/4, {len(found)} of {nframes} packets "
           f"recovered bit-exact, {lost_serial} lost")
-    mods = kernel_modules()
     launched, keep = 0, None
     runs = [(nb, BLOCKS_OVERLAP) for nb in BLOCKS_NBLOCKS] + [BLOCKS_ODD]
     for nb, overlap in runs:
@@ -4153,7 +4158,7 @@ def blocks_phase(pcfg, dev, errs: dict, counts: dict, times: dict) -> None:
             sym, bits, hz = blocks.rx_stream_blockparallel(cfg, pcm, nb,
                                                            overlap)
             torch.cuda.synchronize()
-        moved = {k: m.launches for k, m in mods.items()}
+        moved = kernel_launches()
         need(moved["costas"] == 1 and len(seen) == 1
              and not any(v for k, v in moved.items() if k != "costas"),
              f"{label}: launches {moved}, {len(seen)} Costas calls")
@@ -4299,7 +4304,7 @@ def taps_phase(dev) -> None:
     reset_launches()
     _, again = rx_stream(cfg, rx_init(cfg, (256,), device=dev), pcm)
     torch.cuda.synchronize()
-    need(kernel_modules()["costas"].launches == 1
+    need(kernel_launches()["costas"] == 1
          and torch.equal(again.bits, out.bits),
          "the card does not launch kernels after the NaN check")
     tap = ScatterTap()
@@ -4359,11 +4364,6 @@ def ranks_max(x: float, dev) -> float:
     return float(t.item())
 
 
-def launched(names) -> dict:
-    mods = kernel_modules()
-    return {k: mods[k].launches for k in names}
-
-
 def scale_dp(cfg, pcfg, mesh, dev, rank: int, world: int, say, res: dict):
     """Phase 12b on one rank: the dp receive at full width, kernels only,
     then gates 1 and 2.  Returns (demod, state, PCM) for the rates."""
@@ -4386,7 +4386,7 @@ def scale_dp(cfg, pcfg, mesh, dev, rank: int, world: int, say, res: dict):
         _, out = demod(st0, pcm)
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    moved = launched(("tx", "frontend", "costas"))
+    moved = kernel_launches(("tx", "frontend", "costas"))
     for k, n in moved.items():
         need(n > 0, f"dp: rank {rank} never launched the {k} kernel")
         res["launches"][k] += n
@@ -4478,7 +4478,7 @@ def scale_soft(cfg, mesh, dev, rank: int, world: int, say, res: dict) -> None:
                                                                navail)))
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    moved = launched(("tx", "frontend", "costas", "viterbi"))
+    moved = kernel_launches(("tx", "frontend", "costas", "viterbi"))
     for k, n in moved.items():
         need(n > 0, f"soft: rank {rank} never launched the {k} kernel")
         res["launches"][k] += n
@@ -4543,7 +4543,7 @@ def scale_sp(cfg, pcfg, mesh, dev, rank: int, world: int, say, res: dict,
         reset_launches()
         sym, bits, hz = stream.rx_stream_timeparallel(cfg, flat, mesh)
         torch.cuda.synchronize()
-    moved = launched(kernel_modules())
+    moved = kernel_launches()
     need(moved["costas"] == 1 and len(seen) == 1
          and not any(v for k, v in moved.items() if k != "costas"),
          f"sp: rank {rank} launches {moved}, {len(seen)} Costas calls")

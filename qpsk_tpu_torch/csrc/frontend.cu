@@ -150,6 +150,17 @@ struct Taps {
   float im[KT];
 };
 
+// the ntaps host taps behind KT - ntaps zeros, as every instance takes them
+Taps pad_taps(const void* taps_re, const void* taps_im, int ntaps) {
+  Taps taps;
+  for (int k = 0; k < KT; ++k) {
+    const int j = k - (KT - ntaps);
+    taps.re[k] = j >= 0 ? static_cast<const float*>(taps_re)[j] : 0.f;
+    taps.im[k] = j >= 0 ? static_cast<const float*>(taps_im)[j] : 0.f;
+  }
+  return taps;
+}
+
 __device__ __forceinline__ float sq(float r, float i) {
   return __fadd_rn(__fmul_rn(r, r), __fmul_rn(i, i));
 }
@@ -955,15 +966,8 @@ int launch(const void* pcm, const void* tail_re, const void* tail_im,
            const void* dd_im, void* zr, void* zi, void* index, void* ndd_re,
            void* ndd_im, void* power, void* nph_re, void* nph_im,
            void* ntail_re, void* ntail_im, int C, int F, int fsz, int ntaps,
-           int blocks, const void* taps_re, const void* taps_im, double omega,
-           float gain, float inv_scale, void* stream) {
-  // the taps behind KT - ntaps zeros
-  Taps taps;
-  for (int k = 0; k < KT; ++k) {
-    const int j = k - (KT - ntaps);
-    taps.re[k] = j >= 0 ? static_cast<const float*>(taps_re)[j] : 0.f;
-    taps.im[k] = j >= 0 ? static_cast<const float*>(taps_im)[j] : 0.f;
-  }
+           int blocks, const Taps& taps, double omega, float gain,
+           float inv_scale, void* stream) {
   auto kernel = frontend_kernel_pipe<CYC, TM, FSZ>;
   const int bytes = PipeLayout(fsz, CYC).bytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -1483,60 +1487,47 @@ frontend_general_kernel(const int16_t* __restrict__ pcm,
 
 }  // namespace
 
-// Time-major launch on ``blocks`` persistent blocks (one an SM, at most
-// one a tile of 8 channels x a frame); ``power`` may be null.  Reads the
-// carried mixed-domain tail (C, ntaps-1) and phase (C,), writes the new
-// ones beside the picks.
-extern "C" int qpsk_frontend_tm(const void* pcm, const void* tail_re,
-                                const void* tail_im, const void* p0_re,
-                                const void* p0_im, const void* dd_re,
-                                const void* dd_im, void* zr, void* zi,
-                                void* index, void* ndd_re, void* ndd_im,
-                                void* power, void* nph_re, void* nph_im,
-                                void* ntail_re, void* ntail_im, int C, int F,
-                                int fsz, int cycles, int ntaps, int blocks,
-                                const void* taps_re, const void* taps_im,
-                                double omega, float gain, float inv_scale,
-                                void* stream) {
+// The two entries take one argument list.  ``tm`` 1: the time-major launch
+// with the one-frame delay (dd_*, ndd_*) and, if ``power`` is not null, the
+// power output; 0: the channel-major launch, the picks in zr/zi, the
+// delay's and the power's pointers null.  Both read the carried
+// mixed-domain tail (C, ntaps-1) and phase (C,) and write the new ones
+// beside the picks.
+
+// The pipeline, on ``blocks`` persistent blocks (one an SM, at most one a
+// tile of 8 channels x a frame); ``scratch`` is not read.
+extern "C" int qpsk_frontend_pipe(const void* pcm, const void* tail_re,
+                                  const void* tail_im, const void* p0_re,
+                                  const void* p0_im, const void* dd_re,
+                                  const void* dd_im, void* zr, void* zi,
+                                  void* index, void* ndd_re, void* ndd_im,
+                                  void* power, void* scratch, void* nph_re,
+                                  void* nph_im, void* ntail_re,
+                                  void* ntail_im, int C, int F, int fsz,
+                                  int cycles, int ntaps, int tm, int blocks,
+                                  const void* taps_re, const void* taps_im,
+                                  double omega, float gain, float inv_scale,
+                                  void* stream) {
   if (!covered(C, F, fsz, cycles, ntaps, blocks))
     return (int)cudaErrorInvalidValue;
   const bool d = fsz == 512;
-  const auto run = cycles == 2 ? (d ? launch<2, true, 512> : launch<2, true, 0>)
-                   : cycles == 4 ? (d ? launch<4, true, 512> : launch<4, true, 0>)
-                                 : (d ? launch<8, true, 512> : launch<8, true, 0>);
+  const auto run =
+      tm ? (cycles == 2 ? (d ? launch<2, true, 512> : launch<2, true, 0>)
+            : cycles == 4 ? (d ? launch<4, true, 512> : launch<4, true, 0>)
+                          : (d ? launch<8, true, 512> : launch<8, true, 0>))
+         : (cycles == 2 ? (d ? launch<2, false, 512> : launch<2, false, 0>)
+            : cycles == 4 ? (d ? launch<4, false, 512> : launch<4, false, 0>)
+                          : (d ? launch<8, false, 512> : launch<8, false, 0>));
   return run(pcm, tail_re, tail_im, p0_re, p0_im, dd_re, dd_im, zr, zi, index,
              ndd_re, ndd_im, power, nph_re, nph_im, ntail_re, ntail_im, C, F,
-             fsz, ntaps, blocks, taps_re, taps_im, omega, gain, inv_scale,
-             stream);
+             fsz, ntaps, blocks, pad_taps(taps_re, taps_im, ntaps), omega,
+             gain, inv_scale, stream);
 }
 
-// Channel-major launch.
-extern "C" int qpsk_frontend_cm(const void* pcm, const void* tail_re,
-                                const void* tail_im, const void* p0_re,
-                                const void* p0_im, void* picks_re,
-                                void* picks_im, void* index, void* nph_re,
-                                void* nph_im, void* ntail_re, void* ntail_im,
-                                int C, int F, int fsz, int cycles, int ntaps,
-                                int blocks, const void* taps_re,
-                                const void* taps_im, double omega, float gain,
-                                float inv_scale, void* stream) {
-  if (!covered(C, F, fsz, cycles, ntaps, blocks))
-    return (int)cudaErrorInvalidValue;
-  const bool d = fsz == 512;
-  const auto run = cycles == 2 ? (d ? launch<2, false, 512> : launch<2, false, 0>)
-                   : cycles == 4 ? (d ? launch<4, false, 512> : launch<4, false, 0>)
-                                 : (d ? launch<8, false, 512> : launch<8, false, 0>);
-  return run(pcm, tail_re, tail_im, p0_re, p0_im, nullptr, nullptr, picks_re,
-             picks_im, index, nullptr, nullptr, nullptr, nph_re, nph_im,
-             ntail_re, ntail_im, C, F, fsz, ntaps, blocks, taps_re, taps_im,
-             omega, gain, inv_scale, stream);
-}
-
-// The general instance, both launches (``tm`` 1: time-major with the delay
-// and, if ``power`` is not null, the power output, whose tree runs in
-// ``scratch``, (C, F, fsz/cycles) float32, past GSQ symbols a frame; 0:
-// channel-major, the picks in zr/zi).  Takes any cycles in
-// 1..256 dividing fsz, fsz a multiple of 128, odd ntaps <= 129.
+// The general instance, one block a tile (``blocks`` is not read); with
+// the power output its tree runs in ``scratch``, (C, F, fsz/cycles)
+// float32, past GSQ symbols a frame.  Takes any cycles in 1..256 dividing
+// fsz, fsz a multiple of 128, odd ntaps <= 129.
 extern "C" int qpsk_frontend_gen(const void* pcm, const void* tail_re,
                                  const void* tail_im, const void* p0_re,
                                  const void* p0_im, const void* dd_re,
@@ -1545,7 +1536,7 @@ extern "C" int qpsk_frontend_gen(const void* pcm, const void* tail_re,
                                  void* power, void* scratch, void* nph_re,
                                  void* nph_im, void* ntail_re, void* ntail_im,
                                  int C, int F, int fsz, int cycles, int ntaps,
-                                 int tm, const void* taps_re,
+                                 int tm, int blocks, const void* taps_re,
                                  const void* taps_im, double omega, float gain,
                                  float inv_scale, void* stream) {
   if (C < 1 || F < 1 || ntaps < 1 || ntaps > KT || ntaps % 2 == 0 ||
@@ -1556,12 +1547,6 @@ extern "C" int qpsk_frontend_gen(const void* pcm, const void* tail_re,
   const bool sq_smem = tm && power != nullptr && nsym <= GSQ;
   if (tm && power != nullptr && scratch == nullptr)
     return (int)cudaErrorInvalidValue;
-  Taps taps;
-  for (int k = 0; k < KT; ++k) {
-    const int j = k - (KT - ntaps);
-    taps.re[k] = j >= 0 ? static_cast<const float*>(taps_re)[j] : 0.f;
-    taps.im[k] = j >= 0 ? static_cast<const float*>(taps_im)[j] : 0.f;
-  }
   const bool resident =
       GenLayout(fsz, cycles, nsym, true, sq_smem).bytes <= GRES_BYTES;
   const int bytes = GenLayout(fsz, cycles, nsym, resident, sq_smem).bytes;
@@ -1575,14 +1560,14 @@ extern "C" int qpsk_frontend_gen(const void* pcm, const void* tail_re,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)((C + CG - 1) / CG) * F;
-  kernel<<<(unsigned)blocks, GNT, bytes, (cudaStream_t)stream>>>(
+  const long long grid = (long long)((C + CG - 1) / CG) * F;
+  kernel<<<(unsigned)grid, GNT, bytes, (cudaStream_t)stream>>>(
       (const int16_t*)pcm, (const float*)tail_re, (const float*)tail_im,
       (const float*)p0_re, (const float*)p0_im, (const float*)dd_re,
       (const float*)dd_im, (float*)zr, (float*)zi, (int32_t*)index,
       (float*)ndd_re, (float*)ndd_im, (float*)power, (float*)scratch,
       (float*)nph_re, (float*)nph_im, (float*)ntail_re, (float*)ntail_im, C,
-      F, fsz, cycles, ntaps - 1, resident ? 1 : 0, taps, omega, gain,
-      inv_scale);
+      F, fsz, cycles, ntaps - 1, resident ? 1 : 0,
+      pad_taps(taps_re, taps_im, ntaps), omega, gain, inv_scale);
   return (int)cudaGetLastError();
 }

@@ -7,13 +7,15 @@ linked into one shared library with a plain C interface, loaded with
 ``qpsk_tpu_torch/_build/`` directory, under a name keyed on a hash of the
 sources and flags, so an edited source is rebuilt and a fresh checkout
 builds its own.  Nothing here runs at import time.  Every launch is a
-call of ``launch``, whose ``check`` counts it as ``launch.<entry>`` in
+call of ``launch``, whose ``check`` counts it, always in ``launches`` and,
+while a profiler records, as ``launch.<entry>`` in
 ``qpsk_tpu_torch.tracing``; the load is the ``kernels.load`` span, a build
 the ``kernels.build`` counter.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -35,11 +37,13 @@ NVCC_FLAGS = _ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                       "-Xptxas", "-v")
 LINK_FLAGS = _ARCH + ("-shared",)
 
+# the launches of each C entry since the last ``launches.clear()``
+launches = collections.Counter()
+
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
-    "qpsk_frontend_tm": [_P] * 17 + [_I] * 6 + [_P, _P, _D, _F, _F, _P],
-    "qpsk_frontend_cm": [_P] * 12 + [_I] * 6 + [_P, _P, _D, _F, _F, _P],
-    "qpsk_frontend_gen": [_P] * 18 + [_I] * 6 + [_P, _P, _D, _F, _F, _P],
+    **dict.fromkeys(("qpsk_frontend_pipe", "qpsk_frontend_gen"),
+                    [_P] * 18 + [_I] * 7 + [_P, _P, _D, _F, _F, _P]),
     "qpsk_costas_tm": [_P] * 15 + [_I] * 5 + [_P, _P, _P],
     "qpsk_sincosf": [_P] * 3 + [ctypes.c_longlong, _P],
     "qpsk_tx": [_P] * 11 + [_I] * 4 + [_P, _D, _F, _F, _P],
@@ -160,6 +164,7 @@ def check(rc: int, name: str, start_ns: int | None = None) -> None:
     launch (begun at ``start_ns``, else now)."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}")
+    launches[name] += 1
     tracing.count(f"launch.{name}", start_ns=start_ns)
 
 

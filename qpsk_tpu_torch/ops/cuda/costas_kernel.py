@@ -16,7 +16,6 @@ mode) or ``costas_run_gear_traced``, then ``demod_bits`` (dd mode:
 
 from __future__ import annotations
 
-import collections
 import functools
 
 import numpy as np
@@ -29,15 +28,6 @@ from qpsk_tpu_torch.ops.costas import (CostasGear, CostasParams, CostasState,
 from qpsk_tpu_torch.ops.cplx import CF32
 from qpsk_tpu_torch.ops.cuda import _lib
 from qpsk_tpu_torch.ops.modmap import demod_bits
-
-# Kernel launches since the last reset (set to 0 to start a count), and
-# the same launches by mode (clear() it): "qpsk" for the single-bandwidth
-# QPSK loop without gains, "dd_bpsk", "dd_8psk" and "dd_16qam" for the
-# decision-directed loop, "gear" and "gains" for every launch in that mode
-# (a gear + gains launch counts in both, a dd + gains launch in its dd
-# mode and in "gains").
-launches = 0
-by_mode = collections.Counter()
 
 # the kernel's detector kinds (csrc/costas.cu, enum Detector)
 _DETECTOR = {"bpsk": 1, "8psk": 2, "16qam": 3}
@@ -131,7 +121,6 @@ def unpack_labels_tm(packed: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(state, zr_tm, zi_tm, params, trace_every, gear, gains, dd):
-    global launches
     t, c = zr_tm.shape
     if t < 1 or c < 1 or trace_every < 1 or t % trace_every:
         raise ValueError(
@@ -171,15 +160,6 @@ def _launch(state, zr_tm, zi_tm, params, trace_every, gear, gains, dd):
         0 if mod is None else _DETECTOR[mod.name],
         *(a.ctypes.data for a in _constants(params, gear, dd)),
         _lib.stream_ptr(dev))
-    launches += 1
-    if gear:
-        by_mode["gear"] += 1
-    if gains is not None:
-        by_mode["gains"] += 1
-    if dd is not None:
-        by_mode[f"dd_{dd[0]}"] += 1
-    elif not gear and gains is None:
-        by_mode["qpsk"] += 1
     return CostasState(**out), CF32(outr, outi), ftrace.T, bits
 
 

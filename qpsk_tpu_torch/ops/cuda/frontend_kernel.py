@@ -25,8 +25,9 @@ launches, the AGC power output at any symbol count.  The wrapper picks the
 instance by geometry: at 2, 4 or 8 samples per symbol and frames up to
 ``_FAST_MAX_FRAME`` = 512 samples, with the power output when a frame's
 symbols are a power of two, the persistent, warp-specialised pipeline
-(``frontend_kernel_pipe``, one block an SM, ``wgmma``); the general
-instance (``frontend_general_kernel``, a tensor-core FIR by ``mma.sync``
+(``frontend_kernel_pipe``, C entry ``qpsk_frontend_pipe``, one block an
+SM, ``wgmma``); the general instance (``frontend_general_kernel``, C
+entry ``qpsk_frontend_gen``, a tensor-core FIR by ``mma.sync``
 with the samples per symbol read at run time, the frame streamed through
 shared memory in chunks) everywhere else.  A CUDA call off the coverage raises
 ``NotImplementedError`` naming the field before any launch; a CPU call
@@ -37,7 +38,6 @@ tensor's device), "xla" (the plain version on any device) or "pallas"
 
 from __future__ import annotations
 
-import collections
 import functools
 import math
 
@@ -50,15 +50,6 @@ from qpsk_tpu_torch.ops import timing as timing_ops
 from qpsk_tpu_torch.ops.agc import frame_powers_tm
 from qpsk_tpu_torch.ops.cplx import CF32, cmap
 from qpsk_tpu_torch.ops.cuda import _lib
-
-# Kernel launches since the last reset (set to 0 to start a count), and
-# the same launches by mode: the pipeline's "tm_pipe", "tm_power_pipe",
-# "cm4_pipe", "cm8_pipe", each with the fields off the default config
-# after it, e.g. "tm_pipe_cyc2", "cm4_pipe_fsz256", "tm_pipe_ntaps63";
-# the general instance's as "tm_gen_cyc3_fsz384", "cm_gen_cyc16_fsz2048",
-# "tm_power_gen_fsz1536", "tm_gen_fsz1024" (clear() it).
-launches = 0
-by_mode = collections.Counter()
 
 # the samples per symbol the pipeline is built for, its longest frame
 # (csrc/frontend.cu, PIPE_MAX_FRAME: 16 segments of 32 outputs, a FIR
@@ -96,17 +87,6 @@ def _pipe_grid(c: int, nframes: int, sms: int) -> int:
     return min(-(-c // 8) * nframes, sms)
 
 
-def _mode(cfg, base: str) -> str:
-    """``by_mode``'s key of a launch: ``base``, then each field off the
-    default geometry."""
-    extra = [f"{name}{value}" for name, value, default in (
-        ("cyc", cfg.cycles, 4 if base.startswith(("tm", "cm_gen"))
-         else cfg.cycles),
-        ("ntaps", cfg.ntaps, 127), ("fsz", cfg.frame_size, 512))
-        if value != default]
-    return "_".join([base] + extra)
-
-
 def rx_frontend_tm(cfg, pcm: torch.Tensor, nco_phase: CF32, fir_tail: CF32,
                    decim_delay: CF32):
     """Time-major front-end over ``(C, nframes, frame_size)`` int16 PCM.
@@ -120,7 +100,7 @@ def rx_frontend_tm(cfg, pcm: torch.Tensor, nco_phase: CF32, fir_tail: CF32,
     ``cfg.agc``.  ``cfg.frontend_impl`` picks the lowering.
     """
     if _lib.use_kernel(cfg.frontend_impl, pcm, "frontend_impl"):
-        return _launch_tm(cfg, pcm, nco_phase, fir_tail, decim_delay)
+        return _launch(cfg, pcm, nco_phase, fir_tail, decim_delay)
     return rx_frontend_tm_plain(cfg, pcm, nco_phase, fir_tail, decim_delay)
 
 
@@ -130,7 +110,7 @@ def rx_frontend(cfg, pcm: torch.Tensor, nco_phase: CF32, fir_tail: CF32):
     (C, nframes) int32, new_nco_phase, new_fir_tail); its plain version is
     ``frontend_xla``; ``cfg.frontend_impl`` picks the lowering."""
     if _lib.use_kernel(cfg.frontend_impl, pcm, "frontend_impl"):
-        return _launch_cm(cfg, pcm, nco_phase, fir_tail)
+        return _launch(cfg, pcm, nco_phase, fir_tail)
     return frontend_xla(cfg, pcm, nco_phase, fir_tail)
 
 
@@ -221,99 +201,52 @@ def _launch_consts(cfg) -> tuple:
             float(cfg.gain) / scale, 1.0 / float(cfg.pcm_scale))
 
 
-def _state_out(c, ntaps_m1, dev):
-    """Empty (new_nco_phase, new_fir_tail) for the kernel to fill."""
-    def empty(shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
-    return (CF32(empty((c,)), empty((c,))),
-            CF32(empty((c, ntaps_m1)), empty((c, ntaps_m1))))
-
-
-def _launch_tm(cfg, pcm, nco_phase, fir_tail, decim_delay):
-    global launches
-    want_power = bool(cfg.agc)
+def _launch(cfg, pcm, nco_phase, fir_tail, decim_delay=None):
+    """One launch of ``qpsk_frontend_pipe`` (the pipeline, where ``_fast``
+    takes the geometry) or ``qpsk_frontend_gen``: time-major, with the
+    delay and, under ``cfg.agc``, the power output, when ``decim_delay`` is
+    given (``rx_frontend_tm``'s outputs), else channel-major
+    (``rx_frontend``'s)."""
+    tm = decim_delay is not None
+    want_power = tm and bool(cfg.agc)
     pcm, c, nframes = _check_inputs(cfg, pcm, nco_phase, fir_tail)
     dev = pcm.device
     nsym = cfg.symbols_per_frame
-    for part, plane in zip(("re", "im"), decim_delay):
-        _lib.require(plane, f"decim_delay.{part}", torch.float32, (c, nsym),
-                     dev)
+    if tm:
+        for part, plane in zip(("re", "im"), decim_delay):
+            _lib.require(plane, f"decim_delay.{part}", torch.float32,
+                         (c, nsym), dev)
     hm, omega, gain, inv_scale = _launch_consts(cfg)
+    fast = _fast(cfg, want_power)
+    blocks = _pipe_grid(c, nframes, _lib.sm_count(dev)) if fast else 0
 
     def empty(shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
-    zr, zi = empty((nframes * nsym, c)), empty((nframes * nsym, c))
+    shape = (nframes * nsym, c) if tm else (c, nframes, nsym)
+    z = CF32(empty(shape), empty(shape))
     index = torch.empty((c, nframes), dtype=torch.int32, device=dev)
-    ndd = CF32(empty((c, nsym)), empty((c, nsym)))
+    ndd = CF32(empty((c, nsym)), empty((c, nsym))) if tm else None
     powers = empty((c, nframes)) if want_power else None
-    phase, tail = _state_out(c, cfg.ntaps - 1, dev)
-    if not _fast(cfg, want_power):
-        scratch = empty((c, nframes, nsym)) if want_power else None
-        _lib.launch(
-            "qpsk_frontend_gen",
-            pcm.data_ptr(), fir_tail.re.data_ptr(), fir_tail.im.data_ptr(),
-            nco_phase.re.data_ptr(), nco_phase.im.data_ptr(),
-            decim_delay.re.data_ptr(), decim_delay.im.data_ptr(),
-            zr.data_ptr(), zi.data_ptr(), index.data_ptr(), ndd.re.data_ptr(),
-            ndd.im.data_ptr(), powers.data_ptr() if want_power else None,
-            scratch.data_ptr() if want_power else None, phase.re.data_ptr(),
-            phase.im.data_ptr(), tail.re.data_ptr(), tail.im.data_ptr(), c,
-            nframes, cfg.frame_size, cfg.cycles, cfg.ntaps, 1,
-            hm[0].ctypes.data, hm[1].ctypes.data, omega, gain, inv_scale,
-            _lib.stream_ptr(dev))
-        launches += 1
-        by_mode[_mode(cfg, "tm_power_gen" if want_power else "tm_gen")] += 1
-        return zr, zi, index, phase, tail, ndd, powers
-    blocks = _pipe_grid(c, nframes, _lib.sm_count(dev))
+    scratch = empty((c, nframes, nsym)) if want_power and not fast else None
+    phase = CF32(empty((c,)), empty((c,)))
+    tail = CF32(empty((c, cfg.ntaps - 1)), empty((c, cfg.ntaps - 1)))
     _lib.launch(
-        "qpsk_frontend_tm",
-        pcm.data_ptr(), fir_tail.re.data_ptr(), fir_tail.im.data_ptr(),
-        nco_phase.re.data_ptr(), nco_phase.im.data_ptr(),
-        decim_delay.re.data_ptr(), decim_delay.im.data_ptr(), zr.data_ptr(),
-        zi.data_ptr(), index.data_ptr(), ndd.re.data_ptr(), ndd.im.data_ptr(),
-        powers.data_ptr() if want_power else None, phase.re.data_ptr(),
-        phase.im.data_ptr(), tail.re.data_ptr(), tail.im.data_ptr(), c,
-        nframes, cfg.frame_size, cfg.cycles, cfg.ntaps, blocks,
-        hm[0].ctypes.data, hm[1].ctypes.data, omega, gain, inv_scale,
-        _lib.stream_ptr(dev))
-    launches += 1
-    by_mode[_mode(cfg, "tm_power_pipe" if want_power else "tm_pipe")] += 1
-    return zr, zi, index, phase, tail, ndd, powers
+        "qpsk_frontend_pipe" if fast else "qpsk_frontend_gen",
+        pcm.data_ptr(), *_ptrs(fir_tail, nco_phase, decim_delay, z),
+        index.data_ptr(), *_ptrs(ndd), _ptr(powers), _ptr(scratch),
+        *_ptrs(phase, tail), c, nframes, cfg.frame_size, cfg.cycles,
+        cfg.ntaps, int(tm), blocks, hm[0].ctypes.data, hm[1].ctypes.data,
+        omega, gain, inv_scale, _lib.stream_ptr(dev))
+    if tm:
+        return z.re, z.im, index, phase, tail, ndd, powers
+    return z, index, phase, tail
 
 
-def _launch_cm(cfg, pcm, nco_phase, fir_tail):
-    global launches
-    pcm, c, nframes = _check_inputs(cfg, pcm, nco_phase, fir_tail)
-    dev = pcm.device
-    nsym = cfg.symbols_per_frame
-    hm, omega, gain, inv_scale = _launch_consts(cfg)
-    picks = CF32(*(torch.empty((c, nframes, nsym), dtype=torch.float32,
-                               device=dev) for _ in range(2)))
-    index = torch.empty((c, nframes), dtype=torch.int32, device=dev)
-    phase, tail = _state_out(c, cfg.ntaps - 1, dev)
-    if not _fast(cfg, False):
-        _lib.launch(
-            "qpsk_frontend_gen",
-            pcm.data_ptr(), fir_tail.re.data_ptr(), fir_tail.im.data_ptr(),
-            nco_phase.re.data_ptr(), nco_phase.im.data_ptr(), None, None,
-            picks.re.data_ptr(), picks.im.data_ptr(), index.data_ptr(), None,
-            None, None, None, phase.re.data_ptr(), phase.im.data_ptr(),
-            tail.re.data_ptr(), tail.im.data_ptr(), c, nframes,
-            cfg.frame_size, cfg.cycles, cfg.ntaps, 0, hm[0].ctypes.data,
-            hm[1].ctypes.data, omega, gain, inv_scale, _lib.stream_ptr(dev))
-        launches += 1
-        by_mode[_mode(cfg, "cm_gen")] += 1
-        return picks, index, phase, tail
-    blocks = _pipe_grid(c, nframes, _lib.sm_count(dev))
-    _lib.launch(
-        "qpsk_frontend_cm",
-        pcm.data_ptr(), fir_tail.re.data_ptr(), fir_tail.im.data_ptr(),
-        nco_phase.re.data_ptr(), nco_phase.im.data_ptr(), picks.re.data_ptr(),
-        picks.im.data_ptr(), index.data_ptr(), phase.re.data_ptr(),
-        phase.im.data_ptr(), tail.re.data_ptr(), tail.im.data_ptr(), c,
-        nframes, cfg.frame_size, cfg.cycles, cfg.ntaps, blocks,
-        hm[0].ctypes.data, hm[1].ctypes.data, omega, gain, inv_scale,
-        _lib.stream_ptr(dev))
-    launches += 1
-    by_mode[_mode(cfg, f"cm{cfg.cycles}_pipe")] += 1
-    return picks, index, phase, tail
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _ptrs(*pairs) -> list:
+    """The re and im pointers of each CF32 of ``pairs``, two Nones for a
+    None."""
+    return [_ptr(t) for x in pairs for t in (x or (None, None))]

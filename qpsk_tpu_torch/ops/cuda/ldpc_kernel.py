@@ -30,7 +30,6 @@ order to the BLAS; the contract against the JAX package is its own:
 
 from __future__ import annotations
 
-import collections
 import functools
 import math
 
@@ -39,11 +38,6 @@ import torch
 from qpsk_tpu_torch.ops.cuda import _lib
 from qpsk_tpu_torch.packet.ldpc import (LdpcCode, _index_tables,
                                         _slot_edge_table)
-
-# Kernel launches since the last reset (set to 0 to start a count), and
-# by instance: "dv3" and "general_dv5" (clear() it).
-launches = 0
-by_mode = collections.Counter()
 
 _BIG = 1e30
 # the dv = 3 instances' register arrays hold this many slots of a check and
@@ -181,7 +175,6 @@ def _instance(dmax: int, vmax: int) -> int | None:
 
 
 def _launch(code: LdpcCode, llrs: torch.Tensor, iters) -> torch.Tensor:
-    global launches
     its = _iters(code, llrs, iters)
     _lib.check_geometry(coverage(code))
     dev = llrs.device
@@ -199,7 +192,4 @@ def _launch(code: LdpcCode, llrs: torch.Tensor, iters) -> torch.Tensor:
         flat.data_ptr(), check_var.data_ptr(), slot_edges.data_ptr(),
         var_edges.data_ptr(), out.data_ptr(), b, m, code.n, code.k, dmax,
         vmax, its, code.alpha, _lib.stream_ptr(dev))
-    launches += 1
-    by_mode["dv3" if vmax == _KERNEL_VMAX
-            else f"general_dv{_instance(dmax, vmax)}"] += 1
     return out.reshape(batch + (code.k,))

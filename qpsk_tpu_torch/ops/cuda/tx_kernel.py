@@ -23,7 +23,6 @@ tensor's device), "xla" (the plain version on any device) or "pallas"
 
 from __future__ import annotations
 
-import collections
 import functools
 import math
 
@@ -36,13 +35,6 @@ from qpsk_tpu_torch.ops import rrc as rrc_ops
 from qpsk_tpu_torch.ops.cplx import CF32
 from qpsk_tpu_torch.ops.cuda import _lib
 from qpsk_tpu_torch.ops.modmap import upsample_zero_stuff
-
-# Kernel launches since the last reset (set to 0 to start a count), and
-# the same launches by mode: "cycles4", "cycles8", ..., with "_ntaps63"
-# for a tap count other than 127, and "gen_cycles16", "gen_cycles8_ntaps255"
-# for the general instance (clear() it).
-launches = 0
-by_mode = collections.Counter()
 
 # the samples per symbol tx_kernel<CYC> is built for (csrc/tx.cu, one
 # template instance each) and its largest tap count (a by-value parameter
@@ -121,7 +113,6 @@ def _taps_on(cfg, device) -> torch.Tensor:
 
 
 def _launch(cfg, symbols, nco_phase, fir_tail, tx_offset_hz):
-    global launches
     _lib.check_geometry(coverage(cfg))
     c, s = symbols.shape
     if c < 1 or s < 1:
@@ -149,9 +140,6 @@ def _launch(cfg, symbols, nco_phase, fir_tail, tx_offset_hz):
             phase.im.data_ptr(), tail.re.data_ptr(), tail.im.data_ptr(), c, s,
             cfg.cycles, cfg.ntaps, _omega(cfg, tx_offset_hz), float(cfg.gain),
             float(cfg.pcm_scale), _lib.stream_ptr(dev))
-        launches += 1
-        by_mode[f"gen_cycles{cfg.cycles}"
-                + ("" if cfg.ntaps == 127 else f"_ntaps{cfg.ntaps}")] += 1
         return pcm, phase, tail
     taps, gain = _launch_consts(cfg)
     _lib.launch(
@@ -163,7 +151,4 @@ def _launch(cfg, symbols, nco_phase, fir_tail, tx_offset_hz):
         cfg.cycles, cfg.ntaps, taps.ctypes.data,
         _omega(cfg, tx_offset_hz), gain, float(cfg.pcm_scale),
         _lib.stream_ptr(dev))
-    launches += 1
-    by_mode[f"cycles{cfg.cycles}"
-            + ("" if cfg.ntaps == 127 else f"_ntaps{cfg.ntaps}")] += 1
     return pcm, phase, tail

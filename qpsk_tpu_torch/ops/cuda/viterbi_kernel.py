@@ -28,7 +28,6 @@ decode bit-identically, hard-LLR ties included.
 
 from __future__ import annotations
 
-import collections
 import functools
 import math
 
@@ -37,11 +36,6 @@ import torch
 
 from qpsk_tpu_torch.ops.cuda import _lib
 from qpsk_tpu_torch.packet.fec import ConvCode, _trellis
-
-# Kernel launches since the last reset (set to 0 to start a count), and
-# by instance: "k7" (the fast kernels) and "general_k9_r2" (clear() it).
-launches = 0
-by_mode = collections.Counter()
 
 # the general instance's largest constraint length (16 384 states, two
 # 64 KB metric arrays in shared memory) and rate denominator
@@ -205,7 +199,6 @@ def _lanes(b: int) -> int:
 
 def _launch(code: ConvCode, llrs: torch.Tensor, nbits: int,
             lanes: int | None = None) -> torch.Tensor:
-    global launches
     _lib.check_geometry(coverage(code))
     nsteps = _nsteps(code, llrs, nbits)
     dev = llrs.device
@@ -227,8 +220,6 @@ def _launch(code: ConvCode, llrs: torch.Tensor, nbits: int,
             dec.data_ptr(), out.data_ptr(), b, code.constraint, rd, nsteps,
             nbits, _states_per_thread(code.constraint),
             int(_complementary(code)), _lib.stream_ptr(dev))
-        launches += 1
-        by_mode[f"general_k{code.constraint}_r{rd}"] += 1
         return out.reshape(batch + (nbits,))
     # one 64-bit word of decisions per trellis step and packet
     dec = torch.empty((nsteps, b, 2), dtype=torch.int32, device=dev)
@@ -236,6 +227,4 @@ def _launch(code: ConvCode, llrs: torch.Tensor, nbits: int,
         "qpsk_viterbi",
         flat.data_ptr(), dec.data_ptr(), out.data_ptr(), b, nsteps, nbits,
         lanes or _lanes(b), *masks, _lib.stream_ptr(dev))
-    launches += 1
-    by_mode["k7"] += 1
     return out.reshape(batch + (nbits,))

@@ -20,6 +20,7 @@ from qpsk_tpu_torch import ModemConfig, rx_init
 from qpsk_tpu_torch.ops.cplx import CF32
 from qpsk_tpu_torch.ops.cuda.frontend_kernel import rx_frontend_tm
 from qpsk_tpu_torch.state import from_numpy
+from torch_kernel_recorder import routed
 
 torch.set_num_threads(2)
 
@@ -133,47 +134,25 @@ def test_frontend_chains_across_calls():
 
 def test_frontend_cpu_tensor_runs_plain_version():
     """A CPU tensor never reaches the kernel launch (no nvcc here)."""
-    from qpsk_tpu_torch.ops.cuda import frontend_kernel
-    before = frontend_kernel.launches
+    from qpsk_tpu_torch.ops.cuda import _lib
+    before = dict(_lib.launches)
     pcm = _random_pcm(2, 1, seed=4)
     _, st = _warm_state(pcm)
     out = _port(pcm, st)
-    assert frontend_kernel.launches == before
+    assert _lib.launches == before
     assert isinstance(out[5], CF32) and out[0].shape == (NSYM, 2)
 
 
-class _Recorder:
-    """A stand-in for the kernel library: records the C entry called and
-    its arguments, launches nothing, returns 0 (success)."""
-
-    def __init__(self):
-        self.calls = []
-
-    def __getattr__(self, name):
-        if not name.startswith("qpsk_"):
-            raise AttributeError(name)
-        return lambda *args: self.calls.append((name, args)) or 0
-
-
 def _fast_launch(monkeypatch, cfg, c, nframes, tm=True, sms=132):
-    """(C entry, its ``blocks`` argument where it is the pipeline's, the
-    by_mode key that moved) of one front-end launch of ``cfg`` over (c, nframes) through a
-    ``_Recorder`` on a card of ``sms`` SMs."""
-    from qpsk_tpu_torch.ops.cuda import _lib, frontend_kernel as fk
-    rec = _Recorder()
-    monkeypatch.setattr(_lib, "library", lambda: rec)
-    monkeypatch.setattr(_lib, "stream_ptr", lambda dev: 0)
-    monkeypatch.setattr(_lib, "sm_count", lambda dev: sms)
+    """(C entry, its arguments by name, the launches counted) of one
+    front-end launch of ``cfg`` over (c, nframes) through a recorder on a
+    card of ``sms`` SMs."""
+    from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
     st = rx_init(cfg, (c,), device="cpu")
     pcm = torch.zeros((c, nframes, cfg.frame_size), dtype=torch.int16)
-    before = dict(fk.by_mode)
-    if tm:
-        fk._launch_tm(cfg, pcm, st.nco_phase, st.fir_tail, st.decim_delay)
-    else:
-        fk._launch_cm(cfg, pcm, st.nco_phase, st.fir_tail)
-    moved = [k for k, v in fk.by_mode.items() if v != before.get(k, 0)]
-    (name, args), = rec.calls
-    return name, args[22 if tm else 17], moved
+    return routed(monkeypatch, lambda: fk._launch(
+        cfg, pcm, st.nco_phase, st.fir_tail, st.decim_delay if tm else None),
+        sms)
 
 
 def test_frontend_pipeline_takes_the_frames_its_ring_holds(monkeypatch):
@@ -181,37 +160,35 @@ def test_frontend_pipeline_takes_the_frames_its_ring_holds(monkeypatch):
     samples (16 segments of 32 outputs, a FIR group's two accumulators) at
     2, 4 and 8 samples per symbol: it runs the default config (time-major,
     with the power output, channel-major at 4 and 8 samples per symbol)
-    and every such geometry up to 512 under its own ``by_mode`` keys
-    ("..._pipe") with one block an SM; longer frames run the general
-    instance ("..._gen..." keys)."""
+    and every such geometry up to 512, launched as ``qpsk_frontend_pipe``
+    with one block an SM; longer frames run the general instance
+    (``qpsk_frontend_gen``).  Each launch passes the config's geometry and
+    layout and is counted once under its entry."""
     from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
     for cyc in (2, 4, 8):
         for fsz in range(128, 1665, 128):
             cfg = ModemConfig(rs=9600.0 / cyc, frame_size=fsz)
             assert fk._fast(cfg, False) == (fsz <= 512), (cyc, fsz)
-    cases = ((ModemConfig(), True, "tm_pipe"),
-             (ModemConfig(agc=True), True, "tm_power_pipe"),
-             (ModemConfig(), False, "cm4_pipe"),
-             (ModemConfig(rs=1200.0), False, "cm8_pipe"),
-             (ModemConfig(rs=4800.0, frame_size=256), True,
-              "tm_pipe_cyc2_fsz256"),
-             (ModemConfig(ntaps=63, frame_size=384), False,
-              "cm4_pipe_ntaps63_fsz384"),
-             (ModemConfig(frame_size=640), True, "tm_gen_fsz640"),
-             (ModemConfig(rs=4800.0, frame_size=640), True,
-              "tm_gen_cyc2_fsz640"),
-             (ModemConfig(frame_size=1024, agc=True), True,
-              "tm_power_gen_fsz1024"),
-             (ModemConfig(rs=1200.0, frame_size=1664), False,
-              "cm_gen_cyc8_fsz1664"))
-    for cfg, tm, key in cases:
-        name, blocks, moved = _fast_launch(monkeypatch, cfg, 200, 3, tm)
-        assert moved == [key]
-        if "_gen" in key:
-            assert name == "qpsk_frontend_gen"
-            continue
-        assert name == ("qpsk_frontend_tm" if tm else "qpsk_frontend_cm")
-        assert blocks == 75
+    pipe, gen = "qpsk_frontend_pipe", "qpsk_frontend_gen"
+    cases = ((ModemConfig(), True, pipe),
+             (ModemConfig(agc=True), True, pipe),
+             (ModemConfig(), False, pipe),
+             (ModemConfig(rs=1200.0), False, pipe),
+             (ModemConfig(rs=4800.0, frame_size=256), True, pipe),
+             (ModemConfig(ntaps=63, frame_size=384), False, pipe),
+             (ModemConfig(frame_size=640), True, gen),
+             (ModemConfig(rs=4800.0, frame_size=640), True, gen),
+             (ModemConfig(frame_size=1024, agc=True), True, gen),
+             (ModemConfig(rs=1200.0, frame_size=1664), False, gen))
+    for cfg, tm, entry in cases:
+        name, args, moved = _fast_launch(monkeypatch, cfg, 200, 3, tm)
+        assert name == entry and moved == {entry: 1}, (cfg, tm, name)
+        assert (args["cycles"], args["ntaps"], args["fsz"], args["tm"]) == (
+            cfg.cycles, cfg.ntaps, cfg.frame_size, int(tm))
+        assert (args["power"] is not None) == (tm and cfg.agc)
+        assert (args["dd_re"] is not None) == tm
+        if entry == pipe:
+            assert args["blocks"] == 75
 
 
 @pytest.mark.parametrize("c", list(range(1, 41)) + [8192])
@@ -234,8 +211,8 @@ def test_frontend_pipeline_grid_walks_every_tile_once(monkeypatch, c):
             assert sorted(seen) == [(g, f) for g in range(groups)
                                     for f in range(nframes)]
     if c in (1, 7, 9, 8192):
-        _, blocks, _ = _fast_launch(monkeypatch, ModemConfig(), c, 9)
-        assert blocks == min(groups * 9, 132)
+        _, args, _ = _fast_launch(monkeypatch, ModemConfig(), c, 9)
+        assert args["blocks"] == min(groups * 9, 132)
 
 
 @pytest.mark.parametrize("offset", [0, 1, 8])

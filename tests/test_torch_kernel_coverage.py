@@ -17,6 +17,7 @@ on a CPU tensor, an unknown value raises as the JAX config does; the
 decoders' ``impl`` likewise.
 """
 
+import ctypes
 import dataclasses
 from types import SimpleNamespace
 
@@ -29,13 +30,14 @@ from qpsk_tpu.ops.pallas.frontend_kernel import (frontend_supported,
 from qpsk_tpu.ops.pallas.tx_kernel import tx_supported
 from qpsk_tpu.packet import ldpc as jldpc
 from qpsk_tpu_torch import ModemConfig, rx_init, rx_stream, tx_init, tx_stream
-from qpsk_tpu_torch.ops.costas import costas_init, costas_params
+from qpsk_tpu_torch.ops.costas import costas_init, costas_params, gear_for
 from qpsk_tpu_torch.ops.cplx import CF32
 from qpsk_tpu_torch.ops.cuda import (costas_kernel, frontend_kernel,
                                      ldpc_kernel, tx_kernel, viterbi_kernel)
 from qpsk_tpu_torch.packet import ConvCode, LdpcCode, conv_encode
 from qpsk_tpu_torch.packet.fec import viterbi_decode
 from qpsk_tpu_torch.packet.ldpc import ldpc_decode, ldpc_encode
+from torch_kernel_recorder import routed
 
 torch.set_num_threads(2)
 
@@ -79,54 +81,16 @@ def test_tx_covers_the_tpu_gate(cycles):
     assert admitted > 0
 
 
-class _Recorder:
-    """A stand-in for the kernel library: records the C entry called and
-    its arguments, launches nothing, returns 0 (success)."""
-
-    def __init__(self):
-        self.calls = []
-
-    def __getattr__(self, name):
-        if not name.startswith("qpsk_"):
-            raise AttributeError(name)
-        return lambda *args: self.calls.append((name, args)) or 0
-
-
-def _routed(monkeypatch, launch):
-    """(C entry, its arguments, the by_mode keys that moved) of one wrapper
-    launch through a ``_Recorder``."""
-    from qpsk_tpu_torch.ops.cuda import _lib
-    rec = _Recorder()
-    monkeypatch.setattr(_lib, "library", lambda: rec)
-    monkeypatch.setattr(_lib, "stream_ptr", lambda dev: 0)
-    monkeypatch.setattr(_lib, "sm_count", lambda dev: 132)
-    before = (dict(frontend_kernel.by_mode), dict(tx_kernel.by_mode))
-    launch()
-    after = (dict(frontend_kernel.by_mode), dict(tx_kernel.by_mode))
-    moved = [k for b, a in zip(before, after) for k in a
-             if a[k] != b.get(k, 0)]
-    (name, args), = rec.calls
-    return name, args, moved
-
-
-def _gen_key(base, cycles, fsz, ntaps):
-    """The general instance's ``by_mode`` key: the base, then each field
-    off the default geometry (4 samples per symbol, 127 taps, 512)."""
-    return "_".join([base] + [f"{n}{v}" for n, v, d in (
-        ("cyc", cycles, 4), ("ntaps", ntaps, 127), ("fsz", fsz, 512))
-        if v != d])
-
-
 @pytest.mark.parametrize("cycles", range(2, 17))
 def test_frontend_geometries_off_fast_route_to_the_general_instance(
         monkeypatch, cycles):
     """Every (samples per symbol, frame) of the coverage grid above that no
-    fast instance takes launches ``qpsk_frontend_gen`` in all three
-    launches (time-major, with the power output, channel-major) under the
-    ``by_mode`` keys "tm_gen...", "tm_power_gen...", "cm_gen...", with a
-    scratch row for the power tree when the power output is asked for;
-    the rest launch a fast instance."""
-    routed = 0
+    fast instance takes launches ``qpsk_frontend_gen``, counted once under
+    that entry, in all three launches (time-major, with the power output,
+    channel-major) with the config's geometry and ``tm`` flag, and a
+    scratch row for the power tree when the power output is asked for; the
+    rest launch ``qpsk_frontend_pipe``."""
+    routed_gen = 0
     for fsz in range(128, 8193, 128):
         if fsz % cycles:
             continue
@@ -138,27 +102,25 @@ def test_frontend_geometries_off_fast_route_to_the_general_instance(
                 nsym = fsz // cycles
                 st = rx_init(cfg, (1,), device="cpu")
                 pcm = torch.zeros((1, 1, fsz), dtype=torch.int16)
-                if base == "cm":
-                    name, args, moved = _routed(
-                        monkeypatch, lambda: frontend_kernel._launch_cm(
-                            cfg, pcm, st.nco_phase, st.fir_tail))
-                else:
-                    name, args, moved = _routed(
-                        monkeypatch, lambda: frontend_kernel._launch_tm(
-                            cfg, pcm, st.nco_phase, st.fir_tail,
-                            st.decim_delay))
+                delay = None if base == "cm" else st.decim_delay
+                name, args, moved = routed(
+                    monkeypatch, lambda: frontend_kernel._launch(
+                        cfg, pcm, st.nco_phase, st.fir_tail, delay))
                 fast = (cycles in (2, 4, 8) and fsz <= 512
                         and not (base == "tm_power" and nsym & (nsym - 1)))
                 assert frontend_kernel._fast(cfg, base == "tm_power") == fast
+                assert moved == {name: 1}
                 if fast:
-                    assert name == f"qpsk_frontend_{base[:2]}", (cfg, name)
+                    assert name == "qpsk_frontend_pipe", (cfg, name)
                     continue
-                routed += 1
+                routed_gen += 1
                 assert name == "qpsk_frontend_gen", (cycles, fsz, base, name)
-                assert moved == [_gen_key(f"{base}_gen", cycles, fsz, ntaps)]
-                assert args[23] == (0 if base == "cm" else 1)      # tm
-                assert (args[13] is not None) == (base == "tm_power")
-    assert routed > 0 or cycles in (2, 4, 8)
+                assert (args["cycles"], args["fsz"], args["ntaps"]) == (
+                    cycles, fsz, ntaps)
+                assert args["tm"] == (0 if base == "cm" else 1)
+                assert (args["power"] is not None) == (base == "tm_power")
+                assert (args["scratch"] is not None) == (base == "tm_power")
+    assert routed_gen > 0 or cycles in (2, 4, 8)
 
 
 @pytest.mark.parametrize("cycles", range(2, 17))
@@ -166,8 +128,8 @@ def test_tx_geometries_off_fast_route_to_the_general_instance(monkeypatch,
                                                               cycles):
     """Every tap count of the TX coverage grid above that ``tx_kernel<CYC>``
     does not take (past 8 samples per symbol or 129 taps) launches
-    ``qpsk_tx_gen`` under the ``by_mode`` key "gen_cycles<N>" (with
-    "_ntaps<M>" off 127); the rest launch ``qpsk_tx``."""
+    ``qpsk_tx_gen``, the rest ``qpsk_tx``: counted once under that entry,
+    with the config's samples per symbol and taps."""
     for ntaps in range(3, 130 * cycles, 2):
         if tx_kernel.coverage(_geom(cycles, 512 * cycles, ntaps)) is not None:
             continue
@@ -175,15 +137,66 @@ def test_tx_geometries_off_fast_route_to_the_general_instance(monkeypatch,
                           frame_size=128 * cycles, ntaps=ntaps)
         st = tx_init(cfg, (1,), device="cpu")
         sym = CF32(torch.zeros((1, 5)), torch.zeros((1, 5)))
-        name, _, moved = _routed(monkeypatch, lambda: tx_kernel._launch(
+        name, args, moved = routed(monkeypatch, lambda: tx_kernel._launch(
             cfg, sym, st.nco_phase, st.fir_tail, 0.0))
-        tail = "" if ntaps == 127 else f"_ntaps{ntaps}"
-        if cycles <= 8 and ntaps <= 129:
-            assert tx_kernel._fast(cfg) and name == "qpsk_tx"
-            assert moved == [f"cycles{cycles}{tail}"]
-        else:
-            assert not tx_kernel._fast(cfg) and name == "qpsk_tx_gen"
-            assert moved == [f"gen_cycles{cycles}{tail}"]
+        fast = cycles <= 8 and ntaps <= 129
+        assert tx_kernel._fast(cfg) == fast
+        assert name == ("qpsk_tx" if fast else "qpsk_tx_gen")
+        assert moved == {name: 1}
+        assert (args["cycles"], args["ntaps"], args["S"]) == (cycles, ntaps, 5)
+
+
+# (gear, gains, dd modulation or None, detector code of csrc/costas.cu's
+# enum Detector, bits a symbol) of each mode of the Costas wrapper
+_COSTAS_MODES = {"qpsk": (False, False, None, 0, 2),
+                 "gear": (True, False, None, 0, 2),
+                 "gains": (False, True, None, 0, 2),
+                 "gear_gains": (True, True, None, 0, 2),
+                 "dd_bpsk": (False, False, "bpsk", 1, 1),
+                 "dd_8psk": (False, False, "8psk", 2, 3),
+                 "dd_16qam": (False, True, "16qam", 3, 4)}
+
+
+@pytest.mark.parametrize("mode", list(_COSTAS_MODES))
+def test_costas_modes_pass_their_pointers_and_detector(monkeypatch, mode):
+    """Each mode of the Costas wrapper launches ``qpsk_costas_tm`` once,
+    counted under that entry, with the lock detector's state in and out
+    only with the gear, the gains plane (and its symbols a frame) only with
+    gains, the detector code of its modulation (QPSK's 0 otherwise), the
+    gear's five constants or zeros and the dd mode's constants or zeros,
+    and the outputs it returns, the bits (C, bps * T)."""
+    gear, gains, kind, det, bps = _COSTAS_MODES[mode]
+    t, c, nf = 64, 3, 4
+    st = costas_init((c,), gear=gear, device="cpu")
+    z = torch.linspace(-1.0, 1.0, t * c).reshape(t, c)
+    g = torch.ones((nf, c)) if gains else None
+    dd = None if kind is None else (kind, 1.0)
+    out = []
+    name, args, moved = routed(monkeypatch, lambda: out.append(
+        costas_kernel._launch(st, z, -z, costas_params(0.06), 16,
+                              gear_for(0.01) if gear else None, g, dd)))
+    (new_state, derot, trace, bits), = out
+    assert name == "qpsk_costas_tm" and moved == {name: 1}
+    assert (args["zr"], args["zi"]) != (None, None) and args["det"] == det
+    assert (args["T"], args["C"], args["trace_every"]) == (t, c, 16)
+    for key in ("lev0", "locked0", "lev_out", "locked_out"):
+        assert (args[key] is not None) == gear, key
+    if gear:
+        assert (args["lev0"], args["locked0"]) == (st.lev.data_ptr(),
+                                                   st.locked.data_ptr())
+        assert args["lev_out"] == new_state.lev.data_ptr()
+    assert args["gains"] == (g.data_ptr() if gains else None)
+    assert args["nsf"] == (t // nf if gains else 0)
+    assert (args["outr"], args["outi"], args["bits"]) == (
+        derot.re.data_ptr(), derot.im.data_ptr(), bits.data_ptr())
+    assert tuple(bits.shape) == (c, bps * t) and bits.dtype == torch.int32
+    assert tuple(trace.shape) == (c, t // 16)
+    params = np.ctypeslib.as_array((ctypes.c_float * 9).from_address(
+        args["params"]))
+    consts = np.ctypeslib.as_array((ctypes.c_float * 49).from_address(
+        args["dd"]))
+    assert params[:2].all() and params[4:].any() == gear
+    assert consts.any() == (kind is not None)
 
 
 def _jax_viterbi_gate(code) -> bool:

@@ -234,11 +234,9 @@ def test_geometry_off_the_kernels_matches_jax(kwargs):
     same PCM with equal timing decisions and bits, both planes of the
     symbols within 1e-4 and the frequency readback within 0.05 Hz, chained
     halves equal to one call.  A CPU tensor never asks for a kernel, so no
-    launch counter moves."""
-    from qpsk_tpu_torch.ops.cuda import (costas_kernel, frontend_kernel,
-                                         tx_kernel)
-    mods = (costas_kernel, frontend_kernel, tx_kernel)
-    before = [m.launches for m in mods]
+    launch is counted."""
+    from qpsk_tpu_torch.ops.cuda import _lib
+    before = dict(_lib.launches)
     cfg, jc = dataclasses.replace(CFG, **kwargs), JCfg(**kwargs)
     rng = np.random.default_rng(17)
     bits = rng.integers(0, 2, (C, 6, cfg.bits_per_frame), dtype=np.int32)
@@ -268,7 +266,7 @@ def test_geometry_off_the_kernels_matches_jax(kwargs):
     st1, a = rx_stream(cfg, st0, torch.from_numpy(pcm[:, :2]))
     _, b = rx_stream(cfg, st1, torch.from_numpy(pcm[:, 2:]))
     assert torch.equal(torch.cat([a.bits, b.bits], 1), out.bits)
-    assert [m.launches for m in mods] == before
+    assert _lib.launches == before
 
 
 def _gate_cases():

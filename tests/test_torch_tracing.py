@@ -18,15 +18,18 @@ import pytest
 import torch
 
 from qpsk_tpu_torch import (ModemConfig, StreamDemodulator, StreamModulator,
-                            rx_init, rx_stream, tracing)
+                            rx_init, rx_stream, tracing, tx_init)
 from qpsk_tpu_torch import fdm
-from qpsk_tpu_torch.ops.cuda import _lib
+from qpsk_tpu_torch.ops.costas import costas_init, costas_params
+from qpsk_tpu_torch.ops.cuda import (_lib, costas_kernel, frontend_kernel,
+                                     ldpc_kernel, tx_kernel, viterbi_kernel)
 from qpsk_tpu_torch.ops.modmap import demod_soft
 from qpsk_tpu_torch.ops.cplx import CF32
-from qpsk_tpu_torch.packet import PacketConfig
+from qpsk_tpu_torch.packet import ConvCode, LdpcCode, PacketConfig
 from qpsk_tpu_torch.packet.frame import (disassemble_packet,
                                          disassemble_packet_soft)
 from qpsk_tpu_torch.utils.debug import trace
+from torch_kernel_recorder import recorder
 
 # the sites of blocking host-device copies that one soft disassembly of
 # interleaved, scrambled packets passes (PERF.md's table of counters)
@@ -169,6 +172,48 @@ def test_check_counts_one_launch_under_recording():
     assert _counts(recs) == {"launch.qpsk_x": 1}
     with pytest.raises(RuntimeError, match="qpsk_x: CUDA error 2"):
         _recorded(lambda: _lib.check(2, "qpsk_x"))
+
+
+def test_launches_counted_by_entry_with_and_without_a_profiler(monkeypatch):
+    """``_lib.launches`` counts each wrapper launch once under its C entry
+    with no profiler running, when nothing is recorded, and under one, when
+    each launch is also one ``launch.<entry>`` event of that name, in the
+    order of the launches."""
+    recorder(monkeypatch)
+    cfg, st, pcm = _rx_inputs()
+    long = ModemConfig(frame_size=640)
+    st_long = rx_init(long, (3,), device="cpu")
+    z = torch.zeros((128, 3))
+    code, ldpc_code = ConvCode(), LdpcCode(k=64)
+
+    def launch_all():
+        frontend_kernel._launch(cfg, pcm, st.nco_phase, st.fir_tail,
+                                st.decim_delay)
+        frontend_kernel._launch(long, torch.zeros((3, 2, 640),
+                                                  dtype=torch.int16),
+                                st_long.nco_phase, st_long.fir_tail)
+        costas_kernel._launch(costas_init((3,), device="cpu"), z, z,
+                              costas_params(0.06), 16, None, None, None)
+        tx = tx_init(cfg, (3,), device="cpu")
+        tx_kernel._launch(cfg, CF32(z.T.contiguous(), z.T.contiguous()),
+                          tx.nco_phase, tx.fir_tail, 0.0)
+        viterbi_kernel._launch(code, torch.zeros((2, 2 * (64 + 6))), 64)
+        ldpc_kernel._launch(ldpc_code, torch.zeros((2, ldpc_code.n)), None)
+    entries = ["qpsk_frontend_pipe", "qpsk_frontend_gen", "qpsk_costas_tm",
+               "qpsk_tx", "qpsk_viterbi", "qpsk_ldpc"]
+    for profiled in (False, True):
+        before = dict(_lib.launches)
+        t0 = time.time_ns()
+        if profiled:
+            _, recs, _ = _recorded(launch_all)
+            assert [r[:2] for r in recs] == [("count", f"launch.{e}")
+                                            for e in entries]
+            assert all(r[4] == 1 for r in recs)
+        else:
+            launch_all()
+            assert tracing.records(t0, time.time_ns()) == []
+        assert {k: n - before.get(k, 0) for k, n in _lib.launches.items()
+                if n != before.get(k, 0)} == dict.fromkeys(entries, 1)
 
 
 def test_launch_record_spans_the_c_call(monkeypatch):

@@ -11,7 +11,14 @@ Phases, each of which exits non-zero on failure:
    8192 channels, in two chained calls of 8 frames (1024 symbols) each, on a
    loopback stimulus (packets -> TX at +50 Hz -> AWGN 10 dB) and on noise;
    first the Costas kernel's ``sincosf`` against ``torch.sin`` /
-   ``torch.cos`` on every float32 of magnitude <= 8.
+   ``torch.cos`` on every float32 of magnitude <= 8.  Phase 2b: the
+   front-end pipeline at its ragged edges; 2c (``--costas`` runs it alone,
+   with the ``sincosf`` check, about a minute): the Costas kernel against
+   its plain version bit for bit (symbols, trace, state and every bit) at
+   T 1/31/33/1024 x C 1/200/1023/8192 in QPSK, gear with gains and each dd
+   mode, and with a gain row every 8, 5 or 3 symbols: the rows its bit
+   writer stores in part, the dead lanes, tiles that read several gain
+   rows.
 3. The main path at full width, kernels only, with every kernel's launch
    counter reset before and read after: 8192 channels x 32 frames of random
    packets -> ``tx_stream`` at +50 Hz -> AWGN 10 dB -> ``rx_stream``.  Then
@@ -347,6 +354,15 @@ COMPARE_CHANNELS = (1, 200, 8192)
 # the front-end pipeline's ragged edges (phase 2b): channel counts (a
 # partial group of 8, one past a whole grid's) and frames a call
 PIPE_CHANNELS, PIPE_FRAMES = (1, 7, 9, 8193), (1, 2, 3, 5, 9)
+# phase 2c: the Costas kernel's bit writer at every symbol count of
+# COSTAS_SYMBOLS (one step, a partial tile, a tile and one more, the rate
+# point's 1024) x channel count of COSTAS_CHANNELS (a dead lane in all but
+# the last), in each mode of COSTAS_EDGE_MODES
+COSTAS_SYMBOLS, COSTAS_CHANNELS = (1, 31, 33, 1024), (1, 200, 1023, 8192)
+COSTAS_EDGE_MODES = ("qpsk", "gear+gains", "bpsk", "8psk", "16qam")
+# and, in its modes with gains, tiles of 32 steps that span several gain
+# rows: (T, symbols a gain row) at each channel count
+COSTAS_GAIN_ROWS = ((1024, 8), (1000, 5), (33, 3))
 # frame sizes of the power output's checks there (pipeline, general instance)
 PIPE_POWER_FRAMES = (128, 256, 1024)
 MAIN_PATH = (8192, 32)
@@ -835,6 +851,79 @@ def pipeline_edges(dev, errs: dict) -> None:
          f"past it)")
     print(f"  {checks} checks at frames up to 512, every launch the "
           f"pipeline's, {past} past it the general instance's")
+
+
+def costas_edges(dev, errs: dict) -> None:
+    """Phase 2c: the Costas kernel against its plain version, bit for bit,
+    at every symbol count of ``COSTAS_SYMBOLS`` x channel count of
+    ``COSTAS_CHANNELS`` in each mode of ``COSTAS_EDGE_MODES`` (QPSK, gear
+    with gains, dd BPSK, 8PSK, 16QAM with gains): Gaussian symbols (at the
+    AGC target's scale in dd mode) from a warm state, a gain row a frame
+    of 32 symbols (one row at T = 1), and in the modes with gains also a
+    gain row every 8, 5 and 3 symbols (``COSTAS_GAIN_ROWS``: a tile reads
+    several rows); the derotated symbols, the frequency trace, the state
+    and every bit equal.  Each lane stores its own
+    channel's bits in 16-byte chunks (``BitWriter`` in
+    ``csrc/costas.cu``), so these are the rows that start or end inside a
+    chunk (BPS x T not a multiple of 4) and the warps with dead lanes."""
+    import torch
+    from qpsk_tpu_torch import ModemConfig
+    from qpsk_tpu_torch.ops.costas import (CostasState, costas_params,
+                                           gear_for)
+    from qpsk_tpu_torch.ops.cuda import costas_kernel as ck
+
+    base = ModemConfig()
+    params = costas_params(base.loop_bw, base.damping, base.min_freq,
+                           base.max_freq)
+    gear = gear_for(2.0 * math.pi / 200.0, base.damping)
+    a = base.agc_target
+    gained = ("gear+gains", "16qam")
+    # (mode, T, C, symbols a gain row: None for one a trace row)
+    cases = [(mode, t, c, None) for mode in COSTAS_EDGE_MODES
+             for t in COSTAS_SYMBOLS for c in COSTAS_CHANNELS]
+    cases += [(mode, t, c, nsf) for mode in gained
+              for t, nsf in COSTAS_GAIN_ROWS for c in COSTAS_CHANNELS]
+    reset_launches()
+    for mode, t, c, nsf in cases:
+        gen = torch.Generator(device=dev).manual_seed(
+            1000 * t + c + len(mode) + 7 * (nsf or 0))
+        scale = 1.0 if mode in ("qpsk", "gear+gains") else a
+        zr, zi = (torch.randn((t, c), generator=gen, device=dev) * scale
+                  for _ in range(2))
+        every = 32 if t % 32 == 0 else t
+        kw = dict(trace_every=every)
+        if mode in gained:
+            kw["gains"] = torch.rand((t // (nsf or every), c), generator=gen,
+                                     device=dev) * 1.5 + 0.5
+        if mode == "gear+gains":
+            kw["gear"] = gear
+        elif mode != "qpsk":
+            kw["dd"] = (mode, a)
+        warm = [torch.rand((c,), generator=gen, device=dev) * 6 - 3,
+                torch.rand((c,), generator=gen, device=dev) * 0.1 - 0.05]
+        if mode == "gear+gains":
+            warm += [torch.rand((c,), generator=gen, device=dev),
+                     (torch.rand((c,), generator=gen, device=dev)
+                      > 0.5).to(torch.float32)]
+        cs = CostasState(*warm)
+        k = ck.costas_run_tm(cs, zr, zi, params, **kw)
+        p = ck.costas_run_tm_plain(cs, zr, zi, params, **kw)
+        label = f"{mode} T={t} C={c} gain rows of {nsf or every}"
+        need(torch.equal(k[3], p[3]),
+             f"Costas bits differ from the plain version's ({label}): "
+             f"{int((k[3] != p[3]).sum())} of {k[3].numel()}")
+        need(all(torch.equal(x, y) for x, y in zip(k[1], p[1]))
+             and torch.equal(k[2], p[2])
+             and all(torch.equal(x, y) for x, y in zip(k[0], p[0])
+                     if x is not None),
+             f"Costas symbols, trace or state differ ({label})")
+    counted = kernel_launches(("costas",))["costas"]
+    need(counted == len(cases), f"phase 2c launched {counted} Costas "
+         f"kernels for {len(cases)} checks")
+    print(f"  Costas edges: {len(cases)} checks bit-identical (symbols, "
+          f"trace, state, bits) at T {COSTAS_SYMBOLS} x C {COSTAS_CHANNELS}, "
+          f"modes {COSTAS_EDGE_MODES}; gain rows (T, symbols a row) "
+          f"{COSTAS_GAIN_ROWS} in {gained}")
 
 
 def compare_kernels(cfg, pcfg, dev, errs: dict) -> None:
@@ -4787,6 +4876,12 @@ def main() -> int:
         cli_phase(dev, {})
         print(smi)
         return 0
+    if "--costas" in sys.argv[1:]:
+        print("phase 2c: the Costas kernel at its ragged edges")
+        check_sincosf(dev)
+        costas_edges(dev, errs)
+        print(smi)
+        return 0
     if "--scale" in sys.argv[1:]:
         print("phase 12: scale-out, one rank a card")
         scale_phase(errs, {}, {})
@@ -4808,6 +4903,8 @@ def main() -> int:
     compare_kernels(cfg, pcfg, dev, errs)
     print("phase 2b: the front-end pipeline at its ragged edges")
     pipeline_edges(dev, errs)
+    print("phase 2c: the Costas kernel at its ragged edges")
+    costas_edges(dev, errs)
     print("phase 3: main path at full width")
     counts = main_path(cfg, pcfg, dev, errs)
     print("phase 4: rates at 8192 channels x 8 frames")

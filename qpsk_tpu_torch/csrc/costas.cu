@@ -45,23 +45,27 @@
 // sincosf (range reduction and two polynomials) and about 15 dependent
 // pinned float operations (25 with the gear's divide): a channel advances
 // one symbol per chain latency, whatever the occupancy.  Memory (8 bytes in,
-// 8 + BPS/8 bytes out a symbol) is far below the card's rate.  So the design
-// keeps everything but the chain off the chain:
+// 8 + 4*BPS bytes out a symbol) is far below the card's rate.  With one or
+// two warps an SM nothing else hides a cycle the warp spends off the
+// chain, so the design keeps everything but the chain off the chain:
 //   * one warp a block, one channel a lane (32 channels a block: 256 blocks
 //     for 8192 channels spread over the 132 SMs);
 //   * the inputs (zr, zi and the gain rows) arrive in tiles of S = 32
 //     symbols by cp.async into a double buffer in shared memory, the next
 //     tile in flight while the current one runs, so a step reads shared
 //     memory only; a lane copies and reads its own channel's column, so
-//     cp.async.wait_group needs no barrier;
+//     cp.async.wait_group needs no barrier (a dead lane copies nothing and
+//     reads zeros).  A tile's copies are issued together at its start,
+//     one straight line of predicated copies (issued a symbol a step into
+//     a third buffer, they measured slower);
 //   * the derotated symbols leave as one 128-byte row of the warp's 32
 //     channels a step (stores do not wait), the trace likewise; the trace
 //     and gain rows advance by countdowns, not divisions;
-//   * the bits accumulate in a register bit stream (a symbol's BPS bits in
-//     output order), are parked a 32-bit word at a time in shared memory,
-//     and after each tile the warp writes them out channel by channel, each
-//     store a 128-byte run of one channel's (C, BPS*T) row: the wrapper
-//     launches this one kernel and runs no unpack;
+//   * each lane keeps its channel's next bits in a register (a symbol's
+//     BPS bits in output order) and, when they fill one, stores a 16-byte
+//     chunk of its own (C, BPS*T) row straight from it (``BitWriter``): no
+//     shared memory, no hand-off between lanes, nothing after a tile; the
+//     wrapper launches this one kernel and runs no unpack;
 //   * the 8PSK detector selects its constants without a branch (a switch
 //     on the sector diverged within a warp).
 
@@ -72,7 +76,6 @@ namespace {
 
 constexpr int CB = 32;                   // channels a block (one warp)
 constexpr int S = 32;                    // symbols a tile
-constexpr int MAXW = 4 * S / 32;         // bit words a tile, BPS <= 4
 
 struct LoopParams {
   float alpha, beta, min_freq, max_freq;        // acquisition gear, clamp
@@ -155,10 +158,16 @@ __device__ __forceinline__ float dd_error(float r, float q, const DdRegs& k,
   return __fmul_rn(__fsub_rn(u, v), ic2);
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+// a 4-byte copy into shared memory, issued where ``on``: a predicate in
+// the instruction, not a branch around it, so a tile's copies issue as
+// one straight line
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool on) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src));
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n"
+      " @p cp.async.ca.shared.global [%0], [%1], 4;\n}\n" ::"r"(d),
+      "l"(src), "r"((int)on));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -171,38 +180,96 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // One tile of inputs in shared memory: [S][CB] planes and the gain rows
-// g0 .. g0 + S (at most S + 1 rows meet S symbols), double-buffered, and a
-// tile's bit words: what one warp owns.
+// g0 .. g0 + rows - 1, double-buffered: what one warp owns.  A tile's S
+// symbols meet at most S rows: rows = floor((t0 + n - 1) / nsf) -
+// floor(t0 / nsf) + 1 <= n for any nsf >= 1.
 struct WarpSmem {
   float zr[2][S][CB];
   float zi[2][S][CB];
-  float g[2][S + 1][CB];
-  uint32_t words[MAXW][CB];              // a tile's bit words, by channel
+  float g[2][S][CB];
 };
 
-// Issue the copies of tile ``k`` (symbols k*S ..) of this lane's channel.
+// Issue the copies of tile ``k`` (symbols k*S ..) of this lane's channel,
+// where ``on`` (a dead lane copies nothing): a predicated copy for each
+// slot of the tile, unrolled, so the issue is one straight line.
 template <bool GAINS>
 __device__ __forceinline__ void load_tile(WarpSmem& w, int b, const float* zr,
                                           const float* zi, const float* gains,
                                           int k, int T, int C, int nsf, int c,
-                                          int lane) {
+                                          int lane, bool on) {
   const int t0 = k * S;
   const int n = min(S, T - t0);
-  if (c < C) {
-    const float* pr = zr + (long long)t0 * C + c;
-    const float* pi = zi + (long long)t0 * C + c;
-    for (int j = 0; j < n; ++j, pr += C, pi += C) {
-      cp_async4(&w.zr[b][j][lane], pr);
-      cp_async4(&w.zi[b][j][lane], pi);
-    }
-    if (GAINS) {
-      const int g0 = t0 / nsf, g1 = (t0 + n - 1) / nsf;
-      for (int r = g0; r <= g1; ++r)
-        cp_async4(&w.g[b][r - g0][lane], gains + (long long)r * C + c);
+  const float* pr = zr + (long long)t0 * C + c;
+  const float* pi = zi + (long long)t0 * C + c;
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    cp_async4(&w.zr[b][j][lane], pr + (long long)j * C, on && j < n);
+    cp_async4(&w.zi[b][j][lane], pi + (long long)j * C, on && j < n);
+  }
+  if (GAINS) {
+    const int g0 = t0 / nsf, rows = (t0 + n - 1) / nsf - g0 + 1;
+    const float* pg = gains + (long long)g0 * C + c;
+#pragma unroll
+    for (int r = 0; r < S; ++r) {
+      cp_async4(&w.g[b][r][lane], pg + (long long)r * C, on && r < rows);
     }
   }
   cp_async_commit();
 }
+
+// One lane's bits, stored from registers into its channel's row of the
+// (C, BPS*T) int32 output.  The row is cut into the 16-byte chunks of the
+// address space: ``q`` is the first element of the chunk being filled,
+// ``pend`` its bits from element q on, ``np`` how many of them it holds.
+// A row that starts inside a chunk starts at q = -(elements of the chunk
+// before it), and that first chunk is kept in ``head`` and stored after
+// the last step; every other whole chunk is one 16-byte store, predicated,
+// so ``put`` is a straight line; ``finish`` stores the head and the last,
+// cut chunk element by element.  A dead lane (``nbits`` 0) stores nothing.
+struct BitWriter {
+  int32_t* row;
+  int nbits, a, q, np;
+  uint32_t pend, head;
+
+  __device__ __forceinline__ BitWriter(int32_t* r, int n)
+      : row(r), nbits(n), pend(0), head(0) {
+    a = (int)(((uintptr_t)r >> 2) & 3);   // elements before r in its chunk
+    q = -a;
+    np = a;
+  }
+
+  // a symbol's ``bps`` bits, the first in bit 0
+  __device__ __forceinline__ void put(uint32_t v, int bps) {
+    pend |= v << np;
+    np += bps;
+    const bool full = np >= 4;
+    // a whole chunk from q >= 0 holds bits of the row only
+    if (full && q >= 0 && nbits > 0) {
+      *reinterpret_cast<int4*>(row + q) =
+          make_int4((int)(pend & 1u), (int)((pend >> 1) & 1u),
+                    (int)((pend >> 2) & 1u), (int)((pend >> 3) & 1u));
+    }
+    head = full && q < 0 ? pend : head;
+    pend = full ? pend >> 4 : pend;
+    np = full ? np - 4 : np;
+    q = full ? q + 4 : q;
+  }
+
+  // elements q0 + j, j < m, of ``bits`` (bit j), those inside the row
+  __device__ __forceinline__ void store_part(int q0, uint32_t bits, int m) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j < m && q0 + j >= 0 && q0 + j < nbits) {
+        row[q0 + j] = (int32_t)((bits >> j) & 1u);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void finish() {
+    if (a > 0 && q > -a) store_part(-a, head, 4);   // the head was filled
+    store_part(q, pend, np);
+  }
+};
 
 template <int DET, bool GEAR, bool GAINS>
 __global__ void __launch_bounds__(CB)
@@ -221,15 +288,13 @@ costas_tm_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
   constexpr int BPS = bits_per_symbol<DET>();
   __shared__ WarpSmem ws;
   const int lane = threadIdx.x;
-  const int cb0 = blockIdx.x * CB;
-  const int c = cb0 + lane;
+  const int c = blockIdx.x * CB + lane;
   const bool live = c < C;
   const float tau = 6.283185307179586f;
   float phase = live ? phase0[c] : 0.f;
   float freq = live ? freq0[c] : 0.f;
   float lev = GEAR && live ? lev0[c] : 0.f;
   float locked = GEAR && live ? locked0[c] : 0.f;
-  const long long nbits = (long long)BPS * T;
   const int ntiles = (T + S - 1) / S;
   DdRegs kr;
   if constexpr (DET != QPSK) kr = dd_regs(dd);
@@ -238,24 +303,34 @@ costas_tm_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
   float* ptr = ftrace + c;
   int trace_left = trace_every;          // symbols to the next trace row
   int gain_left = nsf, grow = 0;         // symbols to the next gain row
+  BitWriter out(bits + (long long)c * BPS * T, live ? BPS * T : 0);
 
-  load_tile<GAINS>(ws, 0, zr, zi, gains, 0, T, C, nsf, c, lane);
+  if (!live) {
+    // a dead lane copies nothing: it reads zeros, so its loop stays at
+    // phase 0 (stale shared memory could send its phase where sincosf
+    // takes its slow path, and hold the warp there)
+    for (int b = 0; b < 2; ++b) {
+      for (int j = 0; j < S; ++j) {
+        ws.zr[b][j][lane] = 0.f;
+        ws.zi[b][j][lane] = 0.f;
+        ws.g[b][j][lane] = 0.f;
+      }
+    }
+  }
+  load_tile<GAINS>(ws, 0, zr, zi, gains, 0, T, C, nsf, c, lane, live);
   for (int k = 0; k < ntiles; ++k) {
     if (k + 1 < ntiles) {
       load_tile<GAINS>(ws, (k + 1) & 1, zr, zi, gains, k + 1, T, C, nsf, c,
-                       lane);
+                       lane, live);
       cp_async_wait<1>();                // tile k has landed
     } else {
       cp_async_wait<0>();
     }
     const int b = k & 1;
-    const int t0 = k * S;
-    const int n = min(S, T - t0);
-    uint64_t acc = 0;                    // this tile's bit stream
-    int nb = 0, nw = 0;
-    // one symbol, branch-free but for a full bit word; the loop stays
-    // rolled: the chain is latency-bound and an unrolled tile (32 copies
-    // of the step) measured slower, out of the instruction cache
+    const int n = min(S, T - k * S);
+    // one symbol, branch-free; the loop stays rolled: the chain is
+    // latency-bound and an unrolled tile (32 copies of the step) measured
+    // slower, out of the instruction cache
 #pragma unroll 1
     for (int j = 0; j < n; ++j) {
       float a = ws.zr[b][j][lane], bq = ws.zi[b][j][lane];
@@ -289,13 +364,7 @@ costas_tm_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
         err = dd_error<DET>(r, q, kr, label);
         v = __brev(label) >> (32 - BPS);   // MSB of the label first
       }
-      acc |= (uint64_t)v << nb;
-      nb += BPS;
-      if (nb >= 32) {
-        ws.words[nw++][lane] = (uint32_t)acc;
-        acc >>= 32;
-        nb -= 32;
-      }
+      out.put(v, BPS);
       float alpha = lp.alpha, beta = lp.beta;
       if (GEAR) {
         const float errn = __fdiv_rn(
@@ -322,21 +391,8 @@ costas_tm_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
       ptr += traced ? C : 0;
     }
     grow = 0;             // the next tile's rows start at its first symbol's
-    if (nb > 0) ws.words[nw++][lane] = (uint32_t)acc;   // a partial tile
-    __syncwarp();
-    // the tile's bits: word w of channel cc is bits BPS*t0 + 32*w + lane of
-    // its row; every lane writes one bit, the warp a 128-byte run
-    const int ncb = min(CB, C - cb0);
-    const long long left = nbits - (long long)BPS * t0;
-    int32_t* row = bits + (long long)cb0 * nbits + (long long)BPS * t0 + lane;
-    for (int cc = 0; cc < ncb; ++cc, row += nbits) {
-      for (int w = 0; w < nw; ++w) {
-        if (32 * w + lane < left)
-          row[32 * w] = (int32_t)((ws.words[w][cc] >> lane) & 1u);
-      }
-    }
-    __syncwarp();
   }
+  out.finish();
   if (live) {
     phase_out[c] = phase;
     freq_out[c] = freq;
@@ -422,7 +478,10 @@ extern "C" int qpsk_costas_tm(const void* zr, const void* zi,
       run = g ? launch<QAM16, false, true> : launch<QAM16, false, false>;
       break;
   }
-  if (run == nullptr || (gear && det != QPSK) || T < 1 || nsf < 0) {
+  // a row's bit count is an int in the kernel's bit writer
+  const long long bps = det == QPSK ? 2 : det == BPSK ? 1 : det == PSK8 ? 3 : 4;
+  if (run == nullptr || (gear && det != QPSK) || T < 1 || (g && nsf < 1) ||
+      bps * T > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }
   return run(zr, zi, phase0, freq0, lev0, locked0, gains, outr, outi, ftrace,

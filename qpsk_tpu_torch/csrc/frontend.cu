@@ -134,6 +134,9 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <vector>
+
 namespace {
 
 constexpr int KT = 129;                  // taps the kernel runs (padded)
@@ -149,6 +152,32 @@ struct Taps {
   float re[KT];
   float im[KT];
 };
+
+// cudaFuncSetAttribute of ``kernel``'s dynamic shared memory, made once for
+// each kernel, device and larger byte count: the attribute stays set on the
+// device, and a launch that set it again would pay a driver call each time
+cudaError_t allow_smem(const void* kernel, int bytes) {
+  struct Grant {
+    const void* kernel;
+    int device, bytes;
+  };
+  static std::mutex lock;
+  static std::vector<Grant> granted;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> hold(lock);
+  for (const Grant& g : granted) {
+    if (g.kernel == kernel && g.device == device && g.bytes >= bytes) {
+      return cudaSuccess;
+    }
+  }
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) granted.push_back({kernel, device, bytes});
+  return err;
+}
 
 // the ntaps host taps behind KT - ntaps zeros, as every instance takes them
 Taps pad_taps(const void* taps_re, const void* taps_im, int ntaps) {
@@ -970,8 +999,7 @@ int launch(const void* pcm, const void* tail_re, const void* tail_im,
            float inv_scale, void* stream) {
   auto kernel = frontend_kernel_pipe<CYC, TM, FSZ>;
   const int bytes = PipeLayout(fsz, CYC).bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const cudaError_t err = allow_smem((const void*)kernel, bytes);
   if (err != cudaSuccess) return (int)err;
   kernel<<<(unsigned)blocks, PNT, bytes, (cudaStream_t)stream>>>(
       (const int16_t*)pcm, (const float*)tail_re, (const float*)tail_im,
@@ -1557,8 +1585,7 @@ extern "C" int qpsk_frontend_gen(const void* pcm, const void* tail_re,
                                 : frontend_general_kernel<true, 1>)
                          : (two ? frontend_general_kernel<false, 2>
                                 : frontend_general_kernel<false, 1>);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const cudaError_t err = allow_smem((const void*)kernel, bytes);
   if (err != cudaSuccess) return (int)err;
   const long long grid = (long long)((C + CG - 1) / CG) * F;
   kernel<<<(unsigned)grid, GNT, bytes, (cudaStream_t)stream>>>(

@@ -95,10 +95,20 @@ def _tree(x, leaf):
     return leaf(x)
 
 
+def _leaves(x):
+    """The tensors of a state or output tuple."""
+    if isinstance(x, tuple):
+        for v in x:
+            yield from _leaves(v)
+    elif x is not None:
+        yield x
+
+
 def _batched(state, batch: tuple, fn):
     """Run ``fn`` on one channel axis: every state leaf's leading ``batch``
     axes (none for a single stream) fold into ``prod(batch)`` channels
-    before, and the state's and outputs' unfold after."""
+    before, and the state's and outputs' unfold after.  A batch that is
+    one axis already folds nothing: its leaves are only checked."""
     batch, c = tuple(batch), math.prod(batch)
 
     def fold(v):
@@ -106,6 +116,11 @@ def _batched(state, batch: tuple, fn):
             raise ValueError(f"a state leaf of shape {tuple(v.shape)} for "
                              f"the batch {batch}")
         return v.reshape((c,) + tuple(v.shape[len(batch):]))
+    if len(batch) == 1:
+        for v in _leaves(state):
+            if v.shape[:1] != batch:
+                fold(v)                           # raises ValueError
+        return fn(state)
     new_state, out = fn(_tree(state, fold))
     unfold = lambda v: v.reshape(batch + tuple(v.shape[1:]))  # noqa: E731
     return _tree(new_state, unfold), _tree(out, unfold)
@@ -211,6 +226,7 @@ def tx_stream(cfg: ModemConfig, state: TxState, bits: torch.Tensor,
     return _batched(state, batch, run)
 
 
+@functools.lru_cache(maxsize=None)
 def _loop(cfg: ModemConfig):
     """(params, gear, dd) of the config's Costas loop: ``dd`` is the
     generic family's (modulation, constellation scale), the scale being

@@ -10,7 +10,9 @@ builds its own.  Nothing here runs at import time.  Every launch is a
 call of ``launch``, whose ``check`` counts it, always in ``launches`` and,
 while a profiler records, as ``launch.<entry>`` in
 ``qpsk_tpu_torch.tracing``; the load is the ``kernels.load`` span, a build
-the ``kernels.build`` counter.
+the ``kernels.build`` counter.  A wrapper keeps the work of a launch that
+follows from its geometry alone in a launch plan (``plan``), built on the
+geometry's first launch and counted there as ``plan.build``.
 """
 
 from __future__ import annotations
@@ -39,6 +41,9 @@ LINK_FLAGS = _ARCH + ("-shared",)
 
 # the launches of each C entry since the last ``launches.clear()``
 launches = collections.Counter()
+# the launch plans kept, by key, the least recently used first (``plan``)
+_plans = collections.OrderedDict()
+_PLANS_KEPT = 64
 
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
@@ -168,10 +173,34 @@ def check(rc: int, name: str, start_ns: int | None = None) -> None:
     tracing.count(f"launch.{name}", start_ns=start_ns)
 
 
+def plan(key: tuple, build):
+    """The launch plan of ``key`` (a wrapper's geometry: what its launch
+    works out from the geometry alone, once): ``build()`` the first time,
+    counted as ``plan.build`` in ``qpsk_tpu_torch.tracing`` whether a
+    profiler records or not, the same plan after.  A ``build`` that raises
+    (a geometry the kernel does not take) keeps nothing.  The ``_PLANS_KEPT``
+    plans used last are kept: a caller whose geometry changes from call to
+    call (chunks of varying length) rebuilds, and holds no more."""
+    found = _plans.get(key)
+    if found is None:
+        found = _plans[key] = build()
+        tracing.count("plan.build", always=True)
+        if len(_plans) > _PLANS_KEPT:
+            _plans.popitem(last=False)
+    else:
+        _plans.move_to_end(key)
+    return found
+
+
+def ptr(t):
+    """``t``'s data pointer, None for None: a C entry's optional array."""
+    return None if t is None else t.data_ptr()
+
+
 def require(t, name: str, dtype, shape: tuple, device) -> None:
     """Raise ValueError unless ``t`` is a contiguous tensor of ``dtype`` and
     ``shape`` on ``device`` — what a kernel takes by raw pointer."""
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
+    if t.shape != shape or t.dtype != dtype or t.device != device \
             or not t.is_contiguous():
         raise ValueError(
             f"{name}: the kernel takes a contiguous {dtype} tensor of shape "
@@ -186,5 +215,8 @@ def sm_count(device) -> int:
 
 
 def stream_ptr(device) -> int:
-    """PyTorch's current CUDA stream on ``device``, as a C pointer."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """PyTorch's current CUDA stream on ``device``, as a C pointer, read
+    anew on every call (the one ``torch.cuda.current_stream`` names)."""
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)

@@ -12,6 +12,9 @@ tensor it runs ``costas_run_tm_plain``: the gain-scaled
 symbols through ``costas_run_traced`` (with ``modfam.dd_detector`` in dd
 mode) or ``costas_run_gear_traced``, then ``demod_bits`` (dd mode:
 ``modfam.demod_bits_cmp``) and the frame-boundary frequency readback.
+What a launch works out from its geometry alone (the checks, the loop's
+host constants, the by-value arguments) is done once a geometry, in its
+launch plan (``_Plan``, ``_lib.plan``).
 """
 
 from __future__ import annotations
@@ -120,51 +123,78 @@ def unpack_labels_tm(packed: torch.Tensor) -> torch.Tensor:
     return ((w >> (4 * j)) & 15).reshape(-1, packed.shape[1]).T
 
 
+class _Plan:
+    """A Costas launch's work that follows from its geometry (T, C,
+    trace_every, the gain rows, the loop's constants and mode, the device)
+    alone, done once (``_lib.plan``): the geometry's checks, the by-value
+    arguments (``args``, the C entry's from ``T`` to ``dd``), the shapes of
+    the tensors it reads by pointer and of its outputs.  ``nf`` is the gain
+    rows, None without gains."""
+
+    def __init__(self, t: int, c: int, trace_every: int, nf, params,
+                 gear, dd, device):
+        if t < 1 or c < 1 or trace_every < 1 or t % trace_every:
+            raise ValueError(
+                f"the Costas kernel takes T > 0 with T % trace_every == 0, "
+                f"got T={t}, C={c}, trace_every={trace_every}")
+        if nf is not None and (nf < 1 or t % nf):
+            raise ValueError(f"gains of {nf} rows do not divide T={t} "
+                             f"into frames")
+        mod = None if dd is None else modfam.get(dd[0])
+        self.device, self.nf = device, nf
+        self.z_shape, self.gains_shape = (t, c), (nf, c)
+        self.fields = ("phase", "freq") + (("lev", "locked") if gear
+                                           else ())
+        self.trace_shape = (t // trace_every, c)
+        self.bits_shape = (c, (2 if mod is None else mod.bps) * t)
+        loop, consts = _constants(params, gear, dd)
+        self.args = (t, c, trace_every, 0 if nf is None else t // nf,
+                     0 if mod is None else _DETECTOR[mod.name],
+                     loop.ctypes.data, consts.ctypes.data)
+
+    def check(self, state, zr_tm=None, zi_tm=None, gains=None) -> list:
+        """Raise ValueError unless the inputs given are the tensors the
+        kernel reads by pointer; return the state's pointers in the C
+        entry's order, ``phase0`` to ``locked0``."""
+        dev, c = self.device, self.z_shape[1]
+        for name, t, shape in (("zr_tm", zr_tm, self.z_shape),
+                               ("zi_tm", zi_tm, self.z_shape),
+                               ("gains", gains, self.gains_shape)):
+            if t is not None:
+                _lib.require(t, name, torch.float32, shape, dev)
+        ptrs = []
+        for name in self.fields:
+            t = getattr(state, name)
+            _lib.require(t, f"state.{name}", torch.float32, (c,), dev)
+            ptrs.append(t.data_ptr())
+        return ptrs + [None] * (4 - len(ptrs))
+
+
+def _plan(t: int, c: int, trace_every: int, nf, params, gear, dd,
+          device) -> _Plan:
+    return _lib.plan(("costas", t, c, trace_every, nf, params, gear, dd,
+                      device),
+                     lambda: _Plan(t, c, trace_every, nf, params, gear, dd,
+                                   device))
+
+
 def _launch(state, zr_tm, zi_tm, params, trace_every, gear, gains, dd):
     t, c = zr_tm.shape
-    if t < 1 or c < 1 or trace_every < 1 or t % trace_every:
-        raise ValueError(
-            f"the Costas kernel takes T > 0 with T % trace_every == 0, got "
-            f"T={t}, C={c}, trace_every={trace_every}")
     dev = zr_tm.device
-    _lib.require(zr_tm, "zr_tm", torch.float32, (t, c), dev)
-    _lib.require(zi_tm, "zi_tm", torch.float32, (t, c), dev)
-    fields = ("phase", "freq") + (("lev", "locked") if gear else ())
-    for name in fields:
-        _lib.require(getattr(state, name), f"state.{name}", torch.float32,
-                     (c,), dev)
-    nsf = 0
-    if gains is not None:
-        nf = gains.shape[0]
-        if nf < 1 or t % nf:
-            raise ValueError(f"gains of shape {tuple(gains.shape)} do not "
-                             f"divide T={t} into frames")
-        _lib.require(gains, "gains", torch.float32, (nf, c), dev)
-        nsf = t // nf
-
-    def empty(shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype, device=dev)
-    outr, outi = empty((t, c)), empty((t, c))
-    ftrace = empty((t // trace_every, c))
-    out = {name: empty((c,)) for name in fields}
-    mod = None if dd is None else modfam.get(dd[0])
-    bits = empty((c, (2 if mod is None else mod.bps) * t), torch.int32)
-    _lib.launch(
-        "qpsk_costas_tm",
-        zr_tm.data_ptr(), zi_tm.data_ptr(), state.phase.data_ptr(),
-        state.freq.data_ptr(), _ptr(state.lev if gear else None),
-        _ptr(state.locked if gear else None), _ptr(gains), outr.data_ptr(),
-        outi.data_ptr(), ftrace.data_ptr(), out["phase"].data_ptr(),
-        out["freq"].data_ptr(), _ptr(out.get("lev")), _ptr(out.get("locked")),
-        bits.data_ptr(), t, c, trace_every, nsf,
-        0 if mod is None else _DETECTOR[mod.name],
-        *(a.ctypes.data for a in _constants(params, gear, dd)),
-        _lib.stream_ptr(dev))
-    return CostasState(**out), CF32(outr, outi), ftrace.T, bits
-
-
-def _ptr(x):
-    return None if x is None else x.data_ptr()
+    plan = _plan(t, c, trace_every, None if gains is None else gains.shape[0],
+                 params, gear, dd, dev)
+    state_in = plan.check(state, zr_tm, zi_tm, gains)
+    derot = CF32(torch.empty((t, c), device=dev),
+                 torch.empty((t, c), device=dev))
+    ftrace = torch.empty(plan.trace_shape, device=dev)
+    new = [torch.empty((c,), device=dev) for _ in plan.fields]
+    bits = torch.empty(plan.bits_shape, dtype=torch.int32, device=dev)
+    _lib.launch("qpsk_costas_tm", zr_tm.data_ptr(), zi_tm.data_ptr(),
+                *state_in, _lib.ptr(gains), derot.re.data_ptr(),
+                derot.im.data_ptr(), ftrace.data_ptr(),
+                *(x.data_ptr() for x in new), *[None] * (4 - len(new)),
+                bits.data_ptr(), *plan.args, _lib.stream_ptr(dev))
+    return CostasState(*new), derot, ftrace.T, bits
 
 
 @functools.lru_cache(maxsize=None)

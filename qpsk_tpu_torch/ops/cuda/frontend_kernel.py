@@ -33,7 +33,10 @@ shared memory in chunks) everywhere else.  A CUDA call off the coverage raises
 ``NotImplementedError`` naming the field before any launch; a CPU call
 runs any geometry.  ``cfg.frontend_impl`` picks the lowering: "auto" (the
 tensor's device), "xla" (the plain version on any device) or "pallas"
-(the kernel; a CPU tensor raises).
+(the kernel; a CPU tensor raises).  What a launch works out from its
+geometry alone (the instance, the grid, the by-value arguments, the
+shapes it checks) is done once a geometry, in its launch plan
+(``_Plan``, ``_lib.plan``).
 """
 
 from __future__ import annotations
@@ -166,25 +169,6 @@ def rx_frontend_tm_plain(cfg, pcm, nco_phase, fir_tail, decim_delay):
             powers)
 
 
-def _check_inputs(cfg, pcm, nco_phase, fir_tail):
-    """Check the geometry, then validate what the kernel reads by pointer;
-    return (pcm, C, nframes), the PCM copied where it does not start on a
-    16-byte boundary (a view into a stream at an odd sample): every
-    instance reads it in 16-byte copies."""
-    _lib.check_geometry(coverage(cfg))
-    c, nframes, _ = pcm.shape
-    if nframes < 1 or c < 1:
-        raise ValueError(f"the front-end kernel takes at least one frame and "
-                         f"one channel, got {tuple(pcm.shape)}")
-    dev = pcm.device
-    _lib.require(pcm, "pcm", torch.int16, (c, nframes, cfg.frame_size), dev)
-    for name, t, shape in (("nco_phase", nco_phase, (c,)),
-                           ("fir_tail", fir_tail, (c, cfg.ntaps - 1))):
-        for part, plane in zip(("re", "im"), t):
-            _lib.require(plane, f"{name}.{part}", torch.float32, shape, dev)
-    return (pcm.clone() if pcm.data_ptr() % 16 else pcm), c, nframes
-
-
 @functools.lru_cache(maxsize=None)
 def _launch_consts(cfg) -> tuple:
     """(modulated taps (2, ntaps) float32, omega, gain, 1/pcm_scale) of a
@@ -201,6 +185,67 @@ def _launch_consts(cfg) -> tuple:
             float(cfg.gain) / scale, 1.0 / float(cfg.pcm_scale))
 
 
+class _Plan:
+    """A front-end launch's work that follows from its geometry (the
+    config, C, nframes, the device, the layout) alone, done once
+    (``_lib.plan``): the geometry's checks, the instance and its grid, the
+    by-value arguments (``args``, the C entry's from ``C`` to
+    ``inv_scale``), the shapes of the tensors it reads by pointer and of
+    those it writes."""
+
+    def __init__(self, cfg, c: int, nframes: int, device, tm: bool):
+        _lib.check_geometry(coverage(cfg))
+        if nframes < 1 or c < 1:
+            raise ValueError(f"the front-end kernel takes at least one "
+                             f"frame and one channel, got C={c}, "
+                             f"nframes={nframes}")
+        nsym, taps = cfg.symbols_per_frame, (c, cfg.ntaps - 1)
+        self.device, self.tm = device, tm
+        self.power = tm and bool(cfg.agc)
+        fast = _fast(cfg, self.power)
+        self.entry = "qpsk_frontend_pipe" if fast else "qpsk_frontend_gen"
+        self.pcm_shape = (c, nframes, cfg.frame_size)
+        self.planes = [(f"{name}.{part}", shape)
+                       for name, shape in (("nco_phase", (c,)),
+                                           ("fir_tail", taps))
+                       + ((("decim_delay", (c, nsym)),) if tm else ())
+                       for part in ("re", "im")]
+        self.z_shape = (nframes * nsym, c) if tm else (c, nframes, nsym)
+        self.index_shape = self.power_shape = (c, nframes)
+        self.scratch_shape = ((c, nframes, nsym) if self.power and not fast
+                              else None)
+        # the new phase, tail and (time-major) delay, re and im
+        self.state = [(c,), (c,), taps, taps] + ([(c, nsym)] * 2 if tm
+                                                 else [])
+        hm, omega, gain, inv_scale = _launch_consts(cfg)
+        blocks = _pipe_grid(c, nframes, _lib.sm_count(device)) if fast else 0
+        self.args = (c, nframes, cfg.frame_size, cfg.cycles, cfg.ntaps,
+                     int(tm), blocks, hm[0].ctypes.data, hm[1].ctypes.data,
+                     omega, gain, inv_scale)
+
+    def check(self, pcm, nco_phase, fir_tail, decim_delay=None):
+        """Raise ValueError unless the inputs are the tensors the kernel
+        reads by pointer.  Returns (the PCM, copied where it does not
+        start on a 16-byte boundary (a view into a stream at an odd
+        sample: every instance reads it in 16-byte copies), the other
+        inputs' pointers in the C entry's order, ``tail_re`` to
+        ``dd_im``)."""
+        dev = self.device
+        _lib.require(pcm, "pcm", torch.int16, self.pcm_shape, dev)
+        planes = (*nco_phase, *fir_tail) + (tuple(decim_delay) if self.tm
+                                            else ())
+        for (name, shape), t in zip(self.planes, planes):
+            _lib.require(t, name, torch.float32, shape, dev)
+        ptrs = [t.data_ptr() for t in planes]
+        ptrs = ptrs[2:4] + ptrs[:2] + (ptrs[4:] or [None, None])
+        return (pcm.clone() if pcm.data_ptr() % 16 else pcm), ptrs
+
+
+def _plan(cfg, c: int, nframes: int, device, tm: bool) -> _Plan:
+    return _lib.plan(("frontend", cfg, c, nframes, device, tm),
+                     lambda: _Plan(cfg, c, nframes, device, tm))
+
+
 def _launch(cfg, pcm, nco_phase, fir_tail, decim_delay=None):
     """One launch of ``qpsk_frontend_pipe`` (the pipeline, where ``_fast``
     takes the geometry) or ``qpsk_frontend_gen``: time-major, with the
@@ -208,45 +253,25 @@ def _launch(cfg, pcm, nco_phase, fir_tail, decim_delay=None):
     given (``rx_frontend_tm``'s outputs), else channel-major
     (``rx_frontend``'s)."""
     tm = decim_delay is not None
-    want_power = tm and bool(cfg.agc)
-    pcm, c, nframes = _check_inputs(cfg, pcm, nco_phase, fir_tail)
+    c, nframes, _ = pcm.shape
     dev = pcm.device
-    nsym = cfg.symbols_per_frame
+    plan = _plan(cfg, c, nframes, dev, tm)
+    pcm, inputs = plan.check(pcm, nco_phase, fir_tail, decim_delay)
+    z = CF32(torch.empty(plan.z_shape, device=dev),
+             torch.empty(plan.z_shape, device=dev))
+    index = torch.empty(plan.index_shape, dtype=torch.int32, device=dev)
+    new = [torch.empty(shape, device=dev) for shape in plan.state]
+    powers = (torch.empty(plan.power_shape, device=dev) if plan.power
+              else None)
+    scratch = (None if plan.scratch_shape is None
+               else torch.empty(plan.scratch_shape, device=dev))
+    _lib.launch(plan.entry, pcm.data_ptr(), *inputs, z.re.data_ptr(),
+                z.im.data_ptr(), index.data_ptr(),
+                *(_lib.ptr(t) for t in new[4:] or (None, None)),
+                _lib.ptr(powers), _lib.ptr(scratch),
+                *(t.data_ptr() for t in new[:4]), *plan.args,
+                _lib.stream_ptr(dev))
+    phase, tail = CF32(*new[:2]), CF32(*new[2:4])
     if tm:
-        for part, plane in zip(("re", "im"), decim_delay):
-            _lib.require(plane, f"decim_delay.{part}", torch.float32,
-                         (c, nsym), dev)
-    hm, omega, gain, inv_scale = _launch_consts(cfg)
-    fast = _fast(cfg, want_power)
-    blocks = _pipe_grid(c, nframes, _lib.sm_count(dev)) if fast else 0
-
-    def empty(shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
-    shape = (nframes * nsym, c) if tm else (c, nframes, nsym)
-    z = CF32(empty(shape), empty(shape))
-    index = torch.empty((c, nframes), dtype=torch.int32, device=dev)
-    ndd = CF32(empty((c, nsym)), empty((c, nsym))) if tm else None
-    powers = empty((c, nframes)) if want_power else None
-    scratch = empty((c, nframes, nsym)) if want_power and not fast else None
-    phase = CF32(empty((c,)), empty((c,)))
-    tail = CF32(empty((c, cfg.ntaps - 1)), empty((c, cfg.ntaps - 1)))
-    _lib.launch(
-        "qpsk_frontend_pipe" if fast else "qpsk_frontend_gen",
-        pcm.data_ptr(), *_ptrs(fir_tail, nco_phase, decim_delay, z),
-        index.data_ptr(), *_ptrs(ndd), _ptr(powers), _ptr(scratch),
-        *_ptrs(phase, tail), c, nframes, cfg.frame_size, cfg.cycles,
-        cfg.ntaps, int(tm), blocks, hm[0].ctypes.data, hm[1].ctypes.data,
-        omega, gain, inv_scale, _lib.stream_ptr(dev))
-    if tm:
-        return z.re, z.im, index, phase, tail, ndd, powers
+        return z.re, z.im, index, phase, tail, CF32(*new[4:]), powers
     return z, index, phase, tail
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
-def _ptrs(*pairs) -> list:
-    """The re and im pointers of each CF32 of ``pairs``, two Nones for a
-    None."""
-    return [_ptr(t) for x in pairs for t in (x or (None, None))]

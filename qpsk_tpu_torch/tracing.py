@@ -5,7 +5,8 @@ session records.
 * ``count(name, n=1)``: a counter event where the work happens: a kernel
   launch (``launch.<entry>``, counted by ``ops/cuda/_lib.check``), a
   blocking host-device transfer (``sync.<site>``), an ``nvcc`` build
-  (``kernels.build``).
+  (``kernels.build``), a launch plan's build (``plan.build``,
+  ``ops/cuda/_lib.plan``).
 * ``records(t0_ns, t1_ns)``: the spans and counter events in a window, as
   plain tuples ``(kind, name, start_ns, end_ns, value)``: ``kind`` is
   ``"span"`` (``value``: how many spans of the thread were open around
@@ -23,8 +24,8 @@ The record function is torch's ``_RecordFunctionFast``, 1.7 us a span
 under a profiler on the H100's host where ``torch.profiler
 .record_function`` costs 10-15 us, about a fortieth of the host's time
 of a gateway call each.  The one-off lifecycle records, the ``kernels.load`` span and the
-``kernels.build`` counter (``ops/cuda/_lib.py``), are kept whether a
-profiler records or not.
+``kernels.build`` and ``plan.build`` counters (``ops/cuda/_lib.py``), are
+kept whether a profiler records or not.
 
 Stamps are ``time.time_ns()``, the clock the profiler converts its own
 events to, so the records line up with a profiler trace's device

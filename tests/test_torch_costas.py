@@ -99,8 +99,6 @@ def test_unpack_bits_tm_layout():
 
 # ---------------------------------------------- the kernel's bit writer ---
 
-_TILE, _LANES = 32, 32           # csrc/costas.cu: S symbols a tile, CB lanes
-
 
 def _brev(v, width):
     """__brev(v) >> (32 - width): the low ``width`` bits reversed."""
@@ -111,39 +109,47 @@ def _brev(v, width):
 
 
 def _kernel_bits(vals, bps):
-    """csrc/costas.cu's bit writer on (C, T) per-symbol values ``v`` (a
-    symbol's bits in output order, the first in bit 0): each lane's 64-bit
-    stream, a word parked per 32 bits and flushed after each tile, every
-    lane writing bit ``lane`` of a word to ``row[BPS*t0 + 32*w + lane]``
-    where that index is below BPS*T."""
+    """csrc/costas.cu's ``BitWriter`` on (C, T) per-symbol values ``v`` (a
+    symbol's bits in output order, the first in bit 0), the (C, BPS*T)
+    output starting on a 16-byte boundary: each lane keeps the pending
+    bits of the 16-byte chunk its row has reached (``q``, its first
+    element, negative for a row that starts ``a`` elements into a chunk)
+    and stores a chunk whole, as one aligned 16-byte store, once it holds
+    4 bits from q >= 0; the row's first chunk (q = -a), kept in ``head``,
+    and its last, cut one, after the last symbol, element by element where
+    the element lies in the row.  Every element of the output is written
+    exactly once."""
     c, t = vals.shape
     nbits = bps * t
-    out = np.full((c, nbits), -1, np.int64)
-    for cb0 in range(0, c, _LANES):
-        ncb = min(_LANES, c - cb0)
-        for t0 in range(0, t, _TILE):
-            n = min(_TILE, t - t0)
-            words = []
-            for cc in range(ncb):
-                acc, nb, ws = 0, 0, []
-                for j in range(n):
-                    acc |= int(vals[cb0 + cc, t0 + j]) << nb
-                    nb += bps
-                    if nb >= 32:
-                        ws.append(acc & 0xFFFFFFFF)
-                        acc >>= 32
-                        nb -= 32
-                if nb > 0:
-                    ws.append(acc & 0xFFFFFFFF)
-                words.append(ws)
-            left = nbits - bps * t0
-            for cc in range(ncb):
-                for w, word in enumerate(words[cc]):
-                    for lane in range(32):
-                        if 32 * w + lane < left:
-                            out[cb0 + cc, bps * t0 + 32 * w + lane] = \
-                                (word >> lane) & 1
-    return out
+    flat = np.full(c * nbits, -1, np.int64)
+
+    def store(row0, q0, bits, m):
+        for j in range(m):
+            if 0 <= q0 + j < nbits:
+                assert flat[row0 + q0 + j] == -1, "an element written twice"
+                flat[row0 + q0 + j] = (bits >> j) & 1
+
+    for ch in range(c):
+        row0 = ch * nbits
+        a = row0 % 4
+        q, npend, pend, head = -a, a, 0, 0
+        for s in range(t):
+            pend |= int(vals[ch, s]) << npend
+            npend += bps
+            if npend >= 4:
+                if q >= 0:
+                    # one 16-byte store, aligned and inside the row
+                    assert (row0 + q) % 4 == 0 and q + 4 <= nbits
+                    store(row0, q, pend, 4)
+                else:
+                    head = pend
+                pend >>= 4
+                npend -= 4
+                q += 4
+        if a > 0 and q > -a:
+            store(row0, -a, head, 4)
+        store(row0, q, pend, npend)
+    return flat.reshape(c, nbits)
 
 
 @pytest.mark.parametrize("t", [16, 1024, 1, 17, 100])

@@ -20,7 +20,7 @@ from qpsk_tpu_torch import ModemConfig, rx_init
 from qpsk_tpu_torch.ops.cplx import CF32
 from qpsk_tpu_torch.ops.cuda.frontend_kernel import rx_frontend_tm
 from qpsk_tpu_torch.state import from_numpy
-from torch_kernel_recorder import routed
+from torch_kernel_recorder import recorder, routed
 
 torch.set_num_threads(2)
 
@@ -216,20 +216,22 @@ def test_frontend_pipeline_grid_walks_every_tile_once(monkeypatch, c):
 
 
 @pytest.mark.parametrize("offset", [0, 1, 8])
-def test_frontend_kernel_gets_pcm_on_a_16_byte_boundary(offset):
+def test_frontend_kernel_gets_pcm_on_a_16_byte_boundary(monkeypatch, offset):
     """Every front-end instance reads the PCM in 16-byte copies, so the
-    wrapper's input check hands on PCM that starts on a 16-byte boundary:
-    the caller's tensor where it does, else a copy with the same samples
-    (a view into a stream at ``offset`` samples)."""
+    wrapper's input check (its launch plan's) hands on PCM that starts on
+    a 16-byte boundary: the caller's tensor where it does, else a copy
+    with the same samples (a view into a stream at ``offset`` samples)."""
     from qpsk_tpu_torch.ops.cuda import frontend_kernel as fk
+    recorder(monkeypatch)
     cfg = ModemConfig()
     c, nframes = 3, 2
     n = c * nframes * cfg.frame_size
     stream = torch.arange(n + offset, dtype=torch.int32).to(torch.int16)
     pcm = stream[offset:].view(c, nframes, cfg.frame_size)
     st = rx_init(cfg, (c,), device="cpu")
-    got, gc, gf = fk._check_inputs(cfg, pcm, st.nco_phase, st.fir_tail)
-    assert (gc, gf) == (c, nframes)
+    plan = fk._plan(cfg, c, nframes, pcm.device, False)
+    got, _ = plan.check(pcm, st.nco_phase, st.fir_tail)
+    assert plan.pcm_shape == (c, nframes, cfg.frame_size)
     assert got.data_ptr() % 16 == 0
     assert (got is pcm) == (pcm.data_ptr() % 16 == 0)
     assert torch.equal(got, pcm)
